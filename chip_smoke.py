@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA H100.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -7,24 +7,33 @@ Run from the repository root on a host with a CUDA card. Phases, in order;
 any failure exits non-zero, and no phase's error is swallowed:
 
   1. device: the card's name and count, ``nvidia-smi`` name and power
-     limit, the TF32 flags (both set False: the path is float32);
+     limit, the TF32 flags (both set False: the paths are float32);
   2. build: compile every kernel from ``src/repro_torch/kernels/csrc``
      with nvcc for sm_90a (time and ``-Xptxas -v`` lines);
   3. check: each kernel against its plain PyTorch version on the card at
-     the main path's shapes (atol = rtol = 1e-4 for quantized_maxsim;
-     agreement >= 0.9999 for kmeans_assign with every disagreement a
-     near-tie, the two distances within 1e-4 in float64);
-  4. main path at full ColPali width: build a flat index over 16384
+     the main paths' shapes and at edge shapes (atol = rtol = 1e-4 for
+     quantized_maxsim and maxsim; hamming_maxsim bit for bit; agreement
+     >= 0.9999 for kmeans_assign with every disagreement a near-tie, the
+     two distances within 1e-4 in float64);
+  4. flat path at full ColPali width: build a flat index over 16384
      synthetic pages (1024 patches of D=128, pruned to 615, K=256), warm
      every ladder rung and serve 64 requests through
      ``AsyncRetrievalServer``; the launch counters prove the kernels ran,
      and the first batch is repeated on a CPU copy of the state through
      the plain path;
-  5. kmeans_assign held to its plain version again at the build's own
-     shape (16,777,216 x 128, 2^31 elements), then times with CUDA events
-     after warm-up (CUDA-graph replays of many launches, so host overhead
-     is not counted), beside each kernel's bound, printed as one
-     ``{"kernels": [...]}`` JSON line.
+  5. cascade path at full width, on the same corpus and seed: the Hamming
+     prefilter over all 16384 docs keeps p1 = 1024, the ADC rescore keeps
+     p2 = 64, the float rerank returns the top 10; warmed and served as in
+     phase 4, with exact launch counts per batch, the first batch against
+     the CPU plain path (stage-1 pools identical), and its hit@10 held to
+     >= 0.95 x the flat path's;
+  6. times with CUDA events after warm-up (CUDA-graph replays of many
+     launches, so host overhead is not counted), beside each kernel's
+     bound, printed as one ``{"kernels": [...]}`` JSON line; one cascade
+     batch split into its three stages (host wall and device time, a
+     ``{"cascade_stages_ms": ...}`` line); and kmeans_assign held to its
+     plain version again at the build's own shape (16,777,216 x 128, 2^31
+     elements).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, the script exits non-zero and prints no result.
@@ -46,6 +55,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # (proj_dim=128, n_patches=1024, query_len=32; HPCConfig(k=256, p=60.0,
 # prune_side="doc", backend="flat", rerank=32, kmeans_restarts=8,
 # kmeans_seed_batch=16384, kmeans_minibatch=65536)). Copied, not imported.
+# The cascade's budgets are CascadeConfig's defaults
+# (src/repro/retrieval/config.py:80-81).
 N_DOCS = 16384          # 8 GiB float corpus + an 8 GiB k-means training copy
 N_PATCHES = 1024
 N_Q_PATCHES = 32
@@ -60,6 +71,8 @@ MAX_BATCH = 8
 TOP_K = 10
 N_REQUESTS = 64
 BLOCK_DOCS = 256
+P1, P2 = 1024, 64
+BITS = 8                # ceil(log2 K)
 
 # NVIDIA H100 SXM data sheet (at the full 700 W): f32 outside the tensor
 # cores and HBM3 bandwidth
@@ -69,8 +82,13 @@ PEAK_HBM_BYTES = 3.35e12
 # the rate that limits quantized_maxsim's table gather, one load per
 # masked max-lookup. Times the SM count and the card's max SM clock.
 LDS_PER_CLK_PER_SM = 32
+# 32-bit population counts per clock per SM at compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic-instruction throughput table):
+# the rate that bounds hamming_maxsim. Times the SM count and max SM clock.
+POPC_PER_CLK_PER_SM = 16
 
 QMAXSIM_TOL = 1e-4
+MAXSIM_TOL = 1e-4
 KMEANS_AGREE = 0.9999
 KMEANS_TIE_TOL = 1e-4
 
@@ -80,9 +98,9 @@ def _phase(name: str) -> float:
     return time.perf_counter()
 
 
-def _bound(n_bytes: float, n_ops: float):
+def _bound(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_HBM_BYTES
-    t_ops = n_ops / PEAK_F32_FLOPS
+    t_ops = n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -128,6 +146,28 @@ def _qmaxsim_cost(table, codes, mask):
     return n_bytes, lookups
 
 
+def _hamming_cost(q_codes, codes, mask):
+    """(bytes, popcounts) one hamming_maxsim call needs: every input read
+    once, the output written once; a popcount per query patch and valid
+    doc patch."""
+    b, mq = q_codes.shape
+    n = codes.shape[-2]
+    n_bytes = (2 * b * mq * 4 + codes.numel() * codes.element_size()
+               + mask.numel() * mask.element_size() + b * n * 4)
+    return n_bytes, mq * int(mask.sum()) * (1 if codes.dim() == 3 else b)
+
+
+def _maxsim_cost(q, docs, mask):
+    """(bytes, FLOPs) one maxsim call needs: every input read once, the
+    output written once; 2*D FLOPs per query patch and valid doc patch."""
+    b, mq, d = q.shape
+    n = docs.shape[-3]
+    n_bytes = (q.numel() * 4 + b * mq * 4 + docs.numel() * 4
+               + mask.numel() * mask.element_size() + b * n * 4)
+    return n_bytes, 2 * d * mq * int(mask.sum()) * (1 if docs.dim() == 4
+                                                     else b)
+
+
 def _check_assign(torch, x, codebook, got, want) -> float:
     """Hold kmeans_assign's codes ``got`` to its plain version's ``want``:
     agreement >= KMEANS_AGREE, and every disagreement a near-tie whose two
@@ -163,16 +203,35 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
         return 2
+    from repro_torch import state_to
+    from repro_torch.core import index as index_mod
     from repro_torch.core import pruning
     from repro_torch.core import late_interaction as li
-    from repro_torch.core.index import FlatIndex
+    from repro_torch.core.binary import packed_nbytes
     from repro_torch.data.synthetic import CorpusSpec
     from repro_torch.kernels import _build
+    from repro_torch.kernels import hamming as hm
     from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import maxsim as ms
     from repro_torch.kernels import quantized_maxsim as qm
     from repro_torch.launch.serve import build_and_serve
     from repro_torch.parity import topk_mismatches
-    from repro_torch.retrieval import HPCConfig, Query, RetrieverState
+    from repro_torch.retrieval import (CascadeConfig, HPCConfig, Query,
+                                       get_backend)
+
+    def check_first_batch(run, cpu_state, tol):
+        """The first served batch against the same search over a CPU copy
+        of the state (the plain path): ids outside near-ties, scores
+        within ``tol``."""
+        q, q_m, q_s = (torch.from_numpy(a[:MAX_BATCH]) for a in run.queries)
+        cpu_s, cpu_i = (t.numpy() for t in run.retriever.search(
+            cpu_state, Query(q, q_m, q_s), k=TOP_K))
+        srv_s = np.stack([r[0] for r in run.results[:MAX_BATCH]])
+        srv_i = np.stack([r[1] for r in run.results[:MAX_BATCH]])
+        assert np.isfinite(srv_s).all() and srv_i.shape == (MAX_BATCH, TOP_K)
+        np.testing.assert_allclose(srv_s, cpu_s, atol=tol, rtol=tol)
+        bad = topk_mismatches(srv_i, srv_s, cpu_i, cpu_s, tol)
+        assert not bad, f"served ids differ from the CPU plain path at {bad}"
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -193,9 +252,11 @@ def main(argv=None) -> int:
         text=True).stdout.strip().splitlines()[0])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     lds_per_s = LDS_PER_CLK_PER_SM * n_sm * max_sm_mhz * 1e6
+    popc_per_s = POPC_PER_CLK_PER_SM * n_sm * max_sm_mhz * 1e6
     print(f"device: {kind} | count {count} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {n_sm} SMs, max SM clock "
-          f"{max_sm_mhz:.0f} MHz -> {lds_per_s:.3e} shared-memory loads/s")
+          f"{max_sm_mhz:.0f} MHz -> {lds_per_s:.3e} shared-memory loads/s, "
+          f"{popc_per_s:.3e} popcounts/s")
     print(smi)
     print(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
@@ -219,14 +280,15 @@ def main(argv=None) -> int:
         x = torch.randn(shape, generator=gen, device=dev)
         return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
-    def codes_mask(*shape, p_valid=0.97):
-        codes = torch.randint(0, K, shape, generator=gen, device=dev,
-                              dtype=torch.int32).to(torch.uint8)
+    def codes_mask(*shape, p_valid=0.97, k=K, dtype=torch.uint8):
+        codes = torch.randint(0, k, shape, generator=gen, device=dev,
+                              dtype=torch.int32).to(dtype)
         mask = torch.rand(shape, generator=gen, device=dev) < p_valid
         return codes, mask
 
     codebook = unit(K, DIM)
-    table = li.adc_table(unit(MAX_BATCH, N_Q_PATCHES, DIM), codebook).contiguous()
+    q_unit = unit(MAX_BATCH, N_Q_PATCHES, DIM)
+    table = li.adc_table(q_unit, codebook).contiguous()
     q_mask = (torch.rand((MAX_BATCH, N_Q_PATCHES), generator=gen,
                          device=dev) < 0.95).float()
     scan_c, scan_m = codes_mask(BLOCK_DOCS, md_kept)
@@ -257,22 +319,87 @@ def main(argv=None) -> int:
     assert torch.allclose(dead_got.double(), expect.expand_as(dead_got),
                           rtol=1e-5, atol=0), "all-masked docs != sum qm*-1e30"
 
+    # hamming_maxsim, bit for bit: stage 1's block (uint16 codes, as the
+    # HammingIndex stores them), ragged, all-masked, strided per-query
+    # pools, and 9-bit codes of a K=512 codebook
+    q_w = q_mask.to(torch.int32)
+    for bits, k_codes in ((BITS, K), (9, 512)):
+        q_codes = torch.randint(0, k_codes, (MAX_BATCH, N_Q_PATCHES),
+                                generator=gen, device=dev, dtype=torch.int32)
+        h_pool = codes_mask(MAX_BATCH, 3 * P2, md_kept, k=k_codes,
+                            dtype=torch.uint16)
+        h_dead = codes_mask(BLOCK_DOCS, md_kept, k=k_codes, dtype=torch.uint16)
+        h_dead[1][::7] = False
+        for name, (c, m) in (
+                ("stage-1 block", codes_mask(BLOCK_DOCS, md_kept, k=k_codes,
+                                             dtype=torch.uint16)),
+                ("ragged block", codes_mask(100, md_kept, k=k_codes,
+                                            dtype=torch.uint16)),
+                ("all-masked docs", h_dead),
+                ("per-query, strided", tuple(a[:, P2:2 * P2]
+                                             for a in h_pool))):
+            got = hm.hamming_maxsim_cuda(q_codes, q_w, c, m, bits)
+            want = hm.hamming_maxsim_plain(q_codes, q_w, c, m, bits)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"hamming_maxsim {name} bits {bits}"
+            print(f"hamming_maxsim {name}: {tuple(c.shape)} bits {bits} "
+                  f"K={k_codes}: equal to the plain version")
+        dead = hm.hamming_maxsim_cuda(q_codes, q_w, *h_dead, bits)[:, ::7]
+        want = (-(2 ** 20) * q_w.sum(1)).to(torch.int32)[:, None]
+        assert torch.equal(dead, want.expand_as(dead)), \
+            "all-masked docs != sum qm * -(2**20)"
+
+    # maxsim within 1e-4: stage 3's pools (B, p2, Md, D), a shared-layout
+    # block of float_flat, ragged, all-masked, strided per-query pools
+    ms_abs_err = 0.0
+    f_pool = unit(MAX_BATCH, 2 * P2, md_kept, DIM)
+    f_pool_m = torch.rand(f_pool.shape[:-1], generator=gen, device=dev) < 0.97
+    f_blk = unit(BLOCK_DOCS, md_kept, DIM)
+    f_blk_m = torch.rand(f_blk.shape[:-1], generator=gen, device=dev) < 0.97
+    f_dead_m = f_blk_m.clone()
+    f_dead_m[::7] = False
+    for name, d, m in (
+            ("stage-3 pools", f_pool[:, :P2].contiguous(),
+             f_pool_m[:, :P2].contiguous()),
+            ("float_flat block", f_blk, f_blk_m),
+            ("ragged block", f_blk[:100], f_blk_m[:100]),
+            ("all-masked docs", f_blk, f_dead_m),
+            ("per-query, strided", f_pool[:, P2 // 2:P2 // 2 + P2],
+             f_pool_m[:, P2 // 2:P2 // 2 + P2])):
+        got = ms.maxsim_cuda(q_unit, q_mask, d, m)
+        want = ms.maxsim_plain(q_unit, q_mask, d, m)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=MAXSIM_TOL, rtol=MAXSIM_TOL)
+        live = m.any(dim=-1)
+        live = live if live.dim() == 2 else live[None].expand_as(got)
+        err = float((got - want).abs()[live].max())
+        ms_abs_err = max(ms_abs_err, err)
+        print(f"maxsim {name}: {tuple(d.shape)} max |err| {err:.3e} over "
+              f"live docs")
+    dead_got = ms.maxsim_cuda(q_unit, q_mask, f_blk, f_dead_m)[:, ::7]
+    assert torch.isfinite(dead_got).all(), "all-masked docs not finite"
+    assert torch.allclose(dead_got.double(), expect.expand_as(dead_got),
+                          rtol=1e-5, atol=0), "all-masked docs != sum qm*-1e30"
+    del f_pool, f_pool_m, f_blk, f_blk_m, f_dead_m
+
     x = unit(1 << 20, DIM)
     km_abs_err = _check_assign(torch, x, codebook,
                                km.kmeans_assign_cuda(x, codebook),
                                km.kmeans_assign_plain(x, codebook))
     del x
+    torch.cuda.empty_cache()
     print(f"checks passed in {time.perf_counter() - t0:.1f}s")
 
-    # -- 4. main path ------------------------------------------------------
-    t0 = _phase("main path")
+    # -- 4. flat path ------------------------------------------------------
+    t0 = _phase("flat path")
     spec = CorpusSpec(n_docs=N_DOCS, n_queries=N_REQUESTS,
                       n_patches=N_PATCHES, n_q_patches=N_Q_PATCHES, dim=DIM)
-    cfg = HPCConfig(k=K, p=P, prune_side="doc", backend="flat",
-                    rerank=RERANK, kmeans_restarts=KMEANS_RESTARTS,
-                    kmeans_seed_batch=KMEANS_SEED_BATCH,
-                    kmeans_minibatch=KMEANS_MINIBATCH,
-                    scan_block_docs=BLOCK_DOCS)
+    knobs = dict(k=K, p=P, prune_side="doc",
+                 kmeans_restarts=KMEANS_RESTARTS,
+                 kmeans_seed_batch=KMEANS_SEED_BATCH,
+                 kmeans_minibatch=KMEANS_MINIBATCH,
+                 scan_block_docs=BLOCK_DOCS)
+    cfg = HPCConfig(backend="flat", rerank=RERANK, **knobs)
     torch.cuda.reset_peak_memory_stats()
     qm.launches = 0
     km.launches = 0
@@ -288,8 +415,8 @@ def main(argv=None) -> int:
           f"{run.ladder} warmed in {run.warm_s:.3f}s | served "
           f"{st['n']} requests in {run.serve_s:.3f}s, {st['qps']:.1f} QPS, "
           f"p50 {st['p50_ms']:.2f} ms, p99 {st['p99_ms']:.2f} ms | "
-          f"hit@{TOP_K} {run.hit_rate:.3f} | mean batch "
-          f"{st['mean_batch']:.2f} over {n_batches} batches | "
+          f"hit@{TOP_K} {run.hit_rate:.3f} recall@{TOP_K} {run.recall:.3f} "
+          f"| mean batch {st['mean_batch']:.2f} over {n_batches} batches | "
           f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"launches: quantized_maxsim {qm_launches} (expected "
@@ -302,41 +429,124 @@ def main(argv=None) -> int:
     assert run.storage["payload"] == N_DOCS * md_kept, run.storage
 
     s = run.state
-    cpu_state = RetrieverState(
-        s.codebook.cpu(), FlatIndex(*(t.cpu() for t in s.backend_state)),
-        s.rerank_codes.cpu(), s.rerank_mask.cpu())
-    q, q_m, q_s = (torch.from_numpy(a[:MAX_BATCH]) for a in run.queries)
+    cpu_state = state_to(s, "cpu")
     t1 = time.perf_counter()
-    cpu_s, cpu_i = run.retriever.search(cpu_state, Query(q, q_m, q_s),
-                                        k=TOP_K)
-    srv_s = np.stack([r[0] for r in run.results[:MAX_BATCH]])
-    srv_i = np.stack([r[1] for r in run.results[:MAX_BATCH]])
-    cpu_s, cpu_i = cpu_s.numpy(), cpu_i.numpy()
-    assert np.isfinite(srv_s).all() and srv_i.shape == (MAX_BATCH, TOP_K)
-    np.testing.assert_allclose(srv_s, cpu_s, atol=QMAXSIM_TOL,
-                               rtol=QMAXSIM_TOL)
-    bad = topk_mismatches(srv_i, srv_s, cpu_i, cpu_s, QMAXSIM_TOL)
-    assert not bad, f"served ids differ from the CPU plain path at {bad}"
+    check_first_batch(run, cpu_state, QMAXSIM_TOL)
     print(f"first batch == CPU plain path (ids outside near-ties, scores "
           f"within {QMAXSIM_TOL}); CPU search {time.perf_counter() - t1:.1f}s")
-    print(f"main path phase {time.perf_counter() - t0:.1f}s")
+    # what phase 6 times the scan kernel on; the rest of the run is freed
+    flat = s.backend_state
+    rr_codes_all, rr_mask_all = s.rerank_codes, s.rerank_mask
+    flat_hit, flat_recall = run.hit_rate, run.recall
+    del run, s, cpu_state
+    torch.cuda.empty_cache()
+    print(f"flat path phase {time.perf_counter() - t0:.1f}s")
 
-    # -- 5. kmeans_assign at the build's shape, then times -------------------
+    # -- 5. cascade path ---------------------------------------------------
+    t0 = _phase("cascade path")
+    cfg_c = HPCConfig(backend="cascade", cascade=CascadeConfig(P1, P2),
+                      **knobs)
+    torch.cuda.reset_peak_memory_stats()
+    kernel_mods = {"hamming_maxsim": hm, "quantized_maxsim": qm,
+                   "maxsim": ms, "kmeans_assign": km}
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    run = build_and_serve(spec, cfg_c, n_requests=N_REQUESTS,
+                          max_batch=MAX_BATCH, top_k=TOP_K, device=dev,
+                          seed=args.seed)
+    casc_launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    st = run.stats
+    n_batches_c = sum(v["batches"] for v in st["rungs"].values())
+    n_warm_c = len(run.ladder)
+    # per searched batch: stage 1 sweeps N in blocks, stage 2 the p1 pool,
+    # stage 3 the p2 pool; stage 1 quantizes the queries once; the build
+    # quantizes the corpus once
+    casc_per_batch = {"hamming_maxsim": math.ceil(N_DOCS / BLOCK_DOCS),
+                      "quantized_maxsim": math.ceil(P1 / BLOCK_DOCS),
+                      "maxsim": math.ceil(P2 / BLOCK_DOCS),
+                      "kmeans_assign": 1}
+    casc_expect = {name: (n_batches_c + n_warm_c) * n
+                   + (name == "kmeans_assign")
+                   for name, n in casc_per_batch.items()}
+    print(f"build {run.build_s:.2f}s | storage {run.storage} | ladder "
+          f"{run.ladder} warmed in {run.warm_s:.3f}s | served "
+          f"{st['n']} requests in {run.serve_s:.3f}s, {st['qps']:.1f} QPS, "
+          f"p50 {st['p50_ms']:.2f} ms, p99 {st['p99_ms']:.2f} ms | "
+          f"hit@{TOP_K} {run.hit_rate:.3f} (flat {flat_hit:.3f}) "
+          f"recall@{TOP_K} {run.recall:.3f} (flat {flat_recall:.3f}) | "
+          f"mean batch {st['mean_batch']:.2f} over {n_batches_c} batches | "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"launches: {casc_launches}; expected {casc_expect} = "
+          f"({n_batches_c} served + {n_warm_c} warm-up batches) x "
+          f"{casc_per_batch} + 1 kmeans_assign for the build")
+    assert casc_launches == casc_expect, "cascade launches off"
+    assert st["n"] == N_REQUESTS, "not every request was served"
+    assert run.storage["stage_hamming"] == packed_nbytes(N_DOCS * md_kept,
+                                                         BITS), run.storage
+    assert run.storage["stage_flat"] == N_DOCS * md_kept, run.storage
+    assert run.storage["stage_float_flat"] == N_DOCS * md_kept * DIM * 4
+    assert run.hit_rate >= 0.95 * flat_hit, \
+        f"cascade hit@{TOP_K} {run.hit_rate} < 0.95 x flat {flat_hit}"
+
+    s = run.state
+    casc = get_backend("cascade")
+    (ham_b, ham_v), (flat_b, flat_v), _ = casc._views(s)
+    cpu_state = state_to(s, "cpu")
+    (_, cpu_ham_v), _, _ = casc._views(cpu_state)
+    q, q_m, q_s = (torch.from_numpy(a[:MAX_BATCH]) for a in run.queries)
+    qg = Query(q.to(dev), q_m.to(dev), q_s.to(dev))
+    t1 = time.perf_counter()
+    # stage 1 on the card (kernel) and on the CPU (plain), same query codes
+    q_codes = ham_b._q_codes(ham_v, qg)
+    q_codes_cpu = ham_b._q_codes(cpu_ham_v, Query(q, q_m, q_s))
+    n_code_diff = int((q_codes.cpu() != q_codes_cpu).sum())
+    idx = ham_v.backend_state.index
+    pool_gpu = index_mod.search_hamming(idx, q_codes, qg.mask, bits=BITS,
+                                        k=P1)
+    pool_cpu = index_mod.search_hamming(cpu_ham_v.backend_state.index,
+                                        q_codes.cpu(), q_m, bits=BITS, k=P1)
+    assert torch.equal(pool_gpu[0].cpu(), pool_cpu[0]), "stage-1 scores"
+    assert torch.equal(pool_gpu[1].cpu(), pool_cpu[1]), "stage-1 pools"
+    top = BITS * N_Q_PATCHES
+    at_top = (pool_gpu[0] == top).sum(dim=1).tolist()
+    print(f"stage-1 pools: per query, {at_top} of {P1} candidates score the "
+          f"maximum {top} (bits x Mq); the p1-th scores "
+          f"{pool_gpu[0][:, -1].tolist()}")
+    # the served batch against the whole funnel on the CPU, plain
+    check_first_batch(run, cpu_state, MAXSIM_TOL)
+    print(f"stage-1 pools ({MAX_BATCH} x {P1}) identical on the card and the "
+          f"CPU; query codes differ at {n_code_diff} of {q_codes.numel()}; "
+          f"first batch == CPU plain funnel (ids outside near-ties, scores "
+          f"within {MAXSIM_TOL}); CPU checks {time.perf_counter() - t1:.1f}s")
+    del cpu_state, cpu_ham_v
+    pre_s, pre_i = casc.search_prefilter(s, qg, k=TOP_K)
+    assert pre_s.dtype == torch.float32 and tuple(pre_i.shape) == (
+        MAX_BATCH, TOP_K) and bool(torch.isfinite(pre_s).all())
+    print(f"search_prefilter: float32 scores {tuple(pre_s.shape)}, top "
+          f"{pre_s[0, :3].tolist()}")
+    print(f"cascade path phase {time.perf_counter() - t0:.1f}s")
+
+    # -- 6. kmeans_assign at the build's shape, then times -------------------
     t0 = _phase("kmeans_assign at the build's shape; times")
-    codes, mask = s.backend_state.codes, s.backend_state.mask
-    table = li.adc_table(q.to(dev), s.codebook).contiguous()
+    # quantized_maxsim on the flat path's index
+    codes, mask = flat.codes, flat.mask
+    table = li.adc_table(q.to(dev), flat.codebook).contiguous()
     qmf = q_m.to(dev).float().contiguous()
     blocks = [(codes[i:i + BLOCK_DOCS], mask[i:i + BLOCK_DOCS])
               for i in range(0, N_DOCS, BLOCK_DOCS)]
 
-    def scan(fn):
+    def scan(score, blks):
+        """One sweep's kernel launches, without the merges."""
         def run_blocks():
-            for c, m in blocks:
-                fn(table, qmf, c, m)
+            for c, m in blks:
+                score(c, m)
         return run_blocks
 
-    scan_ms = _time_ms(torch, scan(qm.quantized_maxsim_cuda), 10)
-    scan_plain_ms = _time_ms(torch, scan(qm.quantized_maxsim_plain), 2)
+    scan_ms = _time_ms(torch, scan(
+        lambda c, m: qm.quantized_maxsim_cuda(table, qmf, c, m), blocks), 10)
+    scan_plain_ms = _time_ms(torch, scan(
+        lambda c, m: qm.quantized_maxsim_plain(table, qmf, c, m), blocks), 2)
     blk_bytes, blk_ops = _qmaxsim_cost(table, *blocks[0])
     blk_bound, blk_by = _bound(blk_bytes, blk_ops)
     blk_lds_bound = blk_ops / lds_per_s * 1e3
@@ -346,15 +556,113 @@ def main(argv=None) -> int:
     full_ms = _time_ms(
         torch, lambda: qm.quantized_maxsim_cuda(table, qmf, codes, mask), 20)
     ids = torch.arange(RERANK, device=dev).repeat(MAX_BATCH, 1) * 17
-    rr_codes = s.rerank_codes[ids]
-    rr_mask = s.rerank_mask[ids]
+    rr_codes = rr_codes_all[ids]
+    rr_mask = rr_mask_all[ids]
     rr_ms = _time_ms(torch, lambda: qm.quantized_maxsim_cuda(
         table, qmf, rr_codes, rr_mask), 200)
     rr_plain_ms = _time_ms(torch, lambda: qm.quantized_maxsim_plain(
         table, qmf, rr_codes, rr_mask), 20)
     rr_bound, _ = _bound(*_qmaxsim_cost(table, rr_codes, rr_mask))
     n_blocks = len(blocks)
-    del run, s, cpu_state, codes, mask, blocks, rr_codes, rr_mask
+    del flat, codes, mask, blocks, rr_codes, rr_mask, rr_codes_all, \
+        rr_mask_all
+
+    # hamming_maxsim on the cascade's stage 1 (the first batch's codes)
+    qc32 = q_codes.to(torch.int32).contiguous()
+    qw32 = q_m.to(dev).to(torch.int32).contiguous()
+    h_blocks = [(idx.codes[i:i + BLOCK_DOCS], idx.mask[i:i + BLOCK_DOCS])
+                for i in range(0, N_DOCS, BLOCK_DOCS)]
+    h_blk = h_blocks[0]
+    ham_ms = _time_ms(torch, lambda: hm.hamming_maxsim_cuda(
+        qc32, qw32, *h_blk, BITS), 200)
+    ham_plain_ms = _time_ms(torch, lambda: hm.hamming_maxsim_plain(
+        qc32, qw32, *h_blk, BITS), 10)
+    ham_stage1_ms = _time_ms(torch, scan(
+        lambda c, m: hm.hamming_maxsim_cuda(qc32, qw32, c, m, BITS),
+        h_blocks), 10)
+    ham_stage1_plain_ms = _time_ms(torch, scan(
+        lambda c, m: hm.hamming_maxsim_plain(qc32, qw32, c, m, BITS),
+        h_blocks), 2)
+    # matmul-only yardstick: bits - popc(a ^ b) = (bits + <sa, sb>) / 2 for
+    # the codes' +-1 bit vectors sa, sb; one (B*Mq, b) x (b, T*Md) product
+    bit = torch.arange(BITS, device=dev)
+    q_pm = (((qc32[..., None] >> bit) & 1) * 2 - 1).float().reshape(-1, BITS)
+    d_pm = (((h_blk[0].to(torch.int32)[..., None] >> bit) & 1) * 2 - 1) \
+        .float().reshape(-1, BITS).t().contiguous()
+    ham_mm_ms = _time_ms(torch, lambda: torch.matmul(q_pm, d_pm), 50)
+    ham_bytes, ham_ops = _hamming_cost(qc32, *h_blk)
+    ham_bound, ham_by = _bound(ham_bytes, ham_ops, popc_per_s)
+    s1_bytes, s1_ops = _hamming_cost(qc32, idx.codes, idx.mask)
+    s1_bound, s1_by = _bound(s1_bytes, s1_ops, popc_per_s)
+
+    # maxsim on the cascade's stage 3: the first batch's p2 pool, gathered
+    # as search_float_flat_candidates gathers it
+    ff = s.backend_state.members[2]
+    _, ids1 = ham_b.search(ham_v, qg, k=P1)
+    _, ids2 = flat_b.search_candidates(flat_v, qg, ids1, k=P2)
+    safe2 = torch.clamp(ids2, min=0).to(torch.int64)
+    pool_emb, pool_mask = ff.embeddings[safe2], ff.mask[safe2]
+    qf = q.to(dev).float().contiguous()
+    pool_ms = _time_ms(torch, lambda: ms.maxsim_cuda(qf, qmf, pool_emb,
+                                                     pool_mask), 100)
+    pool_plain_ms = _time_ms(torch, lambda: ms.maxsim_plain(
+        qf, qmf, pool_emb, pool_mask), 20)
+    pool_flat = pool_emb.reshape(MAX_BATCH, -1, DIM).transpose(1, 2)
+    pool_mm_ms = _time_ms(torch, lambda: torch.matmul(qf, pool_flat), 50)
+    gather_ms = _time_ms(torch, lambda: ff.embeddings[safe2], 20)
+    pool_bound, pool_by = _bound(*_maxsim_cost(qf, pool_emb, pool_mask))
+    # ... and on one shared-layout 256-doc block of float_flat
+    f_blk, f_blk_m = ff.embeddings[:BLOCK_DOCS], ff.mask[:BLOCK_DOCS]
+    fblk_ms = _time_ms(torch, lambda: ms.maxsim_cuda(qf, qmf, f_blk,
+                                                     f_blk_m), 20)
+    fblk_plain_ms = _time_ms(torch, lambda: ms.maxsim_plain(
+        qf, qmf, f_blk, f_blk_m), 5)
+    fblk_flat = f_blk.reshape(-1, DIM).t()
+    q_rows = qf.reshape(-1, DIM)
+    fblk_mm_ms = _time_ms(torch, lambda: torch.matmul(q_rows, fblk_flat), 10)
+    fblk_bound, fblk_by = _bound(*_maxsim_cost(qf, f_blk, f_blk_m))
+    pool_bytes = pool_emb.numel() * pool_emb.element_size()
+
+    # quantized_maxsim on stage 2's first per-query block of the p1 pool
+    fm = s.backend_state.members[1]
+    safe1 = torch.clamp(ids1, min=0).to(torch.int64)[:, :BLOCK_DOCS]
+    s2_codes, s2_mask = fm.codes[safe1], fm.mask[safe1]
+    table_c = li.adc_table(qf, fm.codebook).contiguous()
+    s2_ms = _time_ms(torch, lambda: qm.quantized_maxsim_cuda(
+        table_c, qmf, s2_codes, s2_mask), 200)
+    s2_bound, _ = _bound(*_qmaxsim_cost(table_c, s2_codes, s2_mask))
+
+    # one cascade batch (the first served one) split into its stages: host
+    # wall time, each stage ending in a synchronize (median of 5), beside
+    # device time, the same stage's kernels, merges and gathers replayed
+    # from a CUDA graph (so no host time)
+    ff_b, ff_v = casc._views(s)[2]
+    stage_fns = {
+        "stage 1 (hamming prefilter, p1)": lambda: ham_b.search(
+            ham_v, qg, k=P1),
+        "stage 2 (ADC rescore, p2)": lambda: flat_b.search_candidates(
+            flat_v, qg, ids1, k=P2),
+        "stage 3 (float rerank, top-k)": lambda: ff_b.search_candidates(
+            ff_v, qg, ids2, k=TOP_K),
+        "whole search": lambda: run.retriever.search(s, qg, k=TOP_K)}
+    stage_wall, stage_dev = {}, {}
+    for name, fn in stage_fns.items():
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        stage_wall[name] = float(np.median(walls))
+        stage_dev[name] = _time_ms(torch, fn, 3)
+        print(f"{name}: host wall {stage_wall[name]:.3f} ms, device "
+              f"{stage_dev[name]:.3f} ms")
+    print(f"served cascade batch: {run.serve_s / n_batches_c * 1e3:.1f} ms "
+          f"of serving window per batch")
+    del run, s, casc, ham_v, flat_v, ff_v, ff, fm, idx, h_blocks, h_blk, \
+        pool_emb, pool_mask, pool_flat, f_blk, f_blk_m, fblk_flat, s2_codes, \
+        s2_mask
     torch.cuda.empty_cache()
 
     n_rows = N_DOCS * N_PATCHES
@@ -375,11 +683,23 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"times taken in {time.perf_counter() - t0:.1f}s")
 
+    by_path = {"flat": {"quantized_maxsim": qm_launches,
+                        "kmeans_assign": km_launches},
+               "cascade": casc_launches}
+
+    def launches(name):
+        return sum(path.get(name, 0) for path in by_path.values())
+
+    def per_path(name):
+        return {p: v[name] for p, v in by_path.items() if name in v}
+
     kernels = [
         {"name": "quantized_maxsim", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quantized_maxsim.cu",
          "replaces": "src/repro/kernels/quantized_maxsim.py:92",
-         "launches": qm_launches, "max_abs_err": qm_abs_err,
+         "launches": launches("quantized_maxsim"),
+         "launches_by_path": per_path("quantized_maxsim"),
+         "max_abs_err": qm_abs_err,
          "ms": scan_ms / n_blocks, "plain_ms": scan_plain_ms / n_blocks,
          "bound_ms": blk_bound, "bound_by": blk_by, "library_ms": None,
          "ms_over_bound": scan_ms / n_blocks / blk_bound,
@@ -394,17 +714,59 @@ def main(argv=None) -> int:
          "full_scan_bound_ms": full_bound,
          "full_scan_lds_bound_ms": full_lds_bound,
          "rerank_ms": rr_ms, "rerank_plain_ms": rr_plain_ms,
-         "rerank_bound_ms": rr_bound},
+         "rerank_bound_ms": rr_bound,
+         "cascade_stage2_block_ms": s2_ms,
+         "cascade_stage2_block_bound_ms": s2_bound},
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
          "replaces": "src/repro/kernels/kmeans_assign.py:58",
-         "launches": km_launches, "max_abs_err": km_abs_err,
+         "launches": launches("kmeans_assign"),
+         "launches_by_path": per_path("kmeans_assign"),
+         "max_abs_err": km_abs_err,
          "ms": km_ms, "plain_ms": km_plain_ms, "bound_ms": km_bound,
          "bound_by": km_by, "library_ms": None,
          "ms_over_bound": km_ms / km_bound,
          "shape": f"quantize {n_rows} x {DIM} against K={K}",
          "addmm_matmul_only_yardstick_ms": addmm_ms},
+        {"name": "hamming_maxsim", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/hamming_maxsim.cu",
+         "replaces": "src/repro/kernels/hamming.py:74",
+         "launches": launches("hamming_maxsim"),
+         "launches_by_path": per_path("hamming_maxsim"),
+         "max_abs_err": 0.0,
+         "ms": ham_ms, "plain_ms": ham_plain_ms, "bound_ms": ham_bound,
+         "bound_by": ham_by, "library_ms": None,
+         "ms_over_bound": ham_ms / ham_bound,
+         "popcounts_per_s": popc_per_s,
+         "shape": f"one stage-1 block: B={MAX_BATCH} Mq={N_Q_PATCHES} "
+                  f"bits={BITS} {BLOCK_DOCS} docs x Md={md_kept} uint16",
+         "stage1_ms_per_batch": ham_stage1_ms,
+         "stage1_plain_ms_per_batch": ham_stage1_plain_ms,
+         "stage1_bound_ms": s1_bound, "stage1_bound_by": s1_by,
+         "pm1_matmul_only_yardstick_ms": ham_mm_ms},
+        {"name": "maxsim", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/maxsim.cu",
+         "replaces": "src/repro/kernels/maxsim.py:80",
+         "launches": launches("maxsim"),
+         "launches_by_path": per_path("maxsim"),
+         "max_abs_err": ms_abs_err,
+         "ms": pool_ms, "plain_ms": pool_plain_ms, "bound_ms": pool_bound,
+         "bound_by": pool_by, "library_ms": None,
+         "ms_over_bound": pool_ms / pool_bound,
+         "shape": f"stage-3 pools: B={MAX_BATCH} Mq={N_Q_PATCHES} D={DIM} "
+                  f"{P2} docs x Md={md_kept} per query",
+         "matmul_only_yardstick_ms": pool_mm_ms,
+         "candidate_gather_ms": gather_ms,
+         "candidate_gather_bytes": pool_bytes,
+         "float_flat_block_ms": fblk_ms,
+         "float_flat_block_plain_ms": fblk_plain_ms,
+         "float_flat_block_bound_ms": fblk_bound,
+         "float_flat_block_bound_by": fblk_by,
+         "float_flat_block_matmul_only_yardstick_ms": fblk_mm_ms},
     ]
+    print(json.dumps({"cascade_stages_ms": {
+        name: {"host_wall": stage_wall[name], "device": stage_dev[name]}
+        for name in stage_fns}}))
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

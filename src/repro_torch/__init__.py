@@ -7,17 +7,19 @@ of ``repro.<path>``. Entry points that create tensors take an explicit
 the tensors they are given.
 
 Subpackages:
-  core/       late interaction, the streaming ADC scan, K-means
-              quantization, pruning, the flat index
+  core/       late interaction, the streaming scan (ADC, float and
+              Hamming), K-means quantization, pruning, binary codes, the
+              flat, float-flat and Hamming indexes
   kernels/    hand-written CUDA kernels (csrc/*.cu), their ctypes
               wrappers and plain PyTorch versions
-  retrieval/  the Retriever facade, the backend registry, `flat`
+  retrieval/  the Retriever facade, the backend registry, `flat`,
+              `float_flat`, `hamming` and the `cascade` funnel
   data/       the synthetic retrieval corpus
   serving/    the asyncio continuous-batching server and its client
   launch/     the serving CLI
 """
 
-from repro_torch.convert import state_from_numpy  # noqa: F401
+from repro_torch.convert import state_from_numpy, state_to  # noqa: F401
 from repro_torch.retrieval import (  # noqa: F401
     Corpus,
     HPCConfig,

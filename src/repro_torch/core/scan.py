@@ -1,11 +1,12 @@
-"""Streaming ADC scan engine: blocked score + top-k fusion, in PyTorch.
+"""Streaming scan engine: blocked score + top-k fusion, in PyTorch.
 
 The counterpart of ``repro.core.scan``. The corpus is swept in fixed-size
-doc blocks; each block is scored by the quantized MaxSim kernel (the CUDA
-kernel for CUDA tensors, its plain version for CPU tensors — see
-``resolve_impl``) and folded into a running (B, k) top-k merge buffer, so
-neither the (B, Mq, N, Md) similarity tensor nor the (B, N) score matrix
-ever exists. Peak scan memory is O(B * block_docs) on the kernel path and
+doc blocks; each block is scored by a MaxSim kernel, quantized (ADC),
+float or binary (Hamming): the CUDA kernel for CUDA tensors, its plain
+version for CPU tensors (see ``resolve_impl``). Each block's scores fold
+into a running (B, k) top-k merge buffer, so neither the (B, Mq, N, Md)
+similarity tensor nor the (B, N) score matrix ever exists. Peak scan
+memory is O(B * block_docs) on the kernel path and
 O(B * Mq * block_docs * Md) on the plain path.
 
 Numerical contract, as in the reference: blocks are visited in doc order
@@ -16,14 +17,18 @@ promises no order among equal values, so it is not used).
 
 The two layouts:
 
-  * shared corpus  — codes (N, Md): every query scores every doc;
-  * per-query candidates — codes (B, P, Md): each query scores its own
-    pool (the facade rerank). Each block goes to the kernel in one
-    launch, through the pool's batch stride.
+  * shared corpus  — codes (N, Md) / docs (N, Md, D): every query scores
+    every doc (flat, float_flat, hamming);
+  * per-query candidates — codes (B, P, Md) / docs (B, P, Md, D): each
+    query scores its own pool (the facade rerank, the cascade's stages 2
+    and 3). Each block goes to the kernel in one launch, through the
+    pool's batch stride.
 
 Sentinel contract: rows beyond the valid pool carry doc id -1 and the
-merge-buffer init score (-inf), strictly below any real document; slots
-with ``valid=False`` score exactly NEG_INF with id -1.
+merge-buffer init score (-inf for float scores, the int32 minimum for
+Hamming scores), strictly below any real document; slots with
+``valid=False`` score exactly NEG_INF (float) or the int32 minimum
+(Hamming) with id -1.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.core import late_interaction as li
+from repro_torch.kernels import hamming as hamming_k
+from repro_torch.kernels import maxsim as maxsim_k
 from repro_torch.kernels import quantized_maxsim as qmaxsim_k
 
 NEG_INF = li.NEG_INF
@@ -167,4 +174,74 @@ def quantized_maxsim_topk(q: Tensor, q_mask: Tensor, codes: Tensor,
     return _streaming_topk(score_block, (codes, d_mask), doc_ids, valid,
                            b=b, n=n, k=k, block_docs=scan.block_docs,
                            per_query=per_query, score_dtype=torch.float32,
+                           carry=carry)
+
+
+def maxsim_topk(q: Tensor, q_mask: Tensor, docs: Tensor, d_mask: Tensor, *,
+                k: int, doc_ids: Optional[Tensor] = None,
+                valid: Optional[Tensor] = None,
+                scan: Optional[ScanConfig] = None,
+                carry: Optional[Tuple[Tensor, Tensor]] = None
+                ) -> Tuple[Tensor, Tensor]:
+    """Streaming float MaxSim top-k.
+
+    docs/d_mask are a shared (N, Md, D) corpus or (B, P, Md, D) per-query
+    candidate pools (the cascade's float rerank) — the two layouts of
+    ``quantized_maxsim_topk``, with the same doc_ids/valid/carry.
+    -> (scores (B, k) f32, doc_ids (B, k) int32).
+    """
+    scan = scan if scan is not None else DEFAULT
+    mode = resolve_impl(scan.impl, docs.device)
+    per_query = docs.dim() == 4
+    b = q.shape[0]
+    n = docs.shape[1] if per_query else docs.shape[0]
+    qf = q.to(torch.float32).contiguous()
+    q_mask_f = q_mask.to(torch.float32).contiguous()
+    doc_ids, valid = _prep(n, doc_ids, valid, per_query, b, docs.device)
+    kernel = (maxsim_k.maxsim_cuda if mode == "cuda"
+              else maxsim_k.maxsim_plain)
+
+    def score_block(d, m):
+        return kernel(qf, q_mask_f, d, m)
+
+    return _streaming_topk(score_block, (docs, d_mask), doc_ids, valid,
+                           b=b, n=n, k=k, block_docs=scan.block_docs,
+                           per_query=per_query, score_dtype=torch.float32,
+                           carry=carry)
+
+
+def hamming_maxsim_topk(q_codes: Tensor, q_mask: Tensor, d_codes: Tensor,
+                        d_mask: Tensor, *, bits: int, k: int,
+                        doc_ids: Optional[Tensor] = None,
+                        valid: Optional[Tensor] = None,
+                        scan: Optional[ScanConfig] = None,
+                        carry: Optional[Tuple[Tensor, Tensor]] = None
+                        ) -> Tuple[Tensor, Tensor]:
+    """Streaming binary MaxSim top-k.
+
+    d_codes/d_mask are a shared (N, Md) code corpus or (B, P, Md)
+    per-query pools. Scores are int32 on every impl and the sentinel is
+    the int32 minimum. A doc with no valid patch scores
+    ``sum_i qm_i * -(2**20)`` on both impls, as the reference's jnp path
+    does; the reference's Pallas path clamps its f32 ``-1e30`` sums to the
+    int32 minimum instead (ROADMAP caveat C4).
+    -> (scores (B, k) int32, doc_ids (B, k) int32).
+    """
+    scan = scan if scan is not None else DEFAULT
+    mode = resolve_impl(scan.impl, d_codes.device)
+    per_query = d_codes.dim() == 3
+    b = q_codes.shape[0]
+    n = d_codes.shape[1] if per_query else d_codes.shape[0]
+    qc = q_codes.to(torch.int32).contiguous()
+    qm = q_mask.to(torch.int32).contiguous()
+    doc_ids, valid = _prep(n, doc_ids, valid, per_query, b, d_codes.device)
+    kernel = (hamming_k.hamming_maxsim_cuda if mode == "cuda"
+              else hamming_k.hamming_maxsim_plain)
+
+    def score_block(c, m):
+        return kernel(qc, qm, c, m, bits)
+
+    return _streaming_topk(score_block, (d_codes, d_mask), doc_ids, valid,
+                           b=b, n=n, k=k, block_docs=scan.block_docs,
+                           per_query=per_query, score_dtype=torch.int32,
                            carry=carry)

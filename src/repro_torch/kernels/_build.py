@@ -30,11 +30,19 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "libhpc_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# shared memory one block may use on Hopper (227 KB)
+MAX_SMEM = 232448
+# what the kernels read as stored: codes by their byte width, 1-byte masks
+CODE_BYTES = {torch.uint8: 1, torch.uint16: 2}
+MASK_DTYPES = (torch.bool, torch.uint8)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -50,6 +58,11 @@ _SIGNATURES = {
     "hpc_qmaxsim_smem_bytes": ([_I, _I, _I], _LL),
     "hpc_kmeans_assign": ([_P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
     "hpc_kmeans_assign_smem_bytes": ([_I, _I], _LL),
+    "hpc_hamming_maxsim": ([_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL,
+                            _LL, _P], _I),
+    "hpc_maxsim": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _P],
+                   _I),
+    "hpc_maxsim_smem_bytes": ([_I], _LL),
     "hpc_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -134,3 +147,22 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().hpc_error_string(err).decode()
         raise RuntimeError(f"{what} failed: cudaError {err} ({msg})")
+
+
+def check_layout(name: str, t, shape, *, batch_strided: bool = False
+                 ) -> None:
+    """Raise unless ``t`` has ``shape`` and a dense row-major layout; with
+    ``batch_strided`` the outermost (batch) dim may have any stride, which
+    the kernel takes as an argument."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.numel() == 0:
+        return
+    dense = "in its inner dims" if batch_strided else "in row-major order"
+    inner = 1
+    for dim in range(t.dim() - 1, 0 if batch_strided else -1, -1):
+        if t.shape[dim] != 1 and t.stride(dim) != inner:
+            raise ValueError(f"{name} must be dense {dense} (strides "
+                             f"{t.stride()})")
+        inner *= t.shape[dim]

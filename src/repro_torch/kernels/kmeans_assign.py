@@ -20,7 +20,6 @@ from repro_torch.kernels import _build
 launches = 0
 _count_lock = threading.Lock()
 
-_MAX_SMEM = 232448
 _CHUNK_STEP = 64  # the kernel's centroids per pass
 
 
@@ -45,7 +44,8 @@ def _chunk(lib, d: int, k: int) -> int:
     does."""
     full = -(-k // _CHUNK_STEP) * _CHUNK_STEP
     kc = full
-    while kc > 0 and lib.hpc_kmeans_assign_smem_bytes(d, kc) > _MAX_SMEM:
+    while kc > 0 and (lib.hpc_kmeans_assign_smem_bytes(d, kc)
+                      > _build.MAX_SMEM):
         kc -= _CHUNK_STEP
     if kc == 0:
         raise ValueError(f"kmeans_assign_cuda: D={d} leaves no room for a "

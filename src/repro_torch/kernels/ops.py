@@ -13,8 +13,22 @@ import torch
 
 from repro_torch.core import late_interaction as li
 from repro_torch.core.scan import resolve_impl
+from repro_torch.kernels import hamming as hamming_k
 from repro_torch.kernels import kmeans_assign as kmeans_k
+from repro_torch.kernels import maxsim as maxsim_k
 from repro_torch.kernels import quantized_maxsim as qmaxsim_k
+
+
+def maxsim(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
+           d_mask: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """Float MaxSim scores (B, N) f32: docs (N, Md, D) shared or
+    (B, P, Md, D) per query."""
+    mode = resolve_impl(impl, docs.device)
+    qf = q.to(torch.float32).contiguous()
+    qm = q_mask.to(torch.float32).contiguous()
+    if mode == "plain":
+        return maxsim_k.maxsim_plain(qf, qm, docs, d_mask)
+    return maxsim_k.maxsim_cuda(qf, qm, docs.to(torch.float32), d_mask)
 
 
 def quantized_maxsim(q: torch.Tensor, q_mask: torch.Tensor,
@@ -29,6 +43,20 @@ def quantized_maxsim(q: torch.Tensor, q_mask: torch.Tensor,
     if mode == "plain":
         return qmaxsim_k.quantized_maxsim_plain(table, qm, codes, d_mask)
     return qmaxsim_k.quantized_maxsim_cuda(table, qm, codes, d_mask)
+
+
+def hamming_maxsim(q_codes: torch.Tensor, q_mask: torch.Tensor,
+                   d_codes: torch.Tensor, d_mask: torch.Tensor, *, bits: int,
+                   impl: str = "auto") -> torch.Tensor:
+    """Binary-mode MaxSim scores (B, N) int32 (the reference's wrapper
+    returns the same integers as f32): d_codes (N, Md) shared or
+    (B, P, Md) per query."""
+    mode = resolve_impl(impl, d_codes.device)
+    qc = q_codes.to(torch.int32).contiguous()
+    qm = q_mask.to(torch.int32).contiguous()
+    if mode == "plain":
+        return hamming_k.hamming_maxsim_plain(qc, qm, d_codes, d_mask, bits)
+    return hamming_k.hamming_maxsim_cuda(qc, qm, d_codes, d_mask, bits)
 
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,

@@ -28,9 +28,6 @@ from repro_torch.kernels import _build
 launches = 0
 _count_lock = threading.Lock()
 
-_CODE_BYTES = {torch.uint8: 1, torch.uint16: 2}
-_MASK_DTYPES = (torch.bool, torch.uint8)
-
 
 def quantized_maxsim_plain(table: torch.Tensor, q_mask: torch.Tensor,
                            codes: torch.Tensor,
@@ -56,15 +53,6 @@ def quantized_maxsim_plain(table: torch.Tensor, q_mask: torch.Tensor,
     return per_q.sum(dim=1)
 
 
-def _check_layout(name: str, t: torch.Tensor, shape) -> None:
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if t.stride(-1) != 1 or t.stride(-2) != t.shape[-1]:
-        raise ValueError(f"{name} must be contiguous in its last two dims "
-                         f"(strides {t.stride()})")
-
-
 def quantized_maxsim_cuda(table: torch.Tensor, q_mask: torch.Tensor,
                           codes: torch.Tensor,
                           d_mask: torch.Tensor) -> torch.Tensor:
@@ -84,9 +72,9 @@ def quantized_maxsim_cuda(table: torch.Tensor, q_mask: torch.Tensor,
         raise ValueError("table and q_mask must be float32")
     if not (table.is_contiguous() and q_mask.is_contiguous()):
         raise ValueError("table and q_mask must be contiguous")
-    if codes.dtype not in _CODE_BYTES:
+    if codes.dtype not in _build.CODE_BYTES:
         raise ValueError(f"codes must be uint8 or uint16, got {codes.dtype}")
-    if d_mask.dtype not in _MASK_DTYPES:
+    if d_mask.dtype not in _build.MASK_DTYPES:
         raise ValueError(f"d_mask must be bool or uint8, got {d_mask.dtype}")
     b, mq, k = table.shape
     if tuple(q_mask.shape) != (b, mq):
@@ -94,30 +82,31 @@ def quantized_maxsim_cuda(table: torch.Tensor, q_mask: torch.Tensor,
                          f"{(b, mq)}")
     if codes.dim() == 3:
         _, n, md = codes.shape
-        _check_layout("codes", codes, (b, n, md))
+        _build.check_layout("codes", codes, (b, n, md), batch_strided=True)
         code_bstride = codes.stride(0)
     elif codes.dim() == 2:
         n, md = codes.shape
-        _check_layout("codes", codes, (n, md))
+        _build.check_layout("codes", codes, (n, md))
         code_bstride = 0
     else:
         raise ValueError(f"codes must be (N, Md) or (B, P, Md), got "
                          f"{tuple(codes.shape)}")
-    _check_layout("d_mask", d_mask, codes.shape)
+    _build.check_layout("d_mask", d_mask, codes.shape,
+                        batch_strided=codes.dim() == 3)
     mask_bstride = d_mask.stride(0) if codes.dim() == 3 else 0
     out = torch.empty((b, n), dtype=torch.float32, device=table.device)
     if b == 0 or n == 0:
         return out
     lib = _build.library()
     smem = lib.hpc_qmaxsim_smem_bytes(mq, k, md)
-    if smem > 232448:
+    if smem > _build.MAX_SMEM:
         raise ValueError(f"quantized_maxsim_cuda needs {smem} B of shared "
                          f"memory at Mq={mq}, K={k}, Md={md}; a block may "
-                         "use 232448")
+                         f"use {_build.MAX_SMEM}")
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = lib.hpc_qmaxsim(
         table.data_ptr(), q_mask.data_ptr(), codes.data_ptr(),
-        _CODE_BYTES[codes.dtype], d_mask.data_ptr(), out.data_ptr(),
+        _build.CODE_BYTES[codes.dtype], d_mask.data_ptr(), out.data_ptr(),
         b, mq, k, n, md, code_bstride, mask_bstride, stream)
     _build.check(err, "quantized_maxsim kernel launch")
     with _count_lock:

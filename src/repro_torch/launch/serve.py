@@ -4,6 +4,9 @@ and serve queries through the asyncio continuous-batching server.
   PYTHONPATH=src python -m repro_torch.launch.serve --n-docs 4096 \
       --queries 256 --backend flat --k 256 --p 60 --device cuda
 
+``--backend`` is any registered backend: flat, float_flat, hamming or
+cascade (the hamming -> ADC -> float funnel, budgets p1=1024, p2=64).
+
 The counterpart of ``repro.launch.serve``. ``--device`` (default ``cuda``)
 picks where the corpus, the index and the search live; ``--device cpu``
 runs the plain PyTorch path. ``--rate-qps`` switches from closed-loop
@@ -29,6 +32,8 @@ from repro_torch.retrieval import (Corpus, HPCConfig, Query, Retriever,
 from repro_torch.serving.client import drive
 from repro_torch.serving.server import AsyncRetrievalServer, ServeConfig
 
+RECALL_RELEVANCE = 2  # planted target + near-duplicates
+
 
 @dataclasses.dataclass
 class ServeRun:
@@ -45,6 +50,7 @@ class ServeRun:
     storage: Dict[str, int]
     stats: Dict[str, Any]
     hit_rate: float                                     # hit@top_k
+    recall: float                                       # recall@top_k
 
 
 def _sync(dev: torch.device) -> None:
@@ -92,13 +98,18 @@ def build_and_serve(spec: synthetic.CorpusSpec, cfg: HPCConfig, *,
         return results, wall
 
     results, serve_s = asyncio.run(_serve())
-    hits = 0
+    hits, recall = 0, 0.0
     for i, (_, ids) in enumerate(results):
         rel = relevance[i % len(relevance)]
-        hits += int((rel[ids[ids >= 0]] > 0).any())
+        found = rel[ids[ids >= 0]]
+        hits += int((found > 0).any())
+        # the reference's recall@k: its relevant docs are rel >= 2
+        recall += (found >= RECALL_RELEVANCE).sum() / max(
+            1, (rel >= RECALL_RELEVANCE).sum())
+    n = max(1, len(results))
     return ServeRun(retriever, state, queries, results, build_s, warm_s,
                     server.ladder, serve_s, retriever.storage_bytes(state),
-                    server.stats(), hits / max(1, len(results)))
+                    server.stats(), hits / n, float(recall / n))
 
 
 def main(argv=None) -> ServeRun:
@@ -134,7 +145,8 @@ def main(argv=None) -> ServeRun:
     rungs = " ".join(f"B={b}:{v['batches']}x@{v['occupancy']:.2f}"
                      for b, v in st["rungs"].items())
     print(f"served {args.queries} queries in {run.serve_s:.2f}s "
-          f"({st['qps']:.1f} QPS) | hit@{args.top_k} {run.hit_rate:.3f} | "
+          f"({st['qps']:.1f} QPS) | hit@{args.top_k} {run.hit_rate:.3f} "
+          f"recall@{args.top_k} {run.recall:.3f} | "
           f"p50 {st['p50_ms']:.1f}ms p99 {st['p99_ms']:.1f}ms | "
           f"mean batch {st['mean_batch']:.1f}")
     print(f"ladder occupancy: {rungs}")

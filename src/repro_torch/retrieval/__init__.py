@@ -8,7 +8,10 @@
     scores, ids = r.search(state, Query(q_emb, q_mask, q_salience), k=10)
 
 Built-in backends: ``flat`` (exhaustive fused ADC scan over quantized
-codes, the paper's main configuration).
+codes, the paper's main configuration), ``float_flat`` (exhaustive float
+MaxSim, ColPali-Full), ``hamming`` (popcount MaxSim over binary codes) and
+``cascade`` (hamming -> ADC -> float funnel, budgets in
+``HPCConfig.cascade``).
 """
 
 from repro_torch.retrieval.base import (  # noqa: F401
@@ -21,8 +24,13 @@ from repro_torch.retrieval.base import (  # noqa: F401
     get_backend,
     register_backend,
 )
-from repro_torch.retrieval.config import HPCConfig  # noqa: F401
+from repro_torch.retrieval.config import CascadeConfig, HPCConfig  # noqa: F401
 from repro_torch.retrieval.retriever import Retriever  # noqa: F401
 
 # importing the backend modules installs them in the registry
-from repro_torch.retrieval import flat  # noqa: E402,F401
+from repro_torch.retrieval import (  # noqa: E402,F401
+    cascade,
+    flat,
+    float_flat,
+    hamming,
+)

@@ -1,7 +1,7 @@
 """The `IndexBackend` contract, its registry and the shared build stages.
 
-The counterpart of ``repro.retrieval.base`` for the flat path. A backend
-owns one primary search structure behind
+The counterpart of ``repro.retrieval.base`` for monolithic (unsegmented)
+states. A backend owns one primary search structure behind
 
     build(generator, corpus, cfg)          -> RetrieverState
     search(state, query, *, k, scan)       -> (scores (B, k), doc_ids (B, k))
@@ -74,7 +74,8 @@ def register_backend(name: str):
 
 def _ensure_builtin_backends() -> None:
     """Install the built-in backends (idempotent, import-cycle safe)."""
-    from repro_torch.retrieval import flat  # noqa: F401
+    from repro_torch.retrieval import (cascade, flat, float_flat,  # noqa: F401
+                                       hamming)
 
 
 def get_backend(name: str) -> "IndexBackend":
@@ -182,3 +183,8 @@ class IndexBackend:
     def storage_bytes(self, state: RetrieverState) -> Dict[str, int]:
         """Measured storage of the built index (paper Table III)."""
         raise NotImplementedError
+
+    def build_stats(self, state: RetrieverState) -> Dict[str, float]:
+        """Structure-quality stats of a built index; the exhaustive scans
+        have nothing to report."""
+        return {}

@@ -1,4 +1,5 @@
-"""HPC-ColPali configuration (paper §III): the knobs the flat path reads.
+"""HPC-ColPali configuration (paper §III): the knobs the ported backends
+read.
 
 The counterpart of ``repro.retrieval.config.HPCConfig``. ``backend`` names
 the index backend in the ``repro_torch.retrieval`` registry.
@@ -8,7 +9,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
+from repro_torch.core import binary as binary_mod
 from repro_torch.core.scan import ScanConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class CascadeConfig:
+    """Per-stage candidate budgets of the compression cascade
+    (retrieval/cascade.py): the Hamming prefilter over all N docs keeps
+    ``p1`` candidates, the ADC rescore of those keeps ``p2``, and the float
+    rerank of those returns the final top-k."""
+
+    p1: int = 1024
+    p2: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +41,12 @@ class HPCConfig:
     scan_block_docs: int = 256       # docs per streaming-scan block
     scan_impl: str = "auto"          # block scorer: auto|plain
     backend: str = "flat"            # registry key
+    cascade: CascadeConfig = dataclasses.field(default_factory=CascadeConfig)
+
+    @property
+    def bits(self) -> int:
+        """b = ceil(log2 K), the width of a binary code (paper §III-D)."""
+        return binary_mod.bits_for_k(self.k)
 
     @property
     def scan(self) -> ScanConfig:

@@ -42,16 +42,39 @@ class Retriever:
         """Online query (paper §III-E2 steps 2-5) -> (scores (B, k),
         doc_ids (B, k))."""
         cfg, backend = self.cfg, self.backend
-        q_emb, q_mask = query.embeddings, query.mask
-        if cfg.prune_side in ("query", "both"):
-            pr = pruning.prune_topp(q_emb, query.salience, q_mask, p=cfg.p)
-            q_emb, q_mask = pr.embeddings, pr.mask
-        pruned = Query(q_emb, q_mask, query.salience)
+        pruned = self._prune_query(query)
         n_cand = k if cfg.rerank == 0 else max(k, cfg.rerank)
         scores, ids = backend.search(state, pruned, k=n_cand, scan=cfg.scan)
         if cfg.rerank and not backend.exact_scores:
             return self._rerank(state, pruned, ids, k=k)
         return scores[:, :k], ids[:, :k]
+
+    def degrade_rungs(self, state: RetrieverState, *, k: int) -> Tuple:
+        """Overload degradation rungs for serving: empty for backends
+        without a quality-for-latency ladder; the cascade returns its
+        budget halvings ending at the Hamming-only floor (None)."""
+        backend = self.backend
+        if not hasattr(backend, "degrade_rungs"):
+            return ()
+        return backend.degrade_rungs(state, k=k)
+
+    def search_degraded(self, state: RetrieverState, query: Query, *,
+                        k: int, rung) -> Tuple[Tensor, Tensor]:
+        """Degraded online query: the same query-side pruning, a cheaper
+        funnel (``rung`` from ``degrade_rungs``), no quantized rerank."""
+        scores, ids = self.backend.search_degraded(
+            state, self._prune_query(query), k=k, rung=rung,
+            scan=self.cfg.scan)
+        return scores[:, :k], ids[:, :k]
+
+    def _prune_query(self, query: Query) -> Query:
+        """Query-side dynamic pruning (paper §III-C), when configured."""
+        q_emb, q_mask = query.embeddings, query.mask
+        if self.cfg.prune_side in ("query", "both"):
+            pr = pruning.prune_topp(q_emb, query.salience, q_mask,
+                                    p=self.cfg.p)
+            q_emb, q_mask = pr.embeddings, pr.mask
+        return Query(q_emb, q_mask, query.salience)
 
     def _rerank(self, state: RetrieverState, query: Query, ids: Tensor, *,
                 k: int) -> Tuple[Tensor, Tensor]:
@@ -64,3 +87,7 @@ class Retriever:
     def storage_bytes(self, state: RetrieverState) -> Dict[str, int]:
         """Measured storage footprint of the built index (paper Table III)."""
         return self.backend.storage_bytes(state)
+
+    def build_stats(self, state: RetrieverState) -> Dict[str, float]:
+        """Structure-quality stats of a built index (backend-defined)."""
+        return self.backend.build_stats(state)

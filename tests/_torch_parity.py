@@ -40,3 +40,37 @@ def code_gaps(x, codebook, codes_a, codes_b):
     da = c2[a[rows]] - 2.0 * (x[rows] * c[a[rows]]).sum(-1)
     db = c2[b[rows]] - 2.0 * (x[rows] * c[b[rows]]).sum(-1)
     return np.abs(da - db)
+
+
+def _member_arrays(stage, member):
+    """One member structure of a JAX state as host arrays."""
+    if stage == "hamming":
+        idx = member.index
+        return {"codes": np.asarray(idx.codes), "mask": np.asarray(idx.mask),
+                "doc_ids": np.asarray(idx.doc_ids),
+                "bits": np.asarray(member.bits)}
+    if stage == "float_flat":
+        return {"embeddings": np.asarray(member.embeddings),
+                "mask": np.asarray(member.mask),
+                "doc_ids": np.asarray(member.doc_ids)}
+    return {"codes": np.asarray(member.codes), "mask": np.asarray(member.mask),
+            "doc_ids": np.asarray(member.doc_ids)}
+
+
+def state_arrays(state, backend):
+    """A JAX-built ``RetrieverState`` of ``backend`` flattened into the dict
+    ``repro_torch.convert.state_from_numpy`` takes (a cascade's members
+    under ``<stage>/<field>`` keys, with its budgets ``p1`` and ``p2``)."""
+    out = {"codebook": np.asarray(state.codebook),
+           "rerank_codes": np.asarray(state.rerank_codes),
+           "rerank_mask": np.asarray(state.rerank_mask)}
+    bs = state.backend_state
+    if backend == "cascade":
+        for stage, member in zip(("hamming", "flat", "float_flat"),
+                                 bs.members):
+            for key, val in _member_arrays(stage, member).items():
+                out[f"{stage}/{key}"] = val
+        out["p1"], out["p2"] = np.asarray(bs.p1), np.asarray(bs.p2)
+    else:
+        out.update(_member_arrays(backend, bs))
+    return out

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from repro_torch.core import scan
+from repro_torch.kernels import hamming as hm
 from repro_torch.kernels import kmeans_assign as km
+from repro_torch.kernels import maxsim as ms
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantized_maxsim as qm
 
@@ -128,3 +130,122 @@ def test_scan_on_the_card_matches_the_cpu(block):
     np.testing.assert_array_equal(
         ops.kmeans_assign(x.to(dev), cb.to(dev)).cpu().numpy(),
         ops.kmeans_assign(x, cb).numpy())
+
+
+# -- hamming_maxsim and maxsim ------------------------------------------------
+
+def _ham(seed, b, mq, lead, md, bits, dtype=torch.uint16, p_valid=0.8):
+    g = torch.Generator().manual_seed(seed)
+    q_codes = torch.randint(0, 2 ** bits, (b, mq), generator=g,
+                            dtype=torch.int32)
+    q_mask = (torch.rand((b, mq), generator=g) < 0.9).to(torch.int32)
+    codes = torch.randint(0, 2 ** bits, lead + (md,), generator=g,
+                          dtype=torch.int32).to(dtype)
+    d_mask = torch.rand(lead + (md,), generator=g) < p_valid
+    return q_codes, q_mask, codes, d_mask
+
+
+@pytest.mark.parametrize("b,mq,n,md,bits", [
+    (1, 4, 16, 8, 4), (3, 5, 33, 17, 8), (8, 32, 256, 615, 8),
+    (2, 40, 50, 64, 9), (8, 32, 100, 615, 16)])
+@pytest.mark.parametrize("per_query", [False, True])
+def test_hamming_maxsim_kernel_equals_plain(b, mq, n, md, bits, per_query):
+    """Bit for bit, all-masked docs included (caveat C4's int32 form)."""
+    dev = _card()
+    lead = (b, n) if per_query else (n,)
+    dtype = torch.uint8 if bits <= 8 else torch.uint16
+    args = _ham(b + n + md + bits, b, mq, lead, md, bits, dtype)
+    args[3][..., ::5, :] = False                       # all-masked docs
+    want = hm.hamming_maxsim_plain(*args, bits)
+    before = hm.launches
+    got = hm.hamming_maxsim_cuda(*(a.to(dev) for a in args), bits)
+    assert hm.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+def test_hamming_maxsim_kernel_masks_codes_and_takes_strided_pools():
+    dev = _card()
+    q_codes, q_mask, codes, d_mask = (a.to(dev) for a in _ham(
+        4, 4, 8, (4, 30), 20, 4, torch.uint16))
+    wide = (codes.to(torch.int32) | (0x3A << 4)).to(torch.uint16)
+    sl = (slice(None), slice(7, 19))
+    got = hm.hamming_maxsim_cuda(q_codes, q_mask, wide[sl], d_mask[sl], 4)
+    want = hm.hamming_maxsim_plain(q_codes, q_mask, codes[sl], d_mask[sl], 4)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        hm.hamming_maxsim_cuda(q_codes, q_mask, codes.int(), d_mask, 4)
+    with pytest.raises(ValueError):
+        hm.hamming_maxsim_cuda(q_codes, q_mask, codes, d_mask, 17)
+
+
+def _flt(seed, b, mq, d, lead, md, p_valid=0.8):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, mq, d), generator=g)
+    q_mask = (torch.rand((b, mq), generator=g) < 0.9).float()
+    docs = torch.randn(lead + (md, d), generator=g)
+    d_mask = torch.rand(lead + (md,), generator=g) < p_valid
+    return q, q_mask, docs, d_mask
+
+
+@pytest.mark.parametrize("b,mq,d,n,md", [(1, 4, 16, 16, 8), (3, 5, 30, 33, 17),
+                                         (8, 32, 128, 64, 615),
+                                         (2, 40, 64, 20, 130),
+                                         (2, 16, 300, 12, 32)])
+@pytest.mark.parametrize("per_query", [False, True])
+def test_maxsim_kernel_matches_plain(b, mq, d, n, md, per_query):
+    dev = _card()
+    lead = (b, n) if per_query else (n,)
+    args = _flt(b + n + md + d, b, mq, d, lead, md)
+    args[3][..., ::5, :] = False                       # all-masked docs
+    want = ms.maxsim_plain(*args)
+    before = ms.launches
+    got = ms.maxsim_cuda(*(a.to(dev) for a in args))
+    assert ms.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, atol=TOL, rtol=TOL)
+    dead = got.cpu()[:, ::5]
+    expect = (-1e30 * args[1].double().sum(dim=1))[:, None].expand_as(dead)
+    assert torch.isfinite(dead).all()
+    assert torch.allclose(dead.double(), expect, rtol=1e-5, atol=0)
+
+
+def test_maxsim_kernel_takes_strided_pools_and_refuses_bad_input():
+    dev = _card()
+    q, q_mask, docs, d_mask = (a.to(dev) for a in _flt(
+        5, 4, 8, 32, (4, 30), 20))
+    sl = (slice(None), slice(7, 19))
+    got = ms.maxsim_cuda(q, q_mask, docs[sl], d_mask[sl])
+    want = ms.maxsim_plain(q, q_mask, docs[sl], d_mask[sl])
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    before = ms.launches
+    with pytest.raises(ValueError):
+        ms.maxsim_cuda(q, q_mask, docs.double(), d_mask)
+    with pytest.raises(ValueError):
+        ms.maxsim_cuda(q, q_mask, docs.transpose(2, 3), d_mask)
+    with pytest.raises(ValueError):
+        ms.maxsim_cuda(q.cpu(), q_mask.cpu(), docs.cpu(), d_mask.cpu())
+    assert ms.launches == before
+
+
+@pytest.mark.parametrize("block", [7, 256])
+def test_float_and_hamming_scans_on_the_card_match_the_cpu(block):
+    dev = _card()
+    g = torch.Generator().manual_seed(block)
+    q = torch.randn((3, 6, 16), generator=g)
+    docs = torch.randn((300, 9, 16), generator=g)
+    q_mask = torch.rand((3, 6), generator=g) < 0.9
+    d_mask = torch.rand((300, 9), generator=g) < 0.8
+    cfg = scan.ScanConfig(block_docs=block)
+    want = scan.maxsim_topk(q, q_mask, docs, d_mask, k=10, scan=cfg)
+    got = scan.maxsim_topk(*(a.to(dev) for a in (q, q_mask, docs, d_mask)),
+                           k=10, scan=cfg)
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=TOL, rtol=TOL)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+    codes = torch.randint(0, 512, (300, 9), generator=g).to(torch.uint16)
+    q_codes = torch.randint(0, 512, (3, 6), generator=g)
+    want = scan.hamming_maxsim_topk(q_codes, q_mask, codes, d_mask, bits=9,
+                                    k=10, scan=cfg)
+    got = scan.hamming_maxsim_topk(*(a.to(dev) for a in (
+        q_codes, q_mask, codes, d_mask)), bits=9, k=10, scan=cfg)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])

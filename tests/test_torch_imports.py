@@ -41,6 +41,11 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_port_package_is_found():
     assert len(PORT_FILES) > 15
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES if "repro_torch" in p.parts}
+    assert {"core/binary.py", "kernels/hamming.py", "kernels/maxsim.py",
+            "retrieval/float_flat.py", "retrieval/hamming.py",
+            "retrieval/cascade.py"} <= names
     assert not _forbidden("repro_torch.core.scan")
     assert _forbidden("repro.core.scan") and _forbidden("jax.numpy")
 

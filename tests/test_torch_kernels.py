@@ -15,7 +15,9 @@ from repro.kernels import ops as jax_ops
 from repro.kernels.quantized_maxsim import quantized_maxsim_pallas
 from repro_torch.core import late_interaction as li
 from repro_torch.core.scan import resolve_impl
+from repro_torch.kernels import hamming as hm
 from repro_torch.kernels import kmeans_assign as km
+from repro_torch.kernels import maxsim as ms
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantized_maxsim as qm
 from tests._torch_parity import code_gaps, to_torch
@@ -132,6 +134,7 @@ def test_dispatch_follows_the_tensor_device():
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """A CPU tensor never reaches a kernel launch: the wrappers raise."""
+    counts = (qm.launches, km.launches, hm.launches, ms.launches)
     _, cb, table, qmask, codes, dmask = _adc_inputs(SHAPES[0], 16, 1)
     args = to_torch(table, qmask, codes, dmask)
     with pytest.raises(ValueError, match="CUDA"):
@@ -139,10 +142,140 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.zeros((4, cb.shape[1]))
     with pytest.raises(ValueError, match="CUDA"):
         km.kmeans_assign_cuda(x, torch.from_numpy(cb))
+    qc, qmi, dc, dm = to_torch(*_hamming_inputs(SHAPES[0], 8, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        hm.hamming_maxsim_cuda(qc.int(), qmi.int(), dc, dm, 8)
+    q, qmf, docs, dmf = to_torch(*_float_inputs(SHAPES[0], 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        ms.maxsim_cuda(q, qmf.float(), docs, dmf)
+    assert (qm.launches, km.launches, hm.launches, ms.launches) == counts
+
+
+# -- binary (Hamming) MaxSim --------------------------------------------------
+
+def _hamming_inputs(shape, bits, seed, per_query=False):
+    """Codes over the full 2^bits range (uint16 past 8 bits, as the
+    HammingIndex stores them); every doc keeps a valid patch."""
+    b, mq, _, n, md = shape
+    rng = np.random.default_rng(seed)
+    lead = (b, n) if per_query else (n,)
+    dtype = np.uint8 if bits <= 8 else np.uint16
+    qc = rng.integers(0, 2 ** bits, (b, mq)).astype(dtype)
+    dc = rng.integers(0, 2 ** bits, lead + (md,)).astype(dtype)
+    qmask = rng.random((b, mq)) > 0.3
+    dmask = rng.random(lead + (md,)) > 0.3
+    dmask[..., 0] = True
+    return qc, qmask, dc, dmask
+
+
+def _jax_hamming(qc, qmask, dc, dmask, bits):
+    return np.asarray(jax_ops.hamming_maxsim(
+        jnp.asarray(qc.astype(np.int32)), jnp.asarray(qmask),
+        jnp.asarray(dc.astype(np.int32)), jnp.asarray(dmask), bits=bits,
+        impl="interpret", block_docs=16))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("bits", [4, 8, 9])
+def test_hamming_maxsim_plain_matches_pallas(shape, bits):
+    """Exact: every score is a small integer on both sides."""
+    qc, qmask, dc, dmask = _hamming_inputs(shape, bits, sum(shape) + bits)
+    want = _jax_hamming(qc, qmask, dc, dmask, bits)
+    got = hm.hamming_maxsim_plain(*to_torch(qc, qmask, dc, dmask), bits)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    via_ops = ops.hamming_maxsim(*to_torch(qc, qmask, dc, dmask), bits=bits)
+    np.testing.assert_array_equal(via_ops.numpy(), got.numpy())
+
+
+def test_hamming_maxsim_plain_per_query_matches_pallas():
+    shape = SHAPES[2]
+    qc, qmask, dc, dmask = _hamming_inputs(shape, 9, 5, per_query=True)
+    want = np.concatenate([
+        _jax_hamming(qc[i:i + 1], qmask[i:i + 1], dc[i], dmask[i], 9)
+        for i in range(shape[0])])
+    got = hm.hamming_maxsim_plain(*to_torch(qc, qmask, dc, dmask), 9)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("per_query", [False, True])
+def test_hamming_maxsim_plain_all_masked_docs_follow_binary_maxsim(per_query):
+    """Caveat C4: an all-masked doc scores sum_i qm_i * -(2**20) in int32,
+    as the reference's jnp li.binary_maxsim (its Pallas kernel gives
+    sum_i qm_i * -1e30 in f32 instead)."""
+    shape, bits = SHAPES[1], 8
+    qc, qmask, dc, dmask = _hamming_inputs(shape, bits, 3, per_query)
+    dmask[..., ::4, :] = False
+    got = hm.hamming_maxsim_plain(*to_torch(qc, qmask, dc, dmask), bits)
+    if per_query:
+        want = np.concatenate([np.asarray(jax_li.binary_maxsim(
+            *map(jnp.asarray, (qc[i:i + 1], qmask[i:i + 1], dc[i],
+                               dmask[i])), bits)) for i in range(shape[0])])
+    else:
+        want = np.asarray(jax_li.binary_maxsim(
+            *map(jnp.asarray, (qc, qmask, dc, dmask)), bits))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy()[:, ::4],
+        np.broadcast_to(-(2 ** 20) * qmask.sum(1)[:, None],
+                        got[:, ::4].shape))
+
+
+def test_hamming_maxsim_masks_codes_to_bits():
+    """Codes at or above 2^bits are read through the low ``bits`` bits,
+    not treated as out of range."""
+    qc, qmask, dc, dmask = _hamming_inputs(SHAPES[1], 4, 9)
+    wide = (dc.astype(np.uint16) | (np.uint16(0x5A) << 4)).astype(np.uint16)
+    got = hm.hamming_maxsim_plain(*to_torch(qc, qmask, wide, dmask), 4)
+    want = hm.hamming_maxsim_plain(*to_torch(qc, qmask, dc, dmask), 4)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+# -- float MaxSim -------------------------------------------------------------
+
+def _float_inputs(shape, seed, per_query=False):
+    b, mq, d, n, md = shape
+    rng = np.random.default_rng(seed)
+    lead = (b, n) if per_query else (n,)
+    q = rng.standard_normal((b, mq, d)).astype(np.float32)
+    docs = rng.standard_normal(lead + (md, d)).astype(np.float32)
+    qmask = rng.random((b, mq)) > 0.2
+    dmask = rng.random(lead + (md,)) > 0.2
+    return q, qmask, docs, dmask
+
+
+def _jax_maxsim(q, qmask, docs, dmask):
+    return np.asarray(jax_ops.maxsim(*map(jnp.asarray, (q, qmask, docs,
+                                                        dmask)),
+                                     impl="interpret", block_docs=16))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_maxsim_plain_matches_pallas(shape):
+    q, qmask, docs, dmask = _float_inputs(shape, sum(shape))
+    dmask[::5] = False                                   # all-masked docs
+    want = _jax_maxsim(q, qmask, docs, dmask)
+    got = ms.maxsim_plain(*to_torch(q, qmask.astype(np.float32), docs,
+                                    dmask))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    via_ops = ops.maxsim(*to_torch(q, qmask, docs, dmask))
+    np.testing.assert_array_equal(via_ops.numpy(), got.numpy())
+
+
+def test_maxsim_plain_per_query_matches_pallas():
+    shape = SHAPES[2]
+    q, qmask, docs, dmask = _float_inputs(shape, 4, per_query=True)
+    want = np.concatenate([
+        _jax_maxsim(q[i:i + 1], qmask[i:i + 1], docs[i], dmask[i])
+        for i in range(shape[0])])
+    got = ms.maxsim_plain(*to_torch(q, qmask.astype(np.float32), docs,
+                                    dmask))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("fn", ["maxsim", "quantized_maxsim",
-                                "quantized_maxsim_decode"])
+                                "quantized_maxsim_decode",
+                                "single_vector_score", "binary_maxsim"])
 def test_late_interaction_matches_jax(fn):
     rng = np.random.default_rng(11)
     b, mq, d, n, md, k = 2, 6, 16, 24, 9, 32
@@ -150,14 +283,23 @@ def test_late_interaction_matches_jax(fn):
     cb = rng.standard_normal((k, d)).astype(np.float32)
     qmask = rng.random((b, mq)) > 0.2
     dmask = rng.random((n, md)) > 0.2
-    if fn == "maxsim":
+    dmask[3] = False                      # one all-masked doc
+    if fn in ("maxsim", "single_vector_score"):
         docs = rng.standard_normal((n, md, d)).astype(np.float32)
     else:
         docs = rng.integers(0, k, (n, md)).astype(np.uint8)
-    extra = () if fn == "maxsim" else (cb,)
-    want = getattr(jax_li, fn)(*map(jnp.asarray, (q, qmask, docs, dmask,
-                                                  *extra)))
-    got = getattr(li, fn)(*to_torch(q, qmask, docs, dmask, *extra))
+    if fn == "binary_maxsim":
+        q = rng.integers(0, k, (b, mq)).astype(np.uint8)
+    arrays = (q, qmask, docs, dmask) + (
+        () if fn in ("maxsim", "single_vector_score", "binary_maxsim")
+        else (cb,))
+    bits = (5,) if fn == "binary_maxsim" else ()
+    want = getattr(jax_li, fn)(*map(jnp.asarray, arrays), *bits)
+    got = getattr(li, fn)(*to_torch(*arrays), *bits)
+    if fn == "binary_maxsim":                # exact int32, C4 included
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
     if fn == "quantized_maxsim":

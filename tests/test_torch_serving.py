@@ -143,7 +143,21 @@ def test_serve_cli_runs_on_cpu(capsys):
                       "--k", "16", "--max-batch", "4"])
     assert run.stats["n"] == 8 and len(run.results) == 8
     assert run.storage["payload"] == 64 * 20          # 32 patches -> 20
-    assert 0.0 <= run.hit_rate <= 1.0
+    assert 0.0 <= run.hit_rate <= 1.0 and 0.0 <= run.recall <= 1.0
     assert run.ladder == (1, 2, 4)    # every rung warmed before the window
     out = capsys.readouterr().out
     assert "ladder (1, 2, 4) warmed" in out and "served 8 queries" in out
+
+
+def test_serve_cli_runs_the_cascade_on_cpu(capsys):
+    run = serve.main(["--device", "cpu", "--backend", "cascade", "--n-docs",
+                      "64", "--queries", "8", "--k", "16", "--max-batch", "4"])
+    assert run.stats["n"] == 8 and len(run.results) == 8
+    # stage payloads: 4-bit packed codes, 1-byte codes, float embeddings
+    assert run.storage["stage_hamming"] == 64 * 20 // 2
+    assert run.storage["stage_flat"] == 64 * 20
+    assert run.storage["stage_float_flat"] == 64 * 20 * 128 * 4
+    for scores, ids in run.results:
+        assert scores.dtype == np.float32 and ids.shape == (10,)
+        assert np.all(ids >= 0)                 # p1=1024 > N: all of N kept
+    assert "index[cascade] built" in capsys.readouterr().out
