@@ -14,24 +14,31 @@ any failure exits non-zero, and no phase's error is swallowed:
      the main paths' shapes and at edge shapes (atol = rtol = 1e-4 for
      quantized_maxsim and maxsim; hamming_maxsim bit for bit; agreement
      >= 0.9999 for kmeans_assign with every disagreement a near-tie, the
-     two distances within 1e-4 in float64);
+     two distances within 1e-4 in float64); quantized_maxsim's per-range
+     top-k lists also with positions equal outside near-ties, at the flat
+     sweep's, the rerank's and stage 2's shapes and at ragged, k > R,
+     k > N, Mq 5 and 40 and K=512 shapes;
   4. flat path at full ColPali width: build a flat index over 16384
      synthetic pages (1024 patches of D=128, pruned to 615, K=256), warm
      every ladder rung and serve 64 requests through
-     ``AsyncRetrievalServer``; the launch counters prove the kernels ran,
+     ``AsyncRetrievalServer``; the launch counters prove the kernels ran
+     (2 quantized_maxsim launches per batch: the sweep and the rerank),
      and the first batch is repeated on a CPU copy of the state through
      the plain path;
   5. cascade path at full width, on the same corpus and seed: the Hamming
      prefilter over all 16384 docs keeps p1 = 1024, the ADC rescore keeps
-     p2 = 64, the float rerank returns the top 10; warmed and served as in
-     phase 4, with exact launch counts per batch, the first batch against
-     the CPU plain path (stage-1 pools identical), and its hit@10 held to
-     >= 0.95 x the flat path's;
+     p2 = 64 (1 quantized_maxsim launch), the float rerank returns the
+     top 10; warmed and served as in phase 4, with exact launch counts per
+     batch, the first batch against the CPU plain path (stage-1 pools
+     identical), and its hit@10 held to >= 0.95 x the flat path's;
   6. times with CUDA events after warm-up (CUDA-graph replays of many
      launches, so host overhead is not counted), beside each kernel's
-     bound, printed as one ``{"kernels": [...]}`` JSON line; one cascade
-     batch split into its three stages (host wall and device time, a
-     ``{"cascade_stages_ms": ...}`` line); and kmeans_assign held to its
+     bound, printed as one ``{"kernels": [...]}`` JSON line
+     (quantized_maxsim: the flat sweep, the rerank and stage 2, beside the
+     shared-memory load bound as well); one cascade batch split into its
+     three stages and one flat batch into its sweep and rerank (host wall
+     and device time, ``{"cascade_stages_ms": ...}`` and
+     ``{"flat_search_ms": ...}`` lines); and kmeans_assign held to its
      plain version again at the build's own shape (16,777,216 x 128, 2^31
      elements).
 
@@ -133,14 +140,38 @@ def _time_ms(torch, fn, reps: int) -> float:
     return ms
 
 
-def _qmaxsim_cost(table, codes, mask):
+def _split(torch, fns, walls_of: int = 9):
+    """Host wall and device time of each search part in ``fns``: the wall
+    is the median of ``walls_of`` calls, each ending in a synchronize; the
+    device time is the same part's kernels, merges and gathers replayed
+    from a CUDA graph (so no host time). Prints and returns
+    {name: {"host_wall": ms, "device": ms}}."""
+    import numpy as np
+    out = {}
+    for name, fn in fns.items():
+        walls = []
+        for _ in range(walls_of):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        out[name] = {"host_wall": float(np.median(walls)),
+                     "device": _time_ms(torch, fn, 3)}
+        print(f"{name}: host wall {out[name]['host_wall']:.3f} ms, device "
+              f"{out[name]['device']:.3f} ms")
+    return out
+
+
+def _qmaxsim_cost(table, codes, mask, io_bytes):
     """(bytes, masked max-lookups) one quantized_maxsim call needs: every
-    input read once, the output written once; lookups over valid slots."""
+    input read once, the output written once (``io_bytes``: the output and
+    any input besides table, q_mask, codes and mask); lookups over valid
+    slots."""
     b, mq, _ = table.shape
-    n = codes.shape[-2]
     n_bytes = (table.numel() * 4 + b * mq * 4
                + codes.numel() * codes.element_size()
-               + mask.numel() * mask.element_size() + b * n * 4)
+               + mask.numel() * mask.element_size() + io_bytes)
     valid = int(mask.sum())
     lookups = mq * valid * (1 if codes.dim() == 3 else b)
     return n_bytes, lookups
@@ -206,6 +237,7 @@ def main(argv=None) -> int:
     from repro_torch import state_to
     from repro_torch.core import index as index_mod
     from repro_torch.core import pruning
+    from repro_torch.core import scan as scan_mod
     from repro_torch.core import late_interaction as li
     from repro_torch.core.binary import packed_nbytes
     from repro_torch.data.synthetic import CorpusSpec
@@ -319,6 +351,61 @@ def main(argv=None) -> int:
     assert torch.allclose(dead_got.double(), expect.expand_as(dead_got),
                           rtol=1e-5, atol=0), "all-masked docs != sum qm*-1e30"
 
+    # quantized_maxsim's per-range top-k: the kernel's range lists against
+    # the plain version's, at the flat sweep's, the rerank's and stage 2's
+    # shapes (the launch's own range length) and at edge shapes, each with
+    # invalid slots and all-masked docs; scores within 1e-4 and positions
+    # equal outside near-ties
+    def adc_inputs(b, mq, k_cb, lead, md, dtype=torch.uint8):
+        tab = li.adc_table(unit(b, mq, DIM), unit(k_cb, DIM)).contiguous()
+        qmask = (torch.rand((b, mq), generator=gen, device=dev)
+                 < 0.95).float()
+        return (tab, qmask) + codes_mask(*lead, md, k=k_cb, dtype=dtype)
+
+    def with_holes(tab, qmask, c, m):
+        m[..., 1::7, :] = False                          # all-masked docs
+        v = torch.rand(c.shape[:-1], generator=gen, device=dev) > 0.05
+        return tab, qmask, c, m, v
+
+    rr_v = torch.rand((MAX_BATCH, 2 * RERANK), generator=gen,
+                      device=dev)[:, RERANK // 2:RERANK // 2 + RERANK] > 0.05
+    topk_cases = (
+        ("flat sweep", with_holes(table, q_mask,
+                                  *codes_mask(N_DOCS, md_kept)), RERANK,
+         None),
+        ("rerank (per-query, strided)", (table, q_mask, rr_c, rr_m, rr_v),
+         RERANK, None),
+        ("stage-2 pools", with_holes(table, q_mask, *codes_mask(
+            MAX_BATCH, P1, md_kept)), P2, None),
+        ("ragged, k > R", with_holes(*adc_inputs(3, N_Q_PATCHES, K, (100,),
+                                                 md_kept)), 20, 16),
+        ("k > N", with_holes(*adc_inputs(2, 8, 64, (5,), 40)), 12, 8),
+        ("Mq 5, per-query", with_holes(*adc_inputs(3, 5, 64, (3, 70), 17)),
+         7, 32),
+        ("Mq 40", with_holes(*adc_inputs(2, 40, 128, (90,), 33)), 9, 16),
+        ("K 512 uint16, per-query", with_holes(*adc_inputs(
+            2, 16, 512, (2, 60), 32, torch.uint16)), 10, 16))
+    for name, inputs, k_top, r in topk_cases:
+        b_, n_ = inputs[0].shape[0], inputs[2].shape[-2]
+        r = r if r is not None else qm.launch_range_len(b_, n_, dev)
+        got = qm.quantized_maxsim_topk_cuda(*inputs, k=k_top, range_len=r)
+        want = qm.quantized_maxsim_topk_plain(*inputs, k=k_top, range_len=r)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0], want[0], atol=QMAXSIM_TOL,
+                                   rtol=QMAXSIM_TOL)
+        kk = got[0].shape[-1]
+        g_s, g_p, w_s, w_p = (t.reshape(-1, kk).cpu().numpy()
+                              for t in (*got, *want))
+        bad = topk_mismatches(g_p, g_s, w_p, w_s, QMAXSIM_TOL)
+        assert not bad, f"quantized_maxsim_topk {name}: positions {bad[:5]}"
+        live = want[0] > li.NEG_INF
+        err = float((got[0] - want[0]).abs()[live].max())
+        qm_abs_err = max(qm_abs_err, err)
+        print(f"quantized_maxsim_topk {name}: {tuple(inputs[2].shape)} "
+              f"k={k_top} R={r} -> lists {tuple(got[0].shape)}, max |err| "
+              f"{err:.3e} over live docs, positions equal outside near-ties")
+    del topk_cases
+
     # hamming_maxsim, bit for bit: stage 1's block (uint16 codes, as the
     # HammingIndex stores them), ragged, all-masked, strided per-query
     # pools, and 9-bit codes of a K=512 codebook
@@ -410,7 +497,7 @@ def main(argv=None) -> int:
     st = run.stats
     n_batches = sum(v["batches"] for v in st["rungs"].values())
     n_warm = len(run.ladder)
-    per_batch = math.ceil(N_DOCS / BLOCK_DOCS) + 1
+    per_batch = 2                    # one sweep launch + one rerank launch
     print(f"build {run.build_s:.2f}s | storage {run.storage} | ladder "
           f"{run.ladder} warmed in {run.warm_s:.3f}s | served "
           f"{st['n']} requests in {run.serve_s:.3f}s, {st['qps']:.1f} QPS, "
@@ -434,9 +521,10 @@ def main(argv=None) -> int:
     check_first_batch(run, cpu_state, QMAXSIM_TOL)
     print(f"first batch == CPU plain path (ids outside near-ties, scores "
           f"within {QMAXSIM_TOL}); CPU search {time.perf_counter() - t1:.1f}s")
-    # what phase 6 times the scan kernel on; the rest of the run is freed
-    flat = s.backend_state
-    rr_codes_all, rr_mask_all = s.rerank_codes, s.rerank_mask
+    # what phase 6 times the kernel and splits the search on; the rest of
+    # the run is freed
+    flat_s, flat_retriever = s, run.retriever
+    flat_batch_ms = run.serve_s / n_batches * 1e3
     flat_hit, flat_recall = run.hit_rate, run.recall
     del run, s, cpu_state
     torch.cuda.empty_cache()
@@ -458,11 +546,11 @@ def main(argv=None) -> int:
     st = run.stats
     n_batches_c = sum(v["batches"] for v in st["rungs"].values())
     n_warm_c = len(run.ladder)
-    # per searched batch: stage 1 sweeps N in blocks, stage 2 the p1 pool,
-    # stage 3 the p2 pool; stage 1 quantizes the queries once; the build
-    # quantizes the corpus once
+    # per searched batch: stage 1 sweeps N in blocks, stage 2 the p1 pool
+    # in one launch, stage 3 the p2 pool; stage 1 quantizes the queries
+    # once; the build quantizes the corpus once
     casc_per_batch = {"hamming_maxsim": math.ceil(N_DOCS / BLOCK_DOCS),
-                      "quantized_maxsim": math.ceil(P1 / BLOCK_DOCS),
+                      "quantized_maxsim": 1,
                       "maxsim": math.ceil(P2 / BLOCK_DOCS),
                       "kmeans_assign": 1}
     casc_expect = {name: (n_batches_c + n_warm_c) * n
@@ -529,12 +617,80 @@ def main(argv=None) -> int:
 
     # -- 6. kmeans_assign at the build's shape, then times -------------------
     t0 = _phase("kmeans_assign at the build's shape; times")
-    # quantized_maxsim on the flat path's index
+    # quantized_maxsim on the flat path's index: one sweep's launch (the
+    # per-range top-k at the search's k = the rerank's over-fetch), the
+    # same sweep through the scan (table, launch, merge), the scores-only
+    # entry over the whole corpus, and the rerank's per-query pools
+    flat = flat_s.backend_state
     codes, mask = flat.codes, flat.mask
     table = li.adc_table(q.to(dev), flat.codebook).contiguous()
     qmf = q_m.to(dev).float().contiguous()
-    blocks = [(codes[i:i + BLOCK_DOCS], mask[i:i + BLOCK_DOCS])
-              for i in range(0, N_DOCS, BLOCK_DOCS)]
+    all_valid = torch.ones(N_DOCS, dtype=torch.bool, device=dev)
+    sweep_r = qm.launch_range_len(MAX_BATCH, N_DOCS, dev)
+
+    def topk_fn(tab, c, m, v, k_top, fn=qm.quantized_maxsim_topk_cuda,
+                r=None):
+        """One per-range top-k call, by default at the launch's own range
+        length."""
+        r = r or qm.launch_range_len(MAX_BATCH, c.shape[-2], dev)
+        return lambda: fn(tab, qmf, c, m, v, k=k_top, range_len=r)
+
+    def by_range(tab, c, m, v, k_top, reps):
+        """The kernel's ms at half, once and twice the launch's range
+        length: the evidence for launch_range_len's choice."""
+        r = qm.launch_range_len(MAX_BATCH, c.shape[-2], dev)
+        return {rr: _time_ms(torch, topk_fn(tab, c, m, v, k_top, r=rr), reps)
+                for rr in (r // 2, r, 2 * r) if 1 <= rr <= qm.MAX_RANGE}
+
+    def topk_cost(tab, c, m, v, k_top):
+        """_qmaxsim_cost of one per-range top-k call: valid read once, the
+        (score, position) lists written once."""
+        n_ = c.shape[-2]
+        r = qm.launch_range_len(MAX_BATCH, n_, dev)
+        lists = MAX_BATCH * -(-n_ // r) * min(k_top, r) * 8
+        return _qmaxsim_cost(tab, c, m, v.numel() * v.element_size() + lists)
+
+    sweep_ms = _time_ms(torch, topk_fn(table, codes, mask, all_valid,
+                                       RERANK), 20)
+    sweep_plain_ms = _time_ms(torch, topk_fn(
+        table, codes, mask, all_valid, RERANK,
+        qm.quantized_maxsim_topk_plain), 2)
+    sweep_by_range = by_range(table, codes, mask, all_valid, RERANK, 10)
+    # the same sweep with one query per block (the design two queries per
+    # block replaced): timed beside it, in this run
+    sweep_one_q_ms = _time_ms(torch, lambda: qm.quantized_maxsim_topk_cuda(
+        table, qmf, codes, mask, all_valid, k=RERANK,
+        max_queries_per_block=1), 20)
+    sweep_bytes, sweep_ops = topk_cost(table, codes, mask, all_valid, RERANK)
+    sweep_bound, sweep_by = _bound(sweep_bytes, sweep_ops)
+    sweep_lds_bound = sweep_ops / lds_per_s * 1e3
+    q_dev, q_m_dev = q.to(dev), q_m.to(dev)
+    sweep_merge_ms = _time_ms(torch, lambda: scan_mod.quantized_maxsim_topk(
+        q_dev, q_m_dev, codes, mask, flat.codebook, k=RERANK,
+        doc_ids=flat.doc_ids), 20)
+    scores_ms = _time_ms(
+        torch, lambda: qm.quantized_maxsim_cuda(table, qmf, codes, mask), 20)
+    ids = torch.arange(RERANK, device=dev).repeat(MAX_BATCH, 1) * 17
+    rr_codes = flat_s.rerank_codes[ids]
+    rr_mask = flat_s.rerank_mask[ids]
+    rr_valid = ids >= 0
+    rr_ms = _time_ms(torch, topk_fn(table, rr_codes, rr_mask, rr_valid,
+                                    TOP_K), 200)
+    rr_plain_ms = _time_ms(torch, topk_fn(
+        table, rr_codes, rr_mask, rr_valid, TOP_K,
+        qm.quantized_maxsim_topk_plain), 20)
+    rr_by_range = by_range(table, rr_codes, rr_mask, rr_valid, TOP_K, 100)
+    rr_bytes, rr_ops = topk_cost(table, rr_codes, rr_mask, rr_valid, TOP_K)
+    rr_bound, _ = _bound(rr_bytes, rr_ops)
+    rr_lds_bound = rr_ops / lds_per_s * 1e3
+    del codes, mask, rr_codes, rr_mask
+
+    # hamming_maxsim on the cascade's stage 1 (the first batch's codes)
+    qc32 = q_codes.to(torch.int32).contiguous()
+    qw32 = q_m.to(dev).to(torch.int32).contiguous()
+    h_blocks = [(idx.codes[i:i + BLOCK_DOCS], idx.mask[i:i + BLOCK_DOCS])
+                for i in range(0, N_DOCS, BLOCK_DOCS)]
+    h_blk = h_blocks[0]
 
     def scan(score, blks):
         """One sweep's kernel launches, without the merges."""
@@ -543,36 +699,6 @@ def main(argv=None) -> int:
                 score(c, m)
         return run_blocks
 
-    scan_ms = _time_ms(torch, scan(
-        lambda c, m: qm.quantized_maxsim_cuda(table, qmf, c, m), blocks), 10)
-    scan_plain_ms = _time_ms(torch, scan(
-        lambda c, m: qm.quantized_maxsim_plain(table, qmf, c, m), blocks), 2)
-    blk_bytes, blk_ops = _qmaxsim_cost(table, *blocks[0])
-    blk_bound, blk_by = _bound(blk_bytes, blk_ops)
-    blk_lds_bound = blk_ops / lds_per_s * 1e3
-    full_bytes, full_ops = _qmaxsim_cost(table, codes, mask)
-    full_bound, _ = _bound(full_bytes, full_ops)
-    full_lds_bound = full_ops / lds_per_s * 1e3
-    full_ms = _time_ms(
-        torch, lambda: qm.quantized_maxsim_cuda(table, qmf, codes, mask), 20)
-    ids = torch.arange(RERANK, device=dev).repeat(MAX_BATCH, 1) * 17
-    rr_codes = rr_codes_all[ids]
-    rr_mask = rr_mask_all[ids]
-    rr_ms = _time_ms(torch, lambda: qm.quantized_maxsim_cuda(
-        table, qmf, rr_codes, rr_mask), 200)
-    rr_plain_ms = _time_ms(torch, lambda: qm.quantized_maxsim_plain(
-        table, qmf, rr_codes, rr_mask), 20)
-    rr_bound, _ = _bound(*_qmaxsim_cost(table, rr_codes, rr_mask))
-    n_blocks = len(blocks)
-    del flat, codes, mask, blocks, rr_codes, rr_mask, rr_codes_all, \
-        rr_mask_all
-
-    # hamming_maxsim on the cascade's stage 1 (the first batch's codes)
-    qc32 = q_codes.to(torch.int32).contiguous()
-    qw32 = q_m.to(dev).to(torch.int32).contiguous()
-    h_blocks = [(idx.codes[i:i + BLOCK_DOCS], idx.mask[i:i + BLOCK_DOCS])
-                for i in range(0, N_DOCS, BLOCK_DOCS)]
-    h_blk = h_blocks[0]
     ham_ms = _time_ms(torch, lambda: hm.hamming_maxsim_cuda(
         qc32, qw32, *h_blk, BITS), 200)
     ham_plain_ms = _time_ms(torch, lambda: hm.hamming_maxsim_plain(
@@ -625,17 +751,22 @@ def main(argv=None) -> int:
 
     # quantized_maxsim on stage 2's first per-query block of the p1 pool
     fm = s.backend_state.members[1]
-    safe1 = torch.clamp(ids1, min=0).to(torch.int64)[:, :BLOCK_DOCS]
-    s2_codes, s2_mask = fm.codes[safe1], fm.mask[safe1]
+    safe1 = torch.clamp(ids1, min=0).to(torch.int64)
+    s2_codes, s2_mask, s2_valid = fm.codes[safe1], fm.mask[safe1], ids1 >= 0
     table_c = li.adc_table(qf, fm.codebook).contiguous()
-    s2_ms = _time_ms(torch, lambda: qm.quantized_maxsim_cuda(
-        table_c, qmf, s2_codes, s2_mask), 200)
-    s2_bound, _ = _bound(*_qmaxsim_cost(table_c, s2_codes, s2_mask))
+    s2_ms = _time_ms(torch, topk_fn(table_c, s2_codes, s2_mask, s2_valid,
+                                    P2), 100)
+    s2_plain_ms = _time_ms(torch, topk_fn(
+        table_c, s2_codes, s2_mask, s2_valid, P2,
+        qm.quantized_maxsim_topk_plain), 5)
+    s2_by_range = by_range(table_c, s2_codes, s2_mask, s2_valid, P2, 50)
+    s2_bytes, s2_ops = topk_cost(table_c, s2_codes, s2_mask, s2_valid, P2)
+    s2_bound, _ = _bound(s2_bytes, s2_ops)
+    s2_lds_bound = s2_ops / lds_per_s * 1e3
 
-    # one cascade batch (the first served one) split into its stages: host
-    # wall time, each stage ending in a synchronize (median of 5), beside
-    # device time, the same stage's kernels, merges and gathers replayed
-    # from a CUDA graph (so no host time)
+    # one cascade batch (the first served one) split into its stages, and
+    # one flat batch into its sweep and rerank (the first batch's queries
+    # on the flat path's state); see _split
     ff_b, ff_v = casc._views(s)[2]
     stage_fns = {
         "stage 1 (hamming prefilter, p1)": lambda: ham_b.search(
@@ -645,24 +776,24 @@ def main(argv=None) -> int:
         "stage 3 (float rerank, top-k)": lambda: ff_b.search_candidates(
             ff_v, qg, ids2, k=TOP_K),
         "whole search": lambda: run.retriever.search(s, qg, k=TOP_K)}
-    stage_wall, stage_dev = {}, {}
-    for name, fn in stage_fns.items():
-        walls = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t1) * 1e3)
-        stage_wall[name] = float(np.median(walls))
-        stage_dev[name] = _time_ms(torch, fn, 3)
-        print(f"{name}: host wall {stage_wall[name]:.3f} ms, device "
-              f"{stage_dev[name]:.3f} ms")
+    stage_ms = _split(torch, stage_fns)
     print(f"served cascade batch: {run.serve_s / n_batches_c * 1e3:.1f} ms "
           f"of serving window per batch")
+    f_backend = flat_retriever.backend
+    _, f_ids = f_backend.search(flat_s, qg, k=RERANK, scan=cfg.scan)
+    flat_fns = {
+        f"sweep (ADC top-{RERANK} over {N_DOCS} docs)": lambda: (
+            f_backend.search(flat_s, qg, k=RERANK, scan=cfg.scan)),
+        f"rerank ({RERANK} per query -> top-{TOP_K})": lambda: (
+            flat_retriever._rerank(flat_s, qg, f_ids, k=TOP_K)),
+        "whole search": lambda: flat_retriever.search(flat_s, qg, k=TOP_K)}
+    flat_ms = _split(torch, flat_fns)
+    print(f"served flat batch: {flat_batch_ms:.1f} ms of serving window per "
+          f"batch")
     del run, s, casc, ham_v, flat_v, ff_v, ff, fm, idx, h_blocks, h_blk, \
+        flat_s, flat_retriever, flat, f_ids, \
         pool_emb, pool_mask, pool_flat, f_blk, f_blk_m, fblk_flat, s2_codes, \
-        s2_mask
+        s2_mask, s2_valid
     torch.cuda.empty_cache()
 
     n_rows = N_DOCS * N_PATCHES
@@ -700,23 +831,25 @@ def main(argv=None) -> int:
          "launches": launches("quantized_maxsim"),
          "launches_by_path": per_path("quantized_maxsim"),
          "max_abs_err": qm_abs_err,
-         "ms": scan_ms / n_blocks, "plain_ms": scan_plain_ms / n_blocks,
-         "bound_ms": blk_bound, "bound_by": blk_by, "library_ms": None,
-         "ms_over_bound": scan_ms / n_blocks / blk_bound,
-         "lds_bound_ms": blk_lds_bound,
-         "ms_over_lds_bound": scan_ms / n_blocks / blk_lds_bound,
-         "shape": f"one scan block: B={MAX_BATCH} Mq={N_Q_PATCHES} K={K} "
-                  f"{BLOCK_DOCS} docs x Md={md_kept} (mean of the "
-                  f"{n_blocks} blocks of a {N_DOCS}-doc scan)",
-         "scan_ms_per_batch": scan_ms,
-         "scan_plain_ms_per_batch": scan_plain_ms,
-         "one_launch_full_scan_ms": full_ms,
-         "full_scan_bound_ms": full_bound,
-         "full_scan_lds_bound_ms": full_lds_bound,
+         "ms": sweep_ms, "plain_ms": sweep_plain_ms,
+         "bound_ms": sweep_bound, "bound_by": sweep_by, "library_ms": None,
+         "ms_over_bound": sweep_ms / sweep_bound,
+         "lds_bound_ms": sweep_lds_bound,
+         "ms_over_lds_bound": sweep_ms / sweep_lds_bound,
+         "shape": f"one flat sweep, per-range top-{RERANK} in one launch: "
+                  f"B={MAX_BATCH} Mq={N_Q_PATCHES} K={K} {N_DOCS} docs x "
+                  f"Md={md_kept}, ranges of {sweep_r}",
+         "sweep_ms_by_range_len": sweep_by_range,
+         "sweep_one_query_per_block_ms": sweep_one_q_ms,
+         "sweep_with_table_and_merge_ms": sweep_merge_ms,
+         "scores_only_full_corpus_ms": scores_ms,
          "rerank_ms": rr_ms, "rerank_plain_ms": rr_plain_ms,
-         "rerank_bound_ms": rr_bound,
-         "cascade_stage2_block_ms": s2_ms,
-         "cascade_stage2_block_bound_ms": s2_bound},
+         "rerank_bound_ms": rr_bound, "rerank_lds_bound_ms": rr_lds_bound,
+         "rerank_ms_by_range_len": rr_by_range,
+         "cascade_stage2_ms": s2_ms, "cascade_stage2_plain_ms": s2_plain_ms,
+         "cascade_stage2_bound_ms": s2_bound,
+         "cascade_stage2_lds_bound_ms": s2_lds_bound,
+         "cascade_stage2_ms_by_range_len": s2_by_range},
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
          "replaces": "src/repro/kernels/kmeans_assign.py:58",
@@ -764,9 +897,8 @@ def main(argv=None) -> int:
          "float_flat_block_bound_by": fblk_by,
          "float_flat_block_matmul_only_yardstick_ms": fblk_mm_ms},
     ]
-    print(json.dumps({"cascade_stages_ms": {
-        name: {"host_wall": stage_wall[name], "device": stage_dev[name]}
-        for name in stage_fns}}))
+    print(json.dumps({"cascade_stages_ms": stage_ms}))
+    print(json.dumps({"flat_search_ms": flat_ms}))
     print(f"total {time.perf_counter() - t_all:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

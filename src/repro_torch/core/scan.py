@@ -1,19 +1,30 @@
 """Streaming scan engine: blocked score + top-k fusion, in PyTorch.
 
-The counterpart of ``repro.core.scan``. The corpus is swept in fixed-size
-doc blocks; each block is scored by a MaxSim kernel, quantized (ADC),
-float or binary (Hamming): the CUDA kernel for CUDA tensors, its plain
-version for CPU tensors (see ``resolve_impl``). Each block's scores fold
-into a running (B, k) top-k merge buffer, so neither the (B, Mq, N, Md)
-similarity tensor nor the (B, N) score matrix ever exists. Peak scan
-memory is O(B * block_docs) on the kernel path and
-O(B * Mq * block_docs * Md) on the plain path.
+The counterpart of ``repro.core.scan``. The corpus is swept by a MaxSim
+kernel, quantized (ADC), float or binary (Hamming): the CUDA kernel for
+CUDA tensors, its plain version for CPU tensors (see ``resolve_impl``).
+Neither the (B, Mq, N, Md) similarity tensor nor the (B, N) score matrix
+ever exists:
 
-Numerical contract, as in the reference: blocks are visited in doc order
-and the carried buffer sits before the new block in every merge, and the
-merge is a *stable* descending sort, so equal scores resolve to the lowest
-doc position exactly as one global ``lax.top_k`` would (``torch.topk``
-promises no order among equal values, so it is not used).
+  * the float and Hamming sweeps score fixed-size doc blocks, one launch
+    each, and fold each block into a running (B, k) top-k merge buffer;
+  * the ADC sweep (``quantized_maxsim_topk``) scores contiguous ranges of
+    positions and keeps each range's top min(k, R) (score, position)
+    pairs; on a CUDA tensor one launch does every range of the sweep, and
+    the ranges' lists are merged once. Its candidate buffer is
+    (B, ranges x min(k, R)), at most MAX_CANDIDATES entries per merge.
+
+Peak scan memory is O(B * block_docs) on the float and Hamming kernel
+paths, O(MAX_CANDIDATES) on the ADC kernel path, and
+O(B * Mq * block_docs * Md) on the plain paths.
+
+Numerical contract, as in the reference: positions are visited in doc
+order and the carried buffer sits before the new candidates in every
+merge, and the merge is a *stable* descending sort, so equal scores
+resolve to the lowest doc position exactly as one global ``lax.top_k``
+would (``torch.topk`` promises no order among equal values, so it is not
+used). The ADC ranges' lists are ordered by score, then position, and go
+into the merge in range order, which keeps that tie order.
 
 The two layouts:
 
@@ -21,8 +32,7 @@ The two layouts:
     every doc (flat, float_flat, hamming);
   * per-query candidates — codes (B, P, Md) / docs (B, P, Md, D): each
     query scores its own pool (the facade rerank, the cascade's stages 2
-    and 3). Each block goes to the kernel in one launch, through the
-    pool's batch stride.
+    and 3). The kernels take a pool slice through its batch stride.
 
 Sentinel contract: rows beyond the valid pool carry doc id -1 and the
 merge-buffer init score (-inf for float scores, the int32 minimum for
@@ -45,12 +55,22 @@ from repro_torch.kernels import quantized_maxsim as qmaxsim_k
 NEG_INF = li.NEG_INF
 Tensor = torch.Tensor
 
+# Candidate entries (B x ranges x per-range k) the ADC sweep merges at
+# once: 2^22, 16 MiB of scores and 16 MiB of positions. At the serve cell
+# (B=8, N=4,194,304, k=32, 256-doc ranges) one sweep is one chunk.
+MAX_CANDIDATES = 1 << 22
+
 
 @dataclasses.dataclass(frozen=True)
 class ScanConfig:
     """Knobs of the streaming scan.
 
-    block_docs: documents scored per sweep step (one kernel launch).
+    block_docs: documents scored per sweep step. The float and Hamming
+        sweeps launch their kernel once per block on either path; the
+        plain ADC sweep scores one block per step and keeps its top k. The
+        CUDA ADC sweep does not read it: its kernel scores the whole sweep
+        in one launch, over ranges whose length it picks from the shape
+        (``kernels.quantized_maxsim.launch_range_len``).
     impl: "auto" (the CUDA kernel for CUDA tensors, the plain version for
         CPU tensors) or "plain".
     """
@@ -83,6 +103,28 @@ def score_sentinel(dtype: torch.dtype):
     return torch.iinfo(dtype).min
 
 
+def _init_buffer(b: int, k: int, score_dtype: torch.dtype, device,
+                 carry: Optional[Tuple[Tensor, Tensor]]
+                 ) -> Tuple[Tensor, Tensor]:
+    """The (B, k) merge buffer: ``carry``, or sentinel scores and id -1."""
+    if carry is not None:
+        return carry[0].to(score_dtype), carry[1].to(torch.int32)
+    return (torch.full((b, k), score_sentinel(score_dtype), dtype=score_dtype,
+                       device=device),
+            torch.full((b, k), -1, dtype=torch.int32, device=device))
+
+
+def _merge(top_s: Tensor, top_i: Tensor, s: Tensor, ids: Tensor, k: int
+           ) -> Tuple[Tensor, Tensor]:
+    """Fold candidates (B, T) into the (B, k) buffer: one stable descending
+    sort of [buffer, candidates], so ties keep the buffer first and then
+    the candidates' order."""
+    cat_s = torch.cat([top_s, s], dim=1)
+    cat_i = torch.cat([top_i, ids], dim=1)
+    srt, sel = torch.sort(cat_s, dim=1, descending=True, stable=True)
+    return srt[:, :k], torch.gather(cat_i, 1, sel[:, :k])
+
+
 def _streaming_topk(score_block: Callable[..., Tensor], payload: tuple,
                     doc_ids: Tensor, valid: Tensor, *, b: int, n: int,
                     k: int, block_docs: int, per_query: bool,
@@ -97,14 +139,8 @@ def _streaming_topk(score_block: Callable[..., Tensor], payload: tuple,
     (scores (B, k), ids (B, k)); it sits first in every merge, so ties
     resolve to the carried (earlier) documents.
     """
-    device = doc_ids.device
     sent = score_sentinel(score_dtype)
-    if carry is not None:
-        top_s = carry[0].to(score_dtype)
-        top_i = carry[1].to(torch.int32)
-    else:
-        top_s = torch.full((b, k), sent, dtype=score_dtype, device=device)
-        top_i = torch.full((b, k), -1, dtype=torch.int32, device=device)
+    top_s, top_i = _init_buffer(b, k, score_dtype, doc_ids.device, carry)
     if n == 0:
         return top_s, top_i
     block = max(1, min(block_docs, n))
@@ -123,11 +159,7 @@ def _streaming_topk(score_block: Callable[..., Tensor], payload: tuple,
         ids = ids.expand(s.shape)
         s = torch.where(v, s, invalid_score)
         ids = torch.where(v, ids, -1)
-        cat_s = torch.cat([top_s, s], dim=1)
-        cat_i = torch.cat([top_i, ids], dim=1)
-        srt, sel = torch.sort(cat_s, dim=1, descending=True, stable=True)
-        top_s = srt[:, :k]
-        top_i = torch.gather(cat_i, 1, sel[:, :k])
+        top_s, top_i = _merge(top_s, top_i, s, ids, k)
     return top_s, top_i
 
 
@@ -156,25 +188,48 @@ def quantized_maxsim_topk(q: Tensor, q_mask: Tensor, codes: Tensor,
     optional valid ((N,) or (B, P)) marks real pool slots; optional
     carry seeds the merge buffer with a previous sweep's (B, k) result.
     -> (scores (B, k) f32, doc_ids (B, k) int32).
+
+    The positions are cut into ranges (``block_docs`` long on the plain
+    path, ``launch_range_len`` on the CUDA path), each range keeps its top
+    min(k, R), and the ranges' lists are merged into the buffer in range
+    order: on a CUDA tensor one launch and one merge per sweep, unless the
+    lists would pass MAX_CANDIDATES entries, when each chunk of ranges
+    takes its own launch and merge.
     """
     scan = scan if scan is not None else DEFAULT
     mode = resolve_impl(scan.impl, codes.device)
     per_query = codes.dim() == 3
     b = q.shape[0]
     n = codes.shape[1] if per_query else codes.shape[0]
+    top_s, top_i = _init_buffer(b, k, torch.float32, codes.device, carry)
+    if n == 0:
+        return top_s, top_i
     table = li.adc_table(q, codebook).contiguous()            # (B, Mq, K)
     q_mask_f = q_mask.to(torch.float32).contiguous()
     doc_ids, valid = _prep(n, doc_ids, valid, per_query, b, codes.device)
-    kernel = (qmaxsim_k.quantized_maxsim_cuda if mode == "cuda"
-              else qmaxsim_k.quantized_maxsim_plain)
-
-    def score_block(c, m):
-        return kernel(table, q_mask_f, c, m)
-
-    return _streaming_topk(score_block, (codes, d_mask), doc_ids, valid,
-                           b=b, n=n, k=k, block_docs=scan.block_docs,
-                           per_query=per_query, score_dtype=torch.float32,
-                           carry=carry)
+    doc_ids = doc_ids.to(torch.int32)
+    if mode == "cuda":
+        r = qmaxsim_k.launch_range_len(b, n, codes.device)
+        lists = qmaxsim_k.quantized_maxsim_topk_cuda
+    else:
+        r = max(1, min(scan.block_docs, n))
+        lists = qmaxsim_k.quantized_maxsim_topk_plain
+    # positions per launch and merge: whole ranges, the lists within bound
+    chunk = r * max(1, MAX_CANDIDATES // max(1, b * min(k, r)))
+    axis = 1 if per_query else 0
+    for start in range(0, n, chunk):
+        t = min(chunk, n - start)
+        s, pos = lists(table, q_mask_f, codes.narrow(axis, start, t),
+                       d_mask.narrow(axis, start, t),
+                       valid.narrow(valid.dim() - 1, start, t), k=k,
+                       range_len=r)
+        pos = pos.reshape(b, -1)
+        ids = doc_ids.narrow(doc_ids.dim() - 1, start, t)
+        safe = torch.clamp(pos, min=0).to(torch.int64)
+        ids = ids[safe] if ids.dim() == 1 else torch.gather(ids, 1, safe)
+        top_s, top_i = _merge(top_s, top_i, s.reshape(b, -1),
+                              torch.where(pos >= 0, ids, -1), k)
+    return top_s, top_i
 
 
 def maxsim_topk(q: Tensor, q_mask: Tensor, docs: Tensor, d_mask: Tensor, *,

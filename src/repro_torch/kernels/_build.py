@@ -53,9 +53,11 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # every exported function: (argtypes, restype)
 _SIGNATURES = {
-    "hpc_qmaxsim": ([_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _P],
-                    _I),
-    "hpc_qmaxsim_smem_bytes": ([_I, _I, _I], _LL),
+    "hpc_qmaxsim": ([_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _I,
+                     _P], _I),
+    "hpc_qmaxsim_topk": ([_P, _P, _P, _I, _P, _P, _LL, _P, _P, _I, _I, _I, _I,
+                          _I, _LL, _LL, _I, _I, _I, _P], _I),
+    "hpc_qmaxsim_smem_bytes": ([_I, _I, _I, _I, _I], _LL),
     "hpc_kmeans_assign": ([_P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
     "hpc_kmeans_assign_smem_bytes": ([_I, _I], _LL),
     "hpc_hamming_maxsim": ([_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL,

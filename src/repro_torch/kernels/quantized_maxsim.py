@@ -1,4 +1,4 @@
-"""Fused ADC MaxSim: the CUDA kernel's wrapper and its plain version.
+"""Fused ADC MaxSim: the CUDA kernel's wrappers and their plain versions.
 
     out[b, n] = sum_i qm[b, i] * max_{j : dm[n, j]} T[b, i, codes[n, j]]
 
@@ -6,19 +6,32 @@ The counterpart of ``repro.kernels.quantized_maxsim`` (the Pallas kernel
 ``quantized_maxsim_pallas``). The kernel is ``csrc/quantized_maxsim.cu``;
 its source note says what bounds it on the H100 and how it is laid out.
 
-Both functions take the two layouts of the streaming scan:
+Two entries, each with a CUDA wrapper and a plain version:
+
+  * scores: ``quantized_maxsim_{cuda,plain}`` -> (B, N) scores;
+  * per-range top-k: ``quantized_maxsim_topk_{cuda,plain}`` split the N
+    positions into ranges of ``range_len`` and return each range's top
+    ``min(k, range_len)`` as (scores, positions) (B, ranges, min(k, R)),
+    ordered by score descending, then position ascending. Slots with
+    ``valid`` False score exactly NEG_INF with position -1; a range
+    shorter than k is padded with (-inf, -1). The streaming scan
+    (``core.scan.quantized_maxsim_topk``) merges the lists once per sweep.
+
+All take the two layouts of the streaming scan:
 
   * shared corpus — codes/d_mask (N, Md): every query scores every doc;
   * per-query pools — codes/d_mask (B, P, Md): query b scores its own P.
 
-``quantized_maxsim_cuda`` reads the codes (uint8, or uint16 for K > 256)
-and the bool mask as stored, so the scan never widens them in device
-memory; a slice of a per-query pool along P goes in as it is, through its
-batch stride. ``launches`` counts the kernel launches of this process.
+The CUDA wrappers read the codes (uint8, or uint16 for K > 256) and the
+bool mask as stored, so the scan never widens them in device memory; a
+slice of a per-query pool along P goes in as it is, through its batch
+stride. ``launches`` counts the kernel launches of both entries in this
+process.
 """
 from __future__ import annotations
 
 import threading
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,6 +40,33 @@ from repro_torch.kernels import _build
 
 launches = 0
 _count_lock = threading.Lock()
+
+# Range lengths of the CUDA launch: at most the kernel's shared score buffer
+# (256 slots). The launch takes the longest range that still gives every SM
+# BLOCKS_PER_SM (query, range) pairs, but no shorter than MIN_RANGE: a
+# block stages a 32 KB table whatever its range, so a block of a tiny pool
+# should still score a few documents. chip_smoke.py times the sweep, the
+# rerank and stage 2 at half, once and twice the chosen length.
+MAX_RANGE = 256
+MIN_RANGE = 2
+BLOCKS_PER_SM = 1
+
+_sm_count = {}
+
+
+def launch_range_len(b: int, n: int, device) -> int:
+    """The CUDA launch's range length for B queries over N positions: the
+    longest power of two in [MIN_RANGE, MAX_RANGE] whose B x ranges still
+    number BLOCKS_PER_SM for every SM of the card."""
+    device = torch.device(device)
+    if device not in _sm_count:
+        _sm_count[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    want = BLOCKS_PER_SM * _sm_count[device]
+    r = MAX_RANGE
+    while r > MIN_RANGE and b * -(-n // r) < want:
+        r //= 2
+    return r
 
 
 def quantized_maxsim_plain(table: torch.Tensor, q_mask: torch.Tensor,
@@ -53,20 +93,58 @@ def quantized_maxsim_plain(table: torch.Tensor, q_mask: torch.Tensor,
     return per_q.sum(dim=1)
 
 
-def quantized_maxsim_cuda(table: torch.Tensor, q_mask: torch.Tensor,
-                          codes: torch.Tensor,
-                          d_mask: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream; same contract as
-    ``quantized_maxsim_plain`` with table/q_mask float32 and contiguous,
-    codes uint8/uint16 and d_mask bool/uint8. Codes >= K score as masked
-    (quantize never produces them). Raises on anything else."""
-    global launches
+def quantized_maxsim_topk_plain(table: torch.Tensor, q_mask: torch.Tensor,
+                                codes: torch.Tensor, d_mask: torch.Tensor,
+                                valid: Optional[torch.Tensor], *, k: int,
+                                range_len: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-range top-k in plain PyTorch: the same lists as
+    ``quantized_maxsim_topk_cuda``. It scores one range at a time, so its
+    memory is that of ``quantized_maxsim_plain`` over ``range_len`` docs.
+
+    valid: None (all valid), (N,) or (B, N) bool.
+    -> (scores (B, ranges, min(k, R)) f32, positions of the same shape
+    int32).
+    """
+    b = table.shape[0]
+    per_query = codes.dim() == 3
+    n = codes.shape[-2]
+    r, kk = range_len, min(k, range_len)
+    n_ranges = -(-n // r)
+    out_s = torch.empty((b, n_ranges, kk), dtype=torch.float32,
+                        device=table.device)
+    out_p = torch.empty((b, n_ranges, kk), dtype=torch.int32,
+                        device=table.device)
+    axis = 1 if per_query else 0
+    for g in range(n_ranges):
+        start = g * r
+        t = min(r, n - start)
+        s = quantized_maxsim_plain(table, q_mask, codes.narrow(axis, start, t),
+                                   d_mask.narrow(axis, start, t))
+        pos = torch.arange(start, start + t, dtype=torch.int32,
+                           device=table.device).expand(b, t)
+        if valid is not None:
+            v = valid.narrow(valid.dim() - 1, start, t).expand(b, t)
+            s = torch.where(v, s, NEG_INF)
+            pos = torch.where(v, pos, -1)
+        if t < kk:                                 # pad a short range
+            s = torch.cat([s, s.new_full((b, kk - t), float("-inf"))], 1)
+            pos = torch.cat([pos, pos.new_full((b, kk - t), -1)], 1)
+        srt, sel = torch.sort(s, dim=1, descending=True, stable=True)
+        out_s[:, g] = srt[:, :kk]
+        out_p[:, g] = torch.gather(pos, 1, sel[:, :kk])
+    return out_s, out_p
+
+
+def _check_inputs(name: str, table: torch.Tensor, q_mask: torch.Tensor,
+                  codes: torch.Tensor, d_mask: torch.Tensor):
+    """Raise on what the kernel does not take; -> (b, mq, k, n, md, codes'
+    batch stride, d_mask's batch stride)."""
     if table.device.type != "cuda":
-        raise ValueError(f"quantized_maxsim_cuda needs CUDA tensors, got "
-                         f"{table.device}")
-    for name, t in (("q_mask", q_mask), ("codes", codes), ("d_mask", d_mask)):
+        raise ValueError(f"{name} needs CUDA tensors, got {table.device}")
+    for arg, t in (("q_mask", q_mask), ("codes", codes), ("d_mask", d_mask)):
         if t.device != table.device:
-            raise ValueError(f"{name} is on {t.device}, table on "
+            raise ValueError(f"{arg} is on {t.device}, table on "
                              f"{table.device}")
     if table.dtype != torch.float32 or q_mask.dtype != torch.float32:
         raise ValueError("table and q_mask must be float32")
@@ -83,32 +161,113 @@ def quantized_maxsim_cuda(table: torch.Tensor, q_mask: torch.Tensor,
     if codes.dim() == 3:
         _, n, md = codes.shape
         _build.check_layout("codes", codes, (b, n, md), batch_strided=True)
-        code_bstride = codes.stride(0)
     elif codes.dim() == 2:
         n, md = codes.shape
         _build.check_layout("codes", codes, (n, md))
-        code_bstride = 0
     else:
         raise ValueError(f"codes must be (N, Md) or (B, P, Md), got "
                          f"{tuple(codes.shape)}")
-    _build.check_layout("d_mask", d_mask, codes.shape,
-                        batch_strided=codes.dim() == 3)
-    mask_bstride = d_mask.stride(0) if codes.dim() == 3 else 0
+    per_query = codes.dim() == 3
+    _build.check_layout("d_mask", d_mask, codes.shape, batch_strided=per_query)
+    return (b, mq, k, n, md, codes.stride(0) if per_query else 0,
+            d_mask.stride(0) if per_query else 0)
+
+
+def _library(codes: torch.Tensor, mq: int, k: int, md: int, r: int):
+    """The loaded library, after checking that one block fits."""
+    lib = _build.library()
+    smem = lib.hpc_qmaxsim_smem_bytes(_build.CODE_BYTES[codes.dtype], mq, k,
+                                      md, r)
+    if smem > _build.MAX_SMEM:
+        raise ValueError(f"quantized_maxsim needs {smem} B of shared memory "
+                         f"at Mq={mq}, K={k}, Md={md}; a block may use "
+                         f"{_build.MAX_SMEM}")
+    return lib
+
+
+def _count() -> None:
+    global launches
+    with _count_lock:
+        launches += 1
+
+
+def quantized_maxsim_cuda(table: torch.Tensor, q_mask: torch.Tensor,
+                          codes: torch.Tensor,
+                          d_mask: torch.Tensor) -> torch.Tensor:
+    """Launch the scores-only kernel on the current stream; same contract
+    as ``quantized_maxsim_plain`` with table/q_mask float32 and contiguous,
+    codes uint8/uint16 and d_mask bool/uint8. Codes >= K score as masked
+    (quantize never produces them). Raises on anything else."""
+    b, mq, k, n, md, c_bs, m_bs = _check_inputs(
+        "quantized_maxsim_cuda", table, q_mask, codes, d_mask)
     out = torch.empty((b, n), dtype=torch.float32, device=table.device)
     if b == 0 or n == 0:
         return out
-    lib = _build.library()
-    smem = lib.hpc_qmaxsim_smem_bytes(mq, k, md)
-    if smem > _build.MAX_SMEM:
-        raise ValueError(f"quantized_maxsim_cuda needs {smem} B of shared "
-                         f"memory at Mq={mq}, K={k}, Md={md}; a block may "
-                         f"use {_build.MAX_SMEM}")
+    r = launch_range_len(b, n, table.device)
+    lib = _library(codes, mq, k, md, r)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = lib.hpc_qmaxsim(
         table.data_ptr(), q_mask.data_ptr(), codes.data_ptr(),
         _build.CODE_BYTES[codes.dtype], d_mask.data_ptr(), out.data_ptr(),
-        b, mq, k, n, md, code_bstride, mask_bstride, stream)
+        b, mq, k, n, md, c_bs, m_bs, r, stream)
     _build.check(err, "quantized_maxsim kernel launch")
-    with _count_lock:
-        launches += 1
+    _count()
     return out
+
+
+def quantized_maxsim_topk_cuda(table: torch.Tensor, q_mask: torch.Tensor,
+                               codes: torch.Tensor, d_mask: torch.Tensor,
+                               valid: Optional[torch.Tensor], *, k: int,
+                               range_len: Optional[int] = None,
+                               max_queries_per_block: int = 2
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the per-range top-k kernel on the current stream, one launch
+    for all N positions; same contract as ``quantized_maxsim_topk_plain``
+    (inputs as ``quantized_maxsim_cuda``; valid None, or bool/uint8 (N,) or
+    (B, N) dense along N). ``range_len`` defaults to
+    ``launch_range_len(B, N)``. On the shared corpus a block scores two
+    queries at once; ``max_queries_per_block=1`` takes one (the design it
+    is timed against). Raises on anything else."""
+    b, mq, kc, n, md, c_bs, m_bs = _check_inputs(
+        "quantized_maxsim_topk_cuda", table, q_mask, codes, d_mask)
+    v_bs = 0
+    if valid is not None:
+        if valid.device != table.device:
+            raise ValueError(f"valid is on {valid.device}, table on "
+                             f"{table.device}")
+        if valid.dtype not in _build.MASK_DTYPES:
+            raise ValueError(f"valid must be bool or uint8, got "
+                             f"{valid.dtype}")
+        if valid.dim() == 2:
+            _build.check_layout("valid", valid, (b, n), batch_strided=True)
+            v_bs = valid.stride(0)
+        else:
+            _build.check_layout("valid", valid, (n,))
+    r = range_len if range_len is not None else (
+        launch_range_len(b, n, table.device) if n else MAX_RANGE)
+    if not 1 <= r <= MAX_RANGE:
+        raise ValueError(f"range_len must be in [1, {MAX_RANGE}], got {r}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if max_queries_per_block not in (1, 2):
+        raise ValueError(f"max_queries_per_block must be 1 or 2, got "
+                         f"{max_queries_per_block}")
+    kk = min(k, r)
+    n_ranges = -(-n // r)
+    out_s = torch.empty((b, n_ranges, kk), dtype=torch.float32,
+                        device=table.device)
+    out_p = torch.empty((b, n_ranges, kk), dtype=torch.int32,
+                        device=table.device)
+    if b == 0 or n == 0:
+        return out_s, out_p
+    lib = _library(codes, mq, kc, md, r)
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = lib.hpc_qmaxsim_topk(
+        table.data_ptr(), q_mask.data_ptr(), codes.data_ptr(),
+        _build.CODE_BYTES[codes.dtype], d_mask.data_ptr(),
+        None if valid is None else valid.data_ptr(), v_bs,
+        out_s.data_ptr(), out_p.data_ptr(), b, mq, kc, n, md, c_bs, m_bs, r,
+        kk, max_queries_per_block, stream)
+    _build.check(err, "quantized_maxsim_topk kernel launch")
+    _count()
+    return out_s, out_p

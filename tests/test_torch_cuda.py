@@ -16,6 +16,7 @@ from repro_torch.kernels import kmeans_assign as km
 from repro_torch.kernels import maxsim as ms
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantized_maxsim as qm
+from repro_torch.parity import topk_mismatches
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
@@ -130,6 +131,137 @@ def test_scan_on_the_card_matches_the_cpu(block):
     np.testing.assert_array_equal(
         ops.kmeans_assign(x.to(dev), cb.to(dev)).cpu().numpy(),
         ops.kmeans_assign(x, cb).numpy())
+
+
+# -- quantized_maxsim's per-range top-k and the one-launch sweep -------------
+
+def _assert_lists_match(got, want):
+    """Per-range lists: scores within TOL, positions equal outside
+    near-ties, (-inf, -1) padding equal."""
+    (got_s, got_p), (want_s, want_p) = ((a.cpu() for a in pair)
+                                        for pair in (got, want))
+    assert got_s.shape == want_s.shape and got_p.dtype == torch.int32
+    torch.testing.assert_close(got_s, want_s, atol=TOL, rtol=TOL)
+    kk = got_s.shape[-1]
+    bad = topk_mismatches(got_p.reshape(-1, kk).numpy(),
+                          got_s.reshape(-1, kk).numpy(),
+                          want_p.reshape(-1, kk).numpy(),
+                          want_s.reshape(-1, kk).numpy(), TOL)
+    assert not bad, f"positions differ outside near-ties at {bad[:10]}"
+
+
+# (b, mq, K, codes' leading shape, md, k, range_len; None = the launch's)
+_TOPK_CASES = {
+    "flat scan": (8, 32, 256, (16384,), 615, 32, None),
+    "rerank pools": (8, 32, 256, (8, 32), 1024, 32, None),
+    "stage-2 pools": (8, 32, 256, (8, 1024), 615, 64, None),
+    "ragged, k > R": (3, 32, 256, (100,), 615, 20, 16),
+    "k > N": (2, 8, 64, (5,), 40, 12, 8),
+    "mq 5": (3, 5, 64, (3, 70), 17, 7, 32),
+    "mq 40": (2, 40, 128, (90,), 33, 9, 16),
+    "K 512 uint16": (2, 16, 512, (2, 60), 32, 10, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(_TOPK_CASES))
+def test_quantized_maxsim_topk_kernel_matches_plain(case):
+    """The kernel's range lists against the plain version's, with invalid
+    slots (NEG_INF, -1) and all-masked docs (sum qm * -1e30) in every
+    case."""
+    dev = _card()
+    b, mq, k_cb, lead, md, k, r = _TOPK_CASES[case]
+    dtype = torch.uint8 if k_cb <= 256 else torch.uint16
+    args = [a.to(dev) for a in _adc(len(case) + md, b, mq, k_cb, lead, md,
+                                    dtype, p_valid=0.97)]
+    args[3][..., 1::7, :] = False                      # all-masked docs
+    g = torch.Generator().manual_seed(md)
+    valid = (torch.rand(lead if len(lead) == 2 else (b,) + lead, generator=g)
+             > 0.1).to(dev)
+    if len(lead) == 1 and case != "flat scan":
+        valid = valid[0]                               # (N,) valid
+    n = lead[-1]
+    r = r if r is not None else qm.launch_range_len(b, n, dev)
+    before = qm.launches
+    got = qm.quantized_maxsim_topk_cuda(*args, valid, k=k, range_len=r)
+    assert qm.launches == before + 1
+    want = qm.quantized_maxsim_topk_plain(*args, valid, k=k, range_len=r)
+    torch.cuda.synchronize()
+    assert got[0].shape == (b, -(-n // r), min(k, r))
+    _assert_lists_match(got, want)
+    if len(lead) == 1:                       # one query per block, as well
+        _assert_lists_match(qm.quantized_maxsim_topk_cuda(
+            *args, valid, k=k, range_len=r, max_queries_per_block=1), want)
+
+
+def test_quantized_maxsim_topk_kernel_takes_strided_pools_and_no_valid():
+    dev = _card()
+    table, q_mask, codes, d_mask = (a.to(dev) for a in _adc(
+        3, 4, 8, 64, (4, 30), 20))
+    sl = (slice(None), slice(7, 19))
+    for valid in (None, torch.arange(30, device=dev).repeat(4, 1)[sl] % 3 > 0):
+        got = qm.quantized_maxsim_topk_cuda(table, q_mask, codes[sl],
+                                            d_mask[sl], valid, k=5,
+                                            range_len=8)
+        want = qm.quantized_maxsim_topk_plain(table, q_mask, codes[sl],
+                                              d_mask[sl], valid, k=5,
+                                              range_len=8)
+        _assert_lists_match(got, want)
+
+
+def test_quantized_maxsim_topk_kernel_refuses_bad_input():
+    dev = _card()
+    table, q_mask, codes, d_mask = (a.to(dev) for a in _adc(
+        4, 2, 4, 16, (10,), 6))
+    valid = torch.ones(10, dtype=torch.bool, device=dev)
+    before = qm.launches
+    for bad in (dict(codes=codes.int()), dict(d_mask=d_mask.float()),
+                dict(valid=valid.float()), dict(valid=valid[None, :5]),
+                dict(k=0), dict(range_len=512), dict(table=table.cpu()),
+                dict(max_queries_per_block=3)):
+        kw = dict(table=table, q_mask=q_mask, codes=codes, d_mask=d_mask,
+                  valid=valid, k=3, range_len=8)
+        kw.update(bad)
+        with pytest.raises(ValueError):
+            qm.quantized_maxsim_topk_cuda(
+                kw.pop("table"), kw.pop("q_mask"), kw.pop("codes"),
+                kw.pop("d_mask"), kw.pop("valid"), **kw)
+    assert qm.launches == before
+
+
+@pytest.mark.parametrize("per_query", [False, True])
+def test_quantized_maxsim_sweep_is_one_launch_and_matches_the_cpu(per_query):
+    """core.scan.quantized_maxsim_topk on the card (one launch, one merge)
+    against the CPU's plain sweep, with doc_ids, valid and a carry."""
+    dev = _card()
+    g = torch.Generator().manual_seed(11 + per_query)
+    b, n, md = 4, 700, 23
+    lead = (b, n) if per_query else (n,)
+    q = torch.randn((b, 6, 16), generator=g)
+    cb = torch.randn((64, 16), generator=g)
+    codes = torch.randint(0, 64, lead + (md,), generator=g).to(torch.uint8)
+    q_mask = torch.rand((b, 6), generator=g) < 0.9
+    d_mask = torch.rand(lead + (md,), generator=g) < 0.8
+    d_mask[..., ::50, :] = False
+    valid = torch.rand(lead, generator=g) > 0.1
+    doc_ids = torch.randperm(5 * n, generator=g)[:valid.numel()].reshape(
+        lead).to(torch.int32)
+    carry = (torch.sort(torch.randn((b, 40), generator=g) + 3.0, dim=1,
+                        descending=True)[0],
+             torch.arange(40, dtype=torch.int32).repeat(b, 1) + 10 ** 6)
+    kw = dict(k=40, doc_ids=doc_ids, valid=valid, carry=carry)
+    want = scan.quantized_maxsim_topk(q, q_mask, codes, d_mask, cb,
+                                      scan=scan.ScanConfig(block_docs=64),
+                                      **kw)
+    before = qm.launches
+    got = scan.quantized_maxsim_topk(
+        *(t.to(dev) for t in (q, q_mask, codes, d_mask, cb)), k=40,
+        doc_ids=doc_ids.to(dev), valid=valid.to(dev),
+        carry=tuple(t.to(dev) for t in carry))
+    assert qm.launches == before + 1
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=TOL, rtol=TOL)
+    bad = topk_mismatches(got[1].cpu().numpy(), got[0].cpu().numpy(),
+                          want[1].numpy(), want[0].numpy(), TOL)
+    assert not bad, f"ids differ outside near-ties at {bad}"
 
 
 # -- hamming_maxsim and maxsim ------------------------------------------------
