@@ -17,7 +17,11 @@ any failure exits non-zero, and no phase's error is swallowed:
      two distances within 1e-4 in float64); quantized_maxsim's per-range
      top-k lists also with positions equal outside near-ties, at the flat
      sweep's, the rerank's and stage 2's shapes and at ragged, k > R,
-     k > N, Mq 5 and 40 and K=512 shapes;
+     k > N, Mq 5 and 40 and K=512 shapes; maxsim also over candidate rows
+     read through their ids (stage 3's layout: -1 slots, repeated ids,
+     all-masked docs, an id past the corpus scoring NaN) and with one
+     query per block on the shared corpus; kmeans_assign also at a cascade
+     batch's query codes (256 x 128);
   4. flat path at full ColPali width: build a flat index over 16384
      synthetic pages (1024 patches of D=128, pruned to 615, K=256), warm
      every ladder rung and serve 64 requests through
@@ -35,7 +39,11 @@ any failure exits non-zero, and no phase's error is swallowed:
      launches, so host overhead is not counted), beside each kernel's
      bound, printed as one ``{"kernels": [...]}`` JSON line
      (quantized_maxsim: the flat sweep, the rerank and stage 2, beside the
-     shared-memory load bound as well); one cascade batch split into its
+     shared-memory load bound as well; maxsim: stage 3's pools read
+     through their ids and pre-gathered, and a float_flat block with all
+     queries per block and with one; kmeans_assign at the build's shape
+     and at 256 x 128; for maxsim and kmeans_assign the f32 FMA and
+     3xTF32 bounds beside ``bound_ms``); one cascade batch split into its
      three stages and one flat batch into its sweep and rerank (host wall
      and device time, ``{"cascade_stages_ms": ...}`` and
      ``{"flat_search_ms": ...}`` lines); and kmeans_assign held to its
@@ -85,6 +93,9 @@ BITS = 8                # ceil(log2 K)
 # cores and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# dense TF32 on the tensor cores; 3xTF32 issues three products per
+# f32 product (tf32x3.cuh), so its bound is 3 x FLOPs at this rate
+PEAK_TF32_FLOPS = 495e12
 # Shared memory serves 32 four-byte loads per clock per SM (128 B/clk):
 # the rate that limits quantized_maxsim's table gather, one load per
 # masked max-lookup. Times the SM count and the card's max SM clock.
@@ -110,6 +121,19 @@ def _bound(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_F32_FLOPS):
     t_ops = n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def _gemm_bounds(n_bytes: float, flops: float):
+    """The bounds of a kernel whose operations are f32 products:
+    (bound_ms, bound_by, f32_fma_bound_ms, tf32x3_bound_ms), where
+    ``bound_ms`` is the larger of the bytes bound and the smaller of the
+    two compute bounds."""
+    t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
+    t_f32 = flops / PEAK_F32_FLOPS * 1e3
+    t_x3 = 3.0 * flops / PEAK_TF32_FLOPS * 1e3
+    t_ops = min(t_f32, t_x3)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            t_f32, t_x3)
 
 
 def _time_ms(torch, fn, reps: int) -> float:
@@ -188,10 +212,21 @@ def _hamming_cost(q_codes, codes, mask):
     return n_bytes, mq * int(mask.sum()) * (1 if codes.dim() == 3 else b)
 
 
-def _maxsim_cost(q, docs, mask):
+def _maxsim_cost(q, docs, mask, rows=None):
     """(bytes, FLOPs) one maxsim call needs: every input read once, the
-    output written once; 2*D FLOPs per query patch and valid doc patch."""
+    output written once; 2*D FLOPs per query patch and valid doc patch.
+    With ``rows`` (B, P) the input is the rows and the candidates' patches
+    and masks, each distinct candidate read once; the FLOPs are per
+    (query, candidate)."""
     b, mq, d = q.shape
+    if rows is not None:
+        live = rows[rows >= 0].long()
+        uniq = live.unique()
+        md = docs.shape[1]
+        n_bytes = (q.numel() * 4 + b * mq * 4 + rows.numel() * 4
+                   + uniq.numel() * md * (d * 4 + mask.element_size())
+                   + rows.numel() * 4)
+        return n_bytes, 2 * d * mq * int(mask[live].sum())
     n = docs.shape[-3]
     n_bytes = (q.numel() * 4 + b * mq * 4 + docs.numel() * 4
                + mask.numel() * mask.element_size() + b * n * 4)
@@ -467,12 +502,48 @@ def main(argv=None) -> int:
     assert torch.isfinite(dead_got).all(), "all-masked docs not finite"
     assert torch.allclose(dead_got.double(), expect.expand_as(dead_got),
                           rtol=1e-5, atol=0), "all-masked docs != sum qm*-1e30"
+    # the shared corpus with one query per block (the earlier grid, timed
+    # in phase 6 beside the default)
+    got = ms.maxsim_cuda(q_unit, q_mask, f_blk, f_blk_m,
+                         max_queries_per_block=1)
+    want = ms.maxsim_plain(q_unit, q_mask, f_blk, f_blk_m)
+    torch.testing.assert_close(got, want, atol=MAXSIM_TOL, rtol=MAXSIM_TOL)
+    ms_abs_err = max(ms_abs_err, float((got - want).abs().max()))
+    print("maxsim float_flat block, one query per block: within tolerance")
+    # candidate rows read through their ids (stage 3's layout): (B, p2)
+    # positions into the block as a corpus, with repeated ids, -1 slots and
+    # all-masked docs; an id past the corpus is never read and scores NaN
+    f_rows = torch.randint(0, BLOCK_DOCS, (MAX_BATCH, P2), generator=gen,
+                           device=dev, dtype=torch.int32)
+    f_rows[:, 1::5] = f_rows[:, :1]
+    f_rows[:, 2::9] = -1
+    for name, m in (("stage-3 rows", f_blk_m),
+                    ("stage-3 rows, all-masked docs", f_dead_m)):
+        got = ms.maxsim_cuda(q_unit, q_mask, f_blk, m, rows=f_rows)
+        want = ms.maxsim_plain(q_unit, q_mask, f_blk, m, rows=f_rows)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=MAXSIM_TOL, rtol=MAXSIM_TOL)
+        live = (f_rows >= 0) & m.any(dim=1)[f_rows.clamp(min=0).long()]
+        err = float((got - want).abs()[live].max())
+        ms_abs_err = max(ms_abs_err, err)
+        assert bool((got[f_rows < 0] == li.NEG_INF).all()), "-1 slots"
+        print(f"maxsim {name}: rows {tuple(f_rows.shape)} into "
+              f"{tuple(f_blk.shape)} max |err| {err:.3e} over live docs")
+    past = f_rows.clone()
+    past[:, 3] = BLOCK_DOCS + 5
+    got = ms.maxsim_cuda(q_unit, q_mask, f_blk, f_blk_m, rows=past)
+    assert bool(torch.isnan(got[:, 3]).all()), "an id past the corpus"
+    assert not bool(torch.isnan(got[:, :3]).any())
     del f_pool, f_pool_m, f_blk, f_blk_m, f_dead_m
 
     x = unit(1 << 20, DIM)
     km_abs_err = _check_assign(torch, x, codebook,
                                km.kmeans_assign_cuda(x, codebook),
                                km.kmeans_assign_plain(x, codebook))
+    x = unit(MAX_BATCH * N_Q_PATCHES, DIM)          # a batch's query codes
+    km_abs_err = max(km_abs_err, _check_assign(
+        torch, x, codebook, km.kmeans_assign_cuda(x, codebook),
+        km.kmeans_assign_plain(x, codebook)))
     del x
     torch.cuda.empty_cache()
     print(f"checks passed in {time.perf_counter() - t0:.1f}s")
@@ -721,14 +792,23 @@ def main(argv=None) -> int:
     s1_bytes, s1_ops = _hamming_cost(qc32, idx.codes, idx.mask)
     s1_bound, s1_by = _bound(s1_bytes, s1_ops, popc_per_s)
 
-    # maxsim on the cascade's stage 3: the first batch's p2 pool, gathered
-    # as search_float_flat_candidates gathers it
+    # maxsim on the cascade's stage 3: the first batch's p2 pool, read
+    # through its ids as search_float_flat_candidates hands it over, and
+    # gathered first (the earlier stage 3), so the fusion's gain and the
+    # tensor cores' show apart
     ff = s.backend_state.members[2]
     _, ids1 = ham_b.search(ham_v, qg, k=P1)
     _, ids2 = flat_b.search_candidates(flat_v, qg, ids1, k=P2)
+    rows2 = ids2.to(torch.int32)
+    qf = q.to(dev).float().contiguous()
+    rows_ms = _time_ms(torch, lambda: ms.maxsim_cuda(
+        qf, qmf, ff.embeddings, ff.mask, rows=rows2), 100)
+    rows_plain_ms = _time_ms(torch, lambda: ms.maxsim_plain(
+        qf, qmf, ff.embeddings, ff.mask, rows=rows2), 20)
+    rows_bound = _gemm_bounds(*_maxsim_cost(qf, ff.embeddings, ff.mask,
+                                            rows2))
     safe2 = torch.clamp(ids2, min=0).to(torch.int64)
     pool_emb, pool_mask = ff.embeddings[safe2], ff.mask[safe2]
-    qf = q.to(dev).float().contiguous()
     pool_ms = _time_ms(torch, lambda: ms.maxsim_cuda(qf, qmf, pool_emb,
                                                      pool_mask), 100)
     pool_plain_ms = _time_ms(torch, lambda: ms.maxsim_plain(
@@ -736,17 +816,20 @@ def main(argv=None) -> int:
     pool_flat = pool_emb.reshape(MAX_BATCH, -1, DIM).transpose(1, 2)
     pool_mm_ms = _time_ms(torch, lambda: torch.matmul(qf, pool_flat), 50)
     gather_ms = _time_ms(torch, lambda: ff.embeddings[safe2], 20)
-    pool_bound, pool_by = _bound(*_maxsim_cost(qf, pool_emb, pool_mask))
-    # ... and on one shared-layout 256-doc block of float_flat
+    pool_bound = _gemm_bounds(*_maxsim_cost(qf, pool_emb, pool_mask))
+    # ... and on one shared-layout 256-doc block of float_flat, with every
+    # query in one block and with one query per block (the earlier grid)
     f_blk, f_blk_m = ff.embeddings[:BLOCK_DOCS], ff.mask[:BLOCK_DOCS]
     fblk_ms = _time_ms(torch, lambda: ms.maxsim_cuda(qf, qmf, f_blk,
                                                      f_blk_m), 20)
+    fblk_one_q_ms = _time_ms(torch, lambda: ms.maxsim_cuda(
+        qf, qmf, f_blk, f_blk_m, max_queries_per_block=1), 20)
     fblk_plain_ms = _time_ms(torch, lambda: ms.maxsim_plain(
         qf, qmf, f_blk, f_blk_m), 5)
     fblk_flat = f_blk.reshape(-1, DIM).t()
     q_rows = qf.reshape(-1, DIM)
     fblk_mm_ms = _time_ms(torch, lambda: torch.matmul(q_rows, fblk_flat), 10)
-    fblk_bound, fblk_by = _bound(*_maxsim_cost(qf, f_blk, f_blk_m))
+    fblk_bound = _gemm_bounds(*_maxsim_cost(qf, f_blk, f_blk_m))
     pool_bytes = pool_emb.numel() * pool_emb.element_size()
 
     # quantized_maxsim on stage 2's first per-query block of the p1 pool
@@ -793,8 +876,12 @@ def main(argv=None) -> int:
     del run, s, casc, ham_v, flat_v, ff_v, ff, fm, idx, h_blocks, h_blk, \
         flat_s, flat_retriever, flat, f_ids, \
         pool_emb, pool_mask, pool_flat, f_blk, f_blk_m, fblk_flat, s2_codes, \
-        s2_mask, s2_valid
+        s2_mask, s2_valid, rows2
     torch.cuda.empty_cache()
+
+    def km_cost(rows):
+        """(bytes, FLOPs) of one assignment of ``rows`` x DIM against K."""
+        return rows * DIM * 4 + K * DIM * 4 + rows * 4, 2.0 * rows * K * DIM
 
     n_rows = N_DOCS * N_PATCHES
     x = unit(n_rows, DIM)
@@ -808,9 +895,17 @@ def main(argv=None) -> int:
     km_plain_ms = _time_ms(torch, lambda: km.kmeans_assign_plain(x, cb), 2)
     addmm_ms = _time_ms(torch, lambda: torch.addmm(c2, x, cb.t(),
                                                    alpha=-2.0), 2)
-    km_bound, km_by = _bound(n_rows * DIM * 4 + K * DIM * 4 + n_rows * 4,
-                             2.0 * n_rows * K * DIM)
-    del x
+    km_bound = _gemm_bounds(*km_cost(n_rows))
+    # a cascade batch's query codes: B x Mq rows
+    n_small = MAX_BATCH * N_Q_PATCHES
+    xs = x[:n_small].contiguous()
+    km_small_ms = _time_ms(torch, lambda: km.kmeans_assign_cuda(xs, cb), 200)
+    km_small_plain_ms = _time_ms(
+        torch, lambda: km.kmeans_assign_plain(xs, cb), 200)
+    addmm_small_ms = _time_ms(torch, lambda: torch.addmm(
+        c2, xs, cb.t(), alpha=-2.0), 200)
+    km_small_bound = _gemm_bounds(*km_cost(n_small))
+    del x, xs
     torch.cuda.empty_cache()
     print(f"times taken in {time.perf_counter() - t0:.1f}s")
 
@@ -833,6 +928,7 @@ def main(argv=None) -> int:
          "max_abs_err": qm_abs_err,
          "ms": sweep_ms, "plain_ms": sweep_plain_ms,
          "bound_ms": sweep_bound, "bound_by": sweep_by, "library_ms": None,
+         "f32_fma_bound_ms": None, "tf32x3_bound_ms": None,
          "ms_over_bound": sweep_ms / sweep_bound,
          "lds_bound_ms": sweep_lds_bound,
          "ms_over_lds_bound": sweep_ms / sweep_lds_bound,
@@ -856,11 +952,21 @@ def main(argv=None) -> int:
          "launches": launches("kmeans_assign"),
          "launches_by_path": per_path("kmeans_assign"),
          "max_abs_err": km_abs_err,
-         "ms": km_ms, "plain_ms": km_plain_ms, "bound_ms": km_bound,
-         "bound_by": km_by, "library_ms": None,
-         "ms_over_bound": km_ms / km_bound,
+         "ms": km_ms, "plain_ms": km_plain_ms, "bound_ms": km_bound[0],
+         "bound_by": km_bound[1], "library_ms": None,
+         "f32_fma_bound_ms": km_bound[2], "tf32x3_bound_ms": km_bound[3],
+         "ms_over_bound": km_ms / km_bound[0],
          "shape": f"quantize {n_rows} x {DIM} against K={K}",
-         "addmm_matmul_only_yardstick_ms": addmm_ms},
+         "addmm_matmul_only_yardstick_ms": addmm_ms,
+         "query_codes_ms": km_small_ms,
+         "query_codes_plain_ms": km_small_plain_ms,
+         "query_codes_bound_ms": km_small_bound[0],
+         "query_codes_bound_by": km_small_bound[1],
+         "query_codes_f32_fma_bound_ms": km_small_bound[2],
+         "query_codes_tf32x3_bound_ms": km_small_bound[3],
+         "query_codes_addmm_yardstick_ms": addmm_small_ms,
+         "query_codes_shape": f"{n_small} x {DIM} against K={K}, one per "
+                              f"cascade batch"},
         {"name": "hamming_maxsim", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming_maxsim.cu",
          "replaces": "src/repro/kernels/hamming.py:74",
@@ -869,6 +975,7 @@ def main(argv=None) -> int:
          "max_abs_err": 0.0,
          "ms": ham_ms, "plain_ms": ham_plain_ms, "bound_ms": ham_bound,
          "bound_by": ham_by, "library_ms": None,
+         "f32_fma_bound_ms": None, "tf32x3_bound_ms": None,
          "ms_over_bound": ham_ms / ham_bound,
          "popcounts_per_s": popc_per_s,
          "shape": f"one stage-1 block: B={MAX_BATCH} Mq={N_Q_PATCHES} "
@@ -883,18 +990,26 @@ def main(argv=None) -> int:
          "launches": launches("maxsim"),
          "launches_by_path": per_path("maxsim"),
          "max_abs_err": ms_abs_err,
-         "ms": pool_ms, "plain_ms": pool_plain_ms, "bound_ms": pool_bound,
-         "bound_by": pool_by, "library_ms": None,
-         "ms_over_bound": pool_ms / pool_bound,
-         "shape": f"stage-3 pools: B={MAX_BATCH} Mq={N_Q_PATCHES} D={DIM} "
-                  f"{P2} docs x Md={md_kept} per query",
+         "ms": rows_ms, "plain_ms": rows_plain_ms, "bound_ms": rows_bound[0],
+         "bound_by": rows_bound[1], "library_ms": None,
+         "f32_fma_bound_ms": rows_bound[2], "tf32x3_bound_ms": rows_bound[3],
+         "ms_over_bound": rows_ms / rows_bound[0],
+         "shape": f"stage-3 pools read through their ids: B={MAX_BATCH} "
+                  f"Mq={N_Q_PATCHES} D={DIM} {P2} candidates x Md={md_kept} "
+                  f"per query",
+         "gathered_pools_ms": pool_ms,
+         "gathered_pools_plain_ms": pool_plain_ms,
+         "gathered_pools_bound_ms": pool_bound[0],
          "matmul_only_yardstick_ms": pool_mm_ms,
          "candidate_gather_ms": gather_ms,
          "candidate_gather_bytes": pool_bytes,
          "float_flat_block_ms": fblk_ms,
+         "float_flat_block_one_query_per_block_ms": fblk_one_q_ms,
          "float_flat_block_plain_ms": fblk_plain_ms,
-         "float_flat_block_bound_ms": fblk_bound,
-         "float_flat_block_bound_by": fblk_by,
+         "float_flat_block_bound_ms": fblk_bound[0],
+         "float_flat_block_bound_by": fblk_bound[1],
+         "float_flat_block_f32_fma_bound_ms": fblk_bound[2],
+         "float_flat_block_tf32x3_bound_ms": fblk_bound[3],
          "float_flat_block_matmul_only_yardstick_ms": fblk_mm_ms},
     ]
     print(json.dumps({"cascade_stages_ms": stage_ms}))

@@ -97,11 +97,13 @@ def search_float_flat_candidates(index: FloatFlatIndex, q: Tensor,
                                  scan: Optional[scan_mod.ScanConfig] = None
                                  ) -> Tuple[Tensor, Tensor]:
     """Float MaxSim over a (B, P) candidate pool: the cascade's rerank.
-    The gather copies the pool's (B, P, Md, D) embeddings."""
-    ids, valid, (emb, mask) = _gather_candidates(
-        candidate_ids, index.doc_ids, index.embeddings, index.mask)
-    return scan_mod.maxsim_topk(q, q_mask, emb, mask, k=k, doc_ids=ids,
-                                valid=valid, scan=scan)
+    The positions go to the scan as ``rows``, so the kernel reads each
+    candidate's embeddings through its id and the pool's (B, P, Md, D)
+    embeddings are never copied; only the ids are mapped here."""
+    ids, valid, _ = _gather_candidates(candidate_ids, index.doc_ids)
+    return scan_mod.maxsim_topk(q, q_mask, index.embeddings, index.mask, k=k,
+                                doc_ids=ids, valid=valid, scan=scan,
+                                rows=candidate_ids.to(torch.int32))
 
 
 class HammingIndex(NamedTuple):

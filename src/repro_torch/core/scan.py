@@ -31,8 +31,10 @@ The two layouts:
   * shared corpus  — codes (N, Md) / docs (N, Md, D): every query scores
     every doc (flat, float_flat, hamming);
   * per-query candidates — codes (B, P, Md) / docs (B, P, Md, D): each
-    query scores its own pool (the facade rerank, the cascade's stages 2
-    and 3). The kernels take a pool slice through its batch stride.
+    query scores its own pool (the facade rerank, the cascade's stage 2).
+    The kernels take a pool slice through its batch stride. The float
+    sweep also takes candidate rows: (B, P) positions into a shared
+    (N, Md, D) corpus, read through their ids (the cascade's stage 3).
 
 Sentinel contract: rows beyond the valid pool carry doc id -1 and the
 merge-buffer init score (-inf for float scores, the int32 minimum for
@@ -236,30 +238,44 @@ def maxsim_topk(q: Tensor, q_mask: Tensor, docs: Tensor, d_mask: Tensor, *,
                 k: int, doc_ids: Optional[Tensor] = None,
                 valid: Optional[Tensor] = None,
                 scan: Optional[ScanConfig] = None,
-                carry: Optional[Tuple[Tensor, Tensor]] = None
+                carry: Optional[Tuple[Tensor, Tensor]] = None,
+                rows: Optional[Tensor] = None
                 ) -> Tuple[Tensor, Tensor]:
     """Streaming float MaxSim top-k.
 
     docs/d_mask are a shared (N, Md, D) corpus or (B, P, Md, D) per-query
-    candidate pools (the cascade's float rerank) — the two layouts of
-    ``quantized_maxsim_topk``, with the same doc_ids/valid/carry.
+    candidate pools — the two layouts of ``quantized_maxsim_topk``, with
+    the same doc_ids/valid/carry. With ``rows`` (B, P) int32 corpus
+    positions (-1 = empty slot), docs/d_mask stay the shared corpus and
+    each query scores its own P rows, read through their ids: the
+    cascade's float rerank, with no (B, P, Md, D) copy on the card; the
+    sweep streams blocks along P and doc_ids/valid are (B, P).
     -> (scores (B, k) f32, doc_ids (B, k) int32).
     """
     scan = scan if scan is not None else DEFAULT
     mode = resolve_impl(scan.impl, docs.device)
-    per_query = docs.dim() == 4
+    per_query = docs.dim() == 4 or rows is not None
     b = q.shape[0]
-    n = docs.shape[1] if per_query else docs.shape[0]
+    if rows is not None:
+        n = rows.shape[1]
+    else:
+        n = docs.shape[1] if per_query else docs.shape[0]
     qf = q.to(torch.float32).contiguous()
     q_mask_f = q_mask.to(torch.float32).contiguous()
     doc_ids, valid = _prep(n, doc_ids, valid, per_query, b, docs.device)
     kernel = (maxsim_k.maxsim_cuda if mode == "cuda"
               else maxsim_k.maxsim_plain)
 
-    def score_block(d, m):
-        return kernel(qf, q_mask_f, d, m)
+    if rows is not None:
+        def score_block(r):
+            return kernel(qf, q_mask_f, docs, d_mask, rows=r)
+        payload = (rows.to(torch.int32),)
+    else:
+        def score_block(d, m):
+            return kernel(qf, q_mask_f, d, m)
+        payload = (docs, d_mask)
 
-    return _streaming_topk(score_block, (docs, d_mask), doc_ids, valid,
+    return _streaming_topk(score_block, payload, doc_ids, valid,
                            b=b, n=n, k=k, block_docs=scan.block_docs,
                            per_query=per_query, score_dtype=torch.float32,
                            carry=carry)

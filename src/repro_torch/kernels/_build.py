@@ -7,10 +7,11 @@ interface::
 
     build/repro_torch_kernels/<hash>/libhpc_kernels.so
 
-``<hash>`` covers the sources and the flags, so a library built from the
-same sources is reused and an edited source builds anew. The sources
-include no PyTorch headers and are bound through ``ctypes``: a build takes
-seconds, where ``torch.utils.cpp_extension.load`` takes minutes.
+``<hash>`` covers the sources, the ``csrc/*.cuh`` headers they include and
+the flags, so a library built from the same sources is reused and an edited
+source builds anew. The sources include no PyTorch headers and are bound
+through ``ctypes``: a build takes seconds, where
+``torch.utils.cpp_extension.load`` takes minutes.
 
 Nothing here runs at import: ``library()`` compiles and loads under a lock,
 so two threads never build at once. ``last_build`` records what the last
@@ -47,6 +48,7 @@ MASK_DTYPES = (torch.bool, torch.uint8)
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 last_build: Dict[str, object] = {}
+_sm_counts: Dict[int, int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,13 +60,13 @@ _SIGNATURES = {
     "hpc_qmaxsim_topk": ([_P, _P, _P, _I, _P, _P, _LL, _P, _P, _I, _I, _I, _I,
                           _I, _LL, _LL, _I, _I, _I, _P], _I),
     "hpc_qmaxsim_smem_bytes": ([_I, _I, _I, _I, _I], _LL),
-    "hpc_kmeans_assign": ([_P, _P, _P, _LL, _I, _I, _I, _I, _P], _I),
+    "hpc_kmeans_assign": ([_P, _P, _P, _LL, _I, _I, _I, _P], _I),
     "hpc_kmeans_assign_smem_bytes": ([_I, _I], _LL),
     "hpc_hamming_maxsim": ([_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL,
                             _LL, _P], _I),
-    "hpc_maxsim": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _P],
-                   _I),
-    "hpc_maxsim_smem_bytes": ([_I], _LL),
+    "hpc_maxsim": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL,
+                    _LL, _LL, _I, _I, _P], _I),
+    "hpc_maxsim_smem_bytes": ([_I, _I, _I, _I], _LL),
     "hpc_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -74,8 +76,9 @@ def _sources() -> List[Path]:
 
 
 def _digest(sources: List[Path]) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -142,6 +145,17 @@ def library() -> ctypes.CDLL:
                               seconds=time.perf_counter() - t0, log=log)
             _lib = lib
         return _lib
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the persistent grids'
+    cap)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
 
 
 def check(err: int, what: str) -> None:

@@ -6,140 +6,227 @@
 //
 //   codes[n] = argmin_k (||c_k||^2 - 2 x_n . c_k)     (first index on ties)
 //
-// What bounds it on the H100: f32 arithmetic. Quantizing the main path's
-// corpus (16,777,216 x 128 against K=256) is 1.1e12 FLOP and 8.6 GB read:
-// 16.4 ms at the 67 TFLOP/s f32 rate, 2.6 ms at 3.35 TB/s. It is a GEMM
-// with an argmin epilogue, so the design is an SGEMM-style register tile
-// that never writes the (N, K) distance matrix to device memory.
+// What bounds it on the H100: quantizing the main path's corpus
+// (16,777,216 x 128 against K=256) is 1.1e12 FLOP and 8.6 GB read: 2.6 ms
+// at 3.35 TB/s, 6.7 ms for the three TF32 products of 3xTF32 at 495
+// TFLOP/s, 16.4 ms in f32 FMAs at 67 TFLOP/s. It is a GEMM with an argmin
+// epilogue, so the design runs the product on the tensor cores and never
+// writes the (N, K) distance matrix to device memory.
 //
-// Design: one block per SM (the grid is at most the SM count) walks the
-// 64-row tiles of x. The codebook sits in dynamic shared memory, stored
-// transposed (D rows of K centroids) with ||c||^2 beside it; at K=256,
-// D=128 it takes 128 KB and is loaded once per block. A larger K is
-// processed in chunks that fit, reloaded per row tile, with a running
-// best per row. Each row tile is staged transposed (D x 64). 256 threads
-// form a 16 x 16 grid; each thread owns 4 rows x 4 centroids of every
-// 64-centroid pass and runs 16 FMAs per two 16-byte shared loads. The
-// epilogue forms c2 - 2 x.c with one FMA, keeps a per-row best scanning
-// centroids in ascending order with a strict '<', and a shuffle reduction
-// over the 16 threads that share a row picks the lowest distance, the
-// lowest index on ties. No tensor cores (wgmma would need TF32 or bf16 and
-// move codes off the f32 reference), no TMA: right and simple first.
+// Design: a persistent grid (at most one block per SM, and no more blocks
+// than tiles) walks row tiles of x. The codebook stays resident in dynamic
+// shared memory in f32 (rows padded and swizzled as tf32x3.cuh says), with
+// ||c||^2 beside it, computed once per block in f32 FMAs over ascending D
+// from device memory. x tiles arrive through a two-slot ring of cp.async
+// 16-byte copies: the next tile loads while this one computes. Each of the
+// 8 warps owns 32 rows (2 m tiles) x NT n tiles of 8 centroids and runs
+// mma.sync m16n8k8 in 3xTF32 (tf32x3.cuh). The build takes 64-row tiles
+// (2 warps along the rows x 4 along the centroids, NT = 8); a launch with
+// fewer 64-row tiles than SMs, like a cascade batch's 256 query rows, takes
+// 32-row tiles (8 warps along the centroids, NT = 4) to spread over twice
+// the SMs, since one tile's 6144 products on one SM set its time. The
+// codebook is split into hi and lo as each B fragment is loaded (and the x
+// tile as each A fragment is) rather than once: hi and lo of the whole
+// codebook would fill shared memory with no room for the x ring, and hi
+// and lo of 128-centroid halves would mean reloading a half per tile or a
+// second pass over x (8.6 GB more read at the build's shape); each B
+// fragment serves the warp's 2 m tiles, so the split costs about one
+// instruction per product. The epilogue forms c2 - 2 x.c with one FMA,
+// keeps a per-row best over ascending k with a strict '<', then takes the
+// lowest distance (lowest index on ties) across the 4 lanes that share a
+// row and across the warps along the centroids through shared memory. A K
+// that does not fit is taken in chunks, reloaded per tile; D is padded to
+// a multiple of 16 with zeros, which add nothing to a product.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kBM = 64;        // rows per tile
-constexpr int kBK = 64;        // centroids per pass of the thread grid
-constexpr int kTM = 4;         // rows per thread
-constexpr int kTN = 4;         // centroids per thread per pass
-constexpr int kPad = 4;        // keeps float4 alignment, spreads banks
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDynamicSmem = 232448;
 
-__global__ void __launch_bounds__(kThreads)
+// WM warps along the rows (32 rows each: a tile is WM * 32 rows) and
+// 8 / WM along the centroids, each with NT n tiles of 8 centroids.
+template <int NT, int WM>
+__global__ void __launch_bounds__(kThreads, 1)
 kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
                      int32_t* __restrict__ out, long long n, int d, int k,
-                     int kc) {
-  extern __shared__ float smem[];
-  const int kcp = kc + kPad;
-  const int xsp = kBM + kPad;
-  float* s_c = smem;                        // (d, kcp) codebook chunk, transposed
-  float* s_c2 = s_c + (size_t)d * kcp;      // (kc,) ||c||^2 of the chunk
-  float* s_x = s_c2 + kc;                   // (d, xsp) row tile, transposed
+                     int kc, int stages, bool vec) {
+  constexpr int kWarpsN = kWarps / WM;
+  constexpr int kBM = WM * 32;             // rows per tile
+  constexpr int kPass = kWarpsN * NT * 8;  // centroids per pass of the block
+  using namespace tf32x3;
+  extern __shared__ __align__(16) float smem[];
+  const int dp = padded_width(d);
+  float* s_c = smem;                                   // (kc, dp)
+  float* s_c2 = s_c + (size_t)kc * dp;                 // (kc,)
+  float* s_x = s_c2 + kc;                              // (stages, kBM, dp)
+  float* s_bd = s_x + (size_t)stages * kBM * dp;       // (kBM, kWarpsN)
+  int* s_bk = reinterpret_cast<int*>(s_bd + kBM * kWarpsN);
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wm = warp / kWarpsN;
+  const int wn = warp % kWarpsN;
   const long long n_tiles = (n + kBM - 1) / kBM;
   const int n_chunks = (k + kc - 1) / kc;
 
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long row0 = tile * kBM;
-    __syncthreads();  // the previous tile is done with s_x
-    for (int t = threadIdx.x; t < kBM * d; t += kThreads) {
-      const int r = t / d;
-      const int dd = t - r * d;
-      const long long row = row0 + r;
-      s_x[dd * xsp + r] = row < n ? x[row * d + dd] : 0.f;
-    }
-
-    float best[kTM];
-    int best_k[kTM];
+  auto stage_chunk = [&](int ch) {  // codebook rows [ch*kc, ch*kc + kc)
+    const int k0 = ch * kc;
+    stage_rows<kThreads>(s_c, c + (long long)k0 * d, kc, k - k0, d, dp,
+                         vec);
+  };
+  // ||c||^2 in ascending D, +inf past K; read from device memory (L2),
+  // where a thread's row is contiguous, not from the staged rows, whose
+  // same column sits in one bank for every row; 8 loads in flight at once
+  auto norms = [&](int ch) {
+    const int k0 = ch * kc;
+    for (int kk = threadIdx.x; kk < kc; kk += kThreads) {
+      float s = INFINITY;
+      if (k0 + kk < k) {
+        s = 0.f;
+        const float* row = c + (long long)(k0 + kk) * d;
+        int dd = 0;
+        if (vec) {
+          for (; dd + 32 <= d; dd += 32) {
+            float4 v[8];
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      best[i] = INFINITY;
-      best_k[i] = 0;
-    }
-
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int k0 = ch * kc;
-      const int kn = min(kc, k - k0);
-      if (n_chunks > 1 || tile == blockIdx.x) {
-        __syncthreads();  // nobody still reads the previous chunk
-        for (int t = threadIdx.x; t < kc * d; t += kThreads) {
-          const int kk = t / d;
-          const int dd = t - kk * d;
-          s_c[dd * kcp + kk] =
-              kk < kn ? c[(long long)(k0 + kk) * d + dd] : 0.f;
-        }
-        __syncthreads();
-        for (int kk = threadIdx.x; kk < kc; kk += kThreads) {
-          float s = 0.f;
-          for (int dd = 0; dd < d; ++dd) {
-            const float v = s_c[dd * kcp + kk];
-            s = fmaf(v, v, s);
-          }
-          s_c2[kk] = s;
-        }
-      }
-      __syncthreads();
-
-      for (int kb = 0; kb < kn; kb += kBK) {
-        float acc[kTM][kTN];
+            for (int u = 0; u < 8; ++u)
+              v[u] = __ldg(reinterpret_cast<const float4*>(row + dd) + u);
 #pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-        const float* xp = s_x + ty * kTM;
-        const float* cp = s_c + kb + tx * kTN;
-#pragma unroll 8
-        for (int dd = 0; dd < d; ++dd) {
-          const float4 xv = *reinterpret_cast<const float4*>(xp + dd * xsp);
-          const float4 cv = *reinterpret_cast<const float4*>(cp + dd * kcp);
-          const float xr[kTM] = {xv.x, xv.y, xv.z, xv.w};
-          const float cr[kTN] = {cv.x, cv.y, cv.z, cv.w};
-#pragma unroll
-          for (int i = 0; i < kTM; ++i)
-#pragma unroll
-            for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(xr[i], cr[j], acc[i][j]);
-        }
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          const int kk = kb + tx * kTN + j;
-          if (kk < kn) {
-            const float c2 = s_c2[kk];
-#pragma unroll
-            for (int i = 0; i < kTM; ++i) {
-              const float dist = fmaf(-2.f, acc[i][j], c2);
-              if (dist < best[i]) {
-                best[i] = dist;
-                best_k[i] = k0 + kk;
-              }
+            for (int u = 0; u < 8; ++u) {
+              s = fmaf(v[u].x, v[u].x, s);
+              s = fmaf(v[u].y, v[u].y, s);
+              s = fmaf(v[u].z, v[u].z, s);
+              s = fmaf(v[u].w, v[u].w, s);
             }
           }
         }
+        for (; dd < d; ++dd) s = fmaf(row[dd], row[dd], s);
+      }
+      s_c2[kk] = s;
+    }
+  };
+  auto stage_tile = [&](long long tile, int slot) {
+    const long long row0 = tile * kBM;
+    stage_rows<kThreads>(s_x + (size_t)slot * kBM * dp, x + row0 * d, kBM,
+                         n - row0, d, dp, vec);
+  };
+
+  long long tile = blockIdx.x;
+  if (tile >= n_tiles) return;
+  if (n_chunks == 1) stage_chunk(0);
+  stage_tile(tile, 0);
+  cp_async_commit();
+  if (n_chunks == 1) norms(0);  // while the copies land
+
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const int slot = stages == 2 ? (it & 1) : 0;
+    const long long next = tile + gridDim.x;
+    cp_async_wait_all();
+    __syncthreads();  // this tile (and a resident codebook) is in; the
+                      // other slot is free
+    if (stages == 2 && next < n_tiles) {
+      stage_tile(next, slot ^ 1);
+      cp_async_commit();
+    }
+    const float* xs = s_x + (size_t)slot * kBM * dp;
+
+    float best[4];
+    int best_k[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      best[r] = INFINITY;
+      best_k[r] = 0;
+    }
+
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      if (n_chunks > 1) {
+        __syncthreads();  // nobody still reads the previous chunk
+        stage_chunk(ch);
+        cp_async_commit();
+        norms(ch);
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      const int k0 = ch * kc;
+      for (int pb = 0; pb < kc && k0 + pb < k; pb += kPass) {
+        float acc[2][NT][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+        // every row this thread reads is g mod 8: one swizzle for all
+        const int sw = swizzle(g, dp);
+        const float* ap = xs + (size_t)(wm * 32 + g) * dp + 4 * t;
+        const float* bp = s_c + (size_t)(pb + wn * NT * 8 + g) * dp + 4 * t;
+        for (int d0 = 0; d0 < dp; d0 += 16) {
+          const int col = d0 ^ sw;
+          float4 av[2][2], bv[NT];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            av[mt][0] = *reinterpret_cast<const float4*>(
+                ap + (size_t)(mt * 16) * dp + col);
+            av[mt][1] = *reinterpret_cast<const float4*>(
+                ap + (size_t)(mt * 16 + 8) * dp + col);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            bv[nt] = *reinterpret_cast<const float4*>(
+                bp + (size_t)(nt * 8) * dp + col);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t a_hi[2][4], a_lo[2][4], b_hi[NT][2], b_lo[NT][2];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              split_a(h ? hi2(av[mt][0]) : lo2(av[mt][0]),
+                      h ? hi2(av[mt][1]) : lo2(av[mt][1]), a_hi[mt], a_lo[mt]);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              split_b(h ? hi2(bv[nt]) : lo2(bv[nt]), b_hi[nt], b_lo[nt]);
+            mma3_tiles<2, NT>(acc, a_hi, a_lo, b_hi, b_lo);
+          }
+        }
+        // rows (mt, half) = wm*32 + mt*16 + half*8 + g; centroids in
+        // ascending order: n tile, then column 2t, 2t + 1
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int kk = pb + wn * NT * 8 + nt * 8 + 2 * t + j;
+            const float c2 = s_c2[kk];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int r = mt * 2 + half;
+                const float dist = fmaf(-2.f, acc[mt][nt][half * 2 + j], c2);
+                if (dist < best[r]) {
+                  best[r] = dist;
+                  best_k[r] = k0 + kk;
+                }
+              }
+          }
       }
     }
 
-    // the 16 threads of a row group are lanes 0-15 or 16-31 of one warp
+    // lowest distance, then lowest index: across the row's 4 lanes, then
+    // across the 4 warps along k
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      float v = best[i];
-      int id = best_k[i];
-      for (int off = 8; off > 0; off >>= 1) {
+    for (int r = 0; r < 4; ++r) {
+      float v = best[r];
+      int id = best_k[r];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
         const float ov = __shfl_xor_sync(0xffffffffu, v, off);
         const int oid = __shfl_xor_sync(0xffffffffu, id, off);
         if (ov < v || (ov == v && oid < id)) {
@@ -147,40 +234,124 @@ kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
           id = oid;
         }
       }
-      const long long row = row0 + ty * kTM + i;
-      if (tx == 0 && row < n) out[row] = id;
+      if (t == 0) {
+        const int row = wm * 32 + (r >> 1) * 16 + (r & 1) * 8 + g;
+        s_bd[row * kWarpsN + wn] = v;
+        s_bk[row * kWarpsN + wn] = id;
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < kBM) {
+      const int row = threadIdx.x;
+      float v = s_bd[row * kWarpsN];
+      int id = s_bk[row * kWarpsN];
+      for (int w = 1; w < kWarpsN; ++w) {
+        const float ov = s_bd[row * kWarpsN + w];
+        const int oid = s_bk[row * kWarpsN + w];
+        if (ov < v || (ov == v && oid < id)) {
+          v = ov;
+          id = oid;
+        }
+      }
+      const long long grow = tile * kBM + row;
+      if (grow < n) out[grow] = id;
+    }
+    if (stages == 1 && next < n_tiles) {
+      __syncthreads();  // everyone is done with the slot
+      stage_tile(next, 0);
+      cp_async_commit();
     }
   }
+}
+
+long long smem_bytes(int d, int kc, int stages, int wm) {
+  const long long dp = tf32x3::padded_width(d);
+  return ((long long)kc * dp + kc + (long long)stages * wm * 32 * dp +
+          2LL * kThreads) * (long long)sizeof(float);
+}
+
+struct Config {
+  int nt;      // n tiles per warp
+  int wm;      // warps along the rows
+  int kc;      // codebook chunk held in shared memory
+  int stages;  // x tiles in the ring
+  long long smem;
+};
+
+// The first configuration that fits, with the largest codebook chunk:
+//   32-row tiles of 256-centroid passes (8 warps along k) when 64-row
+//   tiles would leave SMs idle, so a cascade batch's 256 query rows take
+//   8 SMs and not 4;
+//   64-row tiles of 256-centroid passes (the build);
+//   64-row tiles of 32-centroid passes (K <= 32, or a D too wide for a
+//   256-centroid chunk), with two ring slots, then with one.
+bool choose(int d, int k, long long n, int sm_count, Config* cfg) {
+  struct Shape {
+    int nt, wm, stages;
+  };
+  const Shape shapes[4] = {{4, 1, 2}, {8, 2, 2}, {1, 2, 2}, {1, 2, 1}};
+  for (const Shape& sh : shapes) {
+    const int pass = kWarps / sh.wm * sh.nt * 8;
+    if (sh.nt > 1 && k <= 32) continue;
+    if (sh.wm == 1 && (n + 63) / 64 >= sm_count) continue;
+    const int full = (k + pass - 1) / pass * pass;
+    for (int kc = full; kc >= pass; kc -= pass) {
+      const long long smem = smem_bytes(d, kc, sh.stages, sh.wm);
+      if (smem <= kMaxDynamicSmem) {
+        *cfg = Config{sh.nt, sh.wm, kc, sh.stages, smem};
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+template <int NT, int WM>
+cudaError_t launch(const float* x, const float* c, int32_t* out, long long n,
+                   int d, int k, const Config& cfg, int sm_count,
+                   cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kmeans_assign_kernel<NT, WM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
+  if (attr != cudaSuccess) return attr;
+  const long long n_tiles = (n + WM * 32 - 1) / (WM * 32);
+  const int grid = (int)(n_tiles < sm_count ? n_tiles : sm_count);
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  kmeans_assign_kernel<NT, WM><<<grid, kThreads, (size_t)cfg.smem, stream>>>(
+      x, c, out, n, d, k, cfg.kc, cfg.stages, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory for a codebook chunk of kc centroids of width d.
-long long hpc_kmeans_assign_smem_bytes(int d, int kc) {
-  return ((long long)d * (kc + kPad) + kc + (long long)d * (kBM + kPad)) *
-         (long long)sizeof(float);
+// Dynamic shared memory the build-sized launch takes at this (D, K), or
+// -1 when no configuration fits in a block's 227 KB.
+long long hpc_kmeans_assign_smem_bytes(int d, int k) {
+  Config cfg;
+  if (d <= 0 || k <= 0 || !choose(d, k, 1LL << 40, 1, &cfg)) return -1;
+  return cfg.smem;
 }
 
-// Returns a cudaError_t (0 on success). kc is the codebook chunk held in
-// shared memory, a positive multiple of 64; grid is the number of blocks.
+// Returns a cudaError_t (0 on success). x (N, D) and c (K, D) f32 and
+// contiguous, out (N,) int32; sm_count caps the persistent grid.
 int hpc_kmeans_assign(const float* x, const float* c, int32_t* out,
-                      long long n, int d, int k, int kc, int grid,
-                      void* stream) {
+                      long long n, int d, int k, int sm_count, void* stream) {
   if (n <= 0) return 0;
-  const long long smem = hpc_kmeans_assign_smem_bytes(d, kc);
-  if (d <= 0 || k <= 0 || kc <= 0 || kc % kBK != 0 || grid <= 0 ||
-      smem > kMaxDynamicSmem)
+  Config cfg;
+  if (d <= 0 || k <= 0 || sm_count <= 0 || !choose(d, k, n, sm_count, &cfg))
     return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kmeans_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxDynamicSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  kmeans_assign_kernel<<<grid, kThreads, (size_t)smem,
-                         static_cast<cudaStream_t>(stream)>>>(x, c, out, n, d,
-                                                              k, kc);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (cfg.wm == 1)
+    err = launch<4, 1>(x, c, out, n, d, k, cfg, sm_count, s);
+  else if (cfg.nt == 8)
+    err = launch<8, 2>(x, c, out, n, d, k, cfg, sm_count, s);
+  else
+    err = launch<1, 2>(x, c, out, n, d, k, cfg, sm_count, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

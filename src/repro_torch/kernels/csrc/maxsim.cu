@@ -7,215 +7,460 @@
 //
 //   out[b, n] = sum_i qm[b, i] * max_{j : dm[n, j] != 0} <q[b, i], d[n, j]>
 //
-// in f32, with every dot product a chain of f32 FMAs (no TF32). A masked
-// patch counts as -1e30, so an all-masked document scores
-// sum_i qm[b, i] * -1e30, finite.
+// in f32 through 3xTF32 on the tensor cores (tf32x3.cuh: within a few f32
+// ulps of an f32 FMA chain). A masked patch counts as -1e30, so an
+// all-masked document scores sum_i qm[b, i] * -1e30, finite.
 //
-// What bounds it on the H100: the cascade's stage 3 (B=8, Mq=32, D=128,
-// 64 candidates x Md=615 per query) is 2.58 GFLOP against 161 MB of
-// gathered float patches: 48 us at 3.35 TB/s, 38.5 us at the 67 TFLOP/s f32
-// rate, so bytes. One shared-corpus block of float_flat (256 docs for all
-// 8 queries) is 10.3 GFLOP against 80.6 MB: 154 us, so operations.
+// Three layouts: a shared corpus (N, Md, D), every query against every
+// document; per-query pools (B, P, Md, D) through a batch stride; and
+// candidate rows: the corpus (N, Md, D) with rows (B, P) of int32 corpus
+// positions, each read through its id, so the cascade's stage 3 makes no
+// (B, P, Md, D) copy. A -1 slot scores -1e30 (the scan's sentinel for an
+// empty slot); an id >= N is never read and scores NaN.
 //
-// Design: the TPU kernel runs one (Mq, D) x (T*Md, D)^T matmul per tile on
-// the MXU. Here each block owns one query b and walks documents; the grid
-// is (B, doc slots), with b the fastest index so the B blocks that read one
-// shared-corpus document run together and share it through L2. A block
-// stages 32 query rows in shared memory, then streams the document's
-// patches through shared memory 128 at a time, with the chunk's mask
-// beside them; rows are padded to a multiple of 4 floats with zeros (which
-// add nothing to a dot product) plus 4 floats of skew. Its 256 threads form
-// an 8 x 32 grid: warp w owns query rows 4w..4w+3, lane l owns patches
-// l, l+32, l+64, l+96, so the lanes' 16-byte loads fall in distinct banks.
-// Per 4 elements of D a thread makes eight 16-byte shared loads and 64 FMAs
-// (a 4 x 4 register tile, each dot product summed in ascending D). After
-// each chunk a thread folds its valid patches into a running max per
-// query row; a shuffle max over the warp's lanes and a per-warp partial sum
-// in shared memory give the score. The ragged last chunk is masked in the
-// kernel; Mq beyond 32 loops over query chunks and adds each chunk's
-// partial sum in order. Strides give both layouts: batch stride 0 for the
-// shared corpus (N, Md, D), P*Md*D for per-query pools (B, P, Md, D). Right
-// and simple first: no tensor cores (they would need TF32 or bf16 and move
-// scores off the f32 reference), no TMA, no double buffering.
+// What bounds it on the H100: stage 3 (B=8, Mq=32, D=128, 64 candidates x
+// Md=615 per query) reads 161 MB of float patches for 2.58 GFLOP: 48 us
+// at 3.35 TB/s, 15.6 us for 3xTF32 at 495 TFLOP/s, so bytes. One
+// shared-corpus block of float_flat (256 docs for all 8 queries) is 10.3
+// GFLOP against 80.6 MB: 62 us for 3xTF32 (154 us in f32 FMAs), 24 us of
+// bytes, so operations.
+//
+// Design: document patches are the M side of mma.sync m16n8k8 (16-row
+// tiles, the ragged Md masked) and query patches the N side (8-row tiles;
+// Mq 5 or 40 padded with zero rows and left out of the sum), in 3xTF32
+// (tf32x3.cuh). A block holds a group of whole queries in shared memory
+// and streams its documents' patches in chunks through a two-slot ring of
+// cp.async copies (rows padded and swizzled as tf32x3.cuh says), the next
+// chunk loading while this one computes; a third slot measured no faster.
+// Each warp owns one 32-row query chunk (4 n tiles) and MT m
+// tiles of each document chunk; it folds its valid patches into a running
+// max per query row in the accumulator layout, with the mask prefetched
+// into registers one chunk ahead. At a document's end a shuffle max over
+// the 8 row groups, a max across the warps that share a query chunk, the
+// products qm * max in parallel, and one thread per query summing them in
+// ascending query order give the score.
+//
+// Shared corpus: one block serves every query of its group (up to 8
+// query chunks: B * Mq <= 256 query rows in one group at Mq = 32), so each
+// document is read from device memory once; the (B, doc) grid of the
+// earlier design read it once per query, through L2 (8 x 80.6 MB per
+// float_flat block), and its time is measured beside this one
+// (max_qpb = 1). Its 256 query rows stay f32 and each B fragment is split
+// as it is loaded. Per-query pools and candidate rows: one query per block
+// (grid.y = B), 8 warps on 8 m tiles of a 128-patch chunk, and the query's
+// rows split into hi and lo once, in shared memory, beside the ring. Both
+// grids are persistent (no more blocks than fit on the card at once), each
+// block walking its documents with the ring running on across them.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;            // 8 warps x 32 lanes
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTM = 4;                   // query rows per thread
-constexpr int kTN = 4;                   // patches per thread
-constexpr int kQRows = kWarps * kTM;     // 32 query rows per pass
-constexpr int kChunk = 32 * kTN;         // 128 patches per chunk
-constexpr int kSkew = 4;                 // floats after each padded row
+constexpr int kQChunk = 32;           // query rows per warp: 4 n tiles
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxDynamicSmem = 232448;
-constexpr int kMaxDocSlots = 65535;      // grid.y limit
 
-// Copy `rows` rows of width d (row r at src + r * d, zero when r >= valid)
-// into shared rows of stride `stride` padded with zeros to dp = d rounded
-// up to 4. `vec` says d % 4 == 0 and src is 16-byte aligned.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int rows, int valid, int d,
-                                           int dp, int stride, bool vec) {
-  const int d4 = dp >> 2;
-  if (vec) {
-    for (int t = threadIdx.x; t < rows * d4; t += kThreads) {
-      const int r = t / d4;
-      const int c = (t - r * d4) << 2;
-      const float4 v = r < valid
-          ? *reinterpret_cast<const float4*>(src + (long long)r * d + c)
-          : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(dst + r * stride + c) = v;
+enum Layout { kShared = 0, kPerQuery = 1, kRows = 2 };
+
+struct Params {
+  const float* q;          // (B, Mq, D)
+  const float* qm;         // (B, Mq)
+  const float* docs;       // (N, Md, D) or (B, P, Md, D)
+  const uint8_t* d_mask;   // (N, Md) or (B, P, Md)
+  const int32_t* rows;     // (B, P) with batch stride rows_bstride
+  float* out;              // (B, n_out)
+  int b, mq, n_out, md, d, n_corpus;
+  long long docs_bstride, mask_bstride, rows_bstride;
+  int layout;
+  int qpb;      // queries per block
+  int mg;       // warps along the patches (kWarps / query chunks per block)
+  int stages;   // chunks in the ring (1 or 2)
+  bool vec;
+};
+
+struct Doc {
+  const float* p;
+  const uint8_t* m;
+};
+
+// A position in a block's stream of document chunks: its i-th document
+// (i == n_docs: the stream has ended) and chunk c of it.
+struct Item {
+  int i, c;
+};
+
+// PRE: the block's query rows are split into hi and lo once, in shared
+// memory (when both fit beside the ring); else each B fragment is split as
+// it is loaded.
+template <int MT, bool PRE>
+__global__ void __launch_bounds__(kThreads, 1) maxsim_kernel(const Params p) {
+  using namespace tf32x3;
+  extern __shared__ __align__(16) float smem[];
+  const int dp = padded_width(p.d);
+  const int qcn = (p.mq + kQChunk - 1) / kQChunk;   // chunks per query
+  const int qg_max = p.qpb * qcn;                    // chunks per block
+  const int qrows = qg_max * kQChunk;
+  const int cr = p.mg * MT * 16;                     // patches per chunk
+  float* s_q = smem;                                 // (qrows, dp): f32/hi
+  float* s_ql = s_q + (size_t)qrows * dp;            // (qrows, dp) if PRE
+  float* s_d = s_ql + (PRE ? (size_t)qrows * dp : 0);  // (stages, cr, dp)
+  float* s_max = s_d + (size_t)p.stages * cr * dp;   // (mg, qrows)
+  float* s_val = s_max + (size_t)p.mg * qrows;       // (qrows,)
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b0 = blockIdx.y * p.qpb;
+  const int nq = min(p.qpb, p.b - b0);
+  const int wq = warp % qg_max;          // this warp's query chunk
+  const int wg = warp / qg_max;          // ... and patch group
+  const bool active = wg < p.mg && wq < nq * qcn;
+  const int n_chunks = (p.md + cr - 1) / cr;
+
+  // the block's documents: columns blockIdx.x + i * gridDim.x of out
+  const int n_docs = p.n_out > (int)blockIdx.x
+      ? (p.n_out - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  auto col_of = [&](int i) { return (int)blockIdx.x + i * (int)gridDim.x; };
+  auto id_of = [&](int i) {
+    return __ldg(p.rows + (long long)b0 * p.rows_bstride + col_of(i));
+  };
+  auto doc_of = [&](int i) {
+    long long pos = col_of(i);
+    const float* base = p.docs;
+    const uint8_t* mbase = p.d_mask;
+    if (p.layout == kRows) {
+      pos = id_of(i);
+    } else if (p.layout == kPerQuery) {
+      base += b0 * p.docs_bstride;
+      mbase += b0 * p.mask_bstride;
     }
-  } else {
-    for (int t = threadIdx.x; t < rows * dp; t += kThreads) {
-      const int r = t / dp;
-      const int c = t - r * dp;
-      dst[r * stride + c] = r < valid && c < d ? src[(long long)r * d + c]
-                                               : 0.f;
+    return Doc{base + pos * p.md * p.d, mbase + pos * p.md};
+  };
+  auto next_valid = [&](int i) {  // the first document >= i that is read
+    if (p.layout == kRows)
+      for (; i < n_docs; ++i) {
+        const int id = id_of(i);
+        if (id >= 0 && id < p.n_corpus) break;
+      }
+    return i < n_docs ? i : n_docs;
+  };
+  auto next = [&](Item it) {
+    return it.c + 1 < n_chunks ? Item{it.i, it.c + 1}
+                               : Item{next_valid(it.i + 1), 0};
+  };
+
+  // empty slots (-1e30) and ids past the corpus (NaN) are written here and
+  // skipped by the stream
+  if (p.layout == kRows) {
+    for (int i = threadIdx.x; i < n_docs; i += kThreads) {
+      const int id = id_of(i);
+      if (id < 0 || id >= p.n_corpus)
+        p.out[(long long)b0 * p.n_out + col_of(i)] = id < 0 ? kNegInf : NAN;
     }
+  }
+  Item cur{next_valid(0), 0};
+  if (cur.i >= n_docs) return;
+
+  // the block's query rows: chunk w holds rows (w % qcn) * 32 .. of query
+  // b0 + w / qcn; rows past Mq or past the group are zeros
+  for (int w = 0; w < qg_max; ++w) {
+    const int qb = b0 + w / qcn;
+    const int i0 = (w % qcn) * kQChunk;
+    const int rows = w < nq * qcn ? min(kQChunk, p.mq - i0) : 0;
+    stage_rows<kThreads>(s_q + (size_t)w * kQChunk * dp,
+                         rows ? p.q + ((long long)qb * p.mq + i0) * p.d : p.q,
+                         kQChunk, rows, p.d, dp, p.vec);
+  }
+
+  // mask bytes of this thread's patch rows (wg*MT*16 + mt*16 + g, + 8) of
+  // a chunk, loaded from a clamped position and kept as loaded, tested only
+  // where the next chunk uses them, so the loads stay in flight across the
+  // compute of this chunk (a test here would wait for them)
+  auto row_of = [&](int chunk, int mt, int h) {
+    return chunk * cr + wg * MT * 16 + mt * 16 + h * 8 + g;
+  };
+  auto load_mask = [&](Item it, int (&m)[MT][2]) {
+    if (!active) return;
+    const Doc doc = doc_of(it.i);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        m[mt][h] = __ldg(doc.m + min(row_of(it.c, mt, h), p.md - 1));
+  };
+  auto stage_chunk = [&](Item it, int slot) {
+    const int j0 = it.c * cr;
+    stage_rows<kThreads>(s_d + (size_t)slot * cr * dp,
+                         doc_of(it.i).p + (long long)j0 * p.d, cr, p.md - j0,
+                         p.d, dp, p.vec);
+  };
+
+  stage_chunk(cur, 0);
+  cp_async_commit();
+  int m_cur[MT][2], m_next[MT][2] = {};
+  load_mask(cur, m_next);
+
+  float run[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) run[nt][0] = run[nt][1] = kNegInf;
+  // every row this thread reads is g mod 8: one swizzle for all
+  const int sw = swizzle(g, dp);
+
+  for (int k = 0;; ++k) {
+    const Item nxt = next(cur);
+    const bool more = nxt.i < n_docs;
+    cp_async_wait_all();
+    __syncthreads();  // chunk k is in; the other slot is free
+    if (PRE && k == 0) {  // the query rows, split once
+      uint32_t* hi = reinterpret_cast<uint32_t*>(s_q);
+      uint32_t* lo = reinterpret_cast<uint32_t*>(s_ql);
+      for (int e = threadIdx.x; e < qrows * dp; e += kThreads)
+        split(s_q[e], hi[e], lo[e]);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      m_cur[mt][0] = m_next[mt][0];
+      m_cur[mt][1] = m_next[mt][1];
+    }
+    if (more) load_mask(nxt, m_next);
+    if (p.stages == 2 && more) {
+      stage_chunk(nxt, (k + 1) & 1);
+      cp_async_commit();
+    }
+
+    if (active) {
+      float acc[MT][4][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+      const int slot = p.stages == 2 ? k & 1 : 0;
+      const float* ap = s_d + ((size_t)slot * cr + wg * MT * 16 + g) * dp
+                        + 4 * t;
+      const size_t bq = (size_t)(wq * kQChunk + g) * dp + 4 * t;
+      for (int d0 = 0; d0 < dp; d0 += 16) {
+        const int col = d0 ^ sw;
+        float4 av[MT][2], bv[4], bl[4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          av[mt][0] = *reinterpret_cast<const float4*>(
+              ap + (size_t)(mt * 16) * dp + col);
+          av[mt][1] = *reinterpret_cast<const float4*>(
+              ap + (size_t)(mt * 16 + 8) * dp + col);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          bv[nt] = *reinterpret_cast<const float4*>(
+              s_q + bq + (size_t)(nt * 8) * dp + col);
+          if (PRE)
+            bl[nt] = *reinterpret_cast<const float4*>(
+                s_ql + bq + (size_t)(nt * 8) * dp + col);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t a_hi[MT][4], a_lo[MT][4], b_hi[4][2], b_lo[4][2];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            split_a(h ? hi2(av[mt][0]) : lo2(av[mt][0]),
+                    h ? hi2(av[mt][1]) : lo2(av[mt][1]), a_hi[mt], a_lo[mt]);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const float2 v = h ? hi2(bv[nt]) : lo2(bv[nt]);
+            if (PRE) {
+              const float2 w = h ? hi2(bl[nt]) : lo2(bl[nt]);
+              b_hi[nt][0] = __float_as_uint(v.x);
+              b_hi[nt][1] = __float_as_uint(v.y);
+              b_lo[nt][0] = __float_as_uint(w.x);
+              b_lo[nt][1] = __float_as_uint(w.y);
+            } else {
+              split_b(v, b_hi[nt], b_lo[nt]);
+            }
+          }
+          mma3_tiles<MT, 4>(acc, a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+      // acc[mt][nt]: patch rows g (e 0, 1) and g + 8 (e 2, 3), query
+      // columns 2t and 2t + 1 of n tile nt
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (row_of(cur.c, mt, h) < p.md && m_cur[mt][h] != 0) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              run[nt][0] = fmaxf(run[nt][0], acc[mt][nt][2 * h]);
+              run[nt][1] = fmaxf(run[nt][1], acc[mt][nt][2 * h + 1]);
+            }
+          }
+    }
+
+    if (cur.c == n_chunks - 1) {  // the document's last chunk: its scores
+      if (active) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float v = run[nt][j];
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+            if (g == 0)
+              s_max[(size_t)wg * qrows + wq * kQChunk + nt * 8 + 2 * t + j] = v;
+            run[nt][j] = kNegInf;
+          }
+      }
+      __syncthreads();
+      // qm * max per query row in parallel, then one thread per query sums
+      // them in ascending order
+      for (int r = threadIdx.x; r < nq * p.mq; r += kThreads) {
+        const int qb = r / p.mq;
+        const int i = r - qb * p.mq;
+        const int row = (qb * qcn + i / kQChunk) * kQChunk + i % kQChunk;
+        float m = s_max[row];
+        for (int w = 1; w < p.mg; ++w)
+          m = fmaxf(m, s_max[(size_t)w * qrows + row]);
+        s_val[r] = p.qm[(long long)b0 * p.mq + r] * m;
+      }
+      __syncthreads();
+      if (threadIdx.x < nq) {
+        const float* v = s_val + threadIdx.x * p.mq;
+        float total = 0.f;
+        for (int i = 0; i < p.mq; ++i) total += v[i];
+        p.out[(long long)(b0 + threadIdx.x) * p.n_out + col_of(cur.i)] =
+            total;
+      }
+    }
+
+    if (p.stages == 1 && more) {
+      __syncthreads();  // everyone is done with the slot
+      stage_chunk(nxt, 0);
+      cp_async_commit();
+    }
+    if (!more) break;
+    cur = nxt;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-maxsim_kernel(const float* __restrict__ q, const float* __restrict__ qm,
-              const float* __restrict__ docs,
-              const uint8_t* __restrict__ d_mask, float* __restrict__ out,
-              int mq, int n, int md, int d, long long docs_bstride,
-              long long mask_bstride, bool vec) {
-  extern __shared__ float smem[];
-  const int dp = (d + 3) & ~3;
-  const int stride = dp + kSkew;
-  float* s_q = smem;                                // (kQRows, stride)
-  float* s_d = s_q + kQRows * stride;               // (kChunk, stride)
-  float* s_part = s_d + kChunk * stride;            // (kWarps,)
-  int* s_valid = reinterpret_cast<int*>(s_part + kWarps);  // (kChunk,)
+template <int MT, bool PRE>
+cudaError_t launch(const Params& prm, dim3 grid, long long smem,
+                   cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      maxsim_kernel<MT, PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxDynamicSmem);
+  if (attr != cudaSuccess) return attr;
+  maxsim_kernel<MT, PRE><<<grid, kThreads, (size_t)smem, stream>>>(prm);
+  return cudaGetLastError();
+}
 
-  const int b = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float* q_b = q + (long long)b * mq * d;
-  const float* qm_b = qm + (long long)b * mq;
-  const float* docs_b = docs + b * docs_bstride;
-  const uint8_t* mask_b = d_mask + b * mask_bstride;
+// m tiles per warp: 4 / (warps along the patches), at least 1, so a chunk
+// is 64 patches (128 with all 8 warps on one query chunk)
+int m_tiles(int mg) { return mg >= 4 ? 1 : 4 / mg; }
 
-  for (int i0 = 0; i0 < mq; i0 += kQRows) {
-    __syncthreads();  // nobody still reads the previous query chunk
-    stage_rows(s_q, q_b + (long long)i0 * d, kQRows, mq - i0, d, dp, stride,
-               vec);
-    for (int doc = blockIdx.y; doc < n; doc += gridDim.y) {
-      const float* doc_p = docs_b + (long long)doc * md * d;
-      const uint8_t* doc_m = mask_b + (long long)doc * md;
-      float run[kTM];
-#pragma unroll
-      for (int ii = 0; ii < kTM; ++ii) run[ii] = kNegInf;
+long long smem_bytes(int d, int qpb, int qcn, int mg, int stages, bool pre) {
+  const long long dp = tf32x3::padded_width(d);
+  const long long qrows = (long long)qpb * qcn * kQChunk;
+  const long long cr = (long long)mg * m_tiles(mg) * 16;
+  return ((pre ? 2 : 1) * qrows * dp + stages * cr * dp + mg * qrows +
+          qrows) * (long long)sizeof(float);
+}
 
-      for (int c0 = 0; c0 < md; c0 += kChunk) {
-        __syncthreads();  // the previous chunk (and s_part) is done with
-        stage_rows(s_d, doc_p + (long long)c0 * d, kChunk, md - c0, d, dp,
-                   stride, vec);
-        for (int p = threadIdx.x; p < kChunk; p += kThreads)
-          s_valid[p] = c0 + p < md && doc_m[c0 + p] != 0;
-        __syncthreads();
+struct Config {
+  int qpb, mg, stages;
+  bool pre;
+  long long smem;
+};
 
-        float acc[kTM][kTN];
-#pragma unroll
-        for (int ii = 0; ii < kTM; ++ii)
-#pragma unroll
-          for (int jj = 0; jj < kTN; ++jj) acc[ii][jj] = 0.f;
-        const float* qp = s_q + warp * kTM * stride;
-        const float* dpt = s_d + lane * stride;
-        for (int c = 0; c < dp; c += 4) {
-          float4 qv[kTM], dv[kTN];
-#pragma unroll
-          for (int ii = 0; ii < kTM; ++ii)
-            qv[ii] = *reinterpret_cast<const float4*>(qp + ii * stride + c);
-#pragma unroll
-          for (int jj = 0; jj < kTN; ++jj)
-            dv[jj] = *reinterpret_cast<const float4*>(
-                dpt + jj * 32 * stride + c);
-#pragma unroll
-          for (int ii = 0; ii < kTM; ++ii)
-#pragma unroll
-            for (int jj = 0; jj < kTN; ++jj) {
-              float a = acc[ii][jj];
-              a = fmaf(qv[ii].x, dv[jj].x, a);
-              a = fmaf(qv[ii].y, dv[jj].y, a);
-              a = fmaf(qv[ii].z, dv[jj].z, a);
-              acc[ii][jj] = fmaf(qv[ii].w, dv[jj].w, a);
-            }
-        }
-#pragma unroll
-        for (int jj = 0; jj < kTN; ++jj) {
-          if (s_valid[lane + jj * 32]) {
-#pragma unroll
-            for (int ii = 0; ii < kTM; ++ii)
-              run[ii] = fmaxf(run[ii], acc[ii][jj]);
-          }
+// Queries per block, query split and ring depth: for the shared corpus as
+// many whole queries as 8 warps hold (one 32-row query chunk each, at most
+// max_qpb), per-query layouts one query; then the query split once when
+// it fits, and the deeper ring (2 chunks, else 1) that fits; then fewer
+// queries. Returns false when nothing fits.
+bool choose(int layout, int b, int mq, int d, int max_qpb, Config* cfg) {
+  const int qcn = (mq + kQChunk - 1) / kQChunk;
+  if (qcn > kWarps || max_qpb < 1) return false;
+  int top = layout == kShared ? (kWarps / qcn < b ? kWarps / qcn : b) : 1;
+  if (top > max_qpb) top = max_qpb;
+  for (int q = top; q >= 1; --q) {
+    const int m = kWarps / (q * qcn);
+    for (int pre = 1; pre >= 0; --pre)
+      for (int st = 2; st >= 1; --st) {
+        const long long s = smem_bytes(d, q, qcn, m, st, pre);
+        if (s <= kMaxDynamicSmem) {
+          *cfg = Config{q, m, st, pre != 0, s};
+          return true;
         }
       }
-
-      // max over the warp's lanes (patches), then this warp's rows' sum
-      float part = 0.f;
-#pragma unroll
-      for (int ii = 0; ii < kTM; ++ii) {
-        float m = run[ii];
-        for (int off = 16; off > 0; off >>= 1)
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        const int row = i0 + warp * kTM + ii;
-        if (row < mq) part += qm_b[row] * m;
-      }
-      if (lane == 0) s_part[warp] = part;
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        float total = 0.f;
-        for (int w = 0; w < kWarps; ++w) total += s_part[w];
-        float* o = out + (long long)b * n + doc;
-        *o = i0 == 0 ? total : *o + total;
-      }
-    }
   }
+  return false;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs at width d.
-long long hpc_maxsim_smem_bytes(int d) {
-  const long long stride = ((d + 3) & ~3) + kSkew;
-  return ((kQRows + kChunk) * stride + kWarps) * (long long)sizeof(float) +
-         (long long)kChunk * (long long)sizeof(int);
+// Dynamic shared memory of a launch in this layout and shape, or -1 when
+// none fits (Mq > 256, or D too wide).
+long long hpc_maxsim_smem_bytes(int layout, int b, int mq, int d) {
+  Config cfg;
+  if (b <= 0 || mq <= 0 || d <= 0 || !choose(layout, b, mq, d, kWarps, &cfg))
+    return -1;
+  return cfg.smem;
 }
 
-// Returns a cudaError_t (0 on success). q is (B, Mq, D) f32 and contiguous,
-// qm (B, Mq) f32, docs (N, Md, D) or (B, P, Md, D) f32 with the given batch
-// stride, d_mask 1 byte per patch, out (B, N) f32; strides are in elements.
-// Needs Mq >= 1 and Md >= 1.
+// Returns a cudaError_t (0 on success). q (B, Mq, D) f32 contiguous, qm
+// (B, Mq) f32, d_mask 1 byte per patch, out (B, n_out) f32. layout 0:
+// docs (N, Md, D), n_out = N; 1: docs (B, P, Md, D) with batch strides
+// (elements), n_out = P; 2: docs (N, Md, D) and rows (B, P) int32 with
+// batch stride rows_bstride, n_out = P, n_corpus = N. Needs Md >= 1.
+// max_qpb caps the queries a block serves on the shared corpus (1 gives
+// the (B, doc) grid of the earlier design, kept for timing beside it).
 int hpc_maxsim(const float* q, const float* qm, const float* docs,
-               const uint8_t* d_mask, float* out, int b, int mq, int n,
-               int md, int d, long long docs_bstride, long long mask_bstride,
+               const uint8_t* d_mask, const int32_t* rows, float* out,
+               int layout, int b, int mq, int n_out, int md, int d,
+               int n_corpus, long long docs_bstride, long long mask_bstride,
+               long long rows_bstride, int max_qpb, int sm_count,
                void* stream) {
-  if (b <= 0 || n <= 0) return 0;
-  const long long smem = hpc_maxsim_smem_bytes(d);
-  if (d <= 0 || mq <= 0 || md <= 0 || smem > kMaxDynamicSmem)
+  if (b <= 0 || n_out <= 0) return 0;
+  Config cfg;
+  if (mq <= 0 || md <= 0 || sm_count <= 0 || layout < 0 || layout > 2 ||
+      (layout == kRows && rows == nullptr) ||
+      !choose(layout, b, mq, d, max_qpb, &cfg))
     return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      maxsim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxDynamicSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   const bool vec = d % 4 == 0 && docs_bstride % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(docs) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  const dim3 grid(b, n < kMaxDocSlots ? n : kMaxDocSlots);
-  maxsim_kernel<<<grid, kThreads, (size_t)smem,
-                  static_cast<cudaStream_t>(stream)>>>(
-      q, qm, docs, d_mask, out, mq, n, md, d, docs_bstride, mask_bstride,
-      vec);
-  return static_cast<int>(cudaGetLastError());
+  const Params prm{q, qm, docs, d_mask, rows, out, b, mq, n_out, md, d,
+                   n_corpus, docs_bstride, mask_bstride, rows_bstride, layout,
+                   cfg.qpb, cfg.mg, cfg.stages, vec};
+  // persistent: at most one block per SM in all (shared memory allows no
+  // second)
+  const int groups = (b + cfg.qpb - 1) / cfg.qpb;
+  int per_group = sm_count / groups;
+  if (per_group < 1) per_group = 1;
+  const dim3 grid(n_out < per_group ? n_out : per_group, groups);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mt = m_tiles(cfg.mg);
+  cudaError_t err;
+  if (cfg.pre)
+    err = mt == 4 ? launch<4, true>(prm, grid, cfg.smem, s)
+        : mt == 2 ? launch<2, true>(prm, grid, cfg.smem, s)
+                  : launch<1, true>(prm, grid, cfg.smem, s);
+  else
+    err = mt == 4 ? launch<4, false>(prm, grid, cfg.smem, s)
+        : mt == 2 ? launch<2, false>(prm, grid, cfg.smem, s)
+                  : launch<1, false>(prm, grid, cfg.smem, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

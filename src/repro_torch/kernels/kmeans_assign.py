@@ -6,11 +6,13 @@ version.
 The counterpart of ``repro.kernels.kmeans_assign`` (the Pallas kernel
 ``kmeans_assign_pallas``). ``||x_n||^2`` is constant per row, so it is left
 out, as the TPU kernel leaves it out. The kernel is
-``csrc/kmeans_assign.cu``. ``launches`` counts its launches in this process.
+``csrc/kmeans_assign.cu``: the product runs on the tensor cores in 3xTF32
+(a split-precision f32 product, within a few f32 ulps of f32 FMAs), so its
+codes agree with the plain version's except at near-ties. ``launches``
+counts its launches in this process.
 """
 from __future__ import annotations
 
-import functools
 import threading
 
 import torch
@@ -19,8 +21,6 @@ from repro_torch.kernels import _build
 
 launches = 0
 _count_lock = threading.Lock()
-
-_CHUNK_STEP = 64  # the kernel's centroids per pass
 
 
 def kmeans_assign_plain(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -31,26 +31,6 @@ def kmeans_assign_plain(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tenso
     c2 = (c * c).sum(dim=-1)
     dist = torch.addmm(c2, x, c.t(), beta=1.0, alpha=-2.0)    # c2 - 2 x.c
     return torch.argmin(dist, dim=-1).to(torch.int32)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _chunk(lib, d: int, k: int) -> int:
-    """Centroids held in shared memory at once: all of K (rounded up to the
-    kernel's pass width) when they fit, else the largest multiple that
-    does."""
-    full = -(-k // _CHUNK_STEP) * _CHUNK_STEP
-    kc = full
-    while kc > 0 and (lib.hpc_kmeans_assign_smem_bytes(d, kc)
-                      > _build.MAX_SMEM):
-        kc -= _CHUNK_STEP
-    if kc == 0:
-        raise ValueError(f"kmeans_assign_cuda: D={d} leaves no room for a "
-                         f"{_CHUNK_STEP}-centroid chunk in shared memory")
-    return kc
 
 
 def kmeans_assign_cuda(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -76,14 +56,13 @@ def kmeans_assign_cuda(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor
     if n == 0:
         return out
     lib = _build.library()
-    kc = _chunk(lib, d, k)
-    n_tiles = -(-n // 64)
-    grid = min(n_tiles, _sm_count(x.device.index
-                                  if x.device.index is not None
-                                  else torch.cuda.current_device()))
+    if lib.hpc_kmeans_assign_smem_bytes(d, k) < 0:
+        raise ValueError(f"kmeans_assign_cuda: D={d} leaves no room for a "
+                         f"row tile and a codebook chunk in shared memory")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.hpc_kmeans_assign(x.data_ptr(), centroids.data_ptr(),
-                                out.data_ptr(), n, d, k, kc, grid, stream)
+                                out.data_ptr(), n, d, k,
+                                _build.sm_count(x.device), stream)
     _build.check(err, "kmeans_assign kernel launch")
     with _count_lock:
         launches += 1

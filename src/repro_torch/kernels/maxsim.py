@@ -6,18 +6,23 @@ version.
 The counterpart of ``repro.kernels.maxsim`` (the Pallas kernel
 ``maxsim_pallas``). The kernel is ``csrc/maxsim.cu``; its source note says
 what bounds it on the H100 and how it is laid out. It computes the dot
-products itself, in f32 FMAs (no TF32), and a masked patch counts as
--1e30, so an all-masked doc scores ``sum_i qm_i * -1e30``.
+products on the tensor cores in 3xTF32 (a split-precision f32 product,
+within a few f32 ulps of f32 FMAs), and a masked patch counts as -1e30, so
+an all-masked doc scores ``sum_i qm_i * -1e30``.
 
-Both functions take the two layouts of the streaming scan: a shared corpus
-(docs (N, Md, D), d_mask (N, Md)) and per-query pools (docs (B, P, Md, D),
-d_mask (B, P, Md)). A slice of a per-query pool along P goes into the
-kernel through its batch stride. ``launches`` counts the kernel launches of
-this process.
+Both functions take three layouts: a shared corpus (docs (N, Md, D),
+d_mask (N, Md)), per-query pools (docs (B, P, Md, D), d_mask (B, P, Md);
+a slice along P goes into the kernel through its batch stride), and
+candidate rows: ``rows`` (B, P) int32 corpus positions into a shared
+corpus, read through their ids (no (B, P, Md, D) copy on the card). A -1
+slot scores NEG_INF, the scan's score for an empty slot; an id >= N scores
+NaN (the kernel never reads it). ``launches`` counts the kernel launches
+of this process.
 """
 from __future__ import annotations
 
 import threading
+from typing import Optional
 
 import torch
 
@@ -27,15 +32,28 @@ from repro_torch.kernels import _build
 launches = 0
 _count_lock = threading.Lock()
 
+# the kernel's layouts (csrc/maxsim.cu)
+_SHARED, _PER_QUERY, _ROWS = 0, 1, 2
+
 
 def maxsim_plain(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
-                 d_mask: torch.Tensor) -> torch.Tensor:
+                 d_mask: torch.Tensor, rows: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch (the counterpart of
     ``repro.kernels.ref.maxsim``, extended to per-query pools).
 
     q (B, Mq, D), q_mask (B, Mq) 0/1, docs (N, Md, D) or (B, P, Md, D),
     d_mask of the docs' leading shape (nonzero = valid) -> (B, N) f32.
+    With ``rows`` (B, P) of positions into a shared corpus: the rows are
+    gathered and scored as per-query pools -> (B, P); -1 slots score
+    NEG_INF and ids >= N NaN, as in the kernel.
     """
+    if rows is not None:
+        n = docs.shape[0]
+        safe = rows.long().clamp(0, max(n - 1, 0))
+        out = maxsim_plain(q, q_mask, docs[safe], d_mask[safe])
+        out = torch.where(rows >= n, float("nan"), out)
+        return torch.where(rows < 0, NEG_INF, out)
     q = q.float()
     if docs.dim() == 4:
         sim = torch.einsum("bqd,bpmd->bqpm", q, docs.float())  # (B, Mq, P, Md)
@@ -49,14 +67,21 @@ def maxsim_plain(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
 
 
 def maxsim_cuda(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
-                d_mask: torch.Tensor) -> torch.Tensor:
+                d_mask: torch.Tensor, rows: Optional[torch.Tensor] = None, *,
+                max_queries_per_block: int = 8) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; same contract as
-    ``maxsim_plain`` with q and q_mask float32 and contiguous, docs float32
-    and d_mask bool/uint8. Raises on anything else."""
+    ``maxsim_plain`` with q and q_mask float32 and contiguous, docs float32,
+    d_mask bool/uint8 and rows int32 with unit inner stride. Raises on
+    anything else. ``max_queries_per_block`` caps the queries one block
+    serves on a shared corpus; 1 is the earlier (B, doc) design, kept only
+    to time the two side by side."""
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"maxsim_cuda needs CUDA tensors, got {q.device}")
-    for name, t in (("q_mask", q_mask), ("docs", docs), ("d_mask", d_mask)):
+    named = [("q_mask", q_mask), ("docs", docs), ("d_mask", d_mask)]
+    if rows is not None:
+        named.append(("rows", rows))
+    for name, t in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     if (q.dtype != torch.float32 or q_mask.dtype != torch.float32
@@ -71,6 +96,16 @@ def maxsim_cuda(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
         raise ValueError(f"q_mask has shape {tuple(q_mask.shape)}, expected "
                          f"{(b, mq)}")
     per_query = docs.dim() == 4
+    if rows is not None:
+        if per_query:
+            raise ValueError("rows index a shared corpus (N, Md, D), got "
+                             f"docs {tuple(docs.shape)}")
+        if rows.dtype != torch.int32:
+            raise ValueError(f"rows must be int32, got {rows.dtype}")
+        if rows.dim() != 2 or rows.shape[0] != b:
+            raise ValueError(f"rows must be (B={b}, P), got "
+                             f"{tuple(rows.shape)}")
+        _build.check_layout("rows", rows, rows.shape, batch_strided=True)
     if per_query:
         _, n, md, _ = docs.shape
         _build.check_layout("docs", docs, (b, n, md, d), batch_strided=True)
@@ -82,21 +117,31 @@ def maxsim_cuda(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
                          f"{tuple(docs.shape)}")
     _build.check_layout("d_mask", d_mask, docs.shape[:-1],
                         batch_strided=per_query)
-    if b == 0 or n == 0 or mq == 0:
-        return torch.zeros((b, n), dtype=torch.float32, device=q.device)
+    n_out = rows.shape[1] if rows is not None else n
+    if b == 0 or n_out == 0 or mq == 0:
+        return torch.zeros((b, n_out), dtype=torch.float32, device=q.device)
     if md == 0:
         raise ValueError("maxsim_cuda needs at least one patch per doc")
+    if not 1 <= max_queries_per_block <= 8:
+        raise ValueError(f"max_queries_per_block must be in [1, 8], got "
+                         f"{max_queries_per_block}")
+    layout = _ROWS if rows is not None else (_PER_QUERY if per_query
+                                             else _SHARED)
     lib = _build.library()
-    smem = lib.hpc_maxsim_smem_bytes(d)
-    if smem > _build.MAX_SMEM:
-        raise ValueError(f"maxsim_cuda needs {smem} B of shared memory at "
-                         f"D={d}; a block may use {_build.MAX_SMEM}")
-    out = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    if lib.hpc_maxsim_smem_bytes(layout, b, mq, d) < 0:
+        raise ValueError(f"maxsim_cuda: Mq={mq}, D={d} do not fit in a "
+                         f"block's {_build.MAX_SMEM} B of shared memory "
+                         f"(Mq <= 256)")
+    out = torch.empty((b, n_out), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.hpc_maxsim(
         q.data_ptr(), q_mask.data_ptr(), docs.data_ptr(), d_mask.data_ptr(),
-        out.data_ptr(), b, mq, n, md, d, docs.stride(0) if per_query else 0,
-        d_mask.stride(0) if per_query else 0, stream)
+        rows.data_ptr() if rows is not None else None, out.data_ptr(),
+        layout, b, mq, n_out, md, d, n,
+        docs.stride(0) if per_query else 0,
+        d_mask.stride(0) if per_query else 0,
+        rows.stride(0) if rows is not None else 0, max_queries_per_block,
+        _build.sm_count(q.device), stream)
     _build.check(err, "maxsim kernel launch")
     with _count_lock:
         launches += 1

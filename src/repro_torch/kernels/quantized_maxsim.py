@@ -51,18 +51,11 @@ MAX_RANGE = 256
 MIN_RANGE = 2
 BLOCKS_PER_SM = 1
 
-_sm_count = {}
-
-
 def launch_range_len(b: int, n: int, device) -> int:
     """The CUDA launch's range length for B queries over N positions: the
     longest power of two in [MIN_RANGE, MAX_RANGE] whose B x ranges still
     number BLOCKS_PER_SM for every SM of the card."""
-    device = torch.device(device)
-    if device not in _sm_count:
-        _sm_count[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    want = BLOCKS_PER_SM * _sm_count[device]
+    want = BLOCKS_PER_SM * _build.sm_count(torch.device(device))
     r = MAX_RANGE
     while r > MIN_RANGE and b * -(-n // r) < want:
         r //= 2

@@ -381,3 +381,149 @@ def test_float_and_hamming_scans_on_the_card_match_the_cpu(block):
         q_codes, q_mask, codes, d_mask)), bits=9, k=10, scan=cfg)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+# -- 3xTF32 kmeans_assign at small and edge shapes; maxsim over candidate rows
+
+def _assert_codes_match(x, c, got, want, max_ties):
+    """Codes equal except at most ``max_ties`` near-ties whose distances
+    c2 - 2 x.c differ by <= 1e-4 in float64."""
+    got, want = got.long(), want.long()
+    rows = torch.nonzero(got != want)[:, 0]
+    assert rows.numel() <= max_ties
+    xd, cd = x[rows].double(), c.double()
+    c2 = (cd * cd).sum(-1)
+
+    def dist(kk):
+        return c2[kk] - 2.0 * (xd * cd[kk]).sum(-1)
+
+    assert torch.all((dist(got[rows]) - dist(want[rows])).abs() <= 1e-4)
+
+
+@pytest.mark.parametrize("n,d,k,unit", [
+    (256, 128, 256, True),      # a cascade batch's query codes
+    (4096, 128, 512, True),     # K = 512: two 256-centroid chunks
+    (3001, 128, 256, False),    # N not a multiple of the 64-row tile
+    (200, 300, 1000, False)])   # wide D, K in 32-centroid chunks
+def test_kmeans_assign_kernel_at_cascade_and_edge_shapes(n, d, k, unit):
+    dev = _card()
+    g = torch.Generator().manual_seed(n + d + k)
+    x = torch.randn((n, d), generator=g)
+    c = torch.randn((k, d), generator=g)
+    if unit:
+        x = x / x.norm(dim=-1, keepdim=True)
+        c = c / c.norm(dim=-1, keepdim=True)
+    x, c = x.to(dev), c.to(dev)
+    before = km.launches
+    got = km.kmeans_assign_cuda(x, c)
+    assert km.launches == before + 1 and got.dtype == torch.int32
+    _assert_codes_match(x, c, got, km.kmeans_assign_plain(x, c),
+                        max(1, n // 1000))
+
+
+def _rows(seed, b, p, n_corpus, *, holes=True):
+    """(B, P) int32 corpus positions with repeated ids and, with
+    ``holes``, -1 slots."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randint(0, n_corpus, (b, p), generator=g, dtype=torch.int32)
+    rows[:, 1::5] = rows[:, 0:1]                       # repeated ids
+    if holes:
+        rows[:, 2::7] = -1
+    return rows
+
+
+# (b, mq, d, corpus docs, md, candidates per query)
+_ROWS_CASES = {
+    "stage-3 shape": (8, 32, 128, 600, 615, 64),
+    "ragged md": (3, 32, 128, 50, 77, 20),
+    "mq 5": (3, 5, 128, 40, 33, 9),
+    "mq 40": (2, 40, 64, 30, 130, 12),
+    "d 30": (2, 16, 30, 25, 17, 11),
+    "d 300": (2, 16, 300, 12, 32, 7),
+}
+
+
+@pytest.mark.parametrize("case", list(_ROWS_CASES))
+def test_maxsim_rows_kernel_matches_plain(case):
+    """Candidate rows read through their ids against the plain version's
+    gather: live scores within TOL, all-masked docs sum_i qm_i * -1e30, -1
+    slots NEG_INF."""
+    dev = _card()
+    b, mq, d, n, md, p = _ROWS_CASES[case]
+    q, q_mask, docs, d_mask = _flt(len(case) + md, b, mq, d, (n,), md, 0.97)
+    d_mask[::6] = False                                # all-masked docs
+    rows = _rows(md, b, p, n)
+    want = ms.maxsim_plain(q, q_mask, docs, d_mask, rows=rows)
+    before = ms.launches
+    got = ms.maxsim_cuda(*(a.to(dev) for a in (q, q_mask, docs, d_mask)),
+                         rows=rows.to(dev)).cpu()
+    assert ms.launches == before + 1
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    assert torch.all(got[rows < 0] == np.float32(-1e30))
+    dead = (rows >= 0) & ~d_mask.any(dim=1)[rows.clamp(min=0).long()]
+    expect = (-1e30 * q_mask.double().sum(dim=1))[:, None].expand_as(got)
+    assert torch.allclose(got[dead].double(), expect[dead], rtol=1e-5, atol=0)
+    # the same pools gathered, through the per-query layout
+    safe = rows.clamp(min=0).long()
+    pooled = ms.maxsim_cuda(*(a.to(dev) for a in (
+        q, q_mask, docs[safe], d_mask[safe]))).cpu()
+    live = rows >= 0
+    torch.testing.assert_close(got[live], pooled[live], atol=TOL, rtol=TOL)
+
+
+def test_maxsim_rows_kernel_never_reads_ids_past_the_corpus():
+    dev = _card()
+    q, q_mask, docs, d_mask = (a.to(dev) for a in _flt(
+        6, 2, 8, 32, (10,), 20))
+    rows = torch.tensor([[0, 10, 3, -1, 2 ** 30], [9, 9, 11, 1, -5]],
+                        dtype=torch.int32, device=dev)
+    got = ms.maxsim_cuda(q, q_mask, docs, d_mask, rows=rows).cpu()
+    past = (rows >= 10).cpu()
+    assert torch.isnan(got[past]).all() and not torch.isnan(got[~past]).any()
+    want = ms.maxsim_plain(q, q_mask, docs, d_mask, rows=rows).cpu()
+    assert torch.isnan(want[past]).all()
+    torch.testing.assert_close(got[~past], want[~past], atol=TOL, rtol=TOL)
+    # a strided slice of rows along P
+    sl = rows[:, 1:4]
+    torch.testing.assert_close(
+        ms.maxsim_cuda(q, q_mask, docs, d_mask, rows=sl).cpu(),
+        ms.maxsim_plain(q, q_mask, docs, d_mask, rows=sl).cpu(),
+        atol=TOL, rtol=TOL, equal_nan=True)
+
+
+def test_maxsim_rows_kernel_refuses_bad_rows():
+    dev = _card()
+    q, q_mask, docs, d_mask = (a.to(dev) for a in _flt(
+        7, 2, 8, 32, (10,), 20))
+    rows = _rows(7, 2, 6, 10).to(dev)
+    before = ms.launches
+    for bad in (rows.long(), rows.float(), rows[:1], rows[0], rows.cpu(),
+                rows.t().contiguous().t()):            # inner stride 2
+        with pytest.raises(ValueError):
+            ms.maxsim_cuda(q, q_mask, docs, d_mask, rows=bad)
+    with pytest.raises(ValueError):                    # rows need a corpus
+        ms.maxsim_cuda(q, q_mask, docs[None].expand(2, -1, -1, -1),
+                       d_mask[None].expand(2, -1, -1), rows=rows)
+    assert ms.launches == before
+
+
+def test_stage3_reads_candidates_by_id_on_the_card():
+    """core.index.search_float_flat_candidates on the card: one maxsim
+    launch over the rows (no gathered pool), equal to the CPU's plain
+    gather path."""
+    from repro_torch.core import index as index_mod
+    dev = _card()
+    q, q_mask, docs, d_mask = _flt(8, 4, 32, 64, (300,), 41, 0.97)
+    cand = _rows(8, 4, 40, 300)
+    ix = index_mod.build_float_flat(docs, d_mask)
+    want = index_mod.search_float_flat_candidates(ix, q, q_mask > 0, cand,
+                                                  k=16)
+    ix_dev = index_mod.build_float_flat(docs.to(dev), d_mask.to(dev))
+    before = ms.launches
+    got = index_mod.search_float_flat_candidates(
+        ix_dev, q.to(dev), (q_mask > 0).to(dev), cand.to(dev), k=16)
+    assert ms.launches == before + 1
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=TOL, rtol=TOL)
+    bad = topk_mismatches(got[1].cpu().numpy(), got[0].cpu().numpy(),
+                          want[1].numpy(), want[0].numpy(), TOL)
+    assert not bad, f"ids differ outside near-ties at {bad}"
