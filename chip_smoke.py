@@ -19,7 +19,8 @@ any failure exits non-zero, and no phase's error is swallowed:
      sweep's, the rerank's and stage 2's shapes and at ragged, k > R,
      k > N, Mq 5 and 40 and K=512 shapes; maxsim also over candidate rows
      read through their ids (stage 3's layout: -1 slots, repeated ids,
-     all-masked docs, an id past the corpus scoring NaN) and with one
+     all-masked docs, an id past the corpus scoring NaN; and through a
+     segment table of 1, 2 and 5 segments with capacity-8 ones) and with one
      query per block on the shared corpus; kmeans_assign also at a cascade
      batch's query codes (256 x 128);
   4. flat path at full ColPali width: build a flat index over 16384
@@ -48,7 +49,26 @@ any failure exits non-zero, and no phase's error is swallowed:
      and device time, ``{"cascade_stages_ms": ...}`` and
      ``{"flat_search_ms": ...}`` lines); and kmeans_assign held to its
      plain version again at the build's own shape (16,777,216 x 128, 2^31
-     elements).
+     elements);
+  7. the live cascade at full width: the cascade built over docs
+     0-14335 of the same corpus, served through ``LiveIndexSession``
+     (guarded ladder, ``ResilienceConfig``, every rung warmed at every
+     degradation level) for 64 requests in rounds of one batch, with an
+     add of docs 14336-16383 (ids = corpus positions), 5 upserts and 512
+     deletes published between rounds: exact launch counts, no deleted id
+     served after its delete, upserts at their new pages' score and
+     resolved to the newest segment, hit@10 on the state after the add >=
+     0.95 x phase 4's flat hit@10, one batch equal to the CPU plain path
+     (stage-1 pools identical), the segmented split by stage beside phase
+     6's monolithic one (``{"live_cascade_ms": ...}``) and stage 3's
+     ``maxsim`` through the segment table, ``compact`` keeping the
+     results, the state signatures and the sentry's rungs x levels; an
+     overload drill (256 requests, Poisson arrivals at 4x phase 5's served
+     QPS, a quarter with 100 ms deadlines, half of SLO class "batch")
+     where every request is served, shed or expired and the level steps
+     down and back to 0; an armed compute fault failing its batch; and the
+     flat state of phase 4 with 2048 docs added and 512 deleted, held to
+     the CPU plain path (S sweep launches + 1 rerank launch).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, the script exits non-zero and prints no result.
@@ -104,6 +124,18 @@ LDS_PER_CLK_PER_SM = 32
 # (CUDA C++ Programming Guide, arithmetic-instruction throughput table):
 # the rate that bounds hamming_maxsim. Times the SM count and max SM clock.
 POPC_PER_CLK_PER_SM = 16
+
+# phase 7, the live cascade: a base build of the first N_BASE docs, the
+# rest added as one capacity-2048 segment, 5 upserts of existing ids, 512
+# deletes, then an overload drill at 4x phase 5's served QPS. Upserted id
+# UPSERT_IDS[j] gets a new page made of query UPSERT_QUERY + j's own
+# patches, so that query must find it, at the new page's score
+N_BASE = 14336
+UPSERT_IDS = (128, 132, 136, 140, 144)
+UPSERT_QUERY = 32
+N_DEAD = 512
+DRILL_REQUESTS = 256
+DRILL_LOAD = 4.0
 
 QMAXSIM_TOL = 1e-4
 MAXSIM_TOL = 1e-4
@@ -257,6 +289,392 @@ def _check_assign(torch, x, codebook, got, want) -> float:
     assert agree >= KMEANS_AGREE, f"kmeans_assign agreement {agree}"
     assert max_gap <= KMEANS_TIE_TOL, f"kmeans_assign gap {max_gap}"
     return max_gap
+
+
+def _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c, flat_s,
+                flat_retriever, flat_hit, casc_qps, mono_split, kernel_mods):
+    """Phase 7: the cascade served live at full width through
+    LiveIndexSession while documents are added, upserted, deleted and
+    compacted, an overload drill, and the flat path mutated. Returns the
+    launch counts of the live window and stage 3's times on the segmented
+    state."""
+    from repro_torch import state_to
+    from repro_torch.core import index as index_mod
+    from repro_torch.data.synthetic import make_retrieval_corpus
+    from repro_torch.kernels import maxsim as ms
+    from repro_torch.kernels import quantized_maxsim as qm
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.parity import topk_mismatches
+    from repro_torch.retrieval import Corpus, Query, Retriever
+    from repro_torch.retrieval.base import encode_delta
+    from repro_torch.retrieval.float_flat import pruned_embeddings
+    from repro_torch.serving import (DeadlineExceeded, FaultInjected,
+                                     LiveIndexSession, Overloaded,
+                                     ResilienceConfig, ServeConfig, Served)
+
+    t0 = _phase("live cascade at full width")
+    torch.cuda.reset_peak_memory_stats()
+    data = make_retrieval_corpus(spec, seed=args.seed, device=dev)
+    queries = tuple(a.cpu().numpy() for a in (
+        data.query_patches, data.query_mask, data.query_salience))
+    relevance = data.relevance.cpu().numpy()
+    r = Retriever(cfg_c)
+    t1 = time.perf_counter()
+    base = r.build(torch.Generator(device=dev).manual_seed(args.seed + 1),
+                   Corpus(data.doc_patches[:N_BASE], data.doc_mask[:N_BASE],
+                          data.doc_salience[:N_BASE]))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    delta = Corpus(*(a[N_BASE:].clone() for a in (
+        data.doc_patches, data.doc_mask, data.doc_salience)))
+    n_up = len(UPSERT_IDS)
+    q_up = data.query_patches[UPSERT_QUERY:UPSERT_QUERY + n_up]
+    reps = N_PATCHES // N_Q_PATCHES
+    upsert = Corpus(q_up.repeat(1, reps, 1),
+                    torch.ones((n_up, N_PATCHES), dtype=torch.bool,
+                               device=dev),
+                    torch.linspace(1.0, 0.5, N_PATCHES, device=dev)
+                    .repeat(n_up, 1))
+    del data
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(args.seed)
+    # every target of the queries served after the delete (the last two
+    # rounds), and random ids; never an upserted id
+    targets = np.arange(N_REQUESTS - 2 * MAX_BATCH, N_REQUESTS) * 4
+    pool = np.setdiff1d(np.arange(N_DOCS), np.concatenate(
+        [targets, np.array(UPSERT_IDS)]))
+    dead = np.sort(np.concatenate([targets, rng.choice(
+        pool, N_DEAD - targets.size, replace=False)]))
+
+    res = ResilienceConfig(max_queue=64, shed_batch_frac=0.5,
+                           degrade_high_frac=0.25, degrade_low_frac=0.05,
+                           degrade_hold=2, watchdog_interval_s=0.05)
+    sess = LiveIndexSession(r, base, ServeConfig(
+        max_batch=MAX_BATCH, top_k=TOP_K, guard_recompiles=True,
+        resilience=res), device=dev)
+    del base
+    n_levels = 1 + len(sess.degrade_rungs)
+    t1 = time.perf_counter()
+    sess.warm_shapes(*(a[0] for a in queries))
+    warm_s = time.perf_counter() - t1
+    print(f"base build over docs 0-{N_BASE - 1} {build_s:.2f}s | ladder "
+          f"{sess.server.ladder} x {n_levels} levels (rungs "
+          f"{sess.degrade_rungs}) warmed in {warm_s:.3f}s")
+
+    def casc_per_batch(state):
+        """Kernel launches of one search of a batch on ``state``."""
+        seg = r.backend._segmented(state)
+        return {"hamming_maxsim": sum(math.ceil(lv.shape[0] / BLOCK_DOCS)
+                                      for lv in seg.live),
+                "quantized_maxsim": 1, "maxsim": math.ceil(P2 / BLOCK_DOCS),
+                "kmeans_assign": 1}
+
+    # -- serve 64 requests in rounds of one batch; publish between them
+    def submit_round(lo, hi):
+        reqs = [(qi, sess.submit(*(a[qi] for a in queries)))
+                for qi in range(lo, hi)]
+        out = []
+        for qi, req in reqs:
+            assert req.event.wait(300.0), "a request hung"
+            if req.error is not None:
+                raise req.error
+            out.append((qi, req.result))
+        return out
+
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    sess.server.reset_stats()
+    responses, round_s, mut_s, expect = [], [], {}, {}
+    states = {}
+    n_batches_seen = 0
+    for rnd in range(N_REQUESTS // MAX_BATCH):
+        per_batch = casc_per_batch(sess.state)
+        t1 = time.perf_counter()
+        responses += [(rnd, qi, out) for qi, out in submit_round(
+            rnd * MAX_BATCH, (rnd + 1) * MAX_BATCH)]
+        round_s.append(time.perf_counter() - t1)
+        n_now = sum(v["batches"] for v in sess.stats()["rungs"].values())
+        for name, n in per_batch.items():
+            expect[name] = expect.get(name, 0) + n * (n_now - n_batches_seen)
+        n_batches_seen = n_now
+        t1 = time.perf_counter()
+        if rnd == 1:        # (a) the remaining docs, ids = corpus positions
+            sess.add(delta, doc_ids=np.arange(N_BASE, N_DOCS))
+            states["a"] = sess.state
+        elif rnd == 3:      # (b) upserts: the newest segment wins
+            sess.add(upsert, doc_ids=np.array(UPSERT_IDS))
+        elif rnd == 5:      # (c) deletes
+            sess.delete(dead)
+        else:
+            continue
+        torch.cuda.synchronize()
+        mut_s[{1: "add", 3: "upsert", 5: "delete"}[rnd]] = \
+            time.perf_counter() - t1
+    # the adds' query-independent launches: each add encodes its delta
+    # for the Hamming and the ADC member
+    expect["kmeans_assign"] += 2 * 2
+    launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    st = sess.stats()
+    serve_qps = N_REQUESTS / sum(round_s)
+    print(f"live window: {st['n']} requests in {n_batches_seen} batches, "
+          f"window QPS {st['qps']:.1f} (mutations included), serving QPS "
+          f"{serve_qps:.1f} (rounds only), p50 {st['p50_ms']:.2f} ms, p99 "
+          f"{st['p99_ms']:.2f} ms | mutations {mut_s} s")
+    print(f"launches in the live window: {launches}; expected {expect}")
+    assert launches == expect, "live cascade launches off"
+    assert st["n"] == N_REQUESTS and all(
+        isinstance(o, Served) and o.level == 0 for _, _, o in responses)
+
+    # deleted ids never served after the delete; each upserted id at most
+    # once per response, carrying its new document's score
+    up_emb, up_mask = pruned_embeddings(upsert, cfg_c)
+    n_up_seen = 0
+    for rnd, qi, (scores, ids) in responses:
+        live_ids = ids[ids >= 0]
+        assert len(set(live_ids.tolist())) == live_ids.size, (qi, ids)
+        if rnd >= 6:
+            assert not set(live_ids.tolist()) & set(dead.tolist()), qi
+        if rnd < 4:
+            continue
+        q = torch.from_numpy(queries[0][qi:qi + 1]).to(dev)
+        qmk = torch.from_numpy(queries[1][qi:qi + 1]).to(dev).float()
+        new = ms.maxsim_plain(q, qmk, up_emb, up_mask)[0].cpu().numpy()
+        for j, doc in enumerate(UPSERT_IDS):
+            hit = np.nonzero(ids == doc)[0]
+            if hit.size:
+                n_up_seen += 1
+                np.testing.assert_allclose(scores[hit[0]], new[j],
+                                           rtol=MAXSIM_TOL, atol=MAXSIM_TOL)
+    print(f"no deleted id in the {2 * MAX_BATCH} responses after the "
+          f"delete; upserted ids served {n_up_seen} times, each at most "
+          f"once per response and at its new page's score")
+
+    # hit@10 on the state after (a), against phase 4's flat hit@10
+    hits = 0
+    for lo in range(0, N_REQUESTS, MAX_BATCH):
+        q = Query(*(torch.from_numpy(a[lo:lo + MAX_BATCH]).to(dev)
+                    for a in queries))
+        ids = r.search(states["a"], q, k=TOP_K)[1].cpu().numpy()
+        for i, row in enumerate(ids):
+            hits += int((relevance[lo + i][row[row >= 0]] > 0).any())
+    hit_a = hits / N_REQUESTS
+    print(f"hit@{TOP_K} on the state after the add {hit_a:.3f} (flat "
+          f"{flat_hit:.3f})")
+    assert hit_a >= 0.95 * flat_hit, f"live hit@{TOP_K} {hit_a}"
+    del states
+
+    # one batch on the mutated state: exact launches, and equal to the CPU
+    # plain path (the stage-1 pools identical)
+    cur = sess.state
+    q, q_m, q_s = (torch.from_numpy(a[:MAX_BATCH]) for a in queries)
+    qg = Query(q.to(dev), q_m.to(dev), q_s.to(dev))
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    got_s, got_i = r.search(cur, qg, k=TOP_K)
+    one = {name: mod.launches for name, mod in kernel_mods.items()}
+    per_batch = casc_per_batch(cur)
+    caps = [lv.shape[0] for lv in r.backend._segmented(cur).live]
+    print(f"one batch on segments {caps}: launches {one}, expected "
+          f"{per_batch} (hamming: sum of ceil(cap / {BLOCK_DOCS}))")
+    assert one == per_batch, "segmented launches off"
+    t1 = time.perf_counter()
+    cpu_state = state_to(cur, "cpu")
+    cq = Query(q, q_m, q_s)
+    (ham_b, ham_v), (flat_b, flat_v), (ff_b, ff_v) = r.backend._views(cur)
+    (_, cpu_ham_v), _, _ = r.backend._views(cpu_state)
+    # the upserts resolve to their newest segment on the card: stage 3
+    # with each upserted id as its page's query's only candidate scores
+    # the new page; and where those pages stand in the stage-1 and
+    # stage-2 pools (an appended page loses ties to earlier positions)
+    qu = Query(*(torch.from_numpy(a[UPSERT_QUERY:UPSERT_QUERY + n_up])
+                 .to(dev) for a in queries))
+    cand = torch.tensor(UPSERT_IDS, dtype=torch.int32, device=dev)[:, None]
+    s_new, i_new = ff_b.search_candidates(ff_v, qu, cand, k=1)
+    want_new = torch.diagonal(ms.maxsim_plain(
+        qu.embeddings, qu.mask.float(), up_emb, up_mask))
+    assert i_new[:, 0].tolist() == list(UPSERT_IDS), i_new
+    torch.testing.assert_close(s_new[:, 0], want_new, atol=MAXSIM_TOL,
+                               rtol=MAXSIM_TOL)
+    up_s1, up_i1 = ham_b.search(ham_v, qu, k=P1)
+    up_s2, up_i2 = flat_b.search_candidates(flat_v, qu, up_i1, k=P2)
+    up_col = cand.expand(-1, 1)
+    print(f"upserts resolve to the newest segment (stage 3 scores the new "
+          f"pages, {s_new[:, 0].tolist()}); in their queries' stage-1 pools "
+          f"{(up_i1 == up_col).any(dim=1).tolist()} (p1-th score "
+          f"{up_s1[:, -1].tolist()}, max score count "
+          f"{(up_s1 == up_s1[:, :1]).sum(dim=1).tolist()}); in the stage-2 "
+          f"pools {(up_i2 == up_col).any(dim=1).tolist()}")
+    pool_gpu = ham_b.search(ham_v, qg, k=P1)
+    pool_cpu = ham_b.search(cpu_ham_v, cq, k=P1)
+    assert torch.equal(pool_gpu[0].cpu(), pool_cpu[0]), "stage-1 scores"
+    assert torch.equal(pool_gpu[1].cpu(), pool_cpu[1]), "stage-1 pools"
+    cpu_s, cpu_i = (t.numpy() for t in r.search(cpu_state, cq, k=TOP_K))
+    np.testing.assert_allclose(got_s.cpu().numpy(), cpu_s, atol=MAXSIM_TOL,
+                               rtol=MAXSIM_TOL)
+    bad = topk_mismatches(got_i.cpu().numpy(), got_s.cpu().numpy(), cpu_i,
+                          cpu_s, MAXSIM_TOL)
+    assert not bad, f"live cascade ids differ from the CPU plain path {bad}"
+    del cpu_state, cpu_ham_v
+    print(f"stage-1 pools ({MAX_BATCH} x {P1}) identical on the card and "
+          f"the CPU; the batch == CPU plain funnel (ids outside near-ties, "
+          f"scores within {MAXSIM_TOL}); CPU {time.perf_counter() - t1:.1f}s")
+
+    # the segmented search split by stage, beside phase 6's monolithic
+    # one; stage 3's kernel through the segment table
+    _, ids1 = pool_gpu
+    _, ids2 = flat_b.search_candidates(flat_v, qg, ids1, k=P2)
+    split = _split(torch, {
+        "stage 1 (hamming prefilter, p1)": lambda: ham_b.search(
+            ham_v, qg, k=P1),
+        "stage 2 (ADC rescore, p2)": lambda: flat_b.search_candidates(
+            flat_v, qg, ids1, k=P2),
+        "stage 3 (float rerank, top-k)": lambda: ff_b.search_candidates(
+            ff_v, qg, ids2, k=TOP_K),
+        "whole search": lambda: r.search(cur, qg, k=TOP_K)})
+    seg_ff = ff_v.backend_state
+    pos2 = index_mod._resolve_segmented(seg_ff, ids2)[2]
+    segs = tuple(p.embeddings for p in seg_ff.segments)
+    masks = tuple(p.mask for p in seg_ff.segments)
+    qf = qg.embeddings.float().contiguous()
+    qmf = qg.mask.float().contiguous()
+    md_kept = segs[0].shape[1]
+    rows_ms = _time_ms(torch, lambda: ms.maxsim_cuda(
+        qf, qmf, segs, masks, rows=pos2), 100)
+    rows_plain_ms = _time_ms(torch, lambda: ms.maxsim_plain(
+        qf, qmf, segs, masks, rows=pos2), 20)
+    # the segments' masks as one (N, Md) mask of flattened positions
+    rows_bound = _gemm_bounds(*_maxsim_cost(qf, segs[0], torch.cat(masks),
+                                            rows=pos2))
+    print(f"stage 3's maxsim through the {len(segs)}-segment table: "
+          f"{rows_ms * 1e3:.1f} us (bound {rows_bound[0] * 1e3:.1f} us, "
+          f"plain {rows_plain_ms:.3f} ms)")
+    print(json.dumps({"live_cascade_ms": {"segments": caps,
+                                          "segmented": split,
+                                          "monolithic": mono_split}}))
+
+    # compaction keeps the results; the state registry stayed bounded
+    before = r.search(cur, qg, k=TOP_K)
+    del cur, ff_v, flat_v, ham_v, seg_ff, segs, masks
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sess.compact()
+    torch.cuda.synchronize()
+    mut_s["compact"] = time.perf_counter() - t1
+    after = r.search(sess.state, qg, k=TOP_K)
+    torch.testing.assert_close(after[0], before[0], atol=MAXSIM_TOL,
+                               rtol=MAXSIM_TOL)
+    bad = topk_mismatches(after[1].cpu().numpy(), after[0].cpu().numpy(),
+                          before[1].cpu().numpy(), before[0].cpu().numpy(),
+                          MAXSIM_TOL)
+    assert not bad, f"compaction changed the results at {bad}"
+    sigs = sess.state_signatures()
+    cap_base, cap_all = N_BASE, index_mod.segment_capacity(N_DOCS - N_DEAD)
+    want_sigs = {((cap_base,),), ((cap_base,), (N_DOCS - N_BASE,)),
+                 ((cap_base,), (N_DOCS - N_BASE,), (8,)), ((cap_all,),)}
+    print(f"compact {mut_s['compact']:.2f}s, results unchanged; state "
+          f"signatures {sigs}")
+    assert {k[0] for k in sigs} == want_sigs, sigs
+    assert {k[1] for k in sigs} == {index_mod.segment_capacity(N_DOCS)}
+
+    # the overload drill: open-loop Poisson arrivals at DRILL_LOAD x phase
+    # 5's served QPS; a quarter carry a 100 ms deadline, half are "batch"
+    sess.server.reset_stats()
+    rate = DRILL_LOAD * casc_qps
+    reqs = []
+    for i in range(DRILL_REQUESTS):
+        qi = i % N_REQUESTS
+        reqs.append(sess.submit(
+            *(a[qi] for a in queries),
+            deadline_ms=100.0 if i % 4 == 0 else None,
+            slo="batch" if i % 2 else "interactive"))
+        time.sleep(rng.exponential(1.0 / rate))
+    outcome = {"Served": 0, "Overloaded": 0, "DeadlineExceeded": 0}
+    levels = {}
+    for req in reqs:
+        assert req.event.wait(300.0), "a drill request hung"
+        if req.error is None:
+            assert isinstance(req.result, Served)
+            outcome["Served"] += 1
+            levels[req.result.level] = levels.get(req.result.level, 0) + 1
+        else:
+            assert isinstance(req.error, (Overloaded, DeadlineExceeded)), \
+                repr(req.error)
+            outcome[type(req.error).__name__] += 1
+    st = sess.stats()
+    transitions = len(sess.server._async._degrade.transitions)
+    level = st["degrade_level"]
+    for _ in range(200):                        # a trickle after the burst
+        out = sess.query(*(a[0] for a in queries), timeout=60.0)
+        level = sess.stats()["degrade_level"]
+        if out.level == 0 and level == 0:
+            break
+        time.sleep(0.02)
+    print(f"overload drill: {DRILL_REQUESTS} requests at {rate:.0f} QPS "
+          f"(4 x {casc_qps:.1f}): {outcome}; served by level {levels}; "
+          f"{transitions} level transitions; shed {st['shed']} (batch "
+          f"{st['shed_batch']}); deadline expired {st['deadline_expired']};"
+          f" level after the burst {level}")
+    assert sum(outcome.values()) == DRILL_REQUESTS
+    assert transitions >= 1 and level == 0, (transitions, level)
+    sigs = set(sess.server.recompile_sentry.signatures)
+    want = {(b, N_Q_PATCHES, "torch.float32", "torch.bool", "torch.float32",
+             lv) for b in sess.server.ladder for lv in range(n_levels)}
+    assert sigs == want, sigs
+    sess.server.fault_injector.arm("compute")
+    try:
+        sess.query(*(a[1] for a in queries), timeout=60.0)
+        raise AssertionError("the armed compute fault did not fire")
+    except FaultInjected:
+        pass
+    out = sess.query(*(a[2] for a in queries), timeout=60.0)
+    assert isinstance(out, Served)
+    print(f"sentry signatures: exactly {len(sigs)} = rungs x levels; an "
+          f"armed compute fault failed its batch with FaultInjected, the "
+          f"next batch was served")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sess.close()
+    del sess
+
+    # the flat path mutated: phase 4's state, 2048 docs added (fresh ids)
+    # and 512 deleted; S sweep launches + 1 rerank launch per batch
+    t1 = time.perf_counter()
+    enc = encode_delta(flat_s.codebook, delta, cfg)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t1
+    x_delta = delta.embeddings.reshape(-1, DIM)
+    km_delta_ms = _time_ms(torch, lambda: km.kmeans_assign_cuda(
+        x_delta, flat_s.codebook), 3)
+    del enc, x_delta
+    t1 = time.perf_counter()
+    fs = flat_retriever.add(flat_s, delta)
+    torch.cuda.synchronize()
+    flat_add_s = time.perf_counter() - t1
+    fs = flat_retriever.delete(fs, dead)
+    n_seg = len(flat_retriever.backend._segmented(fs).live)
+    qm.launches = 0
+    f_s, f_i = flat_retriever.search(fs, qg, k=TOP_K)
+    assert qm.launches == n_seg + 1, qm.launches
+    c_s, c_i = (t.numpy() for t in flat_retriever.search(
+        state_to(fs, "cpu"), cq, k=TOP_K))
+    np.testing.assert_allclose(f_s.cpu().numpy(), c_s, atol=QMAXSIM_TOL,
+                               rtol=QMAXSIM_TOL)
+    bad = topk_mismatches(f_i.cpu().numpy(), f_s.cpu().numpy(), c_i, c_s,
+                          QMAXSIM_TOL)
+    assert not bad, f"mutated flat ids differ from the CPU at {bad}"
+    assert not set(f_i.cpu().numpy().ravel().tolist()) & set(dead.tolist())
+    print(f"flat: add of {N_DOCS - N_BASE} docs {flat_add_s:.3f}s "
+          f"(encode_delta {encode_s:.3f}s, of it kmeans_assign "
+          f"{km_delta_ms:.3f} ms at {(N_DOCS - N_BASE) * N_PATCHES} x {DIM}) "
+          f"| {n_seg} segments: {n_seg} sweep launches + 1 rerank launch, "
+          f"the batch == CPU plain path")
+    print(f"live phase: mutation seconds {mut_s} | max_memory_allocated "
+          f"{peak:.2f} GiB | {smi} | phase {time.perf_counter() - t0:.1f}s")
+    return {"launches": launches, "rows_ms": rows_ms,
+            "rows_plain_ms": rows_plain_ms, "rows_bound_ms": rows_bound[0],
+            "rows_shape": f"stage-3 rows through a {len(caps)}-segment "
+                          f"table {caps}: B={MAX_BATCH} Mq={N_Q_PATCHES} "
+                          f"D={DIM} {P2} candidates x Md={md_kept} per "
+                          f"query"}
 
 
 def main(argv=None) -> int:
@@ -534,6 +952,35 @@ def main(argv=None) -> int:
     got = ms.maxsim_cuda(q_unit, q_mask, f_blk, f_blk_m, rows=past)
     assert bool(torch.isnan(got[:, 3]).all()), "an id past the corpus"
     assert not bool(torch.isnan(got[:, :3]).any())
+    # the rows layout's segment table (a segmented live index's corpus
+    # read in place): the block cut into 1, 2 and 5 segments, with
+    # capacity-8 segments, -1 slots and ids resolved to a tombstone
+    # (position -1), against the plain version's segment-by-segment
+    # gather, which equals its monolithic gather bit for bit
+    seg_rows = f_rows.clone()
+    seg_rows[:, 3] = 195                       # in a capacity-8 segment
+    seg_rows[:, 4] = 250                       # ... and in the last one
+    seg_rows[:, 6::11] = -1                    # ids resolved to tombstones
+    for caps in ((BLOCK_DOCS,), (200, 56), (128, 64, 8, 48, 8)):
+        cut = np.cumsum((0,) + caps)
+        for name, m in (("", f_blk_m), (", all-masked docs", f_dead_m)):
+            segs = tuple(f_blk[a:b] for a, b in zip(cut[:-1], cut[1:]))
+            masks = tuple(m[a:b] for a, b in zip(cut[:-1], cut[1:]))
+            got = ms.maxsim_cuda(q_unit, q_mask, segs, masks, rows=seg_rows)
+            want = ms.maxsim_plain(q_unit, q_mask, segs, masks,
+                                   rows=seg_rows)
+            torch.cuda.synchronize()
+            assert torch.equal(want, ms.maxsim_plain(
+                q_unit, q_mask, f_blk, m, rows=seg_rows)), "plain segments"
+            torch.testing.assert_close(got, want, atol=MAXSIM_TOL,
+                                       rtol=MAXSIM_TOL)
+            assert bool((got[seg_rows < 0] == li.NEG_INF).all()), "-1 slots"
+            live = (seg_rows >= 0) & m.any(dim=1)[seg_rows.clamp(
+                min=0).long()]
+            err = float((got - want).abs()[live].max())
+            ms_abs_err = max(ms_abs_err, err)
+            print(f"maxsim stage-3 rows through a {len(caps)}-segment table "
+                  f"{caps}{name}: max |err| {err:.3e} over live docs")
     del f_pool, f_pool_m, f_blk, f_blk_m, f_dead_m
 
     x = unit(1 << 20, DIM)
@@ -647,6 +1094,7 @@ def main(argv=None) -> int:
     assert run.storage["stage_float_flat"] == N_DOCS * md_kept * DIM * 4
     assert run.hit_rate >= 0.95 * flat_hit, \
         f"cascade hit@{TOP_K} {run.hit_rate} < 0.95 x flat {flat_hit}"
+    casc_qps = st["qps"]
 
     s = run.state
     casc = get_backend("cascade")
@@ -874,7 +1322,7 @@ def main(argv=None) -> int:
     print(f"served flat batch: {flat_batch_ms:.1f} ms of serving window per "
           f"batch")
     del run, s, casc, ham_v, flat_v, ff_v, ff, fm, idx, h_blocks, h_blk, \
-        flat_s, flat_retriever, flat, f_ids, \
+        flat, f_ids, \
         pool_emb, pool_mask, pool_flat, f_blk, f_blk_m, fblk_flat, s2_codes, \
         s2_mask, s2_valid, rows2
     torch.cuda.empty_cache()
@@ -909,9 +1357,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"times taken in {time.perf_counter() - t0:.1f}s")
 
+    live = _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c,
+                       flat_s, flat_retriever, flat_hit, casc_qps, stage_ms,
+                       kernel_mods)
+    del flat_s, flat_retriever
+    torch.cuda.empty_cache()
+
     by_path = {"flat": {"quantized_maxsim": qm_launches,
                         "kmeans_assign": km_launches},
-               "cascade": casc_launches}
+               "cascade": casc_launches,
+               "live cascade": live["launches"]}
 
     def launches(name):
         return sum(path.get(name, 0) for path in by_path.values())
@@ -1010,7 +1465,11 @@ def main(argv=None) -> int:
          "float_flat_block_bound_by": fblk_bound[1],
          "float_flat_block_f32_fma_bound_ms": fblk_bound[2],
          "float_flat_block_tf32x3_bound_ms": fblk_bound[3],
-         "float_flat_block_matmul_only_yardstick_ms": fblk_mm_ms},
+         "float_flat_block_matmul_only_yardstick_ms": fblk_mm_ms,
+         "segmented_rows_ms": live["rows_ms"],
+         "segmented_rows_plain_ms": live["rows_plain_ms"],
+         "segmented_rows_bound_ms": live["rows_bound_ms"],
+         "segmented_rows_shape": live["rows_shape"]},
     ]
     print(json.dumps({"cascade_stages_ms": stage_ms}))
     print(json.dumps({"flat_search_ms": flat_ms}))

@@ -1,17 +1,21 @@
 """Exhaustive indexes over a patch corpus, in PyTorch.
 
-The counterpart of the monolithic (unsegmented) flat, float-flat and
-Hamming parts of ``repro.core.index``. Each is an exhaustive scan streamed
-through core/scan.py, plus a candidate search that scores a (B, P) pool of
-corpus positions through the scan's per-query layout:
+The counterpart of the flat, float-flat and Hamming parts of
+``repro.core.index``, monolithic and segmented. Each is an exhaustive scan
+streamed through core/scan.py, plus a candidate search that scores a
+(B, P) pool of documents through the scan's per-query layout:
 
   * FlatIndex      — fused ADC scan over the (pruned) quantized codes;
   * FloatFlatIndex — float MaxSim over raw embeddings (ColPali-Full);
   * HammingIndex   — popcount MaxSim over b-bit codes.
+
+The second half of the module is the segmented LSM store
+(``SegmentedState``): live add/delete/compact without a rebuild.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import dataclasses
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -144,13 +148,328 @@ def search_hamming_candidates(index: HammingIndex, q_codes: Tensor,
         valid=valid, scan=scan)
 
 
-def search_hamming_floor(index: HammingIndex, q_codes: Tensor,
-                         q_mask: Tensor, *, bits: int, k: int,
+
+
+# ---------------------------------------------------------------------------
+# Segmented LSM corpus store (live add/delete/update)
+# ---------------------------------------------------------------------------
+#
+# A mutable index is an ordered list of immutable *segments* plus live bits.
+# Segment 0 is the original build (wrapped as-is, zero copy); every `add`
+# appends one pow2-capacity-padded segment built with the EXISTING codebook
+# (no refit); `delete` flips live bits (a tombstoned doc scores exactly
+# NEG_INF, or the int32 minimum for Hamming, with id -1, through the scan's
+# valid-mask contract); `compact` gathers the live docs into one fresh
+# segment. A full search sweeps the segment list threading the scan's
+# (B, k) merge buffer across segments (`carry=`), which ranks the carried
+# (earlier) documents ahead of equal scores, so it equals one sweep over the
+# concatenated corpus. No search function here syncs with the device.
+
+SEG_MIN_CAP = 8  # smallest append-segment capacity (pow2 shape bucketing)
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= max(n, 1)."""
+    return 1 << max(int(n) - 1, 0).bit_length() if n > 1 else 1
+
+
+def segment_capacity(n: int) -> int:
+    """Capacity bucket for an n-doc segment: next pow2, floor SEG_MIN_CAP.
+
+    Pow2 bucketing bounds the set of distinct segment shapes at O(log N)
+    across any mutation history (serving/live.py records it)."""
+    return max(SEG_MIN_CAP, next_pow2(int(n)))
+
+
+@dataclasses.dataclass
+class SegmentedState:
+    """Ordered immutable segments + per-slot live bits + id->position map.
+
+    segments: tuple of per-backend payloads (FlatIndex / FloatFlatIndex /
+        HammingIndex), each carrying its own doc_ids; padding slots hold
+        doc_id -1.
+    live: one bool tensor per segment, shaped like its doc-id tensor.
+        False = padding or tombstoned; a slot with doc_id >= 0 and live
+        False is a tombstone.
+    pos_of_id: (id_cap,) int32 — the flattened slot position (row-major
+        across the segment list) of each doc id's unique live occurrence,
+        -1 if the id is dead or unassigned. Every id has at most one live
+        slot (an upsert tombstones the older occurrence), which is how the
+        candidate stages (cascade) resolve global ids to rows.
+    """
+
+    segments: Tuple[Any, ...]
+    live: Tuple[Tensor, ...]
+    pos_of_id: Tensor
+
+    @property
+    def n_segments(self) -> int:
+        return len(self.segments)
+
+    def max_doc_id(self) -> int:
+        """The largest doc id any slot ever held, -1 if none — syncs."""
+        return max((int(seg_doc_ids(p).max()) for p in self.segments
+                    if seg_doc_ids(p).numel()), default=-1)
+
+    def counts(self) -> Tuple[int, int]:
+        """(live_docs, tombstoned_docs) — syncs with the device."""
+        live = tomb = 0
+        for payload, lv in zip(self.segments, self.live):
+            filled = seg_doc_ids(payload).reshape(-1) >= 0
+            lvf = lv.reshape(-1)
+            live += int((filled & lvf).sum())
+            tomb += int((filled & ~lvf).sum())
+        return live, tomb
+
+
+def seg_doc_ids(payload) -> Tensor:
+    """The doc-id tensor of one segment payload."""
+    return payload.doc_ids
+
+
+def rebuild_pos_of_id(segments: Tuple, live: Tuple, id_cap: int) -> Tensor:
+    """Recompute the id->flattened-position map from the segment list, on
+    the segments' device (a mutation: it syncs). Correct because each id
+    has at most one live slot."""
+    dev = seg_doc_ids(segments[0]).device if segments else None
+    pos = torch.full((int(id_cap),), -1, dtype=torch.int32, device=dev)
+    off = 0
+    for payload, lv in zip(segments, live):
+        ids = seg_doc_ids(payload).reshape(-1).to(torch.int64)
+        occ = torch.nonzero(lv.reshape(-1) & (ids >= 0)).squeeze(1)
+        pos[ids[occ]] = (off + occ).to(torch.int32)
+        off += ids.numel()
+    return pos
+
+
+# -- segment construction ---------------------------------------------------
+
+def pad_dim0(arr: Tensor, cap: int, fill=0) -> Tensor:
+    """Pad dim 0 to ``cap`` rows with ``fill`` (no-op when already there)."""
+    n = arr.shape[0]
+    if n == cap:
+        return arr
+    pad = torch.full((cap - n,) + tuple(arr.shape[1:]), fill,
+                     dtype=arr.dtype, device=arr.device)
+    return torch.cat([arr, pad], dim=0)
+
+
+def _live_prefix(n: int, cap: int, device) -> Tensor:
+    return torch.arange(cap, device=device) < n
+
+
+def make_flat_segment(codes: Tensor, mask: Tensor, codebook: Tensor,
+                      doc_ids: Tensor, cap: Optional[int] = None
+                      ) -> Tuple[FlatIndex, Tensor]:
+    """(FlatIndex, live) for an n-doc append, padded to a pow2 capacity."""
+    n = codes.shape[0]
+    cap = segment_capacity(n) if cap is None else cap
+    ix = FlatIndex(pad_dim0(codes, cap), pad_dim0(mask, cap, False),
+                   codebook, pad_dim0(doc_ids.to(torch.int32), cap, -1))
+    return ix, _live_prefix(n, cap, codes.device)
+
+
+def make_float_flat_segment(embeddings: Tensor, mask: Tensor,
+                            doc_ids: Tensor, cap: Optional[int] = None
+                            ) -> Tuple[FloatFlatIndex, Tensor]:
+    n = embeddings.shape[0]
+    cap = segment_capacity(n) if cap is None else cap
+    ix = FloatFlatIndex(pad_dim0(embeddings, cap),
+                        pad_dim0(mask, cap, False),
+                        pad_dim0(doc_ids.to(torch.int32), cap, -1))
+    return ix, _live_prefix(n, cap, embeddings.device)
+
+
+def make_hamming_segment(codes: Tensor, mask: Tensor, bits: int,
+                         doc_ids: Tensor, cap: Optional[int] = None
+                         ) -> Tuple[HammingIndex, Tensor]:
+    n = codes.shape[0]
+    cap = segment_capacity(n) if cap is None else cap
+    ix = HammingIndex(pad_dim0(codes.to(torch.uint16), cap),
+                      pad_dim0(mask, cap, False),
+                      pad_dim0(doc_ids.to(torch.int32), cap, -1), int(bits))
+    return ix, _live_prefix(n, cap, codes.device)
+
+
+# -- segmented search (full sweep: merge buffer carried across segments) ----
+
+def _empty_topk(b: int, k: int, score_dtype: torch.dtype, device
+                ) -> Tuple[Tensor, Tensor]:
+    return (torch.full((b, k), scan_mod.score_sentinel(score_dtype),
+                       dtype=score_dtype, device=device),
+            torch.full((b, k), -1, dtype=torch.int32, device=device))
+
+
+def search_flat_segmented(seg: SegmentedState, q: Tensor, q_mask: Tensor, *,
+                          k: int, scan: Optional[scan_mod.ScanConfig] = None
+                          ) -> Tuple[Tensor, Tensor]:
+    """ADC MaxSim over a segment list: one sweep per segment, one carried
+    (B, k) merge buffer. Tombstoned and padding slots (live False) score
+    exactly NEG_INF with id -1, so deletes need no change to the codes."""
+    carry = None
+    for payload, live in zip(seg.segments, seg.live):
+        carry = scan_mod.quantized_maxsim_topk(
+            q, q_mask, payload.codes, payload.mask, payload.codebook, k=k,
+            doc_ids=payload.doc_ids, valid=live, scan=scan, carry=carry)
+    return carry if carry is not None else _empty_topk(
+        q.shape[0], k, torch.float32, q.device)
+
+
+def search_float_flat_segmented(seg: SegmentedState, q: Tensor,
+                                q_mask: Tensor, *, k: int,
+                                scan: Optional[scan_mod.ScanConfig] = None
+                                ) -> Tuple[Tensor, Tensor]:
+    carry = None
+    for payload, live in zip(seg.segments, seg.live):
+        carry = scan_mod.maxsim_topk(
+            q, q_mask, payload.embeddings, payload.mask, k=k,
+            doc_ids=payload.doc_ids, valid=live, scan=scan, carry=carry)
+    return carry if carry is not None else _empty_topk(
+        q.shape[0], k, torch.float32, q.device)
+
+
+def search_hamming_segmented(seg: SegmentedState, q_codes: Tensor,
+                             q_mask: Tensor, *, bits: int, k: int,
+                             scan: Optional[scan_mod.ScanConfig] = None
+                             ) -> Tuple[Tensor, Tensor]:
+    carry = None
+    for payload, live in zip(seg.segments, seg.live):
+        carry = scan_mod.hamming_maxsim_topk(
+            q_codes, q_mask, payload.codes, payload.mask, bits=bits, k=k,
+            doc_ids=payload.doc_ids, valid=live, scan=scan, carry=carry)
+    return carry if carry is not None else _empty_topk(
+        q_codes.shape[0], k, torch.int32, q_codes.device)
+
+
+# -- segmented candidate stages (the cascade's stage boundaries) ------------
+
+def _resolve_segmented(seg: SegmentedState, candidate_ids: Tensor
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """(B, P) global doc ids -> (ids, valid, flattened positions) through
+    ``pos_of_id``: dead or unknown ids resolve to position -1, id -1, and
+    are never scored."""
+    id_cap = seg.pos_of_id.shape[0]
+    in_range = (candidate_ids >= 0) & (candidate_ids < id_cap)
+    safe = torch.clamp(candidate_ids, 0, id_cap - 1).to(torch.int64)
+    pos = torch.where(in_range, seg.pos_of_id[safe], -1)
+    valid = pos >= 0
+    ids = torch.where(valid, candidate_ids, -1).to(torch.int32)
+    return ids, valid, pos.to(torch.int32)
+
+
+def _gather_segmented(seg: SegmentedState, pos: Tensor,
+                      leaf_names: Tuple[str, ...]) -> Tuple[Tensor, ...]:
+    """Gather the (B, P) positions' rows of each named leaf across the
+    segment list: one clamped gather + select per segment, O(B * P * row)
+    each, never O(N). Positions -1 read zeros."""
+    outs = None
+    offset = 0
+    for payload in seg.segments:
+        size = int(seg_doc_ids(payload).numel())
+        local = pos.to(torch.int64) - offset
+        in_seg = (local >= 0) & (local < size)
+        idx = torch.clamp(local, 0, size - 1)
+        gathered = []
+        for i, nm in enumerate(leaf_names):
+            g = getattr(payload, nm)[idx]                     # (B, P, ...)
+            sel = in_seg.reshape(in_seg.shape + (1,) * (g.dim() - 2))
+            prev = outs[i] if outs is not None else torch.zeros_like(g)
+            gathered.append(torch.where(sel, g, prev))
+        outs = gathered
+        offset += size
+    return tuple(outs)
+
+
+def search_flat_segmented_candidates(
+        seg: SegmentedState, q: Tensor, q_mask: Tensor, candidate_ids: Tensor,
+        *, k: int, scan: Optional[scan_mod.ScanConfig] = None
+        ) -> Tuple[Tensor, Tensor]:
+    """ADC MaxSim over a (B, P) global-id pool resolved through
+    ``pos_of_id`` (the pool's codes are gathered: B x P x Md bytes)."""
+    ids, valid, pos = _resolve_segmented(seg, candidate_ids)
+    codes, mask = _gather_segmented(seg, pos, ("codes", "mask"))
+    return scan_mod.quantized_maxsim_topk(
+        q, q_mask, codes, mask, seg.segments[0].codebook, k=k,
+        doc_ids=ids, valid=valid, scan=scan)
+
+
+def search_float_flat_segmented_candidates(
+        seg: SegmentedState, q: Tensor, q_mask: Tensor, candidate_ids: Tensor,
+        *, k: int, scan: Optional[scan_mod.ScanConfig] = None
+        ) -> Tuple[Tensor, Tensor]:
+    """Float MaxSim over a (B, P) global-id pool: the cascade's stage 3 on
+    a segmented state. The ids resolve to flattened positions, which go to
+    the scan as ``rows`` with the segments' tensors as one corpus: the
+    kernel finds each position's segment in a small table and reads the
+    embeddings in place, so no pool is gathered."""
+    ids, valid, pos = _resolve_segmented(seg, candidate_ids)
+    docs = tuple(p.embeddings for p in seg.segments)
+    masks = tuple(p.mask for p in seg.segments)
+    return scan_mod.maxsim_topk(q, q_mask, docs, masks, k=k, doc_ids=ids,
+                                valid=valid, scan=scan, rows=pos)
+
+
+def search_hamming_segmented_candidates(
+        seg: SegmentedState, q_codes: Tensor, q_mask: Tensor,
+        candidate_ids: Tensor, *, bits: int, k: int,
+        scan: Optional[scan_mod.ScanConfig] = None) -> Tuple[Tensor, Tensor]:
+    ids, valid, pos = _resolve_segmented(seg, candidate_ids)
+    codes, mask = _gather_segmented(seg, pos, ("codes", "mask"))
+    return scan_mod.hamming_maxsim_topk(
+        q_codes, q_mask, codes, mask, bits=bits, k=k, doc_ids=ids,
+        valid=valid, scan=scan)
+
+
+def search_hamming_floor(index_or_seg, q_codes: Tensor, q_mask: Tensor, *,
+                         bits: int, k: int,
                          scan: Optional[scan_mod.ScanConfig] = None
                          ) -> Tuple[Tensor, Tensor]:
-    """Degraded-serving floor: the Hamming scan alone, with its int32
-    scores cast to float32 so every rung of the degradation ladder returns
-    the same dtypes."""
-    scores, ids = search_hamming(index, q_codes, q_mask, bits=bits, k=k,
-                                 scan=scan)
+    """Degraded-serving floor: the Hamming scan alone over a HammingIndex
+    or a SegmentedState of Hamming segments, with its int32 scores cast to
+    float32 so every rung of the degradation ladder returns the same
+    dtypes."""
+    if isinstance(index_or_seg, SegmentedState):
+        scores, ids = search_hamming_segmented(
+            index_or_seg, q_codes, q_mask, bits=bits, k=k, scan=scan)
+    else:
+        scores, ids = search_hamming(index_or_seg, q_codes, q_mask,
+                                     bits=bits, k=k, scan=scan)
     return scores.to(torch.float32), ids
+
+
+def gather_live_rows(seg: SegmentedState, leaf_names: Tuple[str, ...]
+                     ) -> Tuple[Tuple[Tensor, ...], Tensor]:
+    """Every live doc's rows in flattened slot order, on the segments'
+    device: the compaction primitive. Returns (leaves..., doc_ids) with
+    the live docs in the row-major order of the segment list, so doc order
+    and tie order survive compaction; padding and tombstones are dropped.
+    The outputs come padded to ``segment_capacity(live docs)`` rows
+    (zeros, doc id -1), ready to be one segment: each is allocated once
+    and filled in place, so the compacted copy is the only one made (5 GB
+    for the cascade's float member at ColPali width)."""
+    keeps = []
+    for payload, lv in zip(seg.segments, seg.live):
+        ids = seg_doc_ids(payload).reshape(-1)
+        keeps.append(torch.nonzero(lv.reshape(-1) & (ids >= 0)).squeeze(1))
+    n_live = sum(int(k.numel()) for k in keeps)
+    rows = segment_capacity(n_live)
+    first = seg.segments[0]
+    leaves = []
+    for nm in leaf_names:
+        ref = getattr(first, nm)
+        out = torch.empty((rows,) + tuple(ref.shape[1:]), dtype=ref.dtype,
+                          device=ref.device)
+        out[n_live:] = 0
+        leaves.append(out)
+    ids_out = torch.full((rows,), -1, dtype=torch.int32,
+                         device=seg_doc_ids(first).device)
+    off = 0
+    for payload, keep in zip(seg.segments, keeps):
+        n = int(keep.numel())
+        for out, nm in zip(leaves, leaf_names):
+            torch.index_select(getattr(payload, nm), 0, keep,
+                               out=out[off:off + n])
+        torch.index_select(seg_doc_ids(payload).reshape(-1).to(torch.int32),
+                           0, keep, out=ids_out[off:off + n])
+        off += n
+    return tuple(leaves), ids_out

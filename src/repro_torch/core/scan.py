@@ -34,7 +34,8 @@ The two layouts:
     query scores its own pool (the facade rerank, the cascade's stage 2).
     The kernels take a pool slice through its batch stride. The float
     sweep also takes candidate rows: (B, P) positions into a shared
-    (N, Md, D) corpus, read through their ids (the cascade's stage 3).
+    (N, Md, D) corpus, or into the segments of a segmented one, read
+    through their ids (the cascade's stage 3).
 
 Sentinel contract: rows beyond the valid pool carry doc id -1 and the
 merge-buffer init score (-inf for float scores, the int32 minimum for
@@ -249,12 +250,15 @@ def maxsim_topk(q: Tensor, q_mask: Tensor, docs: Tensor, d_mask: Tensor, *,
     positions (-1 = empty slot), docs/d_mask stay the shared corpus and
     each query scores its own P rows, read through their ids: the
     cascade's float rerank, with no (B, P, Md, D) copy on the card; the
-    sweep streams blocks along P and doc_ids/valid are (B, P).
+    sweep streams blocks along P and doc_ids/valid are (B, P). With rows,
+    docs/d_mask may also be tuples of segments: one corpus whose positions
+    run through the segments in order (a segmented state).
     -> (scores (B, k) f32, doc_ids (B, k) int32).
     """
     scan = scan if scan is not None else DEFAULT
-    mode = resolve_impl(scan.impl, docs.device)
-    per_query = docs.dim() == 4 or rows is not None
+    device = rows.device if rows is not None else docs.device
+    mode = resolve_impl(scan.impl, device)
+    per_query = rows is not None or docs.dim() == 4
     b = q.shape[0]
     if rows is not None:
         n = rows.shape[1]
@@ -262,7 +266,7 @@ def maxsim_topk(q: Tensor, q_mask: Tensor, docs: Tensor, d_mask: Tensor, *,
         n = docs.shape[1] if per_query else docs.shape[0]
     qf = q.to(torch.float32).contiguous()
     q_mask_f = q_mask.to(torch.float32).contiguous()
-    doc_ids, valid = _prep(n, doc_ids, valid, per_query, b, docs.device)
+    doc_ids, valid = _prep(n, doc_ids, valid, per_query, b, device)
     kernel = (maxsim_k.maxsim_cuda if mode == "cuda"
               else maxsim_k.maxsim_plain)
 

@@ -65,7 +65,7 @@ _SIGNATURES = {
     "hpc_hamming_maxsim": ([_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL,
                             _LL, _P], _I),
     "hpc_maxsim": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL,
-                    _LL, _LL, _I, _I, _P], _I),
+                    _LL, _LL, _I, _P, _P, _P, _I, _I, _P], _I),
     "hpc_maxsim_smem_bytes": ([_I, _I, _I, _I], _LL),
     "hpc_error_string": ([_I], ctypes.c_char_p),
 }

@@ -13,10 +13,15 @@
 //
 // Three layouts: a shared corpus (N, Md, D), every query against every
 // document; per-query pools (B, P, Md, D) through a batch stride; and
-// candidate rows: the corpus (N, Md, D) with rows (B, P) of int32 corpus
+// candidate rows: a corpus of N positions with rows (B, P) of int32 corpus
 // positions, each read through its id, so the cascade's stage 3 makes no
-// (B, P, Md, D) copy. A -1 slot scores -1e30 (the scan's sentinel for an
-// empty slot); an id >= N is never read and scores NaN.
+// (B, P, Md, D) copy. The rows' corpus is a segment table: up to
+// kMaxSegments tensors (cap_s, Md, D) with their masks, position r lying
+// in the last segment whose start is <= r, at r - start. A monolithic
+// corpus is the one-entry table; a segmented live index (appended
+// segments of several capacities) is read in place, with no gather. A -1
+// slot scores -1e30 (the scan's sentinel for an empty slot); an id >= N
+// is never read and scores NaN.
 //
 // What bounds it on the H100: stage 3 (B=8, Mq=32, D=128, 64 candidates x
 // Md=615 per query) reads 161 MB of float patches for 2.58 GFLOP: 48 us
@@ -65,6 +70,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kQChunk = 32;           // query rows per warp: 4 n tiles
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxDynamicSmem = 232448;
+constexpr int kMaxSegments = 32;      // entries of the rows' segment table
 
 enum Layout { kShared = 0, kPerQuery = 1, kRows = 2 };
 
@@ -78,6 +84,12 @@ struct Params {
   int b, mq, n_out, md, d, n_corpus;
   long long docs_bstride, mask_bstride, rows_bstride;
   int layout;
+  // the rows layout's corpus: segment s holds positions seg_start[s] ..
+  // seg_start[s + 1] - 1 (the last up to n_corpus); starts ascend
+  int n_seg;
+  const float* seg_docs[kMaxSegments];     // (cap_s, Md, D)
+  const uint8_t* seg_mask[kMaxSegments];   // (cap_s, Md)
+  int seg_start[kMaxSegments];
   int qpb;      // queries per block
   int mg;       // warps along the patches (kWarps / query chunks per block)
   int stages;   // chunks in the ring (1 or 2)
@@ -136,7 +148,20 @@ __global__ void __launch_bounds__(kThreads, 1) maxsim_kernel(const Params p) {
     const float* base = p.docs;
     const uint8_t* mbase = p.d_mask;
     if (p.layout == kRows) {
+      // the segment of position pos: a select over the whole table with
+      // constant indices, so the table stays in the parameter bank
       pos = id_of(i);
+      int start = 0;
+      base = p.seg_docs[0];
+      mbase = p.seg_mask[0];
+#pragma unroll
+      for (int s = 1; s < kMaxSegments; ++s)
+        if (s < p.n_seg && pos >= p.seg_start[s]) {
+          base = p.seg_docs[s];
+          mbase = p.seg_mask[s];
+          start = p.seg_start[s];
+        }
+      pos -= start;
     } else if (p.layout == kPerQuery) {
       base += b0 * p.docs_bstride;
       mbase += b0 * p.mask_bstride;
@@ -186,26 +211,29 @@ __global__ void __launch_bounds__(kThreads, 1) maxsim_kernel(const Params p) {
   auto row_of = [&](int chunk, int mt, int h) {
     return chunk * cr + wg * MT * 16 + mt * 16 + h * 8 + g;
   };
-  auto load_mask = [&](Item it, int (&m)[MT][2]) {
+  // a document's base pointers are found once per document (doc_d: the
+  // document of the chunk being staged), not once per chunk: the rows
+  // layout's segment lookup is a select over the whole table
+  auto load_mask = [&](const Doc& doc, int c, int (&m)[MT][2]) {
     if (!active) return;
-    const Doc doc = doc_of(it.i);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        m[mt][h] = __ldg(doc.m + min(row_of(it.c, mt, h), p.md - 1));
+        m[mt][h] = __ldg(doc.m + min(row_of(c, mt, h), p.md - 1));
   };
-  auto stage_chunk = [&](Item it, int slot) {
-    const int j0 = it.c * cr;
+  auto stage_chunk = [&](const Doc& doc, int c, int slot) {
+    const int j0 = c * cr;
     stage_rows<kThreads>(s_d + (size_t)slot * cr * dp,
-                         doc_of(it.i).p + (long long)j0 * p.d, cr, p.md - j0,
-                         p.d, dp, p.vec);
+                         doc.p + (long long)j0 * p.d, cr, p.md - j0, p.d, dp,
+                         p.vec);
   };
 
-  stage_chunk(cur, 0);
+  Doc doc_d = doc_of(cur.i);
+  stage_chunk(doc_d, cur.c, 0);
   cp_async_commit();
   int m_cur[MT][2], m_next[MT][2] = {};
-  load_mask(cur, m_next);
+  load_mask(doc_d, cur.c, m_next);
 
   float run[4][2];
 #pragma unroll
@@ -230,9 +258,10 @@ __global__ void __launch_bounds__(kThreads, 1) maxsim_kernel(const Params p) {
       m_cur[mt][0] = m_next[mt][0];
       m_cur[mt][1] = m_next[mt][1];
     }
-    if (more) load_mask(nxt, m_next);
+    if (more && nxt.i != cur.i) doc_d = doc_of(nxt.i);
+    if (more) load_mask(doc_d, nxt.c, m_next);
     if (p.stages == 2 && more) {
-      stage_chunk(nxt, (k + 1) & 1);
+      stage_chunk(doc_d, nxt.c, (k + 1) & 1);
       cp_async_commit();
     }
 
@@ -343,7 +372,7 @@ __global__ void __launch_bounds__(kThreads, 1) maxsim_kernel(const Params p) {
 
     if (p.stages == 1 && more) {
       __syncthreads();  // everyone is done with the slot
-      stage_chunk(nxt, 0);
+      stage_chunk(doc_d, nxt.c, 0);
       cp_async_commit();
     }
     if (!more) break;
@@ -418,30 +447,65 @@ long long hpc_maxsim_smem_bytes(int layout, int b, int mq, int d) {
 }
 
 // Returns a cudaError_t (0 on success). q (B, Mq, D) f32 contiguous, qm
-// (B, Mq) f32, d_mask 1 byte per patch, out (B, n_out) f32. layout 0:
+// (B, Mq) f32, masks 1 byte per patch, out (B, n_out) f32. layout 0:
 // docs (N, Md, D), n_out = N; 1: docs (B, P, Md, D) with batch strides
-// (elements), n_out = P; 2: docs (N, Md, D) and rows (B, P) int32 with
-// batch stride rows_bstride, n_out = P, n_corpus = N. Needs Md >= 1.
-// max_qpb caps the queries a block serves on the shared corpus (1 gives
-// the (B, doc) grid of the earlier design, kept for timing beside it).
+// (elements), n_out = P; 2: rows (B, P) int32 with batch stride
+// rows_bstride, n_out = P, into the n_seg-entry segment table (seg_docs,
+// seg_mask, ascending seg_start from 0; 1 <= n_seg <= 32) of n_corpus
+// positions; docs and d_mask are not read. Needs Md >= 1. max_qpb caps
+// the queries a block serves on the shared corpus (1 gives the (B, doc)
+// grid of the earlier design, kept for timing beside it).
 int hpc_maxsim(const float* q, const float* qm, const float* docs,
                const uint8_t* d_mask, const int32_t* rows, float* out,
                int layout, int b, int mq, int n_out, int md, int d,
                int n_corpus, long long docs_bstride, long long mask_bstride,
-               long long rows_bstride, int max_qpb, int sm_count,
+               long long rows_bstride, int n_seg,
+               const float* const* seg_docs, const uint8_t* const* seg_mask,
+               const int* seg_start, int max_qpb, int sm_count,
                void* stream) {
   if (b <= 0 || n_out <= 0) return 0;
   Config cfg;
   if (mq <= 0 || md <= 0 || sm_count <= 0 || layout < 0 || layout > 2 ||
-      (layout == kRows && rows == nullptr) ||
+      (layout == kRows &&
+       (rows == nullptr || n_seg < 1 || n_seg > kMaxSegments ||
+        seg_start == nullptr || seg_start[0] != 0)) ||
       !choose(layout, b, mq, d, max_qpb, &cfg))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = d % 4 == 0 && docs_bstride % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(docs) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  const Params prm{q, qm, docs, d_mask, rows, out, b, mq, n_out, md, d,
-                   n_corpus, docs_bstride, mask_bstride, rows_bstride, layout,
-                   cfg.qpb, cfg.mg, cfg.stages, vec};
+  bool vec = d % 4 == 0 && docs_bstride % 4 == 0 &&
+             reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  if (layout == kRows) {
+    for (int s = 0; s < n_seg; ++s)
+      vec = vec && reinterpret_cast<uintptr_t>(seg_docs[s]) % 16 == 0;
+  } else {
+    vec = vec && reinterpret_cast<uintptr_t>(docs) % 16 == 0;
+  }
+  Params prm{};
+  prm.q = q;
+  prm.qm = qm;
+  prm.docs = docs;
+  prm.d_mask = d_mask;
+  prm.rows = rows;
+  prm.out = out;
+  prm.b = b;
+  prm.mq = mq;
+  prm.n_out = n_out;
+  prm.md = md;
+  prm.d = d;
+  prm.n_corpus = n_corpus;
+  prm.docs_bstride = docs_bstride;
+  prm.mask_bstride = mask_bstride;
+  prm.rows_bstride = rows_bstride;
+  prm.layout = layout;
+  prm.n_seg = layout == kRows ? n_seg : 0;
+  for (int s = 0; s < prm.n_seg; ++s) {
+    prm.seg_docs[s] = seg_docs[s];
+    prm.seg_mask[s] = seg_mask[s];
+    prm.seg_start[s] = seg_start[s];
+  }
+  prm.qpb = cfg.qpb;
+  prm.mg = cfg.mg;
+  prm.stages = cfg.stages;
+  prm.vec = vec;
   // persistent: at most one block per SM in all (shared memory allows no
   // second)
   const int groups = (b + cfg.qpb - 1) / cfg.qpb;

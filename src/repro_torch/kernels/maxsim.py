@@ -14,15 +14,21 @@ Both functions take three layouts: a shared corpus (docs (N, Md, D),
 d_mask (N, Md)), per-query pools (docs (B, P, Md, D), d_mask (B, P, Md);
 a slice along P goes into the kernel through its batch stride), and
 candidate rows: ``rows`` (B, P) int32 corpus positions into a shared
-corpus, read through their ids (no (B, P, Md, D) copy on the card). A -1
-slot scores NEG_INF, the scan's score for an empty slot; an id >= N scores
-NaN (the kernel never reads it). ``launches`` counts the kernel launches
-of this process.
+corpus, read through their ids (no (B, P, Md, D) copy on the card). With
+rows the corpus may be a sequence of segments (docs a tuple of
+(cap_s, Md, D) tensors, d_mask a tuple of their masks): position r lies
+in the segment that holds positions start_s .. start_s + cap_s - 1, in
+order. The kernel reads them through a table of at most
+``MAX_SEGMENTS`` entries per launch. A -1 slot scores NEG_INF, the
+scan's score for an empty slot; an id >= N (N = every segment's rows)
+scores NaN (the kernel never reads it). ``launches`` counts the kernel
+launches of this process.
 """
 from __future__ import annotations
 
+import ctypes
 import threading
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -34,25 +40,56 @@ _count_lock = threading.Lock()
 
 # the kernel's layouts (csrc/maxsim.cu)
 _SHARED, _PER_QUERY, _ROWS = 0, 1, 2
+# entries of the rows layout's segment table (kMaxSegments in maxsim.cu);
+# a corpus of more segments takes one launch per group of this many
+MAX_SEGMENTS = 32
+
+Corpus = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
-def maxsim_plain(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
-                 d_mask: torch.Tensor, rows: Optional[torch.Tensor] = None
+def _segments(docs: Corpus, d_mask: Corpus
+              ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    """The rows layout's corpus as (segments, their masks)."""
+    if isinstance(docs, torch.Tensor):
+        return (docs,), (d_mask,)
+    segs, masks = tuple(docs), tuple(d_mask)
+    if not segs or len(segs) != len(masks):
+        raise ValueError(f"{len(segs)} segments with {len(masks)} masks")
+    return segs, masks
+
+
+def maxsim_plain(q: torch.Tensor, q_mask: torch.Tensor, docs: Corpus,
+                 d_mask: Corpus, rows: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """The kernel's function in plain PyTorch (the counterpart of
     ``repro.kernels.ref.maxsim``, extended to per-query pools).
 
     q (B, Mq, D), q_mask (B, Mq) 0/1, docs (N, Md, D) or (B, P, Md, D),
     d_mask of the docs' leading shape (nonzero = valid) -> (B, N) f32.
-    With ``rows`` (B, P) of positions into a shared corpus: the rows are
-    gathered and scored as per-query pools -> (B, P); -1 slots score
-    NEG_INF and ids >= N NaN, as in the kernel.
+    With ``rows`` (B, P) of positions into a shared corpus (one tensor, or
+    a tuple of segments): the rows are gathered, segment by segment, and
+    scored as per-query pools -> (B, P); -1 slots score NEG_INF and ids
+    >= N NaN, as in the kernel.
     """
     if rows is not None:
-        n = docs.shape[0]
-        safe = rows.long().clamp(0, max(n - 1, 0))
-        out = maxsim_plain(q, q_mask, docs[safe], d_mask[safe])
-        out = torch.where(rows >= n, float("nan"), out)
+        segs, masks = _segments(docs, d_mask)
+        r = rows.long()
+        pool = torch.zeros(tuple(rows.shape) + tuple(segs[0].shape[1:]),
+                           dtype=segs[0].dtype, device=segs[0].device)
+        pool_mask = torch.zeros(tuple(rows.shape) + tuple(masks[0].shape[1:]),
+                                dtype=masks[0].dtype, device=segs[0].device)
+        start = 0
+        for seg, m in zip(segs, masks):
+            cap = seg.shape[0]
+            local = r - start
+            inside = (local >= 0) & (local < cap)
+            if cap:
+                idx = local.clamp(0, cap - 1)
+                pool = torch.where(inside[..., None, None], seg[idx], pool)
+                pool_mask = torch.where(inside[..., None], m[idx], pool_mask)
+            start += cap
+        out = maxsim_plain(q, q_mask, pool, pool_mask)
+        out = torch.where(rows >= start, float("nan"), out)
         return torch.where(rows < 0, NEG_INF, out)
     q = q.float()
     if docs.dim() == 4:
@@ -66,8 +103,8 @@ def maxsim_plain(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
     return per_q.sum(dim=1)
 
 
-def maxsim_cuda(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
-                d_mask: torch.Tensor, rows: Optional[torch.Tensor] = None, *,
+def maxsim_cuda(q: torch.Tensor, q_mask: torch.Tensor, docs: Corpus,
+                d_mask: Corpus, rows: Optional[torch.Tensor] = None, *,
                 max_queries_per_block: int = 8) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; same contract as
     ``maxsim_plain`` with q and q_mask float32 and contiguous, docs float32,
@@ -75,12 +112,48 @@ def maxsim_cuda(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
     anything else. ``max_queries_per_block`` caps the queries one block
     serves on a shared corpus; 1 is the earlier (B, doc) design, kept only
     to time the two side by side."""
+    if rows is not None:
+        return _maxsim_rows_cuda(q, q_mask, *_segments(docs, d_mask), rows,
+                                 max_queries_per_block)
+    return _launch(q, q_mask, docs, d_mask, None, None,
+                   max_queries_per_block)
+
+
+def _maxsim_rows_cuda(q, q_mask, segs, masks, rows, max_queries_per_block):
+    """The rows layout over a segment table; a corpus of more than
+    MAX_SEGMENTS segments takes one launch per group of them, each filling
+    the slots whose positions fall in its group."""
+    starts = [0]
+    for seg in segs:
+        starts.append(starts[-1] + int(seg.shape[0]))
+    out = None
+    for g0 in range(0, len(segs), MAX_SEGMENTS):
+        g1 = min(g0 + MAX_SEGMENTS, len(segs))
+        base, end = starts[g0], starts[g1]
+        table = (segs[g0:g1], masks[g0:g1],
+                 [s - base for s in starts[g0:g1]])
+        if g0 == 0:
+            out = _launch(q, q_mask, segs[0], masks[0], rows, table,
+                          max_queries_per_block)
+            continue
+        part = _launch(q, q_mask, segs[g0], masks[g0], rows - base, table,
+                       max_queries_per_block)
+        out = torch.where((rows >= base) & (rows < end), part, out)
+    return out
+
+
+def _launch(q, q_mask, docs, d_mask, rows, table, max_queries_per_block):
+    """One kernel launch. ``table`` (segments, masks, starts) is the rows
+    layout's corpus; docs/d_mask then stand for its first segment in the
+    shape checks."""
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"maxsim_cuda needs CUDA tensors, got {q.device}")
     named = [("q_mask", q_mask), ("docs", docs), ("d_mask", d_mask)]
     if rows is not None:
         named.append(("rows", rows))
+        named += [(f"segment {i}", t) for i, t in
+                  enumerate(table[0] + table[1])]
     for name, t in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -117,6 +190,20 @@ def maxsim_cuda(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
                          f"{tuple(docs.shape)}")
     _build.check_layout("d_mask", d_mask, docs.shape[:-1],
                         batch_strided=per_query)
+    n_seg, seg_docs, seg_mask, seg_start = 0, None, None, None
+    if rows is not None:
+        segs, masks, starts = table
+        for i, (seg, m) in enumerate(zip(segs, masks)):
+            if seg.dtype != torch.float32 or m.dtype not in _build.MASK_DTYPES:
+                raise ValueError(f"segment {i}: docs must be float32 and "
+                                 "masks bool or uint8")
+            _build.check_layout(f"segment {i}", seg, (seg.shape[0], md, d))
+            _build.check_layout(f"segment {i} mask", m, (seg.shape[0], md))
+        n_seg = len(segs)
+        n = starts[-1] + int(segs[-1].shape[0])
+        seg_docs = (ctypes.c_void_p * n_seg)(*[t.data_ptr() for t in segs])
+        seg_mask = (ctypes.c_void_p * n_seg)(*[t.data_ptr() for t in masks])
+        seg_start = (ctypes.c_int * n_seg)(*starts)
     n_out = rows.shape[1] if rows is not None else n
     if b == 0 or n_out == 0 or mq == 0:
         return torch.zeros((b, n_out), dtype=torch.float32, device=q.device)
@@ -140,8 +227,8 @@ def maxsim_cuda(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
         layout, b, mq, n_out, md, d, n,
         docs.stride(0) if per_query else 0,
         d_mask.stride(0) if per_query else 0,
-        rows.stride(0) if rows is not None else 0, max_queries_per_block,
-        _build.sm_count(q.device), stream)
+        rows.stride(0) if rows is not None else 0, n_seg, seg_docs, seg_mask,
+        seg_start, max_queries_per_block, _build.sm_count(q.device), stream)
     _build.check(err, "maxsim kernel launch")
     with _count_lock:
         launches += 1

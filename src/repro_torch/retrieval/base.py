@@ -1,23 +1,29 @@
 """The `IndexBackend` contract, its registry and the shared build stages.
 
-The counterpart of ``repro.retrieval.base`` for monolithic (unsegmented)
-states. A backend owns one primary search structure behind
+The counterpart of ``repro.retrieval.base``. A backend owns one primary
+search structure behind
 
     build(generator, corpus, cfg)          -> RetrieverState
     search(state, query, *, k, scan)       -> (scores (B, k), doc_ids (B, k))
     search_candidates(state, query, ids, *, k, scan)
+    add(state, delta, cfg, *, doc_ids) / delete(state, ids) / compact(...)
     storage_bytes(state)                   -> {"payload": ..., ...}
 
 Codebook training and corpus quantization are shared here
-(``fit_codebook``, ``encode_corpus``). Random draws come from a
-``torch.Generator`` on the corpus' device.
+(``fit_codebook``, ``encode_corpus``, and ``encode_delta`` for appended
+documents). Random draws come from a ``torch.Generator`` on the corpus'
+device. The mutation API keeps the segmented LSM store
+(``core.index.SegmentedState``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import index as index_mod
 from repro_torch.core import pruning
 from repro_torch.core import quantization as quant
 from repro_torch.retrieval.config import HPCConfig
@@ -141,6 +147,35 @@ def encode_corpus(gen: torch.Generator, corpus: Corpus, cfg: HPCConfig
     return gen, codebook, codes_full, codes, mask
 
 
+def encode_delta(codebook: Tensor, delta: Corpus, cfg: HPCConfig
+                 ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Encode a corpus delta against an EXISTING codebook (no refit).
+
+    The online counterpart of ``encode_corpus``: quantizes the delta's
+    patches with the codebook the index was built with (the
+    ``kmeans_assign`` kernel on the card) and applies the same doc-side
+    pruning, so an appended segment is scored on exactly the
+    representation a build would give those docs. Returns (codes_full,
+    codes, mask): the full codes feed the rerank rows, the pruned
+    codes/mask the primary structure.
+    """
+    codes_full = quant.quantize(delta.embeddings, codebook,
+                                code_dtype=code_dtype(codebook.shape[0]))
+    if cfg.prune_side in ("doc", "both"):
+        codes, _, mask, _ = pruning.prune_topp_codes(
+            codes_full, delta.salience, delta.mask, p=cfg.p)
+    else:
+        codes, mask = codes_full, delta.mask.to(torch.bool)
+    return codes_full, codes, mask
+
+
+def _host_ids(doc_ids) -> np.ndarray:
+    """Doc ids from a tensor, an array or a sequence, as host int64."""
+    if isinstance(doc_ids, torch.Tensor):
+        doc_ids = doc_ids.cpu().numpy()
+    return np.asarray(doc_ids, np.int64).reshape(-1)
+
+
 # ---------------------------------------------------------------------------
 # Backend base class
 # ---------------------------------------------------------------------------
@@ -180,11 +215,260 @@ class IndexBackend:
             f"backend {self.name!r} does not support candidate-restricted "
             "search")
 
+    # -- mutation (segmented LSM store) ---------------------------------------
+    #
+    # A built state starts monolithic; the first `add`/`delete` normalizes it
+    # into a `SegmentedState` whose segment 0 wraps the existing structure
+    # zero-copy. `add` appends one immutable pow2-capacity segment encoded
+    # with the EXISTING codebook; `delete` flips live bits (tombstones are
+    # honored by every search path through the valid-mask contract);
+    # `compact` gathers the live docs back into a single segment. Rerank
+    # rows are indexed by GLOBAL doc id throughout, so the facade's rerank
+    # never changes. No mutation writes into a tensor of the state it was
+    # given: a search still running on the old state is unaffected.
+
+    def _segmented(self, state: RetrieverState
+                   ) -> Optional[index_mod.SegmentedState]:
+        """The state's SegmentedState, or None while still monolithic."""
+        s = state.backend_state
+        if isinstance(s, index_mod.SegmentedState):
+            return s
+        if self._is_wrapper(s) and isinstance(s.index,
+                                              index_mod.SegmentedState):
+            return s.index
+        return None
+
+    @staticmethod
+    def _is_wrapper(s) -> bool:
+        """A wrapper state with an ``index`` field (HammingState)? Named
+        tuple payloads have an ``index`` method, so require a dataclass."""
+        return (dataclasses.is_dataclass(s)
+                and not isinstance(s, index_mod.SegmentedState)
+                and any(f.name == "index" for f in dataclasses.fields(s)))
+
+    def _set_segmented(self, state: RetrieverState,
+                       seg: index_mod.SegmentedState) -> RetrieverState:
+        s = state.backend_state
+        if self._is_wrapper(s):
+            return state._replace(
+                backend_state=dataclasses.replace(s, index=seg))
+        return state._replace(backend_state=seg)
+
+    def _wrap_segment(self, state: RetrieverState) -> Tuple[Any, Tensor]:
+        """(payload, live) wrapping the monolithic structure zero-copy."""
+        s = state.backend_state
+        payload = s.index if self._is_wrapper(s) else s
+        return payload, index_mod.seg_doc_ids(payload) >= 0
+
+    def _grow_rerank(self, state: RetrieverState, id_cap: int
+                     ) -> RetrieverState:
+        if state.rerank_codes.shape[0] >= id_cap:
+            return state
+        return state._replace(
+            rerank_codes=index_mod.pad_dim0(state.rerank_codes, id_cap, 0),
+            rerank_mask=index_mod.pad_dim0(state.rerank_mask, id_cap, False))
+
+    def to_segmented(self, state: RetrieverState, *,
+                     id_cap: Optional[int] = None) -> RetrieverState:
+        """Normalize a monolithic state into single-segment form (no-op if
+        already segmented). Search results are identical either way:
+        segment 0 IS the original structure."""
+        if self._segmented(state) is not None:
+            return state
+        payload, live = self._wrap_segment(state)
+        if id_cap is None:
+            ids = index_mod.seg_doc_ids(payload)
+            top = int(ids.max()) if ids.numel() else -1
+            id_cap = index_mod.segment_capacity(top + 1)
+        seg = index_mod.SegmentedState(
+            (payload,), (live,),
+            index_mod.rebuild_pos_of_id((payload,), (live,), id_cap))
+        return self._grow_rerank(self._set_segmented(state, seg), id_cap)
+
+    # per-backend append hooks ---------------------------------------------
+
+    def _encode_delta(self, state: RetrieverState, delta: Corpus,
+                      cfg: HPCConfig) -> Tuple[Tensor, Tensor, Tensor]:
+        """(full_repr, payload_repr, payload_mask) for a delta."""
+        return encode_delta(state.codebook, delta, cfg)
+
+    def _delta_segment(self, state: RetrieverState,
+                       seg: index_mod.SegmentedState, enc, delta: Corpus,
+                       cfg: HPCConfig, doc_ids: Tensor) -> Tuple[Any, Tensor]:
+        """(payload, live) for an append segment — backend-specific."""
+        raise NotImplementedError(
+            f"backend {self.name!r} does not support add()")
+
+    def _rerank_delta_rows(self, enc, delta: Corpus) -> Tuple[Tensor, Tensor]:
+        """Rows written into the id-indexed rerank corpus for a delta."""
+        return enc[0], delta.mask
+
+    # public mutation API ---------------------------------------------------
+
+    def add(self, state: RetrieverState, delta: Corpus, cfg: HPCConfig, *,
+            doc_ids=None) -> RetrieverState:
+        """Append (or upsert) documents without rebuilding. Returns the new
+        state; ``state`` is unchanged (segments are immutable).
+
+        doc_ids None assigns fresh ids past the largest ever used.
+        Explicit ids may reuse existing ones: a live prior occurrence is
+        tombstoned (upsert — the newest segment wins), a dead one stays
+        dead. Duplicate ids within one delta are rejected. The delta must
+        have the patch count (Md) and embedding dim of the build's corpus.
+        """
+        n_new = int(delta.embeddings.shape[0])
+        if n_new == 0:
+            return state
+        state = self.to_segmented(state)
+        seg = self._segmented(state)
+
+        # resolve ids on the host
+        max_assigned = seg.max_doc_id()
+        if doc_ids is None:
+            ids_np = np.arange(max_assigned + 1, max_assigned + 1 + n_new,
+                               dtype=np.int64)
+        else:
+            ids_np = _host_ids(doc_ids)
+            if ids_np.shape[0] != n_new:
+                raise ValueError(
+                    f"doc_ids has {ids_np.shape[0]} entries for a "
+                    f"{n_new}-doc delta")
+            if (ids_np < 0).any():
+                raise ValueError("doc_ids must be non-negative")
+            if np.unique(ids_np).size != n_new:
+                raise ValueError(
+                    "duplicate doc_ids within one add() delta; split the "
+                    "delta so each id appears once (newest-wins upserts "
+                    "need a segment boundary between occurrences)")
+        dev = seg.pos_of_id.device
+        ids_t = torch.from_numpy(ids_np).to(device=dev, dtype=torch.int32)
+
+        # prior live occurrences of reused ids -> flattened positions now
+        # (positions of existing rows are stable under append)
+        pos_np = seg.pos_of_id.cpu().numpy()
+        in_cap = ids_np < pos_np.shape[0]
+        old_pos = np.where(in_cap, pos_np[np.minimum(
+            ids_np, pos_np.shape[0] - 1)], -1)
+        kill_pos = old_pos[old_pos >= 0]
+
+        enc = self._encode_delta(state, delta, cfg)
+        payload, live = self._delta_segment(state, seg, enc, delta, cfg,
+                                            ids_t)
+        segments = seg.segments + (payload,)
+        lives = list(seg.live) + [live]
+        if kill_pos.size:  # upsert: tombstone the prior occurrence
+            off = 0
+            for i, p in enumerate(segments):
+                size = int(index_mod.seg_doc_ids(p).numel())
+                sel = kill_pos[(kill_pos >= off) & (kill_pos < off + size)]
+                if sel.size:
+                    lv = lives[i].reshape(-1).clone()
+                    lv[torch.from_numpy(sel - off).to(dev)] = False
+                    lives[i] = lv.reshape(lives[i].shape)
+                off += size
+
+        id_cap = index_mod.segment_capacity(
+            max(pos_np.shape[0], int(ids_np.max()) + 1))
+        seg2 = index_mod.SegmentedState(
+            segments, tuple(lives),
+            index_mod.rebuild_pos_of_id(segments, tuple(lives), id_cap))
+        state = self._grow_rerank(self._set_segmented(state, seg2), id_cap)
+        rc_rows, rm_rows = self._rerank_delta_rows(enc, delta)
+        idx = (ids_t.to(torch.int64),)
+        return state._replace(
+            rerank_codes=state.rerank_codes.index_put(
+                idx, rc_rows.to(state.rerank_codes.dtype)),
+            rerank_mask=state.rerank_mask.index_put(
+                idx, rm_rows.to(state.rerank_mask.dtype)))
+
+    def delete(self, state: RetrieverState, doc_ids) -> RetrieverState:
+        """Tombstone documents by global id: O(total slots) work, no
+        change to the stored payload; searches mask the docs out through
+        the valid-mask contract (scores NEG_INF, ids -1). Unknown or
+        already-dead ids are a no-op."""
+        state = self.to_segmented(state)
+        seg = self._segmented(state)
+        kill = np.unique(_host_ids(doc_ids))
+        kill = torch.from_numpy(kill[kill >= 0]).to(seg.pos_of_id.device)
+        new_live, changed = [], False
+        for payload, lv in zip(seg.segments, seg.live):
+            hit = torch.isin(index_mod.seg_doc_ids(payload), kill) & lv
+            if bool(hit.any()):
+                changed = True
+                new_live.append(lv & ~hit)
+            else:
+                new_live.append(lv)
+        if not changed:
+            return state
+        seg2 = index_mod.SegmentedState(
+            seg.segments, tuple(new_live),
+            index_mod.rebuild_pos_of_id(seg.segments, tuple(new_live),
+                                        seg.pos_of_id.shape[0]))
+        return self._set_segmented(state, seg2)
+
+    def _compact_payload(self, state: RetrieverState,
+                         seg: index_mod.SegmentedState, cfg: HPCConfig
+                         ) -> Tuple[Any, Tensor]:
+        """(payload, live) holding exactly the live docs — per backend."""
+        raise NotImplementedError(
+            f"backend {self.name!r} does not support compact()")
+
+    def compact(self, state: RetrieverState, cfg: HPCConfig
+                ) -> RetrieverState:
+        """Physically drop tombstones: gather the live docs into a single
+        fresh segment, in slot order. Doc ids and the id-indexed rerank
+        rows are kept, so search results over the live corpus are
+        unchanged."""
+        state = self.to_segmented(state)
+        seg = self._segmented(state)
+        payload, live = self._compact_payload(state, seg, cfg)
+        seg2 = index_mod.SegmentedState(
+            (payload,), (live,),
+            index_mod.rebuild_pos_of_id((payload,), (live,),
+                                        seg.pos_of_id.shape[0]))
+        return self._set_segmented(state, seg2)
+
     def storage_bytes(self, state: RetrieverState) -> Dict[str, int]:
         """Measured storage of the built index (paper Table III)."""
         raise NotImplementedError
 
+    # -- segmented accounting helpers -----------------------------------------
+
+    def _seg_payload_bytes(self, payload, n_live: int) -> int:
+        """Payload bytes attributable to ``n_live`` live docs of a
+        segment."""
+        raise NotImplementedError
+
+    def _segmented_storage(self, state: RetrieverState,
+                           seg: index_mod.SegmentedState) -> Dict[str, int]:
+        """Live-docs-only payload accounting + a per-segment breakdown:
+        tombstoned docs stop counting when they are deleted (their bytes
+        are freed at compact)."""
+        out: Dict[str, int] = {}
+        total = 0
+        for i, (payload, lv) in enumerate(zip(seg.segments, seg.live)):
+            ids = index_mod.seg_doc_ids(payload).reshape(-1)
+            n_live = int((lv.reshape(-1) & (ids >= 0)).sum())
+            b = self._seg_payload_bytes(payload, n_live)
+            out[f"segment_{i}_payload"] = b
+            total += b
+        out["payload"] = total
+        cb = state.codebook
+        out["codebook"] = cb.numel() * cb.element_size()
+        return out
+
+    def _segment_stats(self, seg: index_mod.SegmentedState
+                       ) -> Dict[str, float]:
+        live, tomb = seg.counts()
+        return {"segments": float(seg.n_segments),
+                "live_docs": float(live),
+                "tombstoned_docs": float(tomb),
+                "tombstone_frac": tomb / max(live + tomb, 1)}
+
     def build_stats(self, state: RetrieverState) -> Dict[str, float]:
-        """Structure-quality stats of a built index; the exhaustive scans
-        have nothing to report."""
-        return {}
+        """Structure-quality stats of a built index: {} for a monolithic
+        state (the exhaustive scans have nothing to report), the segment
+        lifecycle counters (segments / live_docs / tombstoned_docs /
+        tombstone_frac) for a segmented one."""
+        seg = self._segmented(state)
+        return self._segment_stats(seg) if seg is not None else {}

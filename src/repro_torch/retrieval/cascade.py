@@ -19,12 +19,18 @@ downstream, where they are never scored and stay -1 in the output.
 The budgets (p1, p2) come from ``HPCConfig.cascade`` at build time and
 ride in the state; ``with_budgets`` derives a state with other budgets
 over the same tensors (the serving degradation ladder's rungs).
+
+Mutation composes member-wise: ``add``/``delete``/``compact`` run on every
+member in lockstep (ids resolved once), so the members' segment lists,
+live bits and ``pos_of_id`` agree, and stage outputs (global ids) resolve
+to rows in the next stage through ``pos_of_id``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import index as index_mod
@@ -84,9 +90,10 @@ class CascadeBackend(IndexBackend):
 
     def search(self, state: RetrieverState, query: Query, *, k: int,
                scan=None) -> Tuple[Tensor, Tensor]:
-        """Run the funnel. Stage outputs are global doc ids; the members
-        are built over the same corpus (doc_ids = arange), so ids double as
-        positions for the next stage's gather."""
+        """Run the funnel. Stage outputs are global doc ids: on a
+        monolithic state the members are built over the same corpus
+        (doc_ids = arange), so ids double as positions for the next stage;
+        on a segmented one they resolve through ``pos_of_id``."""
         s = state.backend_state
         (ham_b, ham_v), (flat_b, flat_v), (ff_b, ff_v) = self._views(state)
         _, ids1 = ham_b.search(ham_v, query, k=s.p1, scan=scan)
@@ -128,9 +135,11 @@ class CascadeBackend(IndexBackend):
         """Degradation floor: answer from stage 1 alone (float32 scores)."""
         ham_b, ham_v = self._views(state)[0]
         sh = ham_v.backend_state
+        seg = ham_b._segmented(ham_v)
         return index_mod.search_hamming_floor(
-            sh.index, ham_b._q_codes(ham_v, query), query.mask, bits=sh.bits,
-            k=k, scan=scan)
+            seg if seg is not None else sh.index,
+            ham_b._q_codes(ham_v, query), query.mask, bits=sh.bits, k=k,
+            scan=scan)
 
     def search_degraded(self, state: RetrieverState, query: Query, *,
                         k: int, rung, scan=None) -> Tuple[Tensor, Tensor]:
@@ -140,6 +149,69 @@ class CascadeBackend(IndexBackend):
             return self.search_prefilter(state, query, k=k, scan=scan)
         return self.search(self.with_budgets(state, *rung), query, k=k,
                            scan=scan)
+
+    # -- mutation (member-wise composition) ---------------------------------
+
+    def _segmented(self, state: RetrieverState):
+        # the flat member's SegmentedState stands in for segment accounting
+        # (the members mutate in lockstep, so their structure agrees)
+        flat_member = state.backend_state.members[1]
+        if isinstance(flat_member, index_mod.SegmentedState):
+            return flat_member
+        return None
+
+    def _recompose(self, state: RetrieverState, member_states
+                   ) -> RetrieverState:
+        """The outer state from mutated member views. The rerank leaves
+        come from the flat member (float_flat writes placeholder rows that
+        must not replace the shared full-code rerank corpus)."""
+        s = state.backend_state
+        donor = member_states[1]
+        return state._replace(
+            backend_state=CascadeState(
+                tuple(ms.backend_state for ms in member_states), s.p1, s.p2),
+            rerank_codes=donor.rerank_codes,
+            rerank_mask=donor.rerank_mask)
+
+    def to_segmented(self, state: RetrieverState, *,
+                     id_cap=None) -> RetrieverState:
+        if self._segmented(state) is not None:
+            return state
+        if id_cap is None:
+            ids = state.backend_state.members[1].doc_ids
+            top = int(ids.max()) if ids.numel() else -1
+            id_cap = index_mod.segment_capacity(top + 1)
+        return self._recompose(state, [
+            backend.to_segmented(view, id_cap=id_cap)
+            for backend, view in self._views(state)])
+
+    def add(self, state: RetrieverState, delta: Corpus, cfg: HPCConfig, *,
+            doc_ids=None) -> RetrieverState:
+        n_new = int(delta.embeddings.shape[0])
+        if n_new == 0:
+            return state
+        state = self.to_segmented(state)
+        if doc_ids is None:
+            # resolve fresh ids once so every member assigns identically
+            max_id = self._segmented(state).max_doc_id()
+            doc_ids = np.arange(max_id + 1, max_id + 1 + n_new,
+                                dtype=np.int64)
+        return self._recompose(state, [
+            backend.add(view, delta, cfg, doc_ids=doc_ids)
+            for backend, view in self._views(state)])
+
+    def delete(self, state: RetrieverState, doc_ids) -> RetrieverState:
+        state = self.to_segmented(state)
+        return self._recompose(state, [
+            backend.delete(view, doc_ids)
+            for backend, view in self._views(state)])
+
+    def compact(self, state: RetrieverState,
+                cfg: HPCConfig) -> RetrieverState:
+        state = self.to_segmented(state)
+        return self._recompose(state, [
+            backend.compact(view, cfg)
+            for backend, view in self._views(state)])
 
     # -- accounting ---------------------------------------------------------
 
@@ -159,6 +231,9 @@ class CascadeBackend(IndexBackend):
     def build_stats(self, state: RetrieverState) -> Dict[str, float]:
         s = state.backend_state
         stats = {"p1": float(s.p1), "p2": float(s.p2)}
+        seg = self._segmented(state)
+        if seg is not None:
+            stats.update(self._segment_stats(seg))
         for name, (backend, view) in zip(STAGES, self._views(state)):
             for key, val in backend.build_stats(view).items():
                 stats[f"{name}_{key}"] = val

@@ -32,6 +32,10 @@ class FlatBackend(IndexBackend):
 
     def search(self, state: RetrieverState, query: Query, *, k: int,
                scan=None) -> Tuple[Tensor, Tensor]:
+        seg = self._segmented(state)
+        if seg is not None:
+            return index_mod.search_flat_segmented(
+                seg, query.embeddings, query.mask, k=k, scan=scan)
         return index_mod.search_flat(state.backend_state, query.embeddings,
                                      query.mask, k=k, scan=scan)
 
@@ -40,11 +44,35 @@ class FlatBackend(IndexBackend):
                           scan=None) -> Tuple[Tensor, Tensor]:
         if candidate_ids is None:
             return self.search(state, query, k=k, scan=scan)
+        seg = self._segmented(state)
+        if seg is not None:
+            return index_mod.search_flat_segmented_candidates(
+                seg, query.embeddings, query.mask, candidate_ids, k=k,
+                scan=scan)
         return index_mod.search_flat_candidates(
             state.backend_state, query.embeddings, query.mask,
             candidate_ids, k=k, scan=scan)
 
+    # -- mutation hooks ------------------------------------------------------
+
+    def _delta_segment(self, state, seg, enc, delta, cfg, doc_ids):
+        _, codes, mask = enc
+        return index_mod.make_flat_segment(codes, mask, state.codebook,
+                                           doc_ids)
+
+    def _compact_payload(self, state, seg, cfg):
+        (codes, mask), ids = index_mod.gather_live_rows(
+            seg, ("codes", "mask"))
+        return index_mod.FlatIndex(codes, mask, state.codebook, ids), ids >= 0
+
+    def _seg_payload_bytes(self, payload, n_live: int) -> int:
+        codes = payload.codes
+        return n_live * codes.shape[-1] * codes.element_size()
+
     def storage_bytes(self, state: RetrieverState) -> Dict[str, int]:
+        seg = self._segmented(state)
+        if seg is not None:
+            return self._segmented_storage(state, seg)
         codes = state.backend_state.codes
         cb = state.codebook
         return {"payload": codes.numel() * codes.element_size(),

@@ -48,6 +48,10 @@ class FloatFlatBackend(IndexBackend):
 
     def search(self, state: RetrieverState, query: Query, *, k: int,
                scan=None) -> Tuple[Tensor, Tensor]:
+        seg = self._segmented(state)
+        if seg is not None:
+            return index_mod.search_float_flat_segmented(
+                seg, query.embeddings, query.mask, k=k, scan=scan)
         return index_mod.search_float_flat(
             state.backend_state, query.embeddings, query.mask, k=k,
             scan=scan)
@@ -57,10 +61,48 @@ class FloatFlatBackend(IndexBackend):
                           scan=None) -> Tuple[Tensor, Tensor]:
         if candidate_ids is None:
             return self.search(state, query, k=k, scan=scan)
+        seg = self._segmented(state)
+        if seg is not None:
+            return index_mod.search_float_flat_segmented_candidates(
+                seg, query.embeddings, query.mask, candidate_ids, k=k,
+                scan=scan)
         return index_mod.search_float_flat_candidates(
             state.backend_state, query.embeddings, query.mask,
             candidate_ids, k=k, scan=scan)
 
+    # -- mutation hooks ------------------------------------------------------
+
+    def _encode_delta(self, state, delta, cfg):
+        # no codebook: the payload is the (doc-pruned) float embeddings
+        emb, mask = pruned_embeddings(delta, cfg)
+        return emb, emb, mask
+
+    def _delta_segment(self, state, seg, enc, delta, cfg, doc_ids):
+        _, emb, mask = enc
+        return index_mod.make_float_flat_segment(emb, mask, doc_ids)
+
+    def _rerank_delta_rows(self, enc, delta):
+        # exact scores: the facade never reranks; keep the placeholder rows
+        # the build writes
+        n = delta.embeddings.shape[0]
+        dev = delta.embeddings.device
+        return (torch.zeros((n, 1), dtype=torch.uint8, device=dev),
+                torch.zeros((n, 1), dtype=torch.bool, device=dev))
+
+    def _compact_payload(self, state, seg, cfg):
+        (emb, mask), ids = index_mod.gather_live_rows(
+            seg, ("embeddings", "mask"))
+        return index_mod.FloatFlatIndex(emb, mask, ids), ids >= 0
+
+    def _seg_payload_bytes(self, payload, n_live: int) -> int:
+        e = payload.embeddings
+        return n_live * e.shape[-2] * e.shape[-1] * e.element_size()
+
     def storage_bytes(self, state: RetrieverState) -> Dict[str, int]:
+        seg = self._segmented(state)
+        if seg is not None:
+            out = self._segmented_storage(state, seg)
+            out.pop("codebook", None)    # the (1, d) placeholder
+            return out
         e = state.backend_state.embeddings
         return {"payload": e.numel() * e.element_size()}

@@ -52,9 +52,13 @@ class HammingBackend(IndexBackend):
     def search(self, state: RetrieverState, query: Query, *, k: int,
                scan=None) -> Tuple[Tensor, Tensor]:
         s = state.backend_state
-        return index_mod.search_hamming(s.index, self._q_codes(state, query),
-                                        query.mask, bits=s.bits, k=k,
-                                        scan=scan)
+        q_codes = self._q_codes(state, query)
+        seg = self._segmented(state)
+        if seg is not None:
+            return index_mod.search_hamming_segmented(
+                seg, q_codes, query.mask, bits=s.bits, k=k, scan=scan)
+        return index_mod.search_hamming(s.index, q_codes, query.mask,
+                                        bits=s.bits, k=k, scan=scan)
 
     def search_candidates(self, state: RetrieverState, query: Query,
                           candidate_ids, *, k: int,
@@ -62,12 +66,38 @@ class HammingBackend(IndexBackend):
         if candidate_ids is None:
             return self.search(state, query, k=k, scan=scan)
         s = state.backend_state
+        q_codes = self._q_codes(state, query)
+        seg = self._segmented(state)
+        if seg is not None:
+            return index_mod.search_hamming_segmented_candidates(
+                seg, q_codes, query.mask, candidate_ids, bits=s.bits, k=k,
+                scan=scan)
         return index_mod.search_hamming_candidates(
-            s.index, self._q_codes(state, query), query.mask, candidate_ids,
-            bits=s.bits, k=k, scan=scan)
+            s.index, q_codes, query.mask, candidate_ids, bits=s.bits, k=k,
+            scan=scan)
+
+    # -- mutation hooks ------------------------------------------------------
+
+    def _delta_segment(self, state, seg, enc, delta, cfg, doc_ids):
+        _, codes, mask = enc
+        return index_mod.make_hamming_segment(
+            codes, mask, state.backend_state.bits, doc_ids)
+
+    def _compact_payload(self, state, seg, cfg):
+        (codes, mask), ids = index_mod.gather_live_rows(
+            seg, ("codes", "mask"))
+        return (index_mod.HammingIndex(codes, mask, ids,
+                                       state.backend_state.bits), ids >= 0)
+
+    def _seg_payload_bytes(self, payload, n_live: int) -> int:
+        return binary_mod.packed_nbytes(n_live * payload.codes.shape[-1],
+                                        int(payload.bits))
 
     def storage_bytes(self, state: RetrieverState) -> Dict[str, int]:
         s = state.backend_state
+        seg = self._segmented(state)
+        if seg is not None:
+            return self._segmented_storage(state, seg)
         cb = state.codebook
         return {"payload": binary_mod.packed_nbytes(s.index.codes.numel(),
                                                     s.bits),

@@ -84,6 +84,28 @@ class Retriever:
             state.rerank_mask[safe], state.codebook, k=k, doc_ids=ids,
             valid=ids >= 0, scan=self.cfg.scan)
 
+    # -- mutation (segmented LSM store) ----------------------------------------
+
+    def add(self, state: RetrieverState, delta: Corpus, *,
+            doc_ids=None) -> RetrieverState:
+        """Append (or upsert) documents without rebuilding. The first
+        mutation normalizes a monolithic build into segmented form (the
+        same results either way). With explicit ``doc_ids``, ids already
+        live are upserted: the prior occurrence is tombstoned and the
+        newest segment wins."""
+        return self.backend.add(state, delta, self.cfg, doc_ids=doc_ids)
+
+    def delete(self, state: RetrieverState, doc_ids) -> RetrieverState:
+        """Tombstone documents by global id: they vanish from search
+        results (scores NEG_INF, ids -1) without touching the payload."""
+        return self.backend.delete(state, doc_ids)
+
+    def compact(self, state: RetrieverState) -> RetrieverState:
+        """Fold all segments into one and drop tombstones: the same
+        results over the live corpus, and storage and scan cost shrink to
+        the live documents."""
+        return self.backend.compact(state, self.cfg)
+
     def storage_bytes(self, state: RetrieverState) -> Dict[str, int]:
         """Measured storage footprint of the built index (paper Table III)."""
         return self.backend.storage_bytes(state)

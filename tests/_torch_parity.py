@@ -42,25 +42,41 @@ def code_gaps(x, codebook, codes_a, codes_b):
     return np.abs(da - db)
 
 
-def _member_arrays(stage, member):
-    """One member structure of a JAX state as host arrays."""
-    if stage == "hamming":
-        idx = member.index
-        return {"codes": np.asarray(idx.codes), "mask": np.asarray(idx.mask),
-                "doc_ids": np.asarray(idx.doc_ids),
-                "bits": np.asarray(member.bits)}
+def _payload_arrays(stage, payload):
+    """One index payload (a structure or a segment) as host arrays."""
     if stage == "float_flat":
-        return {"embeddings": np.asarray(member.embeddings),
-                "mask": np.asarray(member.mask),
-                "doc_ids": np.asarray(member.doc_ids)}
-    return {"codes": np.asarray(member.codes), "mask": np.asarray(member.mask),
-            "doc_ids": np.asarray(member.doc_ids)}
+        return {"embeddings": np.asarray(payload.embeddings),
+                "mask": np.asarray(payload.mask),
+                "doc_ids": np.asarray(payload.doc_ids)}
+    return {"codes": np.asarray(payload.codes),
+            "mask": np.asarray(payload.mask),
+            "doc_ids": np.asarray(payload.doc_ids)}
+
+
+def _member_arrays(stage, member):
+    """One member structure of a JAX state as host arrays: monolithic, or
+    segmented (``segments/<i>/<field>``, ``live/<i>``, ``pos_of_id``)."""
+    out = {}
+    if stage == "hamming":
+        out["bits"] = np.asarray(member.bits)
+        member = member.index
+    if hasattr(member, "pos_of_id"):                # a SegmentedState
+        for i, (payload, live) in enumerate(zip(member.segments,
+                                                member.live)):
+            for key, val in _payload_arrays(stage, payload).items():
+                out[f"segments/{i}/{key}"] = val
+            out[f"live/{i}"] = np.asarray(live)
+        out["pos_of_id"] = np.asarray(member.pos_of_id)
+    else:
+        out.update(_payload_arrays(stage, member))
+    return out
 
 
 def state_arrays(state, backend):
     """A JAX-built ``RetrieverState`` of ``backend`` flattened into the dict
     ``repro_torch.convert.state_from_numpy`` takes (a cascade's members
-    under ``<stage>/<field>`` keys, with its budgets ``p1`` and ``p2``)."""
+    under ``<stage>/<field>`` keys, with its budgets ``p1`` and ``p2``;
+    segmented members as ``convert``'s docstring says)."""
     out = {"codebook": np.asarray(state.codebook),
            "rerank_codes": np.asarray(state.rerank_codes),
            "rerank_mask": np.asarray(state.rerank_mask)}

@@ -527,3 +527,181 @@ def test_stage3_reads_candidates_by_id_on_the_card():
     bad = topk_mismatches(got[1].cpu().numpy(), got[0].cpu().numpy(),
                           want[1].numpy(), want[0].numpy(), TOL)
     assert not bad, f"ids differ outside near-ties at {bad}"
+
+
+# -- the segmented live index: maxsim's segment table, segmented sweeps,
+# -- encode_delta
+
+_SEG_CASES = {
+    "1 segment": (40,),
+    "2 segments": (30, 16),
+    "5 segments, capacity-8": (16, 8, 8, 21, 8),
+    "40 segments (two launches)": (8,) * 40,
+}
+
+
+@pytest.mark.parametrize("case", list(_SEG_CASES))
+def test_maxsim_segment_table_matches_plain(case):
+    """Stage 3's rows layout over a segmented corpus, read in place
+    through the segment table: -1 slots (ids resolved to tombstones) score
+    NEG_INF, positions in capacity-8 segments and in the last segment are
+    read from their own segment, and the result equals the plain version
+    (whose segment-by-segment gather equals the monolithic gather bit for
+    bit). A corpus of more than MAX_SEGMENTS segments takes one launch per
+    group of them."""
+    dev = _card()
+    caps = _SEG_CASES[case]
+    n = sum(caps)
+    q, q_mask, docs, d_mask = _flt(n, 8, 32, 128, (n,), 61, 0.97)
+    d_mask[::9] = False                                # all-masked docs
+    rows = _rows(n, 8, 24, n)
+    rows[:, 3] = n - 1                                 # the last segment
+    rows[:, 5] = caps[0] % n                           # the second's first
+    cut = np.cumsum((0,) + caps)
+    segs = tuple(docs[a:b].to(dev) for a, b in zip(cut[:-1], cut[1:]))
+    masks = tuple(d_mask[a:b].to(dev) for a, b in zip(cut[:-1], cut[1:]))
+    want = ms.maxsim_plain(q, q_mask, docs, d_mask, rows=rows)
+    assert torch.equal(want, ms.maxsim_plain(
+        q, q_mask, tuple(s.cpu() for s in segs),
+        tuple(m.cpu() for m in masks), rows=rows))
+    before = ms.launches
+    got = ms.maxsim_cuda(q.to(dev), q_mask.to(dev), segs, masks,
+                         rows=rows.to(dev)).cpu()
+    assert ms.launches == before + -(-len(caps) // ms.MAX_SEGMENTS)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    assert torch.all(got[rows < 0] == np.float32(-1e30))
+    # ids past every segment are never read
+    past = rows.clone()
+    past[:, 0] = n + 3
+    got = ms.maxsim_cuda(q.to(dev), q_mask.to(dev), segs, masks,
+                         rows=past.to(dev)).cpu()
+    assert torch.isnan(got[:, 0]).all() and not torch.isnan(got[:, 1:]).any()
+
+
+def test_segmented_cascade_stage3_reads_in_place_on_the_card():
+    """search_float_flat_segmented_candidates on the card: one maxsim
+    launch through the segment table (no pool gathered), dead ids never
+    scored, equal to the CPU."""
+    from repro_torch.core import index as index_mod
+    dev = _card()
+    q, q_mask, docs, d_mask = _flt(9, 4, 32, 64, (70,), 41, 0.97)
+    ids = torch.arange(70, dtype=torch.int32)
+    segs = [index_mod.make_float_flat_segment(docs[a:b], d_mask[a:b],
+                                              ids[a:b])
+            for a, b in ((0, 50), (50, 65), (65, 70))]
+    live = [lv.clone() for _, lv in segs]
+    live[0][7] = False                                 # a tombstone
+    payloads = tuple(p for p, _ in segs)
+    seg = index_mod.SegmentedState(
+        payloads, tuple(live),
+        index_mod.rebuild_pos_of_id(payloads, tuple(live), 128))
+    cand = _rows(9, 4, 30, 72)                         # ids 70, 71 unknown
+    cand[:, 4] = 7
+    want = index_mod.search_float_flat_segmented_candidates(
+        seg, q, q_mask > 0, cand, k=12)
+    seg_dev = index_mod.SegmentedState(
+        tuple(p._replace(embeddings=p.embeddings.to(dev),
+                         mask=p.mask.to(dev), doc_ids=p.doc_ids.to(dev))
+              for p in payloads), tuple(lv.to(dev) for lv in live),
+        seg.pos_of_id.to(dev))
+    before = ms.launches
+    got = index_mod.search_float_flat_segmented_candidates(
+        seg_dev, q.to(dev), (q_mask > 0).to(dev), cand.to(dev), k=12)
+    assert ms.launches == before + 1
+    assert 7 not in set(got[1].cpu().flatten().tolist())
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=TOL, rtol=TOL)
+    bad = topk_mismatches(got[1].cpu().numpy(), got[0].cpu().numpy(),
+                          want[1].numpy(), want[0].numpy(), TOL)
+    assert not bad, f"ids differ outside near-ties at {bad}"
+
+
+def test_segmented_flat_and_hamming_sweeps_match_the_cpu():
+    """The segmented sweeps (capacity-8 segment with one ragged block,
+    tombstones) on the card against the CPU's plain path: one ADC launch
+    per segment, ceil(cap / block) Hamming launches per segment."""
+    from repro_torch.core import index as index_mod
+    dev = _card()
+    g = torch.Generator().manual_seed(5)
+    k_cb, md, mq = 64, 20, 8
+    codebook = torch.randn((k_cb, 16), generator=g)
+    q = torch.randn((3, mq, 16), generator=g)
+    q_mask = torch.rand((3, mq), generator=g) < 0.9
+    caps_n = ((300, None), (5, None), (40, None))
+    flat_segs, ham_segs, lives = [], [], []
+    start = 0
+    for n, _ in caps_n:
+        codes = torch.randint(0, k_cb, (n, md), generator=g).to(torch.uint8)
+        mask = torch.rand((n, md), generator=g) < 0.8
+        ids = torch.arange(start, start + n, dtype=torch.int32)
+        fp, lv = index_mod.make_flat_segment(codes, mask, codebook, ids,
+                                             cap=None if n != 300 else 300)
+        hp, _ = index_mod.make_hamming_segment(codes, mask, 6, ids,
+                                               cap=fp.codes.shape[0])
+        lv = lv.clone()
+        lv[1] = False                                  # a tombstone
+        flat_segs.append(fp)
+        ham_segs.append(hp)
+        lives.append(lv)
+        start += n
+    assert [lv.shape[0] for lv in lives] == [300, 8, 64]
+
+    def seg_state(payloads, device):
+        moved = tuple(p._replace(**{f: getattr(p, f).to(device)
+                                    for f in p._fields
+                                    if isinstance(getattr(p, f),
+                                                  torch.Tensor)})
+                      for p in payloads)
+        lv = tuple(x.to(device) for x in lives)
+        return index_mod.SegmentedState(
+            moved, lv, index_mod.rebuild_pos_of_id(moved, lv, 512))
+
+    want = index_mod.search_flat_segmented(seg_state(flat_segs, "cpu"), q,
+                                           q_mask, k=20)
+    before = qm.launches
+    got = index_mod.search_flat_segmented(seg_state(flat_segs, dev),
+                                          q.to(dev), q_mask.to(dev), k=20)
+    assert qm.launches == before + 3
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=TOL, rtol=TOL)
+    bad = topk_mismatches(got[1].cpu().numpy(), got[0].cpu().numpy(),
+                          want[1].numpy(), want[0].numpy(), TOL)
+    assert not bad, f"ids differ outside near-ties at {bad}"
+
+    q_codes = torch.randint(0, 64, (3, mq), generator=g)
+    cfg = scan.ScanConfig(block_docs=256)
+    want = index_mod.search_hamming_segmented(
+        seg_state(ham_segs, "cpu"), q_codes, q_mask, bits=6, k=20, scan=cfg)
+    before = hm.launches
+    got = index_mod.search_hamming_segmented(
+        seg_state(ham_segs, dev), q_codes.to(dev), q_mask.to(dev), bits=6,
+        k=20, scan=cfg)
+    assert hm.launches == before + 2 + 1 + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    dead = {1, 301, 306}
+    assert not dead & set(got[1].cpu().flatten().tolist())
+
+
+def test_encode_delta_through_the_kernel_matches_plain():
+    from repro_torch.retrieval import Corpus, HPCConfig
+    from repro_torch.retrieval.base import encode_delta
+    dev = _card()
+    g = torch.Generator().manual_seed(6)
+    emb = torch.randn((37, 64, 128), generator=g)
+    emb = emb / emb.norm(dim=-1, keepdim=True)
+    mask = torch.rand((37, 64), generator=g) < 0.95
+    sal = torch.rand((37, 64), generator=g)
+    codebook = torch.randn((256, 128), generator=g)
+    codebook = codebook / codebook.norm(dim=-1, keepdim=True)
+    cfg = HPCConfig(k=256, p=60.0, prune_side="doc")
+    want = encode_delta(codebook, Corpus(emb, mask, sal), cfg)
+    before = km.launches
+    got = encode_delta(codebook.to(dev), Corpus(emb.to(dev), mask.to(dev),
+                                                sal.to(dev)), cfg)
+    assert km.launches == before + 1
+    _assert_codes_match(emb.reshape(-1, 128), codebook,
+                        got[0].cpu().reshape(-1), want[0].reshape(-1),
+                        max_ties=3)
+    # the same patches kept, so pruned codes differ only where full ones do
+    np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].numpy())
+    assert int((got[1].cpu() != want[1]).sum()) <= int(
+        (got[0].cpu() != want[0]).sum())

@@ -17,7 +17,8 @@ from repro_torch.data import synthetic
 from repro_torch.launch import serve
 from repro_torch.retrieval import Corpus, HPCConfig, Query, Retriever
 from repro_torch.serving.client import drive
-from repro_torch.serving.server import (AsyncRetrievalServer, ServeConfig,
+from repro_torch.serving.server import (AsyncRetrievalServer,
+                                        RetrievalServer, ServeConfig,
                                         padding_ladder)
 from tests._torch_parity import to_torch
 
@@ -119,15 +120,18 @@ def test_stats_keys_match_jax():
 
 
 def test_abandoned_query_counts_as_timeout():
+    """The reference's semantics: a sync-facade ``query`` that times out
+    cancels its queued item and counts in ``stats()["timeouts"]``; an
+    async caller that stops awaiting frees its slot but is not counted."""
     def slow(q, qm, qs):
         time.sleep(0.2)
         return (torch.zeros((q.shape[0], 1)),
                 torch.zeros((q.shape[0], 1), dtype=torch.int32))
 
-    server = AsyncRetrievalServer(slow, ServeConfig(max_batch=1),
-                                  device="cpu")
     one = (np.zeros((2, 4), np.float32), np.ones(2, bool),
            np.ones(2, np.float32))
+    server = AsyncRetrievalServer(slow, ServeConfig(max_batch=1),
+                                  device="cpu")
 
     async def go():
         with pytest.raises(asyncio.TimeoutError):
@@ -135,7 +139,24 @@ def test_abandoned_query_counts_as_timeout():
         await server.aclose()
 
     asyncio.run(go())
-    assert server.stats()["timeouts"] == 1
+    assert server.stats()["timeouts"] == 0
+
+    jsrv = jax_server.RetrievalServer(
+        lambda q, qm, qs: (np.zeros((q.shape[0], 1), np.float32),
+                           np.zeros((q.shape[0], 1), np.int32)),
+        jax_server.ServeConfig(max_batch=1))
+    sync = RetrievalServer(slow, ServeConfig(max_batch=1), device="cpu")
+    try:
+        with pytest.raises(TimeoutError, match="timed out"):
+            sync.query(*one, timeout=0.01)
+        t0 = time.perf_counter()
+        while sync.stats()["timeouts"] != 1 and time.perf_counter() - t0 < 5:
+            time.sleep(0.01)
+        assert sync.stats()["timeouts"] == 1
+        assert sync.stats().keys() == jsrv.stats().keys()
+    finally:
+        sync.close()
+        jsrv.close()
 
 
 def test_serve_cli_runs_on_cpu(capsys):
