@@ -49,12 +49,19 @@ def search_flat(index: FlatIndex, q: Tensor, q_mask: Tensor, *, k: int,
         doc_ids=index.doc_ids, scan=scan)
 
 
+def _clamp_positions(candidate_ids: Tensor, n: int) -> Tuple[Tensor, Tensor]:
+    """(valid (B, P), positions clamped to [0, n - 1] (B, P) int64): -1
+    marks an empty slot; a position >= n reads doc n - 1, as the
+    reference's clamped gather does."""
+    valid = candidate_ids >= 0
+    return valid, torch.clamp(candidate_ids, 0, n - 1).to(torch.int64)
+
+
 def _gather_candidates(candidate_ids: Tensor, doc_ids: Tensor,
                        *leaves: Tensor) -> Tuple[Tensor, Tensor, Tuple[Tensor, ...]]:
     """Gather per-query candidate rows (B, P) of corpus *positions* (-1 =
     empty slot) -> (global ids (B, P), valid (B, P), leaves (B, P, ...))."""
-    valid = candidate_ids >= 0
-    safe = torch.clamp(candidate_ids, min=0).to(torch.int64)
+    valid, safe = _clamp_positions(candidate_ids, doc_ids.shape[0])
     ids = torch.where(valid, doc_ids[safe], -1).to(torch.int32)
     return ids, valid, tuple(leaf[safe] for leaf in leaves)
 
@@ -103,11 +110,15 @@ def search_float_flat_candidates(index: FloatFlatIndex, q: Tensor,
     """Float MaxSim over a (B, P) candidate pool: the cascade's rerank.
     The positions go to the scan as ``rows``, so the kernel reads each
     candidate's embeddings through its id and the pool's (B, P, Md, D)
-    embeddings are never copied; only the ids are mapped here."""
+    embeddings are never copied; only the ids are mapped here. The rows
+    are the clamped positions (-1 where the slot is empty), so no row
+    past the corpus reaches the kernel."""
     ids, valid, _ = _gather_candidates(candidate_ids, index.doc_ids)
+    _, safe = _clamp_positions(candidate_ids, index.doc_ids.shape[0])
+    rows = torch.where(valid, safe, -1).to(torch.int32)
     return scan_mod.maxsim_topk(q, q_mask, index.embeddings, index.mask, k=k,
                                 doc_ids=ids, valid=valid, scan=scan,
-                                rows=candidate_ids.to(torch.int32))
+                                rows=rows)
 
 
 class HammingIndex(NamedTuple):

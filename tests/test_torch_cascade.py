@@ -239,3 +239,40 @@ def test_state_from_numpy_checks_its_arrays(reference):
                          backend="cascade")
     with pytest.raises(ValueError, match="unknown backend"):
         state_from_numpy(arrays, device="cpu", backend="ivf")
+
+
+# ---------------------------------------------------------------------------
+# Candidate positions past the corpus (ROADMAP fault F1): the reference's
+# gather clamps, so a position >= N scores doc N-1 and returns id N-1
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def past_corpus_states(reference):
+    data, states = reference
+    corpus = JCorpus(*map(jnp.asarray, (data.doc_patches, data.doc_mask,
+                                        data.doc_salience)))
+    out = dict(states)
+    out["flat"] = JRetriever(_jcfg("flat")).build(jax.random.PRNGKey(1),
+                                                  corpus)
+    return data, out
+
+
+@pytest.mark.parametrize("backend", ["flat", "float_flat", "hamming"])
+def test_candidate_positions_past_the_corpus_match_jax(past_corpus_states,
+                                                       backend):
+    data, states = past_corpus_states
+    n = data.doc_patches.shape[0]
+    jq, tq = _queries(data)
+    pool = np.tile(np.array([0, n - 1, n, n + 100, -1], np.int32),
+                   (jq.embeddings.shape[0], 1))
+    want = jax_get_backend(backend).search_candidates(
+        states[backend], jq, jnp.asarray(pool), k=5)
+    state = state_from_numpy(state_arrays(states[backend], backend),
+                             device="cpu", backend=backend)
+    got = get_backend(backend).search_candidates(state, tq,
+                                                 torch.from_numpy(pool), k=5)
+    _check(got, want, backend)
+    ids = got[1].numpy()
+    assert set(ids[ids >= 0].tolist()) == {0, n - 1}
+    assert (ids == n - 1).sum(axis=1).min() == 3      # n - 1, n, n + 100
+    assert (ids == -1).sum(axis=1).min() == 1
