@@ -68,7 +68,27 @@ any failure exits non-zero, and no phase's error is swallowed:
      where every request is served, shed or expired and the level steps
      down and back to 0; an armed compute fault failing its batch; and the
      flat state of phase 4 with 2048 docs added and 512 deleted, held to
-     the CPU plain path (S sweep launches + 1 rerank launch).
+     the CPU plain path (S sweep launches + 1 rerank launch);
+  8. index files and the ANN routers: (a) phase 7's live cascade before
+     its compaction (segments 14336 + 2048 + 8, about 5.2 GB) and phase
+     4's flat state saved as index files in a temporary directory under
+     build/, loaded onto the card and searched on one batch (ids equal,
+     scores within 1e-6 at every stage), with the file's bytes, the save
+     and load seconds and crc32's share of each (``{"index_files": ...}``);
+     (b) IVF (``IVFConfig()``: n_list 64, cap 512, n_probe 8) built over
+     phase 4's codes and served like phase 4 (2 quantized_maxsim launches
+     per batch: the probed pool and the rerank), the first batch against
+     the CPU plain path, hit@10 and tie-aware recall@10 against the flat
+     sweep; (c) HNSW (``HNSWConfig()``) over the first 4096 of those docs,
+     served and checked the same way, and the latency of one search of
+     HNSW, IVF and the flat sweep over 4096 and 16384 docs (host wall;
+     device time of what a CUDA graph can replay; the descent's syncs;
+     ``{"ann_latency_ms": ...}``); (d) both routers live through
+     ``LiveIndexSession``: 512 docs added, 128 deleted, 64 requests with no
+     deleted id served, one batch against the CPU, compaction keeping the
+     results, the seconds of each mutation (``{"ann_mutation_s": ...}``).
+     Phase 3 also holds quantized_maxsim at the routers' pool shapes and
+     kmeans_assign at ivf's K = 64 (and K = 16).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, the script exits non-zero and prints no result.
@@ -136,6 +156,20 @@ UPSERT_QUERY = 32
 N_DEAD = 512
 DRILL_REQUESTS = 256
 DRILL_LOAD = 4.0
+
+# phase 8, the ANN routers: IVFConfig() and HNSWConfig() defaults
+# (src/repro/core/index.py:166-175, src/repro/core/graph.py:46-51); ivf's
+# cap is twice the mean load, 2 x 16384 / 64 = 512, so n_probe x cap =
+# 4096 slots (25% of the corpus) per query. The graph is built over the
+# first N_HNSW docs only: its insertion is sequential numpy on the host
+# (about 7.5 ms a document at D=128), so 16384 docs would add about two
+# minutes to every run. 8d adds N_ANN_ADD docs to each router and deletes
+# N_ANN_DEAD.
+IVF_N_LIST, IVF_N_PROBE, IVF_CAP = 64, 8, 512
+HNSW_EF = 64
+N_HNSW = 4096
+N_ANN_ADD, N_ANN_DEAD = 512, 128
+SAVE_TOL = 1e-6         # a reloaded state's scores against the in-memory
 
 QMAXSIM_TOL = 1e-4
 MAXSIM_TOL = 1e-4
@@ -291,13 +325,32 @@ def _check_assign(torch, x, codebook, got, want) -> float:
     return max_gap
 
 
+def _check_first_batch(torch, np, run, cpu_state, tol) -> int:
+    """The first served batch against the same search over a CPU copy of
+    the state (the plain path): ids outside near-ties, scores within
+    ``tol``. Returns how many ids differ at all (ties included)."""
+    from repro_torch.parity import topk_mismatches
+    from repro_torch.retrieval import Query
+    q, q_m, q_s = (torch.from_numpy(a[:MAX_BATCH]) for a in run.queries)
+    cpu_s, cpu_i = (t.numpy() for t in run.retriever.search(
+        cpu_state, Query(q, q_m, q_s), k=TOP_K))
+    srv_s = np.stack([r[0] for r in run.results[:MAX_BATCH]])
+    srv_i = np.stack([r[1] for r in run.results[:MAX_BATCH]])
+    assert np.isfinite(srv_s).all() and srv_i.shape == (MAX_BATCH, TOP_K)
+    np.testing.assert_allclose(srv_s, cpu_s, atol=tol, rtol=tol)
+    bad = topk_mismatches(srv_i, srv_s, cpu_i, cpu_s, tol)
+    assert not bad, f"served ids differ from the CPU plain path at {bad}"
+    return int((srv_i != cpu_i).sum())
+
+
 def _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c, flat_s,
                 flat_retriever, flat_hit, casc_qps, mono_split, kernel_mods):
     """Phase 7: the cascade served live at full width through
     LiveIndexSession while documents are added, upserted, deleted and
     compacted, an overload drill, and the flat path mutated. Returns the
-    launch counts of the live window and stage 3's times on the segmented
-    state."""
+    launch counts of the live window, stage 3's times on the segmented
+    state, and for phase 8 the state before its compaction, the
+    retriever, the host queries and the added documents."""
     from repro_torch import state_to
     from repro_torch.core import index as index_mod
     from repro_torch.data.synthetic import make_retrieval_corpus
@@ -552,8 +605,10 @@ def _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c, flat_s,
                                           "segmented": split,
                                           "monolithic": mono_split}}))
 
-    # compaction keeps the results; the state registry stayed bounded
+    # compaction keeps the results; the state registry stayed bounded.
+    # The state before it stays for phase 8a's index file
     before = r.search(cur, qg, k=TOP_K)
+    pre_compact = cur
     del cur, ff_v, flat_v, ham_v, seg_ff, segs, masks
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -670,11 +725,442 @@ def _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c, flat_s,
     print(f"live phase: mutation seconds {mut_s} | max_memory_allocated "
           f"{peak:.2f} GiB | {smi} | phase {time.perf_counter() - t0:.1f}s")
     return {"launches": launches, "rows_ms": rows_ms,
+            "state": pre_compact, "retriever": r, "queries": queries,
+            "delta": delta,
             "rows_plain_ms": rows_plain_ms, "rows_bound_ms": rows_bound[0],
             "rows_shape": f"stage-3 rows through a {len(caps)}-segment "
                           f"table {caps}: B={MAX_BATCH} Mq={N_Q_PATCHES} "
                           f"D={DIM} {P2} candidates x Md={md_kept} per "
                           f"query"}
+
+
+def _same_results(torch, a, b, what):
+    """Two (scores, ids) of a search on a state and on its reloaded copy:
+    ids equal, scores within SAVE_TOL (integer scores equal)."""
+    assert torch.equal(a[1], b[1]), f"{what}: ids differ after reload"
+    if a[0].dtype.is_floating_point:
+        err = float((a[0].double() - b[0].double()).abs().max())
+        assert err <= SAVE_TOL, f"{what}: scores differ by {err}"
+        return err
+    assert torch.equal(a[0], b[0]), f"{what}: scores differ after reload"
+    return 0.0
+
+
+def _index_files(torch, dev, live, flat_s, flat_retriever):
+    """Phase 8a: phase 7's live cascade (before its compaction: segments
+    14336 + 2048 + 8) and phase 4's flat state written as index files in
+    a temporary directory under build/, read back onto the card and
+    searched on one batch: ids equal and scores within SAVE_TOL at every
+    stage. Returns {name: {"bytes", "save_s", "save_crc32_s", "load_s",
+    "load_crc32_s"}}."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.retrieval import Query
+    from repro_torch.retrieval import base as base_mod
+
+    t0 = _phase("8a. index files: save, load, search")
+    out_dir = ROOT / "build"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    qg = Query(*(torch.from_numpy(a[:MAX_BATCH]).to(dev)
+                 for a in live["queries"]))
+    report = {}
+    with tempfile.TemporaryDirectory(dir=out_dir,
+                                     prefix="index_files_") as tmp:
+        print(f"free space under build/: "
+              f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB")
+        for name, ret, state in (
+                ("live cascade", live["retriever"], live["state"]),
+                ("flat", flat_retriever, flat_s)):
+            torch.cuda.synchronize()
+            path = ret.save(os.path.join(tmp, name.replace(" ", "_")), state)
+            save = dict(base_mod.last_io)
+            loaded = ret.load(path, device=dev)
+            load = dict(base_mod.last_io)
+            errs = []
+            if ret.cfg.backend == "cascade":
+                va, vb = ret.backend._views(state), ret.backend._views(loaded)
+                (hb, ha), (fb, fa), (ffb, ffa) = va
+                (_, hl), (_, fl), (_, ffl) = vb
+                s1 = [hb.search(v, qg, k=P1) for v in (ha, hl)]
+                errs.append(_same_results(torch, *s1, "stage 1"))
+                s2 = [fb.search_candidates(v, qg, s1[0][1], k=P2)
+                      for v in (fa, fl)]
+                errs.append(_same_results(torch, *s2, "stage 2"))
+                s3 = [ffb.search_candidates(v, qg, s2[0][1], k=TOP_K)
+                      for v in (ffa, ffl)]
+                errs.append(_same_results(torch, *s3, "stage 3"))
+            else:
+                s1 = [ret.backend.search(v, qg, k=RERANK)
+                      for v in (state, loaded)]
+                errs.append(_same_results(torch, *s1, "sweep"))
+            errs.append(_same_results(
+                torch, ret.search(state, qg, k=TOP_K),
+                ret.search(loaded, qg, k=TOP_K), "served batch"))
+            report[name] = {"bytes": save["bytes"], "save_s": save["seconds"],
+                            "save_crc32_s": save["crc32_seconds"],
+                            "load_s": load["seconds"],
+                            "load_crc32_s": load["crc32_seconds"]}
+            r = report[name]
+            print(f"{name}: {r['bytes'] / 1e9:.3f} GB | save "
+                  f"{r['save_s']:.2f}s (crc32 {r['save_crc32_s']:.2f}s, "
+                  f"{r['save_crc32_s'] / r['save_s']:.0%}) | load onto the "
+                  f"card {r['load_s']:.2f}s (crc32 {r['load_crc32_s']:.2f}s,"
+                  f" {r['load_crc32_s'] / r['load_s']:.0%}) | one batch on "
+                  f"the loaded state: ids equal, max |score diff| "
+                  f"{max(errs):.1e} at every stage")
+            os.remove(path)
+            del loaded
+            torch.cuda.empty_cache()
+    print(json.dumps({"index_files": report}))
+    print(f"index files phase {time.perf_counter() - t0:.1f}s")
+    return report
+
+
+def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
+               relevance, delta, kernel_mods, lds_per_s):
+    """Phases 8b-8d: IVF over phase 4's codes (16384 docs) and HNSW over
+    the first N_HNSW of them, each served through AsyncRetrievalServer
+    with exact launch counts, held to the CPU plain path and to the flat
+    sweep (tie-aware recall@10); the latency of one search of each router
+    and of the flat sweep; then both routers live (an add of N_ANN_ADD
+    docs and N_ANN_DEAD deletes through LiveIndexSession, compaction).
+    Returns the launch counts by path and the routers' kernel times."""
+    import dataclasses
+
+    from repro_torch import state_to
+    from repro_torch.core import graph as graph_mod
+    from repro_torch.core import index as index_mod
+    from repro_torch.core import late_interaction as li
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import quantized_maxsim as qm
+    from repro_torch.launch.serve import serve_state
+    from repro_torch.parity import tie_aware_recall_at_k, topk_mismatches
+    from repro_torch.retrieval import (Corpus, HNSWConfig, IVFConfig, Query,
+                                       Retriever, RetrieverState)
+    from repro_torch.retrieval.hnsw import HNSWState
+    from repro_torch.retrieval.ivf import IVFState
+    from repro_torch.serving import LiveIndexSession, ServeConfig
+
+    flat = flat_s.backend_state
+    codes, mask, cb = flat.codes, flat.mask, flat.codebook
+    qs_all = [Query(*(torch.from_numpy(a[lo:lo + MAX_BATCH]).to(dev)
+                      for a in queries))
+              for lo in range(0, N_REQUESTS, MAX_BATCH)]
+    qg = qs_all[0]
+    cq = Query(*(torch.from_numpy(a[:MAX_BATCH]) for a in queries))
+    f_backend = flat_retriever.backend
+
+    def recall(ret, state, oracle_state):
+        """Tie-aware recall@10 of the router's own top-10 (no rerank)
+        against the flat sweep's over the same codes, all queries."""
+        got_s, got_i, ora = [], [], []
+        for qq in qs_all:
+            s_, i_ = ret.backend.search(state, qq, k=TOP_K)
+            got_s.append(s_.cpu().numpy())
+            got_i.append(i_.cpu().numpy())
+            ora.append(f_backend.search(oracle_state, qq, k=TOP_K)[0]
+                       .cpu().numpy())
+        return tie_aware_recall_at_k(np.concatenate(got_s),
+                                     np.concatenate(got_i),
+                                     np.concatenate(ora), TOP_K)
+
+    def serve(name, ret, state, rel, build_assigns):
+        """Serve N_REQUESTS through AsyncRetrievalServer: 2
+        quantized_maxsim launches per searched batch (the router's pool
+        and the rerank), no kmeans_assign launch past the build's
+        ``build_assigns`` (the counters were zeroed before the build); the
+        first batch against the CPU plain path."""
+        run = serve_state(ret, state, queries, rel, n_requests=N_REQUESTS,
+                          max_batch=MAX_BATCH, top_k=TOP_K, device=dev)
+        got = {n: mod.launches for n, mod in kernel_mods.items()}
+        st = run.stats
+        n_b = sum(v["batches"] for v in st["rungs"].values())
+        want = {"quantized_maxsim": 2 * (n_b + len(run.ladder)),
+                "kmeans_assign": build_assigns, "hamming_maxsim": 0,
+                "maxsim": 0}
+        print(f"{name}: served {st['n']} requests in {run.serve_s:.3f}s, "
+              f"{st['qps']:.1f} QPS, p50 {st['p50_ms']:.2f} ms, p99 "
+              f"{st['p99_ms']:.2f} ms over {n_b} batches | hit@{TOP_K} "
+              f"{run.hit_rate:.3f} | launches {got}, expected {want}")
+        assert got == want, f"{name} launches off"
+        assert st["n"] == N_REQUESTS
+        t1 = time.perf_counter()
+        n_diff = _check_first_batch(torch, np, run, state_to(state, "cpu"),
+                                    QMAXSIM_TOL)
+        print(f"{name}: first batch == CPU plain path (ids outside "
+              f"near-ties, {n_diff} ids differ at all; scores within "
+              f"{QMAXSIM_TOL}); CPU {time.perf_counter() - t1:.1f}s")
+        return run, got
+
+    def pool_times(tab, c, m, v):
+        """quantized_maxsim on a router's pool at the search's k: the
+        kernel, its plain version and its bounds."""
+        r_len = qm.launch_range_len(MAX_BATCH, c.shape[-2], dev)
+        lists = MAX_BATCH * -(-c.shape[-2] // r_len) * min(RERANK, r_len) * 8
+        n_bytes, ops = _qmaxsim_cost(tab, c, m, v.numel() + lists)
+        qmf = qg.mask.float().contiguous()
+        return {"ms": _time_ms(torch, lambda: qm.quantized_maxsim_topk_cuda(
+                    tab, qmf, c, m, v, k=RERANK, range_len=r_len), 50),
+                "plain_ms": _time_ms(
+                    torch, lambda: qm.quantized_maxsim_topk_plain(
+                        tab, qmf, c, m, v, k=RERANK, range_len=r_len), 3),
+                "bound_ms": _bound(n_bytes, ops)[0],
+                "lds_bound_ms": ops / lds_per_s * 1e3,
+                "shape": f"B={MAX_BATCH} Mq={N_Q_PATCHES} K={K} "
+                         f"{c.shape[-2]} candidates x Md={c.shape[-1]} per "
+                         f"query, top-{RERANK}"}
+
+    out = {"launches": {}}
+    table = li.adc_table(qg.embeddings, cb).contiguous()
+
+    # -- 8b. IVF at full width over phase 4's codes ------------------------
+    t0 = _phase("8b. ivf at full width")
+    ivf_cfg = IVFConfig()
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    t1 = time.perf_counter()
+    ivf = index_mod.build_ivf(
+        torch.Generator(device=dev).manual_seed(args.seed + 2), codes, mask,
+        cb, ivf_cfg)
+    torch.cuda.synchronize()
+    ivf_build_s = time.perf_counter() - t1
+    doc_vec = index_mod.doc_mean_vectors(codes, mask, cb)
+    # the realised loads, through the plain assignment (no launch counted)
+    loads = torch.bincount(km.kmeans_assign_plain(
+        doc_vec, ivf.routing_centroids).long(), minlength=IVF_N_LIST)
+    build_assigns = 1                 # the build's routing assignment
+    drop = index_mod.ivf_drop_rate(ivf, N_DOCS)
+    cap = ivf.bucket_valid.shape[1]
+    print(f"ivf build {ivf_build_s:.2f}s (n_list {IVF_N_LIST}, "
+          f"{ivf_cfg.iters} iterations x {ivf_cfg.restarts} restarts) | "
+          f"drop rate {drop:.4f} at cap {cap} | bucket loads: largest "
+          f"{int(loads.max())}, smallest {int(loads.min())}")
+    if drop > ivf_cfg.max_drop_rate:
+        # the default cap overflows at this corpus: the realised largest
+        # load instead, through the same centroids (max_drop_rate stays)
+        cap = int(loads.max())
+        ivf, _ = index_mod.make_ivf_segment(codes, mask, cb,
+                                            ivf.routing_centroids,
+                                            flat.doc_ids, cap=cap)
+        build_assigns += 1
+        drop = index_mod.ivf_drop_rate(ivf, N_DOCS)
+        print(f"ivf: cap set to the largest load {cap}: drop rate {drop}")
+    assert drop <= ivf_cfg.max_drop_rate
+    share = IVF_N_PROBE * cap / N_DOCS
+    print(f"ivf: n_probe {IVF_N_PROBE} x cap {cap} = {IVF_N_PROBE * cap} "
+          f"slots per query, {share:.1%} of the corpus scanned")
+    ret_i = Retriever(dataclasses.replace(cfg, backend="ivf"))
+    state_i = RetrieverState(cb, IVFState(ivf, IVF_N_PROBE),
+                             flat_s.rerank_codes, flat_s.rerank_mask)
+    run_i, out["launches"]["ivf"] = serve("ivf", ret_i, state_i, relevance,
+                                          build_assigns)
+    rec_i = recall(ret_i, state_i, flat_s)
+    print(f"ivf: tie-aware recall@{TOP_K} against the flat sweep "
+          f"{rec_i:.3f} | hit@{TOP_K} {run_i.hit_rate:.3f}")
+    probe = index_mod._probe(ivf.routing_centroids, qg.embeddings, qg.mask,
+                             IVF_N_PROBE)
+    pc, pm, pv, _ = index_mod._probed_pool(ivf, ivf.bucket_valid, probe)
+    out["ivf_pool"] = pool_times(table, pc, pm, pv)
+    del pc, pm, pv
+    x = doc_vec.contiguous()
+    cents = ivf.routing_centroids.contiguous()
+    c2 = (cents * cents).sum(-1)
+    out["ivf_assign"] = {
+        "ms": _time_ms(torch, lambda: km.kmeans_assign_cuda(x, cents), 50),
+        "plain_ms": _time_ms(torch, lambda: km.kmeans_assign_plain(x, cents),
+                             20),
+        "addmm_ms": _time_ms(torch, lambda: torch.addmm(
+            c2, x, cents.t(), alpha=-2.0), 50),
+        "bound": _gemm_bounds(N_DOCS * DIM * 4 + IVF_N_LIST * DIM * 4
+                              + N_DOCS * 4, 2.0 * N_DOCS * IVF_N_LIST * DIM),
+        "shape": f"{N_DOCS} x {DIM} against K={IVF_N_LIST}"}
+    print(f"ivf phase {time.perf_counter() - t0:.1f}s")
+
+    # -- 8c. HNSW over the first N_HNSW docs --------------------------------
+    t0 = _phase(f"8c. hnsw over the first {N_HNSW} docs")
+    h_cfg = HNSWConfig()
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    t1 = time.perf_counter()
+    hn = graph_mod.build_hnsw(
+        torch.Generator(device=dev).manual_seed(args.seed + 3),
+        codes[:N_HNSW], mask[:N_HNSW], cb, h_cfg)
+    torch.cuda.synchronize()
+    hnsw_build_s = time.perf_counter() - t1
+    ret_h = Retriever(dataclasses.replace(cfg, backend="hnsw"))
+    state_h = RetrieverState(cb, HNSWState(hn, HNSW_EF),
+                             flat_s.rerank_codes[:N_HNSW],
+                             flat_s.rerank_mask[:N_HNSW])
+    flat_sub = RetrieverState(cb, index_mod.build_flat(
+        codes[:N_HNSW], mask[:N_HNSW], cb), flat_s.rerank_codes[:N_HNSW],
+        flat_s.rerank_mask[:N_HNSW])
+    stats = ret_h.build_stats(state_h)
+    print(f"hnsw build {hnsw_build_s:.2f}s (m {h_cfg.m}, ef_construction "
+          f"{h_cfg.ef_construction}, {h_cfg.levels} levels, host numpy) | "
+          f"mean level-0 degree {stats['mean_degree_l0']:.2f}, entry level "
+          f"{stats['entry_level']}")
+    run_h, out["launches"]["hnsw"] = serve("hnsw", ret_h, state_h,
+                                           relevance[:, :N_HNSW], 0)
+    rec_h = recall(ret_h, state_h, flat_sub)
+    # at IVF's scanned share of its corpus (an equal budget)
+    ef_eq = int(round(share * N_HNSW))
+    rec_h_eq = recall(ret_h, RetrieverState(
+        cb, HNSWState(hn, ef_eq), state_h.rerank_codes,
+        state_h.rerank_mask), flat_sub)
+    print(f"hnsw: tie-aware recall@{TOP_K} against the flat sweep over the "
+          f"same {N_HNSW} docs {rec_h:.3f} at ef_search {HNSW_EF} "
+          f"({HNSW_EF / N_HNSW:.1%} scanned), {rec_h_eq:.3f} at ef_search "
+          f"{ef_eq} ({share:.1%}, ivf's share) | hit@{TOP_K} "
+          f"{run_h.hit_rate:.3f} (over those docs)")
+    q_vec = index_mod.mean_pool(qg.embeddings, qg.mask)
+    cand = graph_mod.hnsw_candidates(hn, q_vec, ef_search=HNSW_EF)[1]
+    safe = cand.clamp(min=0).long()
+    out["hnsw_pool"] = pool_times(table, hn.codes[safe], hn.mask[safe],
+                                  cand >= 0)
+
+    # the latency of one search (the facade's, rerank included): host wall
+    # (median of 9) for each; device time where the search can be replayed
+    # from a CUDA graph (ivf and flat whole; hnsw's beam, pool gather and
+    # scan, after its descent, which syncs); the descent's syncs
+    lat = {}
+    h_name = f"hnsw {N_HNSW}"
+    for name, ret, st in ((h_name, ret_h, state_h),
+                          (f"ivf {N_DOCS}", ret_i, state_i),
+                          (f"flat {N_HNSW}", flat_retriever, flat_sub),
+                          (f"flat {N_DOCS}", flat_retriever, flat_s)):
+        fn = (lambda ret=ret, st=st: ret.search(st, qg, k=TOP_K))
+        ws = []
+        for _ in range(9):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ws.append((time.perf_counter() - t1) * 1e3)
+        lat[name] = {"host_wall_ms": float(np.median(ws))}
+        if not name.startswith("hnsw"):
+            lat[name]["device_ms"] = _time_ms(torch, fn, 3)
+    syncs0 = graph_mod.SYNCS
+    ret_h.search(state_h, qg, k=TOP_K)
+    lat[h_name]["descent_syncs"] = graph_mod.SYNCS - syncs0
+    cur = torch.full((MAX_BATCH,), hn.entry, dtype=torch.int64, device=dev)
+    d0 = ((hn.doc_vecs[cur] - q_vec) ** 2).sum(-1)
+    for lev in range(hn.neighbors.shape[0] - 1, 0, -1):
+        cur, d0 = graph_mod._greedy_level(hn.doc_vecs, hn.neighbors[lev],
+                                          q_vec, cur, d0)
+
+    def beam_and_scan():
+        _, c = graph_mod._beam_level0(hn.doc_vecs, hn.neighbors[0], q_vec,
+                                      cur, d0, HNSW_EF)
+        return graph_mod._score_candidates(hn, qg.embeddings, qg.mask, c,
+                                           c >= 0, RERANK, None)
+
+    lat[h_name]["beam_pool_scan_device_ms"] = _time_ms(
+        torch, beam_and_scan, 3)
+    lat[h_name]["beam_only_device_ms"] = _time_ms(
+        torch, lambda: graph_mod._beam_level0(
+            hn.doc_vecs, hn.neighbors[0], q_vec, cur, d0, HNSW_EF), 3)
+    for name, v in lat.items():
+        print(f"one search, {name}: {v}")
+    print(json.dumps({"ann_latency_ms": lat}))
+    out["latency"] = lat
+    out.update(ivf_build_s=ivf_build_s, hnsw_build_s=hnsw_build_s,
+               recall={"ivf": rec_i, "hnsw": rec_h,
+                       f"hnsw ef {ef_eq}": rec_h_eq},
+               hit={"ivf": run_i.hit_rate, "hnsw": run_h.hit_rate},
+               ivf_cap=cap, ivf_share=share)
+    del run_i, run_h
+    print(f"hnsw phase {time.perf_counter() - t0:.1f}s")
+
+    # -- 8d. the routers live ---------------------------------------------
+    t0 = _phase("8d. a live ANN index")
+    rng = np.random.default_rng(args.seed + 4)
+    add = Corpus(*(a[:N_ANN_ADD] for a in delta))
+    live_launches = {n: 0 for n in kernel_mods}
+    for name, ret, state, n0 in (("hnsw", ret_h, state_h, N_HNSW),
+                                 ("ivf", ret_i, state_i, N_DOCS)):
+        sess = LiveIndexSession(ret, state, ServeConfig(
+            max_batch=MAX_BATCH, top_k=TOP_K), device=dev)
+        sess.warm_shapes(*(a[0] for a in queries))
+        for mod in kernel_mods.values():
+            mod.launches = 0
+        secs = {}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sess.add(add, doc_ids=np.arange(n0, n0 + N_ANN_ADD))
+        torch.cuda.synchronize()
+        secs["add"] = time.perf_counter() - t1
+        dead = np.sort(rng.choice(n0 + N_ANN_ADD, N_ANN_DEAD, replace=False))
+        t1 = time.perf_counter()
+        sess.delete(dead)
+        torch.cuda.synchronize()
+        secs["delete"] = time.perf_counter() - t1
+        # the served window: one batch per request; per search one
+        # quantized_maxsim launch per segment (ivf: base + append; hnsw
+        # grows its one segment) and one for the rerank
+        for n_, mod in kernel_mods.items():
+            live_launches[n_] += mod.launches
+            mod.launches = 0
+        served = [sess.query(*(a[qi] for a in queries), timeout=120.0)
+                  for qi in range(N_REQUESTS)]
+        n_seg = len(ret.backend._segmented(sess.state).live)
+        window = {n_: mod.launches for n_, mod in kernel_mods.items()}
+        want = {"quantized_maxsim": N_REQUESTS * (n_seg + 1),
+                "kmeans_assign": 0, "hamming_maxsim": 0, "maxsim": 0}
+        assert window == want, (name, window, want)
+        seen = set(int(x) for _, ids in served for x in ids if x >= 0)
+        assert not seen & set(dead.tolist()), f"{name}: a deleted id served"
+        cur_st = sess.state
+        got = ret.search(cur_st, qg, k=TOP_K)
+        want = ret.search(state_to(cur_st, "cpu"), cq, k=TOP_K)
+        np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                                   atol=QMAXSIM_TOL, rtol=QMAXSIM_TOL)
+        bad = topk_mismatches(got[1].cpu().numpy(), got[0].cpu().numpy(),
+                              want[1].numpy(), want[0].numpy(), QMAXSIM_TOL)
+        assert not bad, f"{name}: the live batch differs from the CPU {bad}"
+        # the router's own top-10 (no rerank: at the rerank's cut-off,
+        # equal ADC scores admit whichever tied docs come first)
+        before = [ret.backend.search(cur_st, qq, k=TOP_K) for qq in qs_all]
+        del cur_st
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sess.compact()
+        torch.cuda.synchronize()
+        secs["compact"] = time.perf_counter() - t1
+        after = [ret.backend.search(sess.state, qq, k=TOP_K)
+                 for qq in qs_all]
+        b_s, b_i, a_s, a_i = (np.concatenate([x[j].cpu().numpy() for x in xs])
+                              for xs, j in ((before, 0), (before, 1),
+                                            (after, 0), (after, 1)))
+        kept = tie_aware_recall_at_k(a_s, a_i, b_s, TOP_K)
+        same = float((a_i == b_i).mean())
+        assert not set(a_i.ravel().tolist()) & set(dead.tolist())
+        if name == "ivf":
+            # the same centroids, so the same probed docs: the results stay
+            # (ids may move only within ties, as the buckets re-form)
+            np.testing.assert_allclose(a_s, b_s, atol=QMAXSIM_TOL,
+                                       rtol=QMAXSIM_TOL)
+            assert not topk_mismatches(a_i, a_s, b_i, b_s, QMAXSIM_TOL)
+        else:
+            # a new graph over the live docs: held to the results before
+            assert kept >= 0.95, f"hnsw compaction kept {kept}"
+        for n_, mod in kernel_mods.items():
+            live_launches[n_] += mod.launches
+        print(f"live {name}: add of {N_ANN_ADD} {secs['add']:.3f}s, delete "
+              f"of {N_ANN_DEAD} {secs['delete']:.4f}s, compact "
+              f"{secs['compact']:.3f}s | {N_REQUESTS} requests after the "
+              f"delete on {n_seg} segment(s), launches {window}, no deleted "
+              f"id served | one batch == CPU plain path "
+              f"| after compaction: ids identical {same:.3f}, tie-aware "
+              f"recall@{TOP_K} against the results before {kept:.3f} | "
+              f"states {sorted(sess.state_signatures())}")
+        out.setdefault("mutation_s", {})[name] = secs
+        sess.close()
+        del sess
+    out["launches"]["live ann"] = live_launches
+    print(json.dumps({"ann_mutation_s": out["mutation_s"]}))
+    print(f"live ann phase {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -705,18 +1191,7 @@ def main(argv=None) -> int:
                                        get_backend)
 
     def check_first_batch(run, cpu_state, tol):
-        """The first served batch against the same search over a CPU copy
-        of the state (the plain path): ids outside near-ties, scores
-        within ``tol``."""
-        q, q_m, q_s = (torch.from_numpy(a[:MAX_BATCH]) for a in run.queries)
-        cpu_s, cpu_i = (t.numpy() for t in run.retriever.search(
-            cpu_state, Query(q, q_m, q_s), k=TOP_K))
-        srv_s = np.stack([r[0] for r in run.results[:MAX_BATCH]])
-        srv_i = np.stack([r[1] for r in run.results[:MAX_BATCH]])
-        assert np.isfinite(srv_s).all() and srv_i.shape == (MAX_BATCH, TOP_K)
-        np.testing.assert_allclose(srv_s, cpu_s, atol=tol, rtol=tol)
-        bad = topk_mismatches(srv_i, srv_s, cpu_i, cpu_s, tol)
-        assert not bad, f"served ids differ from the CPU plain path at {bad}"
+        return _check_first_batch(torch, np, run, cpu_state, tol)
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -837,7 +1312,11 @@ def main(argv=None) -> int:
          7, 32),
         ("Mq 40", with_holes(*adc_inputs(2, 40, 128, (90,), 33)), 9, 16),
         ("K 512 uint16, per-query", with_holes(*adc_inputs(
-            2, 16, 512, (2, 60), 32, torch.uint16)), 10, 16))
+            2, 16, 512, (2, 60), 32, torch.uint16)), 10, 16),
+        ("ivf pools", with_holes(table, q_mask, *codes_mask(
+            MAX_BATCH, IVF_N_PROBE * IVF_CAP, md_kept)), RERANK, None),
+        ("hnsw pools", with_holes(table, q_mask, *codes_mask(
+            MAX_BATCH, HNSW_EF, md_kept)), RERANK, None))
     for name, inputs, k_top, r in topk_cases:
         b_, n_ = inputs[0].shape[0], inputs[2].shape[-2]
         r = r if r is not None else qm.launch_range_len(b_, n_, dev)
@@ -991,7 +1470,15 @@ def main(argv=None) -> int:
     km_abs_err = max(km_abs_err, _check_assign(
         torch, x, codebook, km.kmeans_assign_cuda(x, codebook),
         km.kmeans_assign_plain(x, codebook)))
-    del x
+    # ivf's routing assignment (K = n_list = 64) at the build's 16384
+    # documents and at an append of 512, and the tests' K = 16
+    for rows, k_c in ((N_DOCS, IVF_N_LIST), (N_ANN_ADD, IVF_N_LIST),
+                      (300, 16)):
+        x, cents = unit(rows, DIM), unit(k_c, DIM)
+        km_abs_err = max(km_abs_err, _check_assign(
+            torch, x, cents, km.kmeans_assign_cuda(x, cents),
+            km.kmeans_assign_plain(x, cents)))
+    del x, cents
     torch.cuda.empty_cache()
     print(f"checks passed in {time.perf_counter() - t0:.1f}s")
 
@@ -1044,6 +1531,7 @@ def main(argv=None) -> int:
     flat_s, flat_retriever = s, run.retriever
     flat_batch_ms = run.serve_s / n_batches * 1e3
     flat_hit, flat_recall = run.hit_rate, run.recall
+    flat_queries, flat_relevance = run.queries, run.relevance
     del run, s, cpu_state
     torch.cuda.empty_cache()
     print(f"flat path phase {time.perf_counter() - t0:.1f}s")
@@ -1360,13 +1848,20 @@ def main(argv=None) -> int:
     live = _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c,
                        flat_s, flat_retriever, flat_hit, casc_qps, stage_ms,
                        kernel_mods)
-    del flat_s, flat_retriever
+    files = _index_files(torch, dev, live, flat_s, flat_retriever)
+    del live["state"]
+    torch.cuda.empty_cache()
+    ann = _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever,
+                     flat_queries, flat_relevance, live["delta"],
+                     kernel_mods, lds_per_s)
+    del flat_s, flat_retriever, live["delta"]
     torch.cuda.empty_cache()
 
     by_path = {"flat": {"quantized_maxsim": qm_launches,
                         "kmeans_assign": km_launches},
                "cascade": casc_launches,
-               "live cascade": live["launches"]}
+               "live cascade": live["launches"],
+               **ann["launches"]}
 
     def launches(name):
         return sum(path.get(name, 0) for path in by_path.values())
@@ -1400,7 +1895,10 @@ def main(argv=None) -> int:
          "cascade_stage2_ms": s2_ms, "cascade_stage2_plain_ms": s2_plain_ms,
          "cascade_stage2_bound_ms": s2_bound,
          "cascade_stage2_lds_bound_ms": s2_lds_bound,
-         "cascade_stage2_ms_by_range_len": s2_by_range},
+         "cascade_stage2_ms_by_range_len": s2_by_range,
+         **{f"{router}_pool_{key}": val
+            for router in ("ivf", "hnsw")
+            for key, val in ann[f"{router}_pool"].items()}},
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
          "replaces": "src/repro/kernels/kmeans_assign.py:58",
@@ -1421,7 +1919,13 @@ def main(argv=None) -> int:
          "query_codes_tf32x3_bound_ms": km_small_bound[3],
          "query_codes_addmm_yardstick_ms": addmm_small_ms,
          "query_codes_shape": f"{n_small} x {DIM} against K={K}, one per "
-                              f"cascade batch"},
+                              f"cascade batch",
+         "ivf_route_assign_ms": ann["ivf_assign"]["ms"],
+         "ivf_route_assign_plain_ms": ann["ivf_assign"]["plain_ms"],
+         "ivf_route_assign_bound_ms": ann["ivf_assign"]["bound"][0],
+         "ivf_route_assign_bound_by": ann["ivf_assign"]["bound"][1],
+         "ivf_route_assign_addmm_yardstick_ms": ann["ivf_assign"]["addmm_ms"],
+         "ivf_route_assign_shape": ann["ivf_assign"]["shape"]},
         {"name": "hamming_maxsim", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming_maxsim.cu",
          "replaces": "src/repro/kernels/hamming.py:74",

@@ -19,7 +19,11 @@ Subpackages:
   launch/     the serving CLI
 """
 
-from repro_torch.convert import state_from_numpy, state_to  # noqa: F401
+from repro_torch.convert import (  # noqa: F401
+    state_from_numpy,
+    state_to,
+    state_to_numpy,
+)
 from repro_torch.retrieval import (  # noqa: F401
     Corpus,
     HPCConfig,

@@ -1,26 +1,38 @@
-"""Carry a built index across from host arrays, or to another device.
+"""Carry a built index across from host arrays, or to another device, and
+walk a state's leaves for the index files.
 
 ``state_from_numpy`` turns the arrays of a ``RetrieverState`` — keyed by
 the reference package's field names — into the port's state on ``device``,
-so the port searches exactly the index those arrays hold. Every backend
-shares ``codebook``, ``rerank_codes`` and ``rerank_mask``; its own
-structure's fields come beside them:
+so the port searches exactly the index those arrays hold;
+``state_to_numpy`` is its inverse. Every backend shares ``codebook``,
+``rerank_codes`` and ``rerank_mask``; its own structure's fields come
+beside them (a payload that carries a codebook, as ``FlatIndex``,
+``IVFIndex`` and ``HNSWIndex`` do, takes the shared one):
 
-  * ``flat``: ``codes``, ``mask``, ``doc_ids`` (the flat index; the
-    codebook is the shared one);
+  * ``flat``: ``codes``, ``mask``, ``doc_ids``;
   * ``float_flat``: ``embeddings``, ``mask``, ``doc_ids``;
-  * ``hamming``: ``codes``, ``mask``, ``doc_ids``, ``bits``;
+  * ``hamming``: ``codes``, ``mask``, ``doc_ids``, and the knob ``bits``;
+  * ``ivf``: ``routing_centroids``, ``bucket_codes``, ``bucket_mask``,
+    ``bucket_valid``, ``bucket_doc_ids``, and the knob ``n_probe``;
+  * ``hnsw``: ``doc_vecs``, ``neighbors``, ``entry``, ``node_level``,
+    ``codes``, ``mask``, ``doc_ids``, and the knob ``ef_search``;
   * ``cascade``: each member's fields prefixed with its stage name
     (``hamming/codes``, ``flat/mask``, ``float_flat/embeddings``, ...),
     plus the budgets ``p1`` and ``p2``.
 
 A segmented (mutated) structure holds its segments' fields under
-``segments/<i>/<field>`` (``codes``, ``mask``, ``doc_ids``, or
-``embeddings``, ``mask``, ``doc_ids``), one live-bit array per segment
-under ``live/<i>``, and ``pos_of_id``; a Hamming member keeps ``bits``
-beside them, and a cascade's members each sit under their stage prefix
+``segments/<i>/<field>``, one live-bit array per segment under
+``live/<i>``, and ``pos_of_id``; the knob stays beside them, and a
+cascade's members each sit under their stage prefix
 (``flat/segments/0/codes``, ``flat/live/0``, ``flat/pos_of_id``, ...).
 ``pos_of_id`` marks a structure as segmented.
+
+``state_leaves`` lists a state's arrays in the order ``jax.tree_util``
+flattens the reference's state, and ``state_from_leaves`` rebuilds a
+state from such a list and a skeleton (``IndexBackend.state_template``):
+the index files' leaf order. Named-tuple fields holding a Python int
+(``HammingIndex.bits``, ``HNSWIndex.entry``) are 0-d int32 leaves, as in
+the reference; ints of the wrapper dataclasses are knobs, not leaves.
 
 ``state_to`` copies a built state of any backend to another device.
 """
@@ -32,28 +44,50 @@ from typing import Any, Callable, Dict, List
 import numpy as np
 import torch
 
+from repro_torch.core.graph import HNSWIndex
 from repro_torch.core.index import (FlatIndex, FloatFlatIndex, HammingIndex,
-                                    SegmentedState)
+                                    IVFIndex, SegmentedState)
 from repro_torch.device import resolve_device
 from repro_torch.retrieval.base import RetrieverState
 from repro_torch.retrieval.cascade import STAGES, CascadeState
 from repro_torch.retrieval.hamming import HammingState
+from repro_torch.retrieval.hnsw import HNSWState
+from repro_torch.retrieval.ivf import IVFState
 
 SHARED_KEYS = ("codebook", "rerank_codes", "rerank_mask")
 MEMBER_KEYS = {"flat": ("codes", "mask", "doc_ids"),
                "float_flat": ("embeddings", "mask", "doc_ids"),
-               "hamming": ("codes", "mask", "doc_ids", "bits")}
+               "hamming": ("codes", "mask", "doc_ids"),
+               "ivf": ("routing_centroids", "bucket_codes", "bucket_mask",
+                       "bucket_valid", "bucket_doc_ids"),
+               "hnsw": ("doc_vecs", "neighbors", "entry", "node_level",
+                        "codes", "mask", "doc_ids")}
+# each wrapper backend's knob: its key and its state type
+KNOBS = {"hamming": ("bits", HammingState), "ivf": ("n_probe", IVFState),
+         "hnsw": ("ef_search", HNSWState)}
 
 
 def _payload(backend: str, get: Callable[[str], torch.Tensor],
-             codebook: torch.Tensor, bits: int):
+             arr: Callable[[str], np.ndarray], codebook: torch.Tensor,
+             bits: int):
     """One index payload (a structure or a segment) from its fields."""
+    if backend == "ivf":
+        return IVFIndex(get("routing_centroids").to(torch.float32),
+                        get("bucket_codes"),
+                        get("bucket_mask").to(torch.bool),
+                        get("bucket_valid").to(torch.bool),
+                        get("bucket_doc_ids").to(torch.int32), codebook)
     ids = get("doc_ids").to(torch.int32)
     mask = get("mask").to(torch.bool)
     if backend == "flat":
         return FlatIndex(get("codes"), mask, codebook, ids)
     if backend == "float_flat":
         return FloatFlatIndex(get("embeddings").to(torch.float32), mask, ids)
+    if backend == "hnsw":
+        return HNSWIndex(get("doc_vecs").to(torch.float32),
+                         get("neighbors").to(torch.int32), int(arr("entry")),
+                         get("node_level").to(torch.int32), get("codes"),
+                         mask, ids, codebook)
     return HammingIndex(get("codes").to(torch.uint16), mask, ids, bits)
 
 
@@ -66,8 +100,8 @@ def _n_segments(arrays, prefix: str) -> int:
 
 def _needed(arrays, backend: str, prefix: str) -> List[str]:
     """The keys one member's structure needs under ``prefix``."""
-    fields = [f for f in MEMBER_KEYS[backend] if f != "bits"]
-    extra = ["bits"] if backend == "hamming" else []
+    fields = list(MEMBER_KEYS[backend])
+    extra = [KNOBS[backend][0]] if backend in KNOBS else []
     if f"{prefix}pos_of_id" not in arrays:
         return [prefix + f for f in fields + extra]
     return ([f"{prefix}segments/{i}/{f}"
@@ -80,20 +114,24 @@ def _member(backend: str, arrays, prefix: str,
             get: Callable[[str], torch.Tensor], codebook: torch.Tensor):
     """One backend's structure from its fields under ``prefix``:
     monolithic, or segmented when ``pos_of_id`` is among them."""
-    bits = int(arrays[prefix + "bits"]) if backend == "hamming" else 0
+    knob = int(arrays[prefix + KNOBS[backend][0]]) if backend in KNOBS \
+        else 0
+    bits = knob if backend == "hamming" else 0
     if f"{prefix}pos_of_id" not in arrays:
-        structure = _payload(backend, lambda f: get(prefix + f), codebook,
-                             bits)
+        structure = _payload(backend, lambda f: get(prefix + f),
+                             lambda f: arrays[prefix + f], codebook, bits)
     else:
         n_seg = _n_segments(arrays, prefix)
         segments = tuple(
-            _payload(backend, lambda f, i=i: get(f"{prefix}segments/{i}/{f}"),
+            _payload(backend,
+                     lambda f, i=i: get(f"{prefix}segments/{i}/{f}"),
+                     lambda f, i=i: arrays[f"{prefix}segments/{i}/{f}"],
                      codebook, bits) for i in range(n_seg))
         live = tuple(get(f"{prefix}live/{i}").to(torch.bool)
                      for i in range(n_seg))
         structure = SegmentedState(segments, live,
                                    get(prefix + "pos_of_id").to(torch.int32))
-    return HammingState(structure, bits) if backend == "hamming" \
+    return KNOBS[backend][1](structure, knob) if backend in KNOBS \
         else structure
 
 
@@ -130,6 +168,115 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], *, device="cuda",
         structure = _member(backend, arrays, "", get, codebook)
     return RetrieverState(codebook, structure, get("rerank_codes"),
                           get("rerank_mask").to(torch.bool))
+
+
+def _host(t) -> np.ndarray:
+    """A tensor (or int) as a contiguous host array of the same dtype."""
+    if isinstance(t, torch.Tensor):
+        return np.ascontiguousarray(t.detach().cpu().numpy())
+    return np.asarray(t, np.int32)
+
+
+def _fields_to_numpy(structure, backend: str) -> Dict[str, np.ndarray]:
+    """One member structure's arrays under the module docstring's keys."""
+    out: Dict[str, np.ndarray] = {}
+    if backend in KNOBS:
+        out[KNOBS[backend][0]] = np.asarray(
+            getattr(structure, KNOBS[backend][0]), np.int64)
+        structure = structure.index
+    payloads = (structure.segments if isinstance(structure, SegmentedState)
+                else (structure,))
+    for i, payload in enumerate(payloads):
+        pre = f"segments/{i}/" if isinstance(structure, SegmentedState) \
+            else ""
+        for f in MEMBER_KEYS[backend]:
+            out[pre + f] = _host(getattr(payload, f))
+    if isinstance(structure, SegmentedState):
+        for i, live in enumerate(structure.live):
+            out[f"live/{i}"] = _host(live)
+        out["pos_of_id"] = _host(structure.pos_of_id)
+    return out
+
+
+def state_to_numpy(state: RetrieverState, backend: str
+                   ) -> Dict[str, np.ndarray]:
+    """The host arrays of ``state``, keyed as ``state_from_numpy`` takes
+    them (its inverse)."""
+    out = {k: _host(getattr(state, k)) for k in SHARED_KEYS}
+    bs = state.backend_state
+    if backend == "cascade":
+        for stage, member in zip(STAGES, bs.members):
+            for key, val in _fields_to_numpy(member, stage).items():
+                out[f"{stage}/{key}"] = val
+        out["p1"], out["p2"] = np.asarray(bs.p1), np.asarray(bs.p2)
+    else:
+        out.update(_fields_to_numpy(bs, backend))
+    return out
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+def _walk(node, leaf: Callable, int_leaf: Callable):
+    """Rebuild ``node`` with each tensor slot (a tensor or None) mapped by
+    ``leaf`` and each named-tuple int by ``int_leaf``, in the reference's
+    flatten order; dataclass ints (knobs) are kept."""
+    if node is None or isinstance(node, torch.Tensor):
+        return leaf(node)
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(int_leaf(v) if _is_int(v)
+                            else _walk(v, leaf, int_leaf) for v in node))
+    if isinstance(node, tuple):
+        return tuple(_walk(v, leaf, int_leaf) for v in node)
+    if dataclasses.is_dataclass(node):
+        return dataclasses.replace(node, **{
+            f.name: _walk(getattr(node, f.name), leaf, int_leaf)
+            for f in dataclasses.fields(node)
+            if not _is_int(getattr(node, f.name))})
+    raise TypeError(f"not a state node: {type(node).__name__}")
+
+
+def state_leaves(state: RetrieverState) -> List[np.ndarray]:
+    """The state's arrays on the host, in the reference's flatten order."""
+    out: List[np.ndarray] = []
+
+    def collect(v):
+        out.append(_host(v))
+        return v
+
+    _walk(state, collect, collect)
+    return out
+
+
+def n_leaves(template: RetrieverState) -> int:
+    """The leaf count of a state skeleton."""
+    out = [0]
+
+    def count(v):
+        out[0] += 1
+        return v
+
+    _walk(template, count, count)
+    return out[0]
+
+
+def state_from_leaves(template: RetrieverState, leaves: List[np.ndarray],
+                      device) -> RetrieverState:
+    """The state of ``template``'s structure whose leaves, in order, are
+    ``leaves`` (host arrays), on ``device``."""
+    it = iter(leaves)
+
+    def tensor(_):
+        a = np.ascontiguousarray(next(it))
+        if not a.flags.writeable:       # a tensor must own writable memory
+            a = a.copy()
+        return torch.from_numpy(a).to(device)
+
+    def integer(_):
+        return int(next(it))
+
+    return _walk(template, tensor, integer)
 
 
 def state_to(state: Any, device) -> Any:

@@ -7,7 +7,11 @@ streamed through core/scan.py, plus a candidate search that scores a
 
   * FlatIndex      — fused ADC scan over the (pruned) quantized codes;
   * FloatFlatIndex — float MaxSim over raw embeddings (ColPali-Full);
-  * HammingIndex   — popcount MaxSim over b-bit codes.
+  * HammingIndex   — popcount MaxSim over b-bit codes;
+  * IVFIndex       — centroid routing: documents bucket by the routing
+                     cluster of their mean decoded patch; a query scores the
+                     n_list centroids and scans only its n_probe nearest
+                     buckets, padded-dense, through the per-query layout.
 
 The second half of the module is the segmented LSM store
 (``SegmentedState``): live add/delete/compact without a rebuild.
@@ -19,9 +23,58 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import quantization as quant
 from repro_torch.core import scan as scan_mod
+from repro_torch.kernels import ops as kernel_ops
 
 Tensor = torch.Tensor
+
+# documents decoded at once by doc_mean_vectors: bounds the (chunk, Md, D)
+# float32 decode (16384 x 615 x 128 would be 5.2 GB in one piece)
+MEAN_CHUNK_DOCS = 1024
+
+
+# ---------------------------------------------------------------------------
+# Routing vectors (shared by IVF and HNSW)
+# ---------------------------------------------------------------------------
+
+def mean_pool(emb: Tensor, mask: Tensor) -> Tensor:
+    """Masked mean over the patch axis: (..., M, D), (..., M) -> (..., D)."""
+    m = mask[..., None].to(emb.dtype)
+    return (emb * m).sum(dim=-2) / torch.clamp(m.sum(dim=-2), min=1.0)
+
+
+def doc_mean_vectors(codes: Tensor, mask: Tensor, codebook: Tensor) -> Tensor:
+    """Document routing vectors: the mean of each document's decoded
+    patches, (N, Md) codes -> (N, D) float32. Decoded ``MEAN_CHUNK_DOCS``
+    documents at a time; each document's mean is the same whatever the
+    chunk."""
+    out = torch.empty((codes.shape[0], codebook.shape[-1]),
+                      dtype=codebook.dtype, device=codebook.device)
+    for lo in range(0, codes.shape[0], MEAN_CHUNK_DOCS):
+        hi = lo + MEAN_CHUNK_DOCS
+        out[lo:hi] = mean_pool(quant.decode(codes[lo:hi], codebook),
+                               mask[lo:hi])
+    return out
+
+
+def indexable(t: Tensor) -> Tensor:
+    """``t``, or for uint16 its int16 view (the same bytes): CUDA's
+    gather, scatter and select kernels have no uint16 instance."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def take_rows(t: Tensor, idx) -> Tensor:
+    """``t[idx]`` for any dtype, uint16 included."""
+    return indexable(t)[idx].view(t.dtype)
+
+
+def route_assign(doc_vec: Tensor, centroids: Tensor) -> Tensor:
+    """Each routing vector's nearest centroid (N,) int64, through the
+    ``kmeans_assign`` kernel on the card (its ``||c||^2 - 2 x.c`` form:
+    the same centroid as the reference's full distance outside near-ties,
+    as for the corpus codes)."""
+    return kernel_ops.kmeans_assign(doc_vec, centroids).to(torch.int64)
 
 
 class FlatIndex(NamedTuple):
@@ -63,7 +116,7 @@ def _gather_candidates(candidate_ids: Tensor, doc_ids: Tensor,
     empty slot) -> (global ids (B, P), valid (B, P), leaves (B, P, ...))."""
     valid, safe = _clamp_positions(candidate_ids, doc_ids.shape[0])
     ids = torch.where(valid, doc_ids[safe], -1).to(torch.int32)
-    return ids, valid, tuple(leaf[safe] for leaf in leaves)
+    return ids, valid, tuple(take_rows(leaf, safe) for leaf in leaves)
 
 
 def search_flat_candidates(index: FlatIndex, q: Tensor, q_mask: Tensor,
@@ -119,6 +172,134 @@ def search_float_flat_candidates(index: FloatFlatIndex, q: Tensor,
     return scan_mod.maxsim_topk(q, q_mask, index.embeddings, index.mask, k=k,
                                 doc_ids=ids, valid=valid, scan=scan,
                                 rows=rows)
+
+
+# ---------------------------------------------------------------------------
+# IVF index: centroid routing over padded-dense buckets
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class IVFConfig:
+    n_list: int = 64       # routing clusters
+    n_probe: int = 8       # clusters scanned per query
+    bucket_cap: int = 0    # max docs per bucket (0 = 2x the mean load)
+    iters: int = 15        # routing k-means iterations
+    restarts: int = 2      # routing k-means restarts
+    max_drop_rate: float = 0.01  # the build fails above this overflow
+                                 # drop fraction (IVFBackend.build checks)
+
+
+class IVFIndex(NamedTuple):
+    routing_centroids: Tensor  # (n_list, D) float32
+    bucket_codes: Tensor       # (n_list, cap, Md) uint8/uint16
+    bucket_mask: Tensor        # (n_list, cap, Md) bool, patch validity
+    bucket_valid: Tensor       # (n_list, cap) bool, slot occupied
+    bucket_doc_ids: Tensor     # (n_list, cap) int32
+    codebook: Tensor           # (K, D)
+
+
+def build_ivf(gen: torch.Generator, codes: Tensor, mask: Tensor,
+              codebook: Tensor, config: IVFConfig,
+              doc_ids: Optional[Tensor] = None) -> IVFIndex:
+    """Bucket documents by the routing cluster of their mean decoded
+    patch. The routing centroids are a k-means fit of those vectors (draws
+    from ``gen``); the assignment runs the ``kmeans_assign`` kernel on the
+    card. Buckets are padded-dense (n_list, cap, ...), cap defaulting to
+    twice the mean load; documents past a bucket's cap are dropped and
+    counted by ``ivf_drop_rate`` (``IVFBackend.build`` enforces
+    ``config.max_drop_rate``)."""
+    n = codes.shape[0]
+    if doc_ids is None:
+        doc_ids = torch.arange(n, dtype=torch.int32, device=codes.device)
+    doc_vec = doc_mean_vectors(codes, mask, codebook)
+    cents, _ = quant.kmeans_fit(gen, doc_vec, quant.KMeansConfig(
+        k=config.n_list, iters=config.iters, n_restarts=config.restarts))
+    assign_ = route_assign(doc_vec, cents)
+    cap = config.bucket_cap
+    if cap == 0:
+        cap = int(max(8, 2 * -(-n // config.n_list)))
+    return IVFIndex(cents, *_bucket_scatter(codes, mask, doc_ids, assign_,
+                                            config.n_list, cap), codebook)
+
+
+def _bucket_scatter(codes: Tensor, mask: Tensor, doc_ids: Tensor,
+                    assign_: Tensor, n_list: int, cap: int
+                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Scatter documents into padded (n_list, cap, ...) buckets, in
+    document order within a bucket (a stable sort by cluster). A document
+    ranked at or past ``cap`` in its bucket is dropped: its writes go to a
+    spare row past the buckets, which is cut off, so it never overwrites
+    a document kept there."""
+    n, md = codes.shape
+    dev = codes.device
+    order = torch.argsort(assign_, stable=True)
+    sorted_cluster = assign_[order]
+    counts = torch.bincount(assign_, minlength=n_list)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=dev) - starts[sorted_cluster]
+    slot = torch.where(rank < cap, sorted_cluster * cap + rank,
+                       n_list * cap)                 # the spare row
+    rows = n_list * cap + 1
+    b_codes = torch.zeros((rows, md), dtype=codes.dtype, device=dev)
+    b_mask = torch.zeros((rows, md), dtype=torch.bool, device=dev)
+    b_valid = torch.zeros((rows,), dtype=torch.bool, device=dev)
+    b_ids = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+    indexable(b_codes)[slot] = indexable(take_rows(codes, order))
+    b_mask[slot] = mask[order].to(torch.bool)
+    b_valid[slot] = True
+    b_ids[slot] = doc_ids[order].to(torch.int32)
+    keep = n_list * cap
+    return (b_codes[:keep].reshape(n_list, cap, md),
+            b_mask[:keep].reshape(n_list, cap, md),
+            b_valid[:keep].reshape(n_list, cap),
+            b_ids[:keep].reshape(n_list, cap))
+
+
+def ivf_drop_rate(index: IVFIndex, n_docs: int) -> float:
+    """Fraction of docs dropped by bucket overflow (should be ~0)."""
+    stored = int(index.bucket_valid.sum())
+    return 1.0 - stored / max(n_docs, 1)
+
+
+def _probe(centroids: Tensor, q: Tensor, q_mask: Tensor,
+           n_probe: int) -> Tensor:
+    """The n_probe buckets nearest each query's mean patch (B, n_probe),
+    by negative squared L2 (``2 q.c - ||c||^2``, the metric the build
+    bucketed by), ties to the lower bucket as ``lax.top_k`` ranks them.
+    ``n_probe`` is clamped to n_list."""
+    q_vec = mean_pool(q.to(centroids.dtype), q_mask)
+    route = (2.0 * (q_vec @ centroids.t())
+             - (centroids ** 2).sum(dim=-1)[None, :])
+    n_probe = min(int(n_probe), centroids.shape[0])
+    order = torch.sort(route, dim=1, descending=True, stable=True)[1]
+    return order[:, :n_probe]
+
+
+def _probed_pool(payload: IVFIndex, valid: Tensor, probe: Tensor
+                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The probed buckets' (codes, mask, valid, ids) as one per-query
+    pool (B, n_probe * cap, ...)."""
+    b = probe.shape[0]
+    cap, md = payload.bucket_codes.shape[1:]
+    p = probe.shape[1] * cap
+    return (take_rows(payload.bucket_codes, probe).reshape(b, p, md),
+            payload.bucket_mask[probe].reshape(b, p, md),
+            valid[probe].reshape(b, p),
+            payload.bucket_doc_ids[probe].reshape(b, p))
+
+
+def search_ivf(index: IVFIndex, q: Tensor, q_mask: Tensor, *, n_probe: int,
+               k: int, scan: Optional[scan_mod.ScanConfig] = None
+               ) -> Tuple[Tensor, Tensor]:
+    """Route to n_probe buckets and score their pool through the scan's
+    per-query layout (one ``quantized_maxsim`` launch on the card) ->
+    (scores (B, k), doc_ids (B, k)). With fewer than k valid documents in
+    the probed buckets, the tail rows carry id -1 and the sentinel."""
+    probe = _probe(index.routing_centroids, q, q_mask, n_probe)
+    codes, mask, valid, ids = _probed_pool(index, index.bucket_valid, probe)
+    return scan_mod.quantized_maxsim_topk(
+        q, q_mask, codes, mask, index.codebook, k=k, doc_ids=ids,
+        valid=valid, scan=scan)
 
 
 class HammingIndex(NamedTuple):
@@ -233,8 +414,20 @@ class SegmentedState:
         return live, tomb
 
 
+def segmented_template(payload, n_segments: int):
+    """``payload`` (a state skeleton, see ``IndexBackend.state_template``)
+    as is when ``n_segments`` is 0, else a SegmentedState skeleton of
+    ``n_segments`` such payloads."""
+    if not n_segments:
+        return payload
+    return SegmentedState((payload,) * n_segments, (None,) * n_segments,
+                          None)
+
+
 def seg_doc_ids(payload) -> Tensor:
-    """The doc-id tensor of one segment payload."""
+    """The doc-id tensor of one segment payload ((n_list, cap) for IVF)."""
+    if isinstance(payload, IVFIndex):
+        return payload.bucket_doc_ids
     return payload.doc_ids
 
 
@@ -302,6 +495,24 @@ def make_hamming_segment(codes: Tensor, mask: Tensor, bits: int,
     return ix, _live_prefix(n, cap, codes.device)
 
 
+def make_ivf_segment(codes: Tensor, mask: Tensor, codebook: Tensor,
+                     centroids: Tensor, doc_ids: Tensor,
+                     cap: Optional[int] = None) -> Tuple[IVFIndex, Tensor]:
+    """Bucket an append delta through EXISTING routing centroids (no
+    re-clustering), so one routing decision covers every segment. The
+    bucket cap defaults to the pow2 bucket of the realised largest load
+    (read on the host), so an append never drops a document."""
+    doc_vec = doc_mean_vectors(codes, mask, codebook)
+    assign_ = route_assign(doc_vec, centroids)
+    n_list = centroids.shape[0]
+    if cap is None:
+        counts = torch.bincount(assign_, minlength=n_list)
+        cap = segment_capacity(int(counts.max()) if counts.numel() else 1)
+    bc, bm, bv, bi = _bucket_scatter(codes, mask, doc_ids.to(torch.int32),
+                                     assign_, n_list, int(cap))
+    return IVFIndex(centroids, bc, bm, bv, bi, codebook), bv
+
+
 # -- segmented search (full sweep: merge buffer carried across segments) ----
 
 def _empty_topk(b: int, k: int, score_dtype: torch.dtype, device
@@ -352,6 +563,24 @@ def search_hamming_segmented(seg: SegmentedState, q_codes: Tensor,
         q_codes.shape[0], k, torch.int32, q_codes.device)
 
 
+def search_ivf_segmented(seg: SegmentedState, q: Tensor, q_mask: Tensor, *,
+                         n_probe: int, k: int,
+                         scan: Optional[scan_mod.ScanConfig] = None
+                         ) -> Tuple[Tensor, Tensor]:
+    """Route once over the shared centroids (every segment buckets
+    through segment 0's), then score each segment's probed pool with one
+    carried merge buffer: one ``quantized_maxsim`` launch per segment."""
+    probe = _probe(seg.segments[0].routing_centroids, q, q_mask, n_probe)
+    carry = None
+    for payload, live in zip(seg.segments, seg.live):
+        codes, mask, valid, ids = _probed_pool(payload, live, probe)
+        carry = scan_mod.quantized_maxsim_topk(
+            q, q_mask, codes, mask, payload.codebook, k=k, doc_ids=ids,
+            valid=valid, scan=scan, carry=carry)
+    return carry if carry is not None else _empty_topk(
+        q.shape[0], k, torch.float32, q.device)
+
+
 # -- segmented candidate stages (the cascade's stage boundaries) ------------
 
 def _resolve_segmented(seg: SegmentedState, candidate_ids: Tensor
@@ -382,10 +611,12 @@ def _gather_segmented(seg: SegmentedState, pos: Tensor,
         idx = torch.clamp(local, 0, size - 1)
         gathered = []
         for i, nm in enumerate(leaf_names):
-            g = getattr(payload, nm)[idx]                     # (B, P, ...)
+            leaf = getattr(payload, nm)
+            g = indexable(leaf)[idx]                          # (B, P, ...)
             sel = in_seg.reshape(in_seg.shape + (1,) * (g.dim() - 2))
-            prev = outs[i] if outs is not None else torch.zeros_like(g)
-            gathered.append(torch.where(sel, g, prev))
+            prev = (indexable(outs[i]) if outs is not None
+                    else torch.zeros_like(g))
+            gathered.append(torch.where(sel, g, prev).view(leaf.dtype))
         outs = gathered
         offset += size
     return tuple(outs)
@@ -457,7 +688,9 @@ def gather_live_rows(seg: SegmentedState, leaf_names: Tuple[str, ...]
     The outputs come padded to ``segment_capacity(live docs)`` rows
     (zeros, doc id -1), ready to be one segment: each is allocated once
     and filled in place, so the compacted copy is the only one made (5 GB
-    for the cascade's float member at ColPali width)."""
+    for the cascade's float member at ColPali width). A layout with 2-D
+    slots (IVF's (n_list, cap) buckets) is read as (n_list * cap) rows,
+    bucket after bucket."""
     keeps = []
     for payload, lv in zip(seg.segments, seg.live):
         ids = seg_doc_ids(payload).reshape(-1)
@@ -465,11 +698,12 @@ def gather_live_rows(seg: SegmentedState, leaf_names: Tuple[str, ...]
     n_live = sum(int(k.numel()) for k in keeps)
     rows = segment_capacity(n_live)
     first = seg.segments[0]
+    slot_dims = seg_doc_ids(first).dim()
     leaves = []
     for nm in leaf_names:
         ref = getattr(first, nm)
-        out = torch.empty((rows,) + tuple(ref.shape[1:]), dtype=ref.dtype,
-                          device=ref.device)
+        out = torch.empty((rows,) + tuple(ref.shape[slot_dims:]),
+                          dtype=ref.dtype, device=ref.device)
         out[n_live:] = 0
         leaves.append(out)
     ids_out = torch.full((rows,), -1, dtype=torch.int32,
@@ -478,8 +712,9 @@ def gather_live_rows(seg: SegmentedState, leaf_names: Tuple[str, ...]
     for payload, keep in zip(seg.segments, keeps):
         n = int(keep.numel())
         for out, nm in zip(leaves, leaf_names):
-            torch.index_select(getattr(payload, nm), 0, keep,
-                               out=out[off:off + n])
+            leaf = getattr(payload, nm)
+            leaf = leaf.reshape((-1,) + tuple(leaf.shape[slot_dims:]))
+            torch.index_select(leaf, 0, keep, out=out[off:off + n])
         torch.index_select(seg_doc_ids(payload).reshape(-1).to(torch.int32),
                            0, keep, out=ids_out[off:off + n])
         off += n

@@ -4,15 +4,17 @@ and serve queries through the asyncio continuous-batching server.
   PYTHONPATH=src python -m repro_torch.launch.serve --n-docs 4096 \
       --queries 256 --backend flat --k 256 --p 60 --device cuda
 
-``--backend`` is any registered backend: flat, float_flat, hamming or
-cascade (the hamming -> ADC -> float funnel, budgets p1=1024, p2=64).
+``--backend`` is any registered backend: flat, float_flat, hamming,
+cascade (the hamming -> ADC -> float funnel, budgets p1=1024, p2=64), or
+the ANN routers ivf (n_list=64, n_probe=8) and hnsw (m=8, ef_search=64).
 
 The counterpart of ``repro.launch.serve``. ``--device`` (default ``cuda``)
 picks where the corpus, the index and the search live; ``--device cpu``
 runs the plain PyTorch path. ``--rate-qps`` switches from closed-loop
 (everything submitted at once) to open-loop Poisson arrivals;
 ``--single-shape`` pads every batch to ``--max-batch``.
-``build_and_serve`` is the body, shared with ``chip_smoke.py``.
+``build_and_serve`` is the body, shared with ``chip_smoke.py``, which
+also serves states it built itself through ``serve_state``.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ class ServeRun:
     stats: Dict[str, Any]
     hit_rate: float                                     # hit@top_k
     recall: float                                       # recall@top_k
+    relevance: Optional[np.ndarray] = None              # (Q, N) host
 
 
 def _sync(dev: torch.device) -> None:
@@ -77,6 +80,22 @@ def build_and_serve(spec: synthetic.CorpusSpec, cfg: HPCConfig, *,
         data.query_patches, data.query_mask, data.query_salience))
     relevance = data.relevance.cpu().numpy()
     del data  # the float corpus is not needed to serve
+    return serve_state(retriever, state, queries, relevance,
+                       n_requests=n_requests, max_batch=max_batch,
+                       top_k=top_k, device=dev, rate_qps=rate_qps,
+                       ladder=ladder, build_s=build_s)
+
+
+def serve_state(retriever: Retriever, state: RetrieverState,
+                queries: Tuple[np.ndarray, np.ndarray, np.ndarray],
+                relevance: np.ndarray, *, n_requests: int, max_batch: int,
+                top_k: int, device, rate_qps: float = 0.0,
+                ladder: Optional[Tuple[int, ...]] = None,
+                build_s: float = 0.0) -> ServeRun:
+    """Serve ``n_requests`` of the host ``queries`` over a built ``state``
+    through `AsyncRetrievalServer` (every ladder rung warmed first, out of
+    the window's stats), and score the results against ``relevance``."""
+    dev = resolve_device(device)
 
     def search(q, qm, qs):
         return retriever.search(state, Query(q, qm, qs), k=top_k)
@@ -109,7 +128,7 @@ def build_and_serve(spec: synthetic.CorpusSpec, cfg: HPCConfig, *,
     n = max(1, len(results))
     return ServeRun(retriever, state, queries, results, build_s, warm_s,
                     server.ladder, serve_s, retriever.storage_bytes(state),
-                    server.stats(), hits / n, float(recall / n))
+                    server.stats(), hits / n, float(recall / n), relevance)
 
 
 def main(argv=None) -> ServeRun:

@@ -3,8 +3,9 @@
 Two searches over the same index may order documents whose scores agree
 to within float rounding differently (the kernel and the plain version sum
 in different orders). ``topk_mismatches`` names the positions where two
-results differ by more than that. The parity tests and ``chip_smoke.py``
-share it.
+results differ by more than that. ``tie_aware_recall_at_k`` scores an
+approximate search against an exhaustive one over the same scoring
+function. The parity tests and ``chip_smoke.py`` share them.
 """
 from __future__ import annotations
 
@@ -30,3 +31,19 @@ def topk_mismatches(ids_a, s_a, ids_b, s_b, tol=1e-4):
             if abs(float(ref) - float(s_a[r, j])) > scale:
                 bad.append((r, j))
     return bad
+
+
+def tie_aware_recall_at_k(scores, ids, oracle_scores, k, rtol=1e-5):
+    """Mean fraction of a query's returned top-k (ids >= 0) whose score
+    reaches the oracle's k-th score, within ``rtol`` (relative, floor 1).
+    Documents with identical codes score alike, so an equal-scored
+    substitute counts; sentinel rows never do."""
+    out = []
+    for qi in range(np.shape(scores)[0]):
+        thresh = np.sort(np.asarray(oracle_scores[qi]))[::-1][k - 1]
+        tol = rtol * max(abs(float(thresh)), 1.0)
+        s = np.asarray(scores[qi][:k])
+        valid = np.asarray(ids[qi][:k]) >= 0
+        out.append(float(np.sum((s >= thresh - tol) & valid)) / k)
+    return float(np.mean(out))
+

@@ -9,9 +9,12 @@
 
 Built-in backends: ``flat`` (exhaustive fused ADC scan over quantized
 codes, the paper's main configuration), ``float_flat`` (exhaustive float
-MaxSim, ColPali-Full), ``hamming`` (popcount MaxSim over binary codes) and
+MaxSim, ColPali-Full), ``hamming`` (popcount MaxSim over binary codes),
 ``cascade`` (hamming -> ADC -> float funnel, budgets in
-``HPCConfig.cascade``).
+``HPCConfig.cascade``), and the two ANN routers ``ivf`` (centroid routing
+over buckets, ``HPCConfig.ivf``) and ``hnsw`` (a layered small-world
+graph, ``HPCConfig.hnsw``). ``Retriever.save``/``load`` write and read the
+reference's index files.
 """
 
 from repro_torch.retrieval.base import (  # noqa: F401
@@ -24,6 +27,8 @@ from repro_torch.retrieval.base import (  # noqa: F401
     get_backend,
     register_backend,
 )
+from repro_torch.core.graph import HNSWConfig  # noqa: F401
+from repro_torch.core.index import IVFConfig  # noqa: F401
 from repro_torch.retrieval.config import CascadeConfig, HPCConfig  # noqa: F401
 from repro_torch.retrieval.retriever import Retriever  # noqa: F401
 
@@ -33,4 +38,6 @@ from repro_torch.retrieval import (  # noqa: E402,F401
     flat,
     float_flat,
     hamming,
+    hnsw,
+    ivf,
 )

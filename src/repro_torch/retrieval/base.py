@@ -8,16 +8,27 @@ search structure behind
     search_candidates(state, query, ids, *, k, scan)
     add(state, delta, cfg, *, doc_ids) / delete(state, ids) / compact(...)
     storage_bytes(state)                   -> {"payload": ..., ...}
+    save(path, state) / load(path, *, device) -> RetrieverState
 
 Codebook training and corpus quantization are shared here
 (``fit_codebook``, ``encode_corpus``, and ``encode_delta`` for appended
 documents). Random draws come from a ``torch.Generator`` on the corpus'
 device. The mutation API keeps the segmented LSM store
 (``core.index.SegmentedState``).
+
+An index file is the reference's format, version 3: one ``.npz`` of
+``leaf_NNNN`` arrays in the order ``jax.tree_util`` flattens the
+reference's state (``convert.state_leaves``), beside ``backend``,
+``format_version``, ``segments`` (a segmented state's segment count),
+``aux`` (the backend's scalar knobs) and ``checksums`` (a crc32 per leaf).
+Files of either package load in the other, and versions 1-3 are read.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
+import zlib
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -29,6 +40,38 @@ from repro_torch.core import quantization as quant
 from repro_torch.retrieval.config import HPCConfig
 
 Tensor = torch.Tensor
+
+# On-disk npz manifest version (IndexBackend.save/load), the reference's:
+#   1 — monolithic states, no version key (still loads)
+#   2 — adds `format_version` + the `segments` count of segmented states
+#   3 — crash-safe writes (tmp file + fsync + atomic rename) and a per-leaf
+#       crc32 `checksums` array, verified on load (v1/v2 files carry none)
+FORMAT_VERSION = 3
+
+# seconds and bytes of the last save or load in this process: "seconds",
+# "crc32_seconds" (the checksums' share of them) and "bytes" (the file)
+last_io: Dict[str, float] = {}
+
+
+def leaf_crc32(arr) -> int:
+    """crc32 of an array's raw bytes (shape/dtype ride in the npz header)."""
+    return zlib.crc32(np.ascontiguousarray(arr)) & 0xFFFFFFFF
+
+
+def fsync_dir(dirname: str) -> None:
+    """fsync a directory so a just-renamed file survives power loss.
+    Best-effort: some filesystems refuse an fsync of a directory; the
+    rename itself is still atomic there."""
+    try:
+        fd = os.open(dirname or ".", os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
 
 
 def code_dtype(k: int) -> torch.dtype:
@@ -81,7 +124,7 @@ def register_backend(name: str):
 def _ensure_builtin_backends() -> None:
     """Install the built-in backends (idempotent, import-cycle safe)."""
     from repro_torch.retrieval import (cascade, flat, float_flat,  # noqa: F401
-                                       hamming)
+                                       hamming, hnsw, ivf)
 
 
 def get_backend(name: str) -> "IndexBackend":
@@ -240,8 +283,9 @@ class IndexBackend:
 
     @staticmethod
     def _is_wrapper(s) -> bool:
-        """A wrapper state with an ``index`` field (HammingState)? Named
-        tuple payloads have an ``index`` method, so require a dataclass."""
+        """A wrapper state with an ``index`` field (HammingState, IVFState,
+        HNSWState)? Named tuple payloads have an ``index`` method, so
+        require a dataclass."""
         return (dataclasses.is_dataclass(s)
                 and not isinstance(s, index_mod.SegmentedState)
                 and any(f.name == "index" for f in dataclasses.fields(s)))
@@ -299,6 +343,17 @@ class IndexBackend:
         raise NotImplementedError(
             f"backend {self.name!r} does not support add()")
 
+    def _append_segment(self, state: RetrieverState,
+                        seg: index_mod.SegmentedState, enc, delta: Corpus,
+                        cfg: HPCConfig, doc_ids: Tensor
+                        ) -> index_mod.SegmentedState:
+        """Default: one more immutable segment. ``hnsw`` overrides it to
+        grow its one graph segment in place (incremental insert)."""
+        payload, live = self._delta_segment(state, seg, enc, delta, cfg,
+                                            doc_ids)
+        return index_mod.SegmentedState(
+            seg.segments + (payload,), seg.live + (live,), seg.pos_of_id)
+
     def _rerank_delta_rows(self, enc, delta: Corpus) -> Tuple[Tensor, Tensor]:
         """Rows written into the id-indexed rerank corpus for a delta."""
         return enc[0], delta.mask
@@ -352,10 +407,8 @@ class IndexBackend:
         kill_pos = old_pos[old_pos >= 0]
 
         enc = self._encode_delta(state, delta, cfg)
-        payload, live = self._delta_segment(state, seg, enc, delta, cfg,
-                                            ids_t)
-        segments = seg.segments + (payload,)
-        lives = list(seg.live) + [live]
+        grown = self._append_segment(state, seg, enc, delta, cfg, ids_t)
+        segments, lives = grown.segments, list(grown.live)
         if kill_pos.size:  # upsert: tombstone the prior occurrence
             off = 0
             for i, p in enumerate(segments):
@@ -375,9 +428,11 @@ class IndexBackend:
         state = self._grow_rerank(self._set_segmented(state, seg2), id_cap)
         rc_rows, rm_rows = self._rerank_delta_rows(enc, delta)
         idx = (ids_t.to(torch.int64),)
+        rc = state.rerank_codes
         return state._replace(
-            rerank_codes=state.rerank_codes.index_put(
-                idx, rc_rows.to(state.rerank_codes.dtype)),
+            rerank_codes=index_mod.indexable(rc).index_put(
+                idx, index_mod.indexable(rc_rows.to(rc.dtype))).view(
+                    rc.dtype),
             rerank_mask=state.rerank_mask.index_put(
                 idx, rm_rows.to(state.rerank_mask.dtype)))
 
@@ -472,3 +527,131 @@ class IndexBackend:
         tombstone_frac) for a segmented one."""
         seg = self._segmented(state)
         return self._segment_stats(seg) if seg is not None else {}
+
+    # -- persistence ----------------------------------------------------------
+    #
+    # The treedef is never stored: it is rebuilt from `state_template`, so
+    # loading a file deserializes arrays only (no pickle, no code).
+
+    def _state_aux(self, state: RetrieverState):
+        """The scalar knobs the backend state carries (None if none)."""
+        return None
+
+    def state_template(self, aux, n_segments: int = 0) -> RetrieverState:
+        """A skeleton of this backend's state for ``convert``'s leaf
+        walk: ``None`` where a tensor leaf goes, ``0`` where a named-tuple
+        field holds a Python int that the reference keeps as a 0-d int32
+        leaf (``HammingIndex.bits``, ``HNSWIndex.entry``), and the knobs
+        (``aux``) in the wrapper dataclasses. ``n_segments`` 0 is the
+        monolithic layout, > 0 a SegmentedState of that many segments."""
+        raise NotImplementedError(
+            f"backend {self.name!r} must define state_template for "
+            "persistence")
+
+    def _n_segments(self, state: RetrieverState) -> int:
+        seg = self._segmented(state)
+        return seg.n_segments if seg is not None else 0
+
+    def save(self, path: str, state: RetrieverState) -> str:
+        """Write ``state`` to ``path`` (``.npz`` appended if missing) in
+        format v3: to ``path + ".tmp"``, fsynced, renamed over ``path``,
+        then the directory fsynced, so a crash leaves the previous complete
+        file or a stray ``.tmp``, never a torn index. Returns the path."""
+        from repro_torch import convert
+        t0 = time.perf_counter()
+        aux = self._state_aux(state)
+        n_seg = self._n_segments(state)
+        leaves = convert.state_leaves(state)
+        want = convert.n_leaves(self.state_template(aux, n_seg))
+        if len(leaves) != want:
+            raise ValueError(
+                f"backend {self.name!r}: the state has {len(leaves)} leaves, "
+                f"its template {want}")
+        payload = {f"leaf_{i:04d}": leaf for i, leaf in enumerate(leaves)}
+        payload["backend"] = np.array(self.name)
+        payload["format_version"] = np.asarray(FORMAT_VERSION, np.int64)
+        if n_seg:
+            payload["segments"] = np.asarray(n_seg, np.int64)
+        if aux is not None:
+            payload["aux"] = np.asarray(aux, np.int64)
+        t1 = time.perf_counter()
+        payload["checksums"] = np.asarray(
+            [leaf_crc32(leaf) for leaf in leaves], np.uint32)
+        crc_s = time.perf_counter() - t1
+        if not path.endswith(".npz"):
+            path = path + ".npz"
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        fsync_dir(os.path.dirname(path))
+        last_io.update(seconds=time.perf_counter() - t0, crc32_seconds=crc_s,
+                       bytes=os.path.getsize(path))
+        return path
+
+    def load(self, path: str, *, device="cuda") -> RetrieverState:
+        """Read an index file of format v1-v3 written by either package
+        onto ``device``. Rejects a file without ``backend``, another
+        backend's file and a future version; every leaf's crc32 is checked
+        before any tensor is made, and a mismatch names the array."""
+        from repro_torch import convert
+        from repro_torch.device import resolve_device
+        dev = resolve_device(device)
+        t0 = time.perf_counter()
+        if not path.endswith(".npz"):
+            path = path + ".npz"
+        crc_s = 0.0
+        with np.load(path, allow_pickle=False) as z:
+            if "backend" not in z.files:
+                raise ValueError(
+                    f"{path!r} is not a retriever index file (no 'backend' "
+                    "key); it may predate the v1 retriever format — rebuild "
+                    "the index with this version")
+            saved = str(z["backend"])
+            if saved != self.name:
+                raise ValueError(
+                    f"index was saved by backend {saved!r}, not {self.name!r}")
+            version = (int(z["format_version"])
+                       if "format_version" in z.files else 1)
+            if version > FORMAT_VERSION:
+                raise ValueError(
+                    f"index file {path!r} has format version {version}; "
+                    f"this build reads versions <= {FORMAT_VERSION} — "
+                    "upgrade to load it, or re-save with this version")
+            n_seg = int(z["segments"]) if "segments" in z.files else 0
+            if "aux" in z.files:
+                a = z["aux"]
+                aux = int(a) if a.ndim == 0 else tuple(int(x) for x in a)
+            else:
+                aux = None
+            names = sorted(n for n in z.files if n.startswith("leaf_"))
+            host_leaves = [z[n] for n in names]
+            if "checksums" in z.files:
+                crcs = np.asarray(z["checksums"], np.uint32)
+                if crcs.size != len(names):
+                    raise ValueError(
+                        f"index file {path!r} carries {crcs.size} checksums "
+                        f"for {len(names)} arrays — truncated manifest")
+                t1 = time.perf_counter()
+                for name, arr, want in zip(names, host_leaves, crcs):
+                    got = leaf_crc32(arr)
+                    if got != int(want):
+                        raise ValueError(
+                            f"index file {path!r}: checksum mismatch on "
+                            f"array {name!r} (crc32 {got:#010x} != stored "
+                            f"{int(want):#010x}) — the file is corrupt; "
+                            "restore from a previous complete save")
+                crc_s = time.perf_counter() - t1
+        template = self.state_template(aux, n_seg)
+        if convert.n_leaves(template) != len(host_leaves):
+            raise ValueError(
+                f"index file has {len(host_leaves)} arrays, backend "
+                f"{self.name!r} expects {convert.n_leaves(template)}")
+        state = convert.state_from_leaves(template, host_leaves, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        last_io.update(seconds=time.perf_counter() - t0, crc32_seconds=crc_s,
+                       bytes=os.path.getsize(path))
+        return state

@@ -228,6 +228,22 @@ class CascadeBackend(IndexBackend):
         out["payload"] = total
         return out
 
+    # -- persistence ------------------------------------------------------
+
+    def _state_aux(self, state: RetrieverState):
+        s = state.backend_state
+        return (s.p1, s.p2, s.members[0].bits)
+
+    def state_template(self, aux, n_segments: int = 0) -> RetrieverState:
+        p1, p2, bits = aux
+        member_aux = {"hamming": bits, "flat": None, "float_flat": None}
+        members = tuple(
+            get_backend(name).state_template(
+                member_aux[name], n_segments=n_segments).backend_state
+            for name in STAGES)
+        return RetrieverState(None, CascadeState(members, p1, p2), None,
+                              None)
+
     def build_stats(self, state: RetrieverState) -> Dict[str, float]:
         s = state.backend_state
         stats = {"p1": float(s.p1), "p2": float(s.p2)}

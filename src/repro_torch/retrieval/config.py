@@ -10,6 +10,8 @@ import dataclasses
 from typing import Literal
 
 from repro_torch.core import binary as binary_mod
+from repro_torch.core.graph import HNSWConfig
+from repro_torch.core.index import IVFConfig
 from repro_torch.core.scan import ScanConfig
 
 
@@ -41,6 +43,8 @@ class HPCConfig:
     scan_block_docs: int = 256       # docs per streaming-scan block
     scan_impl: str = "auto"          # block scorer: auto|plain
     backend: str = "flat"            # registry key
+    ivf: IVFConfig = dataclasses.field(default_factory=IVFConfig)
+    hnsw: HNSWConfig = dataclasses.field(default_factory=HNSWConfig)
     cascade: CascadeConfig = dataclasses.field(default_factory=CascadeConfig)
 
     @property

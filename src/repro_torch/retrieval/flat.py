@@ -77,3 +77,8 @@ class FlatBackend(IndexBackend):
         cb = state.codebook
         return {"payload": codes.numel() * codes.element_size(),
                 "codebook": cb.numel() * cb.element_size()}
+
+    def state_template(self, aux, n_segments: int = 0) -> RetrieverState:
+        return RetrieverState(None, index_mod.segmented_template(
+            index_mod.FlatIndex(None, None, None, None), n_segments),
+            None, None)

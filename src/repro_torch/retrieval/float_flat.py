@@ -106,3 +106,8 @@ class FloatFlatBackend(IndexBackend):
             return out
         e = state.backend_state.embeddings
         return {"payload": e.numel() * e.element_size()}
+
+    def state_template(self, aux, n_segments: int = 0) -> RetrieverState:
+        return RetrieverState(None, index_mod.segmented_template(
+            index_mod.FloatFlatIndex(None, None, None), n_segments),
+            None, None)

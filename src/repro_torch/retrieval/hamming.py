@@ -25,7 +25,7 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass
 class HammingState:
-    """HammingIndex + the bit width."""
+    """HammingIndex + the bit width (a knob: ``aux`` in an index file)."""
 
     index: index_mod.HammingIndex
     bits: int
@@ -102,3 +102,13 @@ class HammingBackend(IndexBackend):
         return {"payload": binary_mod.packed_nbytes(s.index.codes.numel(),
                                                     s.bits),
                 "codebook": cb.numel() * cb.element_size()}
+
+    def _state_aux(self, state: RetrieverState):
+        return state.backend_state.bits
+
+    def state_template(self, aux, n_segments: int = 0) -> RetrieverState:
+        # bits: a 0-d int32 leaf of HammingIndex in the reference, and
+        # HammingState's knob (aux)
+        return RetrieverState(None, HammingState(index_mod.segmented_template(
+            index_mod.HammingIndex(None, None, None, 0), n_segments),
+            int(aux)), None, None)

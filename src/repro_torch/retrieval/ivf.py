@@ -1,0 +1,142 @@
+"""`ivf` backend: centroid routing over padded-dense buckets.
+
+The counterpart of ``repro.retrieval.ivf``. Documents bucket by the routing
+cluster of their mean decoded patch (the assignment runs the
+``kmeans_assign`` kernel on the card); a query scores the routing
+centroids with one matmul and scans only its ``n_probe`` nearest buckets,
+as one per-query pool through the ``quantized_maxsim`` kernel. ``n_probe``
+is a knob of the state (``IVFState``), so ``search(state, query, k=...)``
+is self-contained; an index file carries it as ``aux``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core import index as index_mod
+from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
+                                        RetrieverState, encode_corpus,
+                                        register_backend)
+from repro_torch.retrieval.config import HPCConfig
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class IVFState:
+    """IVFIndex + the n_probe search knob."""
+
+    index: index_mod.IVFIndex
+    n_probe: int
+
+
+@register_backend("ivf")
+class IVFBackend(IndexBackend):
+
+    def build(self, gen: torch.Generator, corpus: Corpus,
+              cfg: HPCConfig) -> RetrieverState:
+        """Encode, then bucket. Fails if bucket overflow dropped more than
+        ``cfg.ivf.max_drop_rate`` of the documents (they would be absent
+        from every search), and warns on any drop."""
+        _, codebook, codes_full, codes, mask = encode_corpus(gen, corpus, cfg)
+        ivf = index_mod.build_ivf(gen, codes, mask, codebook, cfg.ivf)
+        n_docs = corpus.embeddings.shape[0]
+        drop = index_mod.ivf_drop_rate(ivf, n_docs)
+        if drop > cfg.ivf.max_drop_rate:
+            raise ValueError(
+                f"IVF bucket overflow dropped {drop:.2%} of {n_docs} docs "
+                f"(> max_drop_rate={cfg.ivf.max_drop_rate:.2%}); raise "
+                "bucket_cap/n_list or rebalance the routing clustering")
+        if drop > 0:
+            warnings.warn(
+                f"IVF bucket overflow dropped {drop:.2%} of {n_docs} docs "
+                f"(within max_drop_rate={cfg.ivf.max_drop_rate:.2%})",
+                stacklevel=2)
+        return RetrieverState(
+            codebook=codebook,
+            backend_state=IVFState(ivf, cfg.ivf.n_probe),
+            rerank_codes=codes_full,
+            rerank_mask=corpus.mask.to(torch.bool))
+
+    def search(self, state: RetrieverState, query: Query, *, k: int,
+               scan=None) -> Tuple[Tensor, Tensor]:
+        s = state.backend_state
+        seg = self._segmented(state)
+        if seg is not None:
+            return index_mod.search_ivf_segmented(
+                seg, query.embeddings, query.mask, n_probe=s.n_probe, k=k,
+                scan=scan)
+        return index_mod.search_ivf(s.index, query.embeddings, query.mask,
+                                    n_probe=s.n_probe, k=k, scan=scan)
+
+    def search_candidates(self, state: RetrieverState, query: Query,
+                          candidate_ids, *, k: int,
+                          scan=None) -> Tuple[Tensor, Tensor]:
+        # the bucketed layout has no position -> doc addressing, and the
+        # routing already narrows the candidates
+        if candidate_ids is None:
+            return self.search(state, query, k=k, scan=scan)
+        raise NotImplementedError(
+            "backend 'ivf' routes its own candidates (n_probe buckets) and "
+            "does not support candidate-restricted search; use "
+            "flat/float_flat/hamming as cascade stages")
+
+    # -- mutation hooks ------------------------------------------------------
+
+    def _delta_segment(self, state, seg, enc, delta, cfg, doc_ids):
+        _, codes, mask = enc
+        return index_mod.make_ivf_segment(
+            codes, mask, state.codebook, seg.segments[0].routing_centroids,
+            doc_ids)
+
+    def _compact_payload(self, state, seg, cfg):
+        # the live docs, bucket after bucket and segment after segment,
+        # re-bucketed through the shared centroids (loads rebalance)
+        (codes, mask), ids = index_mod.gather_live_rows(
+            seg, ("bucket_codes", "bucket_mask"))
+        n_live = int((ids >= 0).sum())
+        return index_mod.make_ivf_segment(
+            codes[:n_live], mask[:n_live], state.codebook,
+            seg.segments[0].routing_centroids, ids[:n_live])
+
+    def _seg_payload_bytes(self, payload, n_live: int) -> int:
+        codes = payload.bucket_codes
+        return n_live * codes.shape[-1] * codes.element_size()
+
+    def storage_bytes(self, state: RetrieverState) -> Dict[str, int]:
+        seg = self._segmented(state)
+        if seg is not None:
+            return self._segmented_storage(state, seg)
+        codes = state.backend_state.index.bucket_codes
+        cb = state.codebook
+        return {"payload": codes.numel() * codes.element_size(),
+                "codebook": cb.numel() * cb.element_size()}
+
+    def build_stats(self, state: RetrieverState) -> Dict[str, float]:
+        seg = self._segmented(state)
+        if seg is not None:
+            # segments admit every doc (their cap is the realised largest
+            # load), so the drop rate is a build-time number only
+            out = self._segment_stats(seg)
+            first = seg.segments[0]
+            out["n_list"] = int(first.bucket_valid.shape[0])
+            out["bucket_cap"] = int(first.bucket_valid.shape[1])
+            return out
+        ix = state.backend_state.index
+        n_docs = state.rerank_codes.shape[0]
+        return {"ivf_drop_rate": index_mod.ivf_drop_rate(ix, n_docs),
+                "n_list": int(ix.bucket_valid.shape[0]),
+                "bucket_cap": int(ix.bucket_valid.shape[1])}
+
+    # -- persistence ------------------------------------------------------
+
+    def _state_aux(self, state: RetrieverState):
+        return state.backend_state.n_probe
+
+    def state_template(self, aux, n_segments: int = 0) -> RetrieverState:
+        return RetrieverState(None, IVFState(index_mod.segmented_template(
+            index_mod.IVFIndex(*(None,) * 6), n_segments), int(aux)),
+            None, None)

@@ -13,6 +13,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core import index as index_mod
 from repro_torch.core import pruning
 from repro_torch.core import scan as scan_mod
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
@@ -80,7 +81,8 @@ class Retriever:
                 k: int) -> Tuple[Tensor, Tensor]:
         safe = torch.clamp(ids, min=0).to(torch.int64)
         return scan_mod.quantized_maxsim_topk(
-            query.embeddings, query.mask, state.rerank_codes[safe],
+            query.embeddings, query.mask,
+            index_mod.take_rows(state.rerank_codes, safe),
             state.rerank_mask[safe], state.codebook, k=k, doc_ids=ids,
             valid=ids >= 0, scan=self.cfg.scan)
 
@@ -111,5 +113,19 @@ class Retriever:
         return self.backend.storage_bytes(state)
 
     def build_stats(self, state: RetrieverState) -> Dict[str, float]:
-        """Structure-quality stats of a built index (backend-defined)."""
+        """Structure-quality stats of a built index (backend-defined):
+        ``ivf`` reports its bucket-overflow drop rate, ``hnsw`` its level-0
+        degree and entry level."""
         return self.backend.build_stats(state)
+
+    # -- persistence ------------------------------------------------------------
+
+    def save(self, path: str, state: RetrieverState) -> str:
+        """Write ``state`` as an index file of the reference's format v3
+        (see ``retrieval/base.py``); returns the path written."""
+        return self.backend.save(path, state)
+
+    def load(self, path: str, *, device="cuda") -> RetrieverState:
+        """Read an index file (v1-v3, written by either package) onto
+        ``device``."""
+        return self.backend.load(path, device=device)

@@ -42,23 +42,28 @@ def code_gaps(x, codebook, codes_a, codes_b):
     return np.abs(da - db)
 
 
+# each backend's payload fields, and the knob its wrapper state carries
+FIELDS = {"flat": ("codes", "mask", "doc_ids"),
+          "float_flat": ("embeddings", "mask", "doc_ids"),
+          "hamming": ("codes", "mask", "doc_ids"),
+          "ivf": ("routing_centroids", "bucket_codes", "bucket_mask",
+                  "bucket_valid", "bucket_doc_ids"),
+          "hnsw": ("doc_vecs", "neighbors", "entry", "node_level", "codes",
+                   "mask", "doc_ids")}
+KNOBS = {"hamming": "bits", "ivf": "n_probe", "hnsw": "ef_search"}
+
+
 def _payload_arrays(stage, payload):
     """One index payload (a structure or a segment) as host arrays."""
-    if stage == "float_flat":
-        return {"embeddings": np.asarray(payload.embeddings),
-                "mask": np.asarray(payload.mask),
-                "doc_ids": np.asarray(payload.doc_ids)}
-    return {"codes": np.asarray(payload.codes),
-            "mask": np.asarray(payload.mask),
-            "doc_ids": np.asarray(payload.doc_ids)}
+    return {f: np.asarray(getattr(payload, f)) for f in FIELDS[stage]}
 
 
 def _member_arrays(stage, member):
     """One member structure of a JAX state as host arrays: monolithic, or
     segmented (``segments/<i>/<field>``, ``live/<i>``, ``pos_of_id``)."""
     out = {}
-    if stage == "hamming":
-        out["bits"] = np.asarray(member.bits)
+    if stage in KNOBS:
+        out[KNOBS[stage]] = np.asarray(getattr(member, KNOBS[stage]))
         member = member.index
     if hasattr(member, "pos_of_id"):                # a SegmentedState
         for i, (payload, live) in enumerate(zip(member.segments,

@@ -238,6 +238,8 @@ def test_state_from_numpy_checks_its_arrays(reference):
                           if k != "float_flat/embeddings"}, device="cpu",
                          backend="cascade")
     with pytest.raises(ValueError, match="unknown backend"):
+        state_from_numpy(arrays, device="cpu", backend="pq")
+    with pytest.raises(KeyError, match="routing_centroids"):
         state_from_numpy(arrays, device="cpu", backend="ivf")
 
 

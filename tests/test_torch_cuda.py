@@ -6,6 +6,8 @@ runs there on its own:
 
     python -m pytest -m gpu --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -160,6 +162,11 @@ _TOPK_CASES = {
     "mq 5": (3, 5, 64, (3, 70), 17, 7, 32),
     "mq 40": (2, 40, 128, (90,), 33, 9, 16),
     "K 512 uint16": (2, 16, 512, (2, 60), 32, 10, 16),
+    # the ANN routers' pools: ivf's n_probe x cap = 8 x 512 probed slots,
+    # hnsw's ef_search = 64 beam survivors, each at the facade's rerank
+    # over-fetch (k = 32)
+    "ivf pools": (8, 32, 256, (8, 4096), 615, 32, None),
+    "hnsw pools": (8, 32, 256, (8, 64), 615, 32, None),
 }
 
 
@@ -404,7 +411,10 @@ def _assert_codes_match(x, c, got, want, max_ties):
     (256, 128, 256, True),      # a cascade batch's query codes
     (4096, 128, 512, True),     # K = 512: two 256-centroid chunks
     (3001, 128, 256, False),    # N not a multiple of the 64-row tile
-    (200, 300, 1000, False)])   # wide D, K in 32-centroid chunks
+    (200, 300, 1000, False),    # wide D, K in 32-centroid chunks
+    (16384, 128, 64, True),     # ivf's routing assignment at ColPali width
+    (512, 128, 64, True),       # ... and of an append of 512 docs
+    (300, 32, 16, True)])       # the tests' K = 16
 def test_kmeans_assign_kernel_at_cascade_and_edge_shapes(n, d, k, unit):
     dev = _card()
     g = torch.Generator().manual_seed(n + d + k)
@@ -705,3 +715,176 @@ def test_encode_delta_through_the_kernel_matches_plain():
     np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].numpy())
     assert int((got[1].cpu() != want[1]).sum()) <= int(
         (got[0].cpu() != want[0]).sum())
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: candidate positions past the corpus, the ANN routers, index files
+# ---------------------------------------------------------------------------
+
+def _small_corpus(seed, n=96, md=12, d=32):
+    from repro_torch.data import synthetic
+    spec = synthetic.CorpusSpec(n_docs=n, n_queries=8, n_patches=md,
+                                n_q_patches=4, dim=d, n_topics=6)
+    return synthetic.make_retrieval_corpus(spec, seed=seed, device="cpu")
+
+
+def _cfg(backend, **kw):
+    from repro_torch.retrieval import HNSWConfig, HPCConfig, IVFConfig
+    return HPCConfig(k=32, p=60.0, backend=backend, kmeans_iters=6,
+                     kmeans_restarts=2, rerank=16,
+                     ivf=IVFConfig(n_list=8, n_probe=3, iters=5,
+                                   bucket_cap=48),
+                     hnsw=HNSWConfig(m=4, ef_construction=16, ef_search=32,
+                                     levels=3), **kw)
+
+
+def _built(backend, seed=0):
+    """(retriever, CPU state, card state, CPU query, card query)."""
+    from repro_torch import state_to
+    from repro_torch.retrieval import Corpus, Query, Retriever
+    dev = _card()
+    d = _small_corpus(seed)
+    r = Retriever(_cfg(backend))
+    st = r.build(torch.Generator().manual_seed(seed),
+                 Corpus(d.doc_patches, d.doc_mask, d.doc_salience))
+    q = Query(d.query_patches, d.query_mask, d.query_salience)
+    return r, st, state_to(st, dev), q, Query(*(a.to(dev) for a in q))
+
+
+def _assert_search_match(got, want):
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=TOL, rtol=TOL)
+    bad = topk_mismatches(got[1].cpu().numpy(), got[0].cpu().numpy(),
+                          want[1].numpy(), want[0].numpy(), TOL)
+    assert not bad, f"ids differ outside near-ties at {bad}"
+
+
+def test_candidate_positions_past_the_corpus_on_the_card():
+    """Positions N and N + 100 read doc N - 1, as the reference's clamped
+    gather does, and leave the CUDA context usable: a second search in
+    the same process succeeds."""
+    for backend in ("flat", "float_flat", "hamming"):
+        r, st, st_dev, q, q_dev = _built(backend)
+        n = 96
+        pool = torch.tensor([0, n - 1, n, n + 100, -1],
+                            dtype=torch.int32).repeat(8, 1)
+        want = r.backend.search_candidates(st, q, pool, k=5)
+        got = r.backend.search_candidates(
+            st_dev, q_dev, pool.to(q_dev.embeddings.device), k=5)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1].cpu(), want[1]), backend
+        if got[0].dtype == torch.int32:
+            assert torch.equal(got[0].cpu(), want[0]), backend
+        else:
+            torch.testing.assert_close(got[0].cpu(), want[0], atol=TOL,
+                                       rtol=TOL)
+        ids = got[1].cpu()
+        assert int((ids == n - 1).sum(dim=1).min()) == 3, backend
+        again = r.search(st_dev, q_dev, k=5)
+        torch.cuda.synchronize()
+        _assert_search_match(again, r.search(st, q, k=5))
+
+
+@pytest.mark.parametrize("backend", ["ivf", "hnsw"])
+def test_ann_search_on_the_card_matches_the_cpu(backend):
+    """One search of the router on the card: one quantized_maxsim launch
+    for its pool and one for the facade's rerank, results equal to the
+    plain path; then the same after an add and a delete, and compacted."""
+    from repro_torch import state_to
+    from repro_torch.retrieval import Corpus
+    r, st, st_dev, q, q_dev = _built(backend, seed=1)
+    before = qm.launches
+    got = r.search(st_dev, q_dev, k=10)
+    assert qm.launches == before + 2
+    _assert_search_match(got, r.search(st, q, k=10))
+    d = _small_corpus(2, n=40)
+    delta = Corpus(d.doc_patches, d.doc_mask, d.doc_salience)
+    dev = q_dev.embeddings.device
+    before = km.launches
+    mut = r.delete(r.add(st_dev, Corpus(*(a.to(dev) for a in delta))),
+                   np.array([3, 50, 101]))
+    # the delta's codes, and for ivf its routing assignment
+    assert km.launches == before + (2 if backend == "ivf" else 1)
+    mut_cpu = state_to(mut, "cpu")
+    _assert_search_match(r.search(mut, q_dev, k=10),
+                         r.search(mut_cpu, q, k=10))
+    comp = r.compact(mut)
+    got = r.search(comp, q_dev, k=10)
+    assert not {3, 50, 101} & set(got[1].cpu().flatten().tolist())
+    _assert_search_match(got, r.search(state_to(comp, "cpu"), q, k=10))
+
+
+def test_hnsw_walk_on_the_card_matches_the_cpu():
+    """The batched walk (descent + beam) on the card gives the CPU's
+    candidates (distances within 1e-5)."""
+    from repro_torch.core import graph as graph_mod
+    from repro_torch.core.index import mean_pool
+    r, st, st_dev, q, q_dev = _built("hnsw", seed=3)
+    ix, ix_dev = st.backend_state.index, st_dev.backend_state.index
+    want = graph_mod.hnsw_candidates(ix, mean_pool(q.embeddings, q.mask),
+                                     ef_search=48)
+    got = graph_mod.hnsw_candidates(
+        ix_dev, mean_pool(q_dev.embeddings, q_dev.mask), ef_search=48)
+    assert torch.equal(got[1].cpu(), want[1])
+    fin = torch.isfinite(want[0])
+    torch.testing.assert_close(got[0].cpu()[fin], want[0][fin], atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["flat", "cascade", "ivf", "hnsw"])
+def test_index_file_round_trip_on_the_card(backend, tmp_path):
+    """A card state saved and loaded onto the card searches the same bits;
+    a file saved from the CPU loads onto the card and searches as the CPU
+    state does."""
+    from repro_torch import convert
+    r, st, st_dev, q, q_dev = _built(backend, seed=4)
+    mut = r.delete(st_dev, np.array([2, 9]))
+    for state in (st_dev, mut):
+        path = r.save(str(tmp_path / f"{backend}_dev"), state)
+        loaded = r.load(path, device="cuda")
+        for a, b in zip(convert.state_leaves(state),
+                        convert.state_leaves(loaded)):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        assert all(t.device.type == "cuda" for t in (
+            loaded.codebook, loaded.rerank_codes))
+        got, want = r.search(loaded, q_dev, k=10), r.search(state, q_dev,
+                                                             k=10)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    path = r.save(str(tmp_path / f"{backend}_cpu"), st)
+    _assert_search_match(r.search(r.load(path), q_dev, k=10),
+                         r.search(st, q, k=10))
+
+
+def test_uint16_codes_gather_on_the_card():
+    """CUDA's gather and scatter kernels have no uint16 instance: the
+    Hamming member's candidate stages (monolithic and segmented), a K=512
+    codebook's rerank rows and IVF buckets go through int16 views, and
+    match the CPU."""
+    from repro_torch import state_to
+    from repro_torch.retrieval import Corpus, Query, Retriever
+    dev = _card()
+    d = _small_corpus(5, n=96, md=12, d=32)
+    corpus = Corpus(d.doc_patches, d.doc_mask, d.doc_salience)
+    q = Query(d.query_patches, d.query_mask, d.query_salience)
+    q_dev = Query(*(a.to(dev) for a in q))
+    pool = torch.randint(0, 96, (8, 20), generator=torch.Generator()
+                         .manual_seed(0), dtype=torch.int32)
+    pool[:, ::6] = -1
+    r = Retriever(_cfg("hamming"))
+    st = r.build(torch.Generator().manual_seed(0), corpus)
+    seg = r.delete(r.add(st, corpus), np.array([4, 100]))
+    for state in (st, seg):
+        want = r.backend.search_candidates(state, q, pool, k=8)
+        got = r.backend.search_candidates(state_to(state, dev), q_dev,
+                                          pool.to(dev), k=8)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+    for backend in ("flat", "ivf"):
+        r = Retriever(dataclasses.replace(_cfg(backend), k=512))
+        st = r.build(torch.Generator().manual_seed(0), corpus)
+        assert st.rerank_codes.dtype == torch.uint16
+        st_dev = state_to(st, dev)
+        _assert_search_match(r.search(st_dev, q_dev, k=10),
+                             r.search(st, q, k=10))
+        mut = r.add(st_dev, Corpus(*(a[:10].to(dev) for a in corpus)))
+        _assert_search_match(r.search(mut, q_dev, k=10),
+                             r.search(state_to(mut, "cpu"), q, k=10))

@@ -45,7 +45,8 @@ def test_port_package_is_found():
              for p in PORT_FILES if "repro_torch" in p.parts}
     assert {"core/binary.py", "kernels/hamming.py", "kernels/maxsim.py",
             "retrieval/float_flat.py", "retrieval/hamming.py",
-            "retrieval/cascade.py"} <= names
+            "retrieval/cascade.py", "retrieval/ivf.py", "retrieval/hnsw.py",
+            "core/graph.py", "convert.py"} <= names
     assert not _forbidden("repro_torch.core.scan")
     assert _forbidden("repro.core.scan") and _forbidden("jax.numpy")
 
