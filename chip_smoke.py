@@ -888,9 +888,9 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
         t1 = time.perf_counter()
         n_diff = _check_first_batch(torch, np, run, state_to(state, "cpu"),
                                     QMAXSIM_TOL)
-        print(f"{name}: first batch == CPU plain path (ids outside "
-              f"near-ties, {n_diff} ids differ at all; scores within "
-              f"{QMAXSIM_TOL}); CPU {time.perf_counter() - t1:.1f}s")
+        assert n_diff == 0, f"{name}: {n_diff} ids differ from the CPU"
+        print(f"{name}: first batch == CPU plain path (ids equal, scores "
+              f"within {QMAXSIM_TOL}); CPU {time.perf_counter() - t1:.1f}s")
         return run, got
 
     def pool_times(tab, c, m, v):

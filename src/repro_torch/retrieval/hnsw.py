@@ -32,9 +32,10 @@ class HNSWState:
     ef_search: int
 
 
-def _mean_degree_l0(ix: graph_mod.HNSWIndex, filled: Tensor) -> float:
-    """Mean level-0 out-degree over the filled rows, in float32 as the
-    reference computes it."""
+def _mean_degree_l0(ix: graph_mod.HNSWIndex) -> float:
+    """Mean level-0 out-degree over the filled rows (all rows of a
+    monolithic build), in float32 as the reference computes it."""
+    filled = ix.doc_ids >= 0
     degree = (ix.neighbors[0] >= 0).sum(dim=-1).to(torch.float32)
     n = torch.clamp(filled.sum().to(torch.float32), min=1.0)
     return float((degree * filled).sum() / n)
@@ -120,13 +121,12 @@ class HNSWBackend(IndexBackend):
         if seg is not None:
             out = self._segment_stats(seg)
             ix = seg.segments[0]
-            out["mean_degree_l0"] = _mean_degree_l0(ix, ix.doc_ids >= 0)
+            out["mean_degree_l0"] = _mean_degree_l0(ix)
             out["levels"] = float(ix.neighbors.shape[0])
             out["entry_level"] = float(ix.node_level[ix.entry])
             return out
         ix = state.backend_state.index
-        return {"mean_degree_l0": _mean_degree_l0(
-                    ix, torch.ones_like(ix.doc_ids, dtype=torch.bool)),
+        return {"mean_degree_l0": _mean_degree_l0(ix),
                 "levels": int(ix.neighbors.shape[0]),
                 "entry_level": int(ix.node_level[ix.entry])}
 
