@@ -162,9 +162,10 @@ DRILL_LOAD = 4.0
 # cap is twice the mean load, 2 x 16384 / 64 = 512, so n_probe x cap =
 # 4096 slots (25% of the corpus) per query. The graph is built over the
 # first N_HNSW docs only: its insertion is sequential numpy on the host
-# (about 7.5 ms a document at D=128), so 16384 docs would add about two
-# minutes to every run. 8d adds N_ANN_ADD docs to each router and deletes
-# N_ANN_DEAD.
+# (3.9-8.7 ms a document on an H100 machine's host: 15.8-35.6 s for 4096),
+# so 16384 docs would add at least 48-107 s to the build and as much again
+# to 8d's compaction, which rebuilds the graph: 1.5-3.5 minutes a run. 8d
+# adds N_ANN_ADD docs to each router and deletes N_ANN_DEAD.
 IVF_N_LIST, IVF_N_PROBE, IVF_CAP = 64, 8, 512
 HNSW_EF = 64
 N_HNSW = 4096
@@ -1076,7 +1077,11 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
     t0 = _phase("8d. a live ANN index")
     rng = np.random.default_rng(args.seed + 4)
     add = Corpus(*(a[:N_ANN_ADD] for a in delta))
+    # the served windows' launches, and the mutations' (add, delete and
+    # compaction) under their own key; the checks between them launch
+    # kernels too, and those are not counted
     live_launches = {n: 0 for n in kernel_mods}
+    mut_launches = {n: 0 for n in kernel_mods}
     for name, ret, state, n0 in (("hnsw", ret_h, state_h, N_HNSW),
                                  ("ivf", ret_i, state_i, N_DOCS)):
         sess = LiveIndexSession(ret, state, ServeConfig(
@@ -1099,7 +1104,7 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
         # quantized_maxsim launch per segment (ivf: base + append; hnsw
         # grows its one segment) and one for the rerank
         for n_, mod in kernel_mods.items():
-            live_launches[n_] += mod.launches
+            mut_launches[n_] += mod.launches
             mod.launches = 0
         served = [sess.query(*(a[qi] for a in queries), timeout=120.0)
                   for qi in range(N_REQUESTS)]
@@ -1108,6 +1113,8 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
         want = {"quantized_maxsim": N_REQUESTS * (n_seg + 1),
                 "kmeans_assign": 0, "hamming_maxsim": 0, "maxsim": 0}
         assert window == want, (name, window, want)
+        for n_, v in window.items():
+            live_launches[n_] += v
         seen = set(int(x) for _, ids in served for x in ids if x >= 0)
         assert not seen & set(dead.tolist()), f"{name}: a deleted id served"
         cur_st = sess.state
@@ -1122,11 +1129,15 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
         # equal ADC scores admit whichever tied docs come first)
         before = [ret.backend.search(cur_st, qq, k=TOP_K) for qq in qs_all]
         del cur_st
+        for mod in kernel_mods.values():
+            mod.launches = 0
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         sess.compact()
         torch.cuda.synchronize()
         secs["compact"] = time.perf_counter() - t1
+        for n_, mod in kernel_mods.items():
+            mut_launches[n_] += mod.launches
         after = [ret.backend.search(sess.state, qq, k=TOP_K)
                  for qq in qs_all]
         b_s, b_i, a_s, a_i = (np.concatenate([x[j].cpu().numpy() for x in xs])
@@ -1144,8 +1155,6 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
         else:
             # a new graph over the live docs: held to the results before
             assert kept >= 0.95, f"hnsw compaction kept {kept}"
-        for n_, mod in kernel_mods.items():
-            live_launches[n_] += mod.launches
         print(f"live {name}: add of {N_ANN_ADD} {secs['add']:.3f}s, delete "
               f"of {N_ANN_DEAD} {secs['delete']:.4f}s, compact "
               f"{secs['compact']:.3f}s | {N_REQUESTS} requests after the "
@@ -1158,6 +1167,9 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
         sess.close()
         del sess
     out["launches"]["live ann"] = live_launches
+    out["launches"]["live ann mutations"] = mut_launches
+    print(f"launches: served windows {live_launches}, mutations "
+          f"{mut_launches}")
     print(json.dumps({"ann_mutation_s": out["mutation_s"]}))
     print(f"live ann phase {time.perf_counter() - t0:.1f}s")
     return out

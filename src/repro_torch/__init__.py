@@ -22,7 +22,6 @@ Subpackages:
 from repro_torch.convert import (  # noqa: F401
     state_from_numpy,
     state_to,
-    state_to_numpy,
 )
 from repro_torch.retrieval import (  # noqa: F401
     Corpus,

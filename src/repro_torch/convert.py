@@ -3,8 +3,8 @@ walk a state's leaves for the index files.
 
 ``state_from_numpy`` turns the arrays of a ``RetrieverState`` — keyed by
 the reference package's field names — into the port's state on ``device``,
-so the port searches exactly the index those arrays hold;
-``state_to_numpy`` is its inverse. Every backend shares ``codebook``,
+so the port searches exactly the index those arrays hold. Every backend
+shares ``codebook``,
 ``rerank_codes`` and ``rerank_mask``; its own structure's fields come
 beside them (a payload that carries a codebook, as ``FlatIndex``,
 ``IVFIndex`` and ``HNSWIndex`` do, takes the shared one):
@@ -91,9 +91,12 @@ def _payload(backend: str, get: Callable[[str], torch.Tensor],
     return HammingIndex(get("codes").to(torch.uint16), mask, ids, bits)
 
 
-def _n_segments(arrays, prefix: str) -> int:
+def _n_segments(arrays, prefix: str, first: str) -> int:
+    """The segment count: segment i is there while its live bits or its
+    ``first`` field is."""
     n = 0
-    while f"{prefix}live/{n}" in arrays:
+    while (f"{prefix}live/{n}" in arrays
+           or f"{prefix}segments/{n}/{first}" in arrays):
         n += 1
     return n
 
@@ -104,9 +107,9 @@ def _needed(arrays, backend: str, prefix: str) -> List[str]:
     extra = [KNOBS[backend][0]] if backend in KNOBS else []
     if f"{prefix}pos_of_id" not in arrays:
         return [prefix + f for f in fields + extra]
-    return ([f"{prefix}segments/{i}/{f}"
-             for i in range(max(_n_segments(arrays, prefix), 1))
-             for f in fields]
+    return ([f"{prefix}{key}"
+             for i in range(max(_n_segments(arrays, prefix, fields[0]), 1))
+             for key in (*(f"segments/{i}/{f}" for f in fields), f"live/{i}")]
             + [f"{prefix}{f}" for f in ["pos_of_id", *extra]])
 
 
@@ -121,7 +124,7 @@ def _member(backend: str, arrays, prefix: str,
         structure = _payload(backend, lambda f: get(prefix + f),
                              lambda f: arrays[prefix + f], codebook, bits)
     else:
-        n_seg = _n_segments(arrays, prefix)
+        n_seg = _n_segments(arrays, prefix, MEMBER_KEYS[backend][0])
         segments = tuple(
             _payload(backend,
                      lambda f, i=i: get(f"{prefix}segments/{i}/{f}"),
@@ -175,43 +178,6 @@ def _host(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
         return np.ascontiguousarray(t.detach().cpu().numpy())
     return np.asarray(t, np.int32)
-
-
-def _fields_to_numpy(structure, backend: str) -> Dict[str, np.ndarray]:
-    """One member structure's arrays under the module docstring's keys."""
-    out: Dict[str, np.ndarray] = {}
-    if backend in KNOBS:
-        out[KNOBS[backend][0]] = np.asarray(
-            getattr(structure, KNOBS[backend][0]), np.int64)
-        structure = structure.index
-    payloads = (structure.segments if isinstance(structure, SegmentedState)
-                else (structure,))
-    for i, payload in enumerate(payloads):
-        pre = f"segments/{i}/" if isinstance(structure, SegmentedState) \
-            else ""
-        for f in MEMBER_KEYS[backend]:
-            out[pre + f] = _host(getattr(payload, f))
-    if isinstance(structure, SegmentedState):
-        for i, live in enumerate(structure.live):
-            out[f"live/{i}"] = _host(live)
-        out["pos_of_id"] = _host(structure.pos_of_id)
-    return out
-
-
-def state_to_numpy(state: RetrieverState, backend: str
-                   ) -> Dict[str, np.ndarray]:
-    """The host arrays of ``state``, keyed as ``state_from_numpy`` takes
-    them (its inverse)."""
-    out = {k: _host(getattr(state, k)) for k in SHARED_KEYS}
-    bs = state.backend_state
-    if backend == "cascade":
-        for stage, member in zip(STAGES, bs.members):
-            for key, val in _fields_to_numpy(member, stage).items():
-                out[f"{stage}/{key}"] = val
-        out["p1"], out["p2"] = np.asarray(bs.p1), np.asarray(bs.p2)
-    else:
-        out.update(_fields_to_numpy(bs, backend))
-    return out
 
 
 def _is_int(v) -> bool:

@@ -166,8 +166,8 @@ def search_float_flat_candidates(index: FloatFlatIndex, q: Tensor,
     embeddings are never copied; only the ids are mapped here. The rows
     are the clamped positions (-1 where the slot is empty), so no row
     past the corpus reaches the kernel."""
-    ids, valid, _ = _gather_candidates(candidate_ids, index.doc_ids)
-    _, safe = _clamp_positions(candidate_ids, index.doc_ids.shape[0])
+    valid, safe = _clamp_positions(candidate_ids, index.doc_ids.shape[0])
+    ids = torch.where(valid, index.doc_ids[safe], -1).to(torch.int32)
     rows = torch.where(valid, safe, -1).to(torch.int32)
     return scan_mod.maxsim_topk(q, q_mask, index.embeddings, index.mask, k=k,
                                 doc_ids=ids, valid=valid, scan=scan,
