@@ -88,7 +88,26 @@ any failure exits non-zero, and no phase's error is swallowed:
      deleted id served, one batch against the CPU, compaction keeping the
      results, the seconds of each mutation (``{"ann_mutation_s": ...}``).
      Phase 3 also holds quantized_maxsim at the routers' pool shapes and
-     kmeans_assign at ivf's K = 64 (and K = 16).
+     kmeans_assign at ivf's K = 64 (and K = 16);
+  9. the ColPali encoder and RAG at full width (colpali-hpc: the
+     qwen2-1.5b backbone, bf16 activations, bf16 products accumulated in
+     float32): (a) a 2-layer cut with float32 activations on the card
+     against the CPU, one page and one query (embeddings within 1e-4,
+     salience / n_heads within 1e-6, the same kept patches under p = 60
+     outside near-ties); (b) 1024 pages of 1024 patches drawn on the card
+     micro-batch by micro-batch and encoded (every embedding finite and of
+     unit norm, every page's salience summing to n_heads), the flat index
+     built from the encoder's embeddings and salience (kmeans_assign
+     launched), 64 encoded queries of ragged length searched in 8 batches
+     (2 quantized_maxsim launches each), the first batch against the CPU
+     plain path, pages/s, peak memory and the executed FLOP rate against
+     the BF16 peak (``{"encoder": ...}``); (c) ``rag_pipeline`` over 4096
+     fact docs with the qwen2-1.5b generator and the float_flat, flat and
+     hamming retrievers (one ``{"rag": ...}`` line each: retrieve and
+     generate ms per query and each kernel's launches; the untrained
+     generator's ROUGE-L and hallucination under a key that says so), the
+     flat retriever's first batch against the CPU plain path, and cached
+     greedy decoding against an uncached forward at every step.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, the script exits non-zero and prints no result.
@@ -171,6 +190,39 @@ HNSW_EF = 64
 N_HNSW = 4096
 N_ANN_ADD, N_ANN_DEAD = 512, 128
 SAVE_TOL = 1e-6         # a reloaded state's scores against the in-memory
+
+# phase 9, the encoder and RAG at full width: the port's copies of
+# COLPALI_HPC.config (src/repro/configs/colpali_hpc.py:43-62: the
+# qwen2-1.5b backbone, d_patch 1536, proj_dim 128, 1024 patches, query_len
+# 32) and QWEN2_1_5B.config (src/repro/configs/lm_archs.py:34-41) as the
+# generator, with weights drawn from the seed. The encoder takes the
+# reference's encode_corpus cell, 1024 pages a step
+# (src/repro/configs/colpali_hpc.py:36), in micro-batches: the pages
+# (6.4 GB) never sit on the card whole. 9a checks a 2-layer cut of the
+# same widths with float32 activations on the card against the CPU. RAG
+# runs over the fact corpus with the three retrievers of
+# benchmarks/rag_bench.py:62-69.
+ENC_PAGES = 1024
+ENC_MICRO_BATCH = 16
+ENC_QUERIES = 64
+ENC_CUT_LAYERS = 2
+RAG_DOCS, RAG_FACTS, RAG_FPD, RAG_QUERIES, RAG_SEQ = 4096, 1024, 4, 64, 32
+RAG_TOP_K_DOCS, RAG_MAX_ANSWER = 2, 4
+RAG_CHECK_PROMPTS = 8
+RAG_RETRIEVERS = (
+    ("float_flat", dict(backend="float_flat", prune_side="none")),
+    ("flat", dict(k=256, p=60.0, backend="flat", prune_side="doc",
+                  rerank=8)),
+    ("hamming", dict(k=512, p=60.0, backend="hamming", prune_side="doc")))
+# dense BF16 on the tensor cores (H100 SXM data sheet, 700 W)
+PEAK_BF16_FLOPS = 989e12
+CUT_EMB_TOL = 1e-4      # 9a: embeddings, card against CPU
+CUT_SAL_TOL = 1e-6      # 9a: salience / n_heads, card against CPU
+SAL_SUM_TOL = 1e-3      # a page's salience sums to n_heads, relative
+# a bf16 embedding's norm: the norm is rounded to bf16 before the division
+# and each component after it, 2^-8 relative each; two steps
+NORM_TOL = 2 * 2.0 ** -8
+LOGIT_TIE_TOL = 1e-4    # cached vs uncached greedy: a near-tie of logits
 
 QMAXSIM_TOL = 1e-4
 MAXSIM_TOL = 1e-4
@@ -353,6 +405,8 @@ def _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c, flat_s,
     state, and for phase 8 the state before its compaction, the
     retriever, the host queries and the added documents."""
     from repro_torch import state_to
+    from repro_torch.configs.colpali_hpc import COLPALI_HPC
+    from repro_torch.configs.lm_archs import QWEN2_1_5B
     from repro_torch.core import index as index_mod
     from repro_torch.data.synthetic import make_retrieval_corpus
     from repro_torch.kernels import maxsim as ms
@@ -831,6 +885,8 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
 
     from repro_torch import state_to
     from repro_torch.core import graph as graph_mod
+    from repro_torch.configs.colpali_hpc import COLPALI_HPC
+    from repro_torch.configs.lm_archs import QWEN2_1_5B
     from repro_torch.core import index as index_mod
     from repro_torch.core import late_interaction as li
     from repro_torch.kernels import kmeans_assign as km
@@ -1175,6 +1231,398 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
     return out
 
 
+def _encoder_flops(enc_cfg, s: int) -> float:
+    """Matmul FLOPs one page (or query) of ``s`` positions executes in the
+    encoder, as the reference computes it: the projections, the FFN, the
+    full S x S scores and the PV product (no causal skipping) in every
+    layer, and the patch and output projections."""
+    bb = enc_cfg.backbone
+    d, hd, ff = bb.d_model, bb.hd, bb.d_ff
+    proj = 2 * s * (d * (bb.n_heads + 2 * bb.n_kv_heads) * hd
+                    + bb.n_heads * hd * d + 3 * d * ff)
+    attn = 2 * 2 * bb.n_heads * s * s * hd
+    return (bb.n_layers * (proj + attn) + 2 * s * enc_cfg.d_patch * d
+            + 2 * s * d * enc_cfg.proj_dim)
+
+
+def _model_phase(args, torch, np, dev, smi, arch, gen_cfg, kernel_mods):
+    """Phase 9: the ColPali encoder (a 2-layer cut on the card against the
+    CPU, then 1024 pages at full width indexed and searched) and RAG over
+    the fact corpus with three retrievers and the qwen2-1.5b generator.
+    ``arch`` is the colpali-hpc config (HPCColPaliArch), ``gen_cfg`` the
+    generator's LMConfig. Returns the launches by path and the readings."""
+    import dataclasses
+    from repro_torch import state_to
+    from repro_torch.core import pruning, rag
+    from repro_torch.data.synthetic import make_fact_corpus
+    from repro_torch.models import colpali
+    from repro_torch.models import transformer as T
+    from repro_torch.parity import topk_mismatches
+    from repro_torch.retrieval import Corpus, HPCConfig, Query, Retriever
+
+    enc_cfg = arch.encoder
+    bb = enc_cfg.backbone
+    heads = bb.n_heads
+    m_pages = enc_cfg.n_patches
+    m_keep = pruning.keep_count(m_pages, arch.hpc.p)
+    launches = {}
+
+    def zero():
+        for mod in kernel_mods.values():
+            mod.launches = 0
+
+    def counts():
+        return {n: mod.launches for n, mod in kernel_mods.items()}
+
+    # -- 9a. a 2-layer cut, card against CPU ------------------------------
+    t0 = _phase(f"9a. encoder: a {ENC_CUT_LAYERS}-layer cut at full width "
+                f"on the card against the CPU")
+    cut = dataclasses.replace(enc_cfg, backbone=dataclasses.replace(
+        bb, n_layers=ENC_CUT_LAYERS, activation_dtype="float32"))
+    enc = colpali.init(cut, generator=torch.Generator(dev).manual_seed(
+        args.seed + 90), device=dev)
+    cpu = colpali.ColPaliEncoder(cut, device="cpu")
+    cpu.load_state_dict(enc.state_dict())
+    hg = torch.Generator().manual_seed(args.seed + 91)
+    page = torch.randn((1, m_pages, enc_cfg.d_patch), generator=hg)
+    pmask = torch.ones((1, m_pages), dtype=torch.bool)
+    qtok = torch.randint(0, bb.vocab, (1, enc_cfg.query_len), generator=hg)
+    qmask = torch.ones((1, enc_cfg.query_len), dtype=torch.bool)
+    cut_err = {}
+    for name, fn, inputs in (("page", "encode_doc", (page, pmask)),
+                             ("query", "encode_query", (qtok, qmask))):
+        e_dev, s_dev = getattr(enc, fn)(*(a.to(dev) for a in inputs))
+        e_cpu, s_cpu = getattr(cpu, fn)(*inputs)
+        e_err = float((e_dev.cpu() - e_cpu).abs().max())
+        s_err = float((s_dev.cpu() - s_cpu).abs().max()) / heads
+        cut_err[name] = {"emb_max_abs_err": e_err,
+                         "salience_over_heads_max_abs_err": s_err}
+        assert e_err <= CUT_EMB_TOL, f"9a {name} embeddings differ: {e_err}"
+        assert s_err <= CUT_SAL_TOL, f"9a {name} salience differs: {s_err}"
+        if name == "page":
+            kept = [set(pruning.prune_topp(e, s, pmask, p=arch.hpc.p)
+                        .indices[0].tolist())
+                    for e, s in ((e_dev.cpu(), s_dev.cpu()), (e_cpu, s_cpu))]
+            s64 = s_cpu[0].double()
+            boundary = float(torch.sort(s64, descending=True).values[
+                m_keep - 1])
+            moved = kept[0] ^ kept[1]
+            assert all(abs(float(s64[j]) - boundary) <= 2 * CUT_SAL_TOL
+                       * heads for j in moved), \
+                f"9a kept sets differ outside near-ties: {sorted(moved)}"
+            cut_err["kept_patches"] = len(kept[0])
+            cut_err["kept_set_near_tie_swaps"] = len(moved) // 2
+    print(f"9a: {json.dumps(cut_err)} in {time.perf_counter() - t0:.1f}s")
+    del enc, cpu
+    torch.cuda.empty_cache()
+
+    # -- 9b. 1024 pages at full width, indexed and searched -----------------
+    t0 = _phase(f"9b. encoder at full width: {ENC_PAGES} pages of "
+                f"{m_pages} patches, indexed and searched")
+    # memory held by earlier phases, so the peak above it is this phase's
+    base = torch.cuda.memory_allocated()
+    enc = colpali.init(enc_cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 92), device=dev)
+    mb = ENC_MICRO_BATCH
+    mask = torch.ones((mb, m_pages), dtype=torch.bool, device=dev)
+    warm = torch.randn((mb, m_pages, enc_cfg.d_patch), device=dev,
+                       generator=torch.Generator(dev).manual_seed(0))
+    enc.encode_doc(warm, mask)                    # cuBLAS set-up, untimed
+    del warm
+    emb = torch.empty((ENC_PAGES, m_pages, enc_cfg.proj_dim), device=dev)
+    sal = torch.empty((ENC_PAGES, m_pages), device=dev)
+    pgen = torch.Generator(dev).manual_seed(args.seed + 93)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    for i in range(0, ENC_PAGES, mb):
+        patches = torch.randn((mb, m_pages, enc_cfg.d_patch), device=dev,
+                              generator=pgen)
+        emb[i:i + mb], sal[i:i + mb] = enc.encode_doc(patches, mask)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t1
+    enc_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    norms = torch.linalg.vector_norm(emb, dim=-1)
+    sal_sum = sal.sum(dim=-1)
+    norm_dev = float((norms - 1.0).abs().max())
+    sum_dev = float(((sal_sum - heads) / heads).abs().max())
+    assert bool(torch.isfinite(emb).all()), "non-finite page embeddings"
+    assert norm_dev <= NORM_TOL, f"page embeddings off unit norm: {norm_dev}"
+    assert sum_dev <= SAL_SUM_TOL, f"page salience sums off {heads}: {sum_dev}"
+
+    split = _encoder_split(torch, enc, mb, dev)
+
+    flops = _encoder_flops(enc_cfg, m_pages)
+    ref_flops = 2.0 * enc_cfg.param_count() * m_pages
+    rate = flops * ENC_PAGES / encode_s
+    encoder = {
+        "pages": ENC_PAGES, "micro_batch": mb, "encode_s": encode_s,
+        "pages_per_s": ENC_PAGES / encode_s,
+        "peak_memory_gib": enc_peak,
+        "executed_matmul_tflop_per_page": flops / 1e12,
+        "reference_model_tflop_per_page": ref_flops / 1e12,
+        "executed_tflop_per_s": rate / 1e12,
+        "share_of_bf16_peak": rate / PEAK_BF16_FLOPS,
+        "bf16_bound_s": flops * ENC_PAGES / PEAK_BF16_FLOPS,
+        "device_ms_per_micro_batch": split,
+        "max_unit_norm_dev": norm_dev,
+        "max_salience_sum_rel_dev": sum_dev,
+        "saved_fraction_p60": pruning.compute_saved_fraction(m_pages,
+                                                             arch.hpc.p)}
+    print(f"encoded {ENC_PAGES} pages in {encode_s:.2f}s "
+          f"({ENC_PAGES / encode_s:.1f} pages/s, {rate / 1e12:.1f} TFLOP/s "
+          f"executed, {rate / PEAK_BF16_FLOPS:.3f} of the BF16 peak) | "
+          f"peak memory {enc_peak:.2f} GiB (weights, micro-batch, outputs) "
+          f"| {smi}")
+
+    # the flat index over the encoder's embeddings and salience
+    cfg = arch.hpc
+    retriever = Retriever(cfg)
+    zero()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state = retriever.build(torch.Generator(dev).manual_seed(args.seed + 94),
+                            Corpus(emb, torch.ones_like(sal, dtype=torch.bool),
+                                   sal))
+    torch.cuda.synchronize()
+    encoder["build_s"] = time.perf_counter() - t1
+    launches["encoder build"] = counts()
+    storage = retriever.storage_bytes(state)
+    assert storage["payload"] == ENC_PAGES * m_keep, storage
+    assert launches["encoder build"]["kmeans_assign"] >= 1, \
+        "the encoder's build never launched kmeans_assign"
+    del emb, sal
+    torch.cuda.empty_cache()
+
+    # 64 queries with ragged token lengths, encoded and searched in batches
+    qg = torch.Generator(dev).manual_seed(args.seed + 95)
+    q_tok = torch.randint(0, bb.vocab, (ENC_QUERIES, enc_cfg.query_len),
+                          generator=qg, device=dev)
+    q_len = torch.randint(8, enc_cfg.query_len + 1, (ENC_QUERIES,),
+                          generator=qg, device=dev)
+    q_mask = torch.arange(enc_cfg.query_len, device=dev)[None] < q_len[:, None]
+    q_emb, q_sal = enc.encode_query(q_tok, q_mask)
+    assert bool(torch.isfinite(q_emb).all())
+    q_sums = q_sal.sum(-1)
+    del enc
+    torch.cuda.empty_cache()
+    zero()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results = [retriever.search(state, Query(q_emb[i:i + MAX_BATCH],
+                                             q_mask[i:i + MAX_BATCH],
+                                             q_sal[i:i + MAX_BATCH]),
+                                k=TOP_K)
+               for i in range(0, ENC_QUERIES, MAX_BATCH)]
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t1
+    launches["encoder search"] = counts()
+    n_batches = len(results)
+    assert launches["encoder search"]["quantized_maxsim"] == 2 * n_batches, \
+        f"encoder searches: {launches['encoder search']}"
+    cpu_state = state_to(state, "cpu")
+    q0 = Query(*(a[:MAX_BATCH].cpu() for a in (q_emb, q_mask, q_sal)))
+    cpu_s, cpu_i = retriever.search(cpu_state, q0, k=TOP_K)
+    dev_s, dev_i = (a.cpu() for a in results[0])
+    torch.testing.assert_close(dev_s, cpu_s, atol=QMAXSIM_TOL,
+                               rtol=QMAXSIM_TOL)
+    bad = topk_mismatches(dev_i.numpy(), dev_s.numpy(), cpu_i.numpy(),
+                          cpu_s.numpy(), QMAXSIM_TOL)
+    assert not bad, f"encoder search ids differ from the CPU at {bad}"
+    encoder.update({
+        "search_ms_per_batch": search_s / n_batches * 1e3,
+        "query_salience_sum_range": [float(q_sums.min()),
+                                     float(q_sums.max())],
+        "first_batch_ids_differing_at_ties": int((dev_i != cpu_i).sum()),
+        "launches": {p: launches[p] for p in ("encoder build",
+                                              "encoder search")}})
+    print(json.dumps({"encoder": encoder}))
+    del state, cpu_state, results, q_emb, q_sal
+    torch.cuda.empty_cache()
+    print(f"encoder phase {time.perf_counter() - t0:.1f}s")
+
+    # -- 9c. RAG at full width ----------------------------------------------
+    t0 = _phase(f"9c. RAG over {RAG_DOCS} fact docs with the "
+                f"{gen_cfg.name} generator")
+    rag_base = torch.cuda.memory_allocated()
+    corpus, vocab = make_fact_corpus(
+        seed=args.seed + 96, n_docs=RAG_DOCS, n_facts_vocab=RAG_FACTS,
+        facts_per_doc=RAG_FPD, dim=enc_cfg.proj_dim, n_patches=m_pages,
+        n_queries=RAG_QUERIES, seq_len=RAG_SEQ, device=dev)
+    gen = T.init(gen_cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 97), device=dev)
+    docs = Corpus(corpus.doc_patches, corpus.doc_mask, corpus.doc_salience)
+    resident = (torch.cuda.memory_allocated() - rag_base) / 2**30
+    print(f"generator weights and fact corpus: {resident:.2f} GiB")
+    rows = {}
+    for name, knobs in RAG_RETRIEVERS:
+        rcfg = rag.RAGConfig(retriever=HPCConfig(**knobs),
+                             top_k_docs=RAG_TOP_K_DOCS, facts_per_doc=RAG_FPD,
+                             fact0=vocab["fact0"], max_answer=RAG_MAX_ANSWER)
+        r = Retriever(rcfg.retriever)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = r.build(torch.Generator(dev).manual_seed(args.seed + 98),
+                        docs)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+        launches[f"rag {name} build"] = counts()
+        # warm the generator's shapes and the search once, out of the reading
+        rag.retrieve_and_generate(state, gen, corpus, rcfg,
+                                  slice(0, RAG_QUERIES), device=dev)
+        zero()
+        run = rag.retrieve_and_generate(state, gen, corpus, rcfg, device=dev)
+        launches[f"rag {name}"] = counts()
+        m = rag.rag_metrics(run, corpus, rcfg, RAG_FACTS)
+        row = {"retriever": name, "build_s": build_s,
+               "retrieve_ms": m["retrieve_ms"],
+               "generate_ms": m["generate_ms"],
+               "latency_ms": m["latency_ms"],
+               "launches": launches[f"rag {name}"],
+               "build_launches": launches[f"rag {name} build"],
+               "peak_memory_gib": (torch.cuda.max_memory_allocated()
+                                   - base) / 2**30,
+               "untrained_generator_quality": {
+                   k: m[k] for k in ("rouge_l", "hallucination",
+                                     "answer_acc")}}
+        assert run.tokens.shape == (RAG_QUERIES, RAG_MAX_ANSWER)
+        assert ((run.ids >= 0) & (run.ids < RAG_DOCS)).all()
+        got = launches[f"rag {name}"]
+        if name == "float_flat":
+            assert got["maxsim"] >= 1, got
+        elif name == "flat":
+            assert got["quantized_maxsim"] == 2, got
+            assert launches[f"rag {name} build"]["kmeans_assign"] >= 1
+            # the first batch of ids against the CPU plain path
+            q = Query(*(a[:MAX_BATCH] for a in (
+                corpus.query_patches, corpus.query_mask,
+                corpus.query_salience)))
+            dev_s, dev_i = (a.cpu() for a in r.search(state, q,
+                                                      k=RAG_TOP_K_DOCS))
+            cpu_s, cpu_i = r.search(state_to(state, "cpu"), Query(
+                *(a.cpu() for a in q)), k=RAG_TOP_K_DOCS)
+            bad = topk_mismatches(dev_i.numpy(), dev_s.numpy(),
+                                  cpu_i.numpy(), cpu_s.numpy(), QMAXSIM_TOL)
+            assert not bad, f"RAG flat ids differ from the CPU at {bad}"
+            assert torch.equal(run.ids[:MAX_BATCH].cpu(),
+                               torch.clamp(dev_i, min=0))
+            row["first_batch_ids_differing_at_ties"] = int(
+                (dev_i != cpu_i).sum())
+            row["greedy_check"] = _greedy_check(torch, T, gen, gen_cfg,
+                                                run.prompt[:RAG_CHECK_PROMPTS])
+            row["generate_split_ms"] = _generate_split(torch, T, gen,
+                                                       run.prompt)
+        elif name == "hamming":
+            assert got["hamming_maxsim"] >= 1 and got["kmeans_assign"] == 1, \
+                got
+        rows[name] = row
+        print(json.dumps({"rag": row}))
+        del state, run
+        torch.cuda.empty_cache()
+    del gen, corpus, docs
+    torch.cuda.empty_cache()
+    print(f"RAG phase {time.perf_counter() - t0:.1f}s | {smi}")
+    return {"launches": launches, "encoder": encoder, "rag": rows,
+            "cut": cut_err}
+
+
+def _encoder_split(torch, enc, mb, dev):
+    """Device time of one micro-batch of ``mb`` pages through encode_doc,
+    and of its parts in one layer (each replayed from a CUDA graph):
+    attention without and with the salience mass, the float32 score
+    product of one query block alone, the FFN, and PyTorch's
+    scaled_dot_product_attention on the same bf16 q, k, v (causal, GQA),
+    which returns no probabilities and so no salience: the yardstick for a
+    fused attention kernel."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    cfg = enc.cfg
+    bb = cfg.backbone
+    g = torch.Generator(dev).manual_seed(1)
+    x = torch.randn((mb, cfg.n_patches, cfg.d_patch), device=dev, generator=g)
+    mask = torch.ones((mb, cfg.n_patches), dtype=torch.bool, device=dev)
+    blk = enc.backbone.blocks[0]
+    h = blk.ln1((x.to(bb.adtype) @ enc.patch_proj.to(bb.adtype)))
+    pos = torch.arange(cfg.n_patches, device=dev)[None].expand(mb, -1)
+    dims = dict(n_heads=bb.n_heads, n_kv=bb.n_kv_heads, head_dim=bb.hd,
+                theta=bb.rope_theta, q_chunk=bb.q_chunk)
+    q, k, v = L._qkv(blk.attn, h, bb.n_heads, bb.n_kv_heads, bb.hd)
+    g_ = bb.n_heads // bb.n_kv_heads
+    qc = min(bb.q_chunk, cfg.n_patches)
+    qf = q[:, :qc].reshape(mb, qc, bb.n_kv_heads, g_, bb.hd).permute(
+        0, 2, 3, 1, 4).reshape(mb, bb.n_kv_heads, g_ * qc, bb.hd).float()
+    kf = k.permute(0, 2, 3, 1).float().contiguous()
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    parts = {
+        "encode_doc": lambda: enc.encode_doc(x, mask),
+        "attention_one_layer": lambda: L.attention_kv(
+            blk.attn, h, pos, want_salience=False, **dims),
+        "attention_with_salience_one_layer": lambda: L.attention_kv(
+            blk.attn, h, pos, want_salience=True, **dims),
+        "f32_score_product_one_q_block": lambda: torch.matmul(qf, kf),
+        "ffn_one_layer": lambda: blk.ffn(h),
+        "sdpa_bf16_causal_gqa_one_layer": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True),
+    }
+    with torch.no_grad():
+        out = {name: _time_ms(torch, fn, 2) for name, fn in parts.items()}
+    print(f"encoder split, device ms per micro-batch of {mb} pages: "
+          f"{json.dumps(out)}")
+    return out
+
+
+def _generate_split(torch, T, gen, prompt):
+    """Host wall and device time of the generation's parts at the RAG
+    batch: the prefill of the prompts, one decode step, and the float32
+    logits product of one step alone."""
+    plen = prompt.shape[1]
+    logits, cache = T.prefill(gen, prompt, max_len=plen + RAG_MAX_ANSWER)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    h = torch.randn((prompt.shape[0], 1, gen.cfg.d_model), device=prompt.device,
+                    generator=torch.Generator(prompt.device).manual_seed(2)
+                    ).to(gen.cfg.adtype)
+    return _split(torch, {
+        "prefill": lambda: T.prefill(gen, prompt, max_len=plen
+                                     + RAG_MAX_ANSWER),
+        "decode_step": lambda: T.decode_step(gen, tok, cache, plen),
+        "logits_one_step": lambda: gen.logits(h)})
+
+
+def _greedy_check(torch, T, gen, gen_cfg, prompts):
+    """Cached greedy decoding (prefill + decode steps) of ``prompts`` with
+    float32 activations over ``gen``'s weights, against the argmax of a
+    full, uncached forward over the growing sequence at every step; a
+    differing token must be a near-tie of the uncached logits. Returns the
+    count of steps checked and of near-ties."""
+    import dataclasses
+    from repro_torch.core import rag
+    f32 = T.Transformer(dataclasses.replace(gen_cfg,
+                                            activation_dtype="float32"),
+                        device=prompts.device)
+    f32.load_state_dict(gen.state_dict(), assign=True)
+    plen = prompts.shape[1]
+    toks = rag.greedy_generate(f32, prompts, RAG_MAX_ANSWER, plen)
+    ties = 0
+    with torch.no_grad():
+        for i in range(RAG_MAX_ANSWER):
+            seq = torch.cat([prompts, toks[:, :i].to(prompts.dtype)], dim=1)
+            logits = f32.logits(f32(seq)[0][:, -1:])[:, 0]
+            best = logits.max(dim=-1).values
+            picked = logits.gather(1, toks[:, i:i + 1].long())[:, 0]
+            differ = torch.argmax(logits, -1).to(torch.int32) != toks[:, i]
+            gap = (best - picked).abs()
+            tol = LOGIT_TIE_TOL * torch.clamp(best.abs(), min=1.0)
+            assert bool((gap[differ] <= tol[differ]).all()), \
+                f"cached greedy token {i} differs from the uncached argmax"
+            ties += int(differ.sum())
+    del f32
+    return {"prompts": int(prompts.shape[0]), "steps": RAG_MAX_ANSWER,
+            "near_ties": ties}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1186,6 +1634,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device on this host", file=sys.stderr)
         return 2
     from repro_torch import state_to
+    from repro_torch.configs.colpali_hpc import COLPALI_HPC
+    from repro_torch.configs.lm_archs import QWEN2_1_5B
     from repro_torch.core import index as index_mod
     from repro_torch.core import pruning
     from repro_torch.core import scan as scan_mod
@@ -1212,6 +1662,8 @@ def main(argv=None) -> int:
     t0 = _phase("device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in float32, as the reference's do (phase 9)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
@@ -1231,7 +1683,9 @@ def main(argv=None) -> int:
           f"{popc_per_s:.3e} popcounts/s")
     print(smi)
     print(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} | bf16 "
+          f"reduced-precision reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
     # -- 2. build --------------------------------------------------------
     t0 = _phase("build")
@@ -1868,12 +2322,14 @@ def main(argv=None) -> int:
                      kernel_mods, lds_per_s)
     del flat_s, flat_retriever, live["delta"]
     torch.cuda.empty_cache()
+    model = _model_phase(args, torch, np, dev, smi, COLPALI_HPC.config,
+                         QWEN2_1_5B.config, kernel_mods)
 
     by_path = {"flat": {"quantized_maxsim": qm_launches,
                         "kmeans_assign": km_launches},
                "cascade": casc_launches,
                "live cascade": live["launches"],
-               **ann["launches"]}
+               **ann["launches"], **model["launches"]}
 
     def launches(name):
         return sum(path.get(name, 0) for path in by_path.values())

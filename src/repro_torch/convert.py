@@ -35,6 +35,14 @@ the index files' leaf order. Named-tuple fields holding a Python int
 the reference; ints of the wrapper dataclasses are knobs, not leaves.
 
 ``state_to`` copies a built state of any backend to another device.
+
+``lm_params_from_numpy`` and ``colpali_params_from_numpy`` carry a model's
+weights across: they take the reference's param dicts as host arrays
+(nested dicts, or flat ``/``-joined keys: ``embed``, ``ln_f``, optional
+``unembed``, the stacked ``blocks/...`` of shape (L, ...), and for the
+encoder ``backbone/...``, ``patch_proj``, ``out_proj``) and return the
+port's module on ``device``, each block taking its slice of the stack. A
+missing, unexpected or misshapen array is rejected by name.
 """
 from __future__ import annotations
 
@@ -48,6 +56,8 @@ from repro_torch.core.graph import HNSWIndex
 from repro_torch.core.index import (FlatIndex, FloatFlatIndex, HammingIndex,
                                     IVFIndex, SegmentedState)
 from repro_torch.device import resolve_device
+from repro_torch.models.colpali import ColPaliConfig, ColPaliEncoder
+from repro_torch.models.transformer import LMConfig, Transformer
 from repro_torch.retrieval.base import RetrieverState
 from repro_torch.retrieval.cascade import STAGES, CascadeState
 from repro_torch.retrieval.hamming import HammingState
@@ -259,3 +269,75 @@ def state_to(state: Any, device) -> Any:
             f.name: state_to(getattr(state, f.name), device)
             for f in dataclasses.fields(state)})
     return state
+
+
+# ---------------------------------------------------------------------------
+# model weights
+# ---------------------------------------------------------------------------
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict of arrays -> {"a/b/c": array}."""
+    if not isinstance(tree, dict):
+        return {prefix.rstrip("/"): tree}
+    out = {}
+    for key, val in tree.items():
+        out.update(_flatten(val, f"{prefix}{key}/"))
+    return out
+
+
+def _reference_path(name: str):
+    """A port parameter name -> (the reference's key, layer index or None):
+    ``backbone.blocks.3.attn.wq`` -> (``backbone/blocks/attn/wq``, 3);
+    a norm's ``.weight`` is the reference's bare key (``ln_f``)."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts = parts[:-1]
+    layer = None
+    if "blocks" in parts:
+        at = parts.index("blocks")
+        layer = int(parts.pop(at + 1))
+    return "/".join(parts), layer
+
+
+def _load_module(module: torch.nn.Module, tree, what: str):
+    arrays = _flatten(tree)
+    params = dict(module.named_parameters())
+    wanted = {}
+    for name, param in params.items():
+        key, layer = _reference_path(name)
+        wanted.setdefault(key, []).append((layer, param))
+    missing = sorted(set(wanted) - set(arrays))
+    if missing:
+        raise KeyError(f"{what}: missing arrays {missing}")
+    extra = sorted(set(arrays) - set(wanted))
+    if extra:
+        raise KeyError(f"{what}: unexpected arrays {extra}")
+    for key, targets in wanted.items():
+        arr = np.asarray(arrays[key])
+        layers = [layer for layer, _ in targets]
+        shape = targets[0][1].shape
+        want = shape if layers == [None] else (len(layers), *shape)
+        if arr.shape != tuple(want):
+            raise ValueError(f"{what}: {key} has shape {arr.shape}, "
+                             f"expected {tuple(want)}")
+        with torch.no_grad():
+            for layer, param in targets:
+                part = arr if layer is None else arr[layer]
+                param.copy_(torch.from_numpy(np.array(part, copy=True)))
+    return module
+
+
+def lm_params_from_numpy(tree, cfg: LMConfig, *, device="cuda"
+                         ) -> Transformer:
+    """The reference's LM params (``repro.models.transformer.init``'s
+    tree, as host arrays) -> the port's ``Transformer`` on ``device``."""
+    return _load_module(Transformer(cfg, device=device), tree,
+                        "lm_params_from_numpy")
+
+
+def colpali_params_from_numpy(tree, cfg: ColPaliConfig, *, device="cuda"
+                              ) -> ColPaliEncoder:
+    """The reference's encoder params (``repro.models.colpali.init``'s
+    tree, as host arrays) -> the port's ``ColPaliEncoder`` on ``device``."""
+    return _load_module(ColPaliEncoder(cfg, device=device), tree,
+                        "colpali_params_from_numpy")

@@ -3,12 +3,14 @@
 The counterpart of ``repro.core.pruning``: keep the top-p% most salient
 patches, ceil(M * p / 100) of them, computed in Python. The selection is a
 stable descending sort, so equal salience keeps the lowest patch index
-first, the order ``lax.top_k`` gives.
+first, the order ``lax.top_k`` gives. ``salience_from_attention`` turns
+an attention tensor into that salience; ``compute_saved_fraction`` is the
+compute the pruning saves.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -63,3 +65,21 @@ def prune_topp_codes(codes: Tensor, salience: Tensor, mask: Tensor, *,
     kept_mask = top_sal > NEG_INF / 2
     kept = torch.take_along_dim(codes.to(torch.int32), top_idx, dim=-1)
     return kept.to(codes.dtype), top_idx.to(torch.int32), kept_mask, top_sal
+
+
+def compute_saved_fraction(m: int, p: float) -> float:
+    """Fraction of late-interaction compute removed by pruning one side to
+    p%: the doc factor of O(Mq * Md) falls to ceil(M*p/100)/M."""
+    return 1.0 - keep_count(m, p) / m
+
+
+def salience_from_attention(attn: Tensor,
+                            query_len_mask: Optional[Tensor] = None
+                            ) -> Tensor:
+    """Aggregate a (..., H, Tq, Tk) attention tensor into per-position
+    salience (..., Tk): the mean over heads and query positions of the
+    attention mass key j receives, times the optional mask."""
+    sal = attn.mean(dim=(-3, -2))
+    if query_len_mask is not None:
+        sal = sal * query_len_mask.to(sal.dtype)
+    return sal

@@ -12,7 +12,10 @@ The Lloyd and mini-batch E-steps are plain torch (``pairwise_sq_dists`` +
 quantization (``quantize``) goes through ``kernels.ops.kmeans_assign``:
 the CUDA kernel for CUDA tensors. Centroid sums use ``index_add_``; on the
 card its atomics add in an order that changes from run to run, so a fit
-there is reproducible only up to float rounding.
+there is reproducible only up to float rounding. Product quantization
+(``PQConfig``, ``pq_fit``, ``pq_quantize``, ``pq_decode``) fits one
+codebook per sub-space with the same k-means and assigns in plain torch,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -242,3 +245,55 @@ def quantize(x: Tensor, centroids: Tensor, code_dtype=torch.uint8, *,
 def quantization_error(x: Tensor, centroids: Tensor) -> Tensor:
     """Mean squared reconstruction error of the codebook on x (N, D)."""
     return _inertia(x, centroids)
+
+
+# ---------------------------------------------------------------------------
+# Product quantization (paper §VII "Future work"): D split into n_sub
+# sub-spaces with an independent codebook each, as the reference's
+# storage ablations use it.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PQConfig:
+    k: int = 256
+    n_sub: int = 4
+    iters: int = 15
+    seed_batch: int = 4096
+    n_restarts: int = 8
+    minibatch: int = 0
+
+
+def pq_fit(gen: torch.Generator, x: Tensor, config: PQConfig) -> Tensor:
+    """Train per-subspace codebooks on x (N, D) -> (n_sub, K, D/n_sub):
+    one ``kmeans_fit`` per sub-space, in order, from the same generator."""
+    n, d = x.shape
+    if d % config.n_sub:
+        raise ValueError(f"pq_fit: D={d} is not a multiple of n_sub="
+                         f"{config.n_sub}")
+    sub = x.reshape(n, config.n_sub, d // config.n_sub).transpose(0, 1)
+    kcfg = KMeansConfig(k=config.k, iters=config.iters,
+                        seed_batch=config.seed_batch,
+                        n_restarts=config.n_restarts,
+                        minibatch=config.minibatch)
+    return torch.stack([kmeans_fit(gen, sub[i].contiguous(), kcfg)[0]
+                        for i in range(config.n_sub)])
+
+
+def pq_quantize(x: Tensor, codebooks: Tensor) -> Tensor:
+    """x (…, D) -> codes (…, n_sub) uint8 (K <= 256) or uint16: each
+    sub-space's nearest centroid by the full clamped distance (``assign``,
+    the reference's form)."""
+    n_sub, k, ds = codebooks.shape
+    flat = x.reshape(-1, n_sub, ds).transpose(0, 1)          # (n_sub, N, ds)
+    codes = torch.stack([assign(flat[i], codebooks[i])
+                         for i in range(n_sub)], dim=1)       # (N, n_sub)
+    dt = torch.uint8 if k <= 256 else torch.uint16
+    return codes.to(dt).reshape(*x.shape[:-1], n_sub)
+
+
+def pq_decode(codes: Tensor, codebooks: Tensor) -> Tensor:
+    """codes (…, n_sub) -> x̂ (…, n_sub * ds)."""
+    n_sub, _, ds = codebooks.shape
+    flat = codes.reshape(-1, n_sub).to(torch.int64)           # (N, n_sub)
+    parts = codebooks[torch.arange(n_sub, device=codes.device), flat]
+    return parts.reshape(*codes.shape[:-1], n_sub * ds)

@@ -1,11 +1,13 @@
-"""Synthetic multi-vector retrieval corpus with planted graded relevance.
+"""Synthetic corpora with planted structure: the multi-vector retrieval
+corpus with graded relevance, and the RAG fact corpus.
 
-The counterpart of ``repro.data.synthetic.make_retrieval_corpus``: the same
-planted structure, drawn from a ``torch.Generator`` on the target device,
-so the random numbers differ from the JAX corpus at the same seed.
+The counterparts of ``repro.data.synthetic.make_retrieval_corpus`` and
+``make_fact_corpus``: the same planted structure, drawn from a
+``torch.Generator`` on the target device, so the random numbers differ
+from the JAX corpora at the same seed.
 
-Structure: each topic owns a bank of patch prototypes. A document samples
-its salient patches from its topic bank (shared within a group of
+Retrieval corpus: each topic owns a bank of patch prototypes. A document
+samples its salient patches from its topic bank (shared within a group of
 near-duplicates) and background patches from any bank. A query is built
 from a target doc's salient patches plus noise. Relevance: target doc = 3,
 its near-duplicates = 2, same-topic docs = 1, the rest 0.
@@ -13,7 +15,7 @@ its near-duplicates = 2, same-topic docs = 1, the rest 0.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -108,3 +110,86 @@ def make_retrieval_corpus(spec: CorpusSpec, *, seed: int,
            + (same_topic & ~same_group).to(torch.int32))
     return RetrievalData(patches, mask, sal, topic.to(torch.int32),
                          q_patches, q_mask, q_sal, rel)
+
+
+# ---------------------------------------------------------------------------
+# RAG fact corpus (paper Table V)
+# ---------------------------------------------------------------------------
+
+class FactCorpus(NamedTuple):
+    doc_patches: Tensor     # (N, Md, D) float32
+    doc_mask: Tensor        # (N, Md) bool
+    doc_salience: Tensor    # (N, Md) float32 (ones)
+    doc_facts: Tensor       # (N, F) int32 fact ids carried by each doc
+    doc_tokens: Tensor      # (N, Ld) int32 generator-side rendering
+    query_tokens: Tensor    # (Q, 4) int32
+    query_patches: Tensor   # (Q, 4, D) retriever-side rendering
+    query_mask: Tensor      # (Q, 4) bool
+    query_salience: Tensor  # (Q, 4) float32 (ones)
+    gold_doc: Tensor        # (Q,) int32 the doc answering each query
+    gold_facts: Tensor      # (Q, F) int32 reference facts (gold doc's)
+
+
+def make_fact_corpus(*, seed: int, n_docs: int = 256,
+                     n_facts_vocab: int = 200, facts_per_doc: int = 4,
+                     dim: int = 64, n_patches: int = 16, n_queries: int = 64,
+                     seq_len: int = 32, device="cuda"
+                     ) -> Tuple[FactCorpus, Dict[str, int]]:
+    """Legal-summarisation stand-in where hallucination is measurable, on
+    ``device``: the reference's layout and shapes, drawn from ``seed``.
+
+    Token layout: [0] PAD, [1] SEP, [2] QUERY-marker,
+    [3 .. 3+n_facts_vocab) fact tokens. A doc's tokens are its fact tokens
+    and a SEP; a query asks (the QUERY marker, one probe fact token, SEP)
+    for the doc holding that fact; the reference summary is the gold doc's
+    fact set. Each fact has a patch-space prototype, and a doc's patches
+    are its facts' prototypes repeated, plus noise, L2-normalised.
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vocab = {"pad": 0, "sep": 1, "query": 2, "fact0": 3,
+             "size": 3 + n_facts_vocab}
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def randint(high, *shape):
+        return torch.randint(0, high, shape, generator=gen, device=dev)
+
+    fact_proto = normal(n_facts_vocab, dim)
+    doc_facts = randint(n_facts_vocab, n_docs, facts_per_doc)
+    reps = n_patches // facts_per_doc
+    pat_f = doc_facts.repeat_interleave(reps, dim=1)[:, :n_patches]
+    patches = fact_proto[pat_f]
+    for start in range(0, n_docs, _NOISE_CHUNK_DOCS):
+        part = patches[start:start + _NOISE_CHUNK_DOCS]
+        part.add_(normal(*part.shape), alpha=0.15)
+    patches.div_(torch.linalg.vector_norm(patches, dim=-1, keepdim=True))
+    sal = torch.ones((n_docs, n_patches), device=dev)
+    mask = torch.ones((n_docs, n_patches), dtype=torch.bool, device=dev)
+
+    dt = torch.full((n_docs, seq_len), vocab["pad"], dtype=torch.int32,
+                    device=dev)
+    dt[:, :facts_per_doc] = doc_facts + vocab["fact0"]
+    dt[:, facts_per_doc] = vocab["sep"]
+
+    gold_doc = randint(n_docs, n_queries)
+    probe_slot = randint(facts_per_doc, n_queries)
+    probe_fact = doc_facts[gold_doc, probe_slot]                # (Q,)
+    qt = torch.full((n_queries, 4), vocab["pad"], dtype=torch.int32,
+                    device=dev)
+    qt[:, 0] = vocab["query"]
+    qt[:, 1] = probe_fact + vocab["fact0"]
+    qt[:, 2] = vocab["sep"]
+
+    mq = 4
+    q_patches = fact_proto[probe_fact][:, None].expand(n_queries, mq, dim)
+    q_patches = q_patches + 0.15 * normal(n_queries, mq, dim)
+    q_patches = q_patches / torch.linalg.vector_norm(q_patches, dim=-1,
+                                                     keepdim=True)
+    fc = FactCorpus(
+        patches, mask, sal, doc_facts.to(torch.int32), dt, qt, q_patches,
+        torch.ones((n_queries, mq), dtype=torch.bool, device=dev),
+        torch.ones((n_queries, mq), device=dev), gold_doc.to(torch.int32),
+        doc_facts[gold_doc].to(torch.int32))
+    return fc, vocab

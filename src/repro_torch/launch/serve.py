@@ -7,6 +7,8 @@ and serve queries through the asyncio continuous-batching server.
 ``--backend`` is any registered backend: flat, float_flat, hamming,
 cascade (the hamming -> ADC -> float funnel, budgets p1=1024, p2=64), or
 the ANN routers ivf (n_list=64, n_probe=8) and hnsw (m=8, ef_search=64).
+The deprecated ``--mode``/``--index`` pair is still accepted and resolved
+through ``HPCConfig``'s table.
 
 The counterpart of ``repro.launch.serve``. ``--device`` (default ``cuda``)
 picks where the corpus, the index and the search live; ``--device cpu``
@@ -135,8 +137,14 @@ def main(argv=None) -> ServeRun:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-docs", type=int, default=4096)
     ap.add_argument("--queries", type=int, default=256)
-    ap.add_argument("--backend", default="flat",
-                    choices=list(available_backends()))
+    ap.add_argument("--backend", default=None,
+                    choices=list(available_backends()),
+                    help="index backend (wins over --mode/--index)")
+    ap.add_argument("--mode", default=None,
+                    choices=["float", "quantized", "binary"],
+                    help="deprecated: use --backend")
+    ap.add_argument("--index", default=None, choices=["flat", "ivf"],
+                    help="deprecated: use --backend")
     ap.add_argument("--k", type=int, default=256)
     ap.add_argument("--p", type=float, default=60.0)
     ap.add_argument("--top-k", type=int, default=10)
@@ -150,8 +158,11 @@ def main(argv=None) -> ServeRun:
     args = ap.parse_args(argv)
 
     spec = synthetic.CorpusSpec(n_docs=args.n_docs, n_queries=args.queries)
-    cfg = HPCConfig(k=args.k, p=args.p, backend=args.backend,
-                    prune_side="doc", rerank=32)
+    backend = args.backend
+    if backend is None and args.mode is None and args.index is None:
+        backend = "flat"
+    cfg = HPCConfig(k=args.k, p=args.p, backend=backend, mode=args.mode,
+                    index=args.index, prune_side="doc", rerank=32)
     run = build_and_serve(
         spec, cfg, n_requests=args.queries, max_batch=args.max_batch,
         top_k=args.top_k, device=args.device, seed=0,

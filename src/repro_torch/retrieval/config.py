@@ -2,17 +2,60 @@
 read.
 
 The counterpart of ``repro.retrieval.config.HPCConfig``. ``backend`` names
-the index backend in the ``repro_torch.retrieval`` registry.
+the index backend in the ``repro_torch.retrieval`` registry. The v0 knobs
+``mode``/``index`` are still accepted as a deprecated alias pair, resolved
+to a backend through the reference's table, and kept populated on the
+config (derived from ``backend``) for old readers; the deprecation warns
+once per process, as the reference's does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+import warnings
+from typing import Literal, Optional
 
 from repro_torch.core import binary as binary_mod
 from repro_torch.core.graph import HNSWConfig
 from repro_torch.core.index import IVFConfig
 from repro_torch.core.scan import ScanConfig
+
+# (mode, index) -> backend name; the old union dispatch, now a table.
+_MODE_INDEX_TO_BACKEND = {
+    ("float", "flat"): "float_flat",
+    ("float", "ivf"): "float_flat",      # v0 ignored `index` for float
+    ("quantized", "flat"): "flat",
+    ("quantized", "ivf"): "ivf",
+    ("binary", "flat"): "hamming",       # v0 ignored `index` for binary
+    ("binary", "ivf"): "hamming",
+}
+# backend name -> canonical (mode, index) for old readers; hnsw and cascade
+# can never be produced *from* mode/index.
+_BACKEND_TO_MODE_INDEX = {
+    "float_flat": ("float", "flat"),
+    "flat": ("quantized", "flat"),
+    "ivf": ("quantized", "ivf"),
+    "hnsw": ("quantized", "ivf"),
+    "hamming": ("binary", "flat"),
+    "cascade": ("float", "flat"),
+}
+
+# The mode/index deprecation fires once per process, not once per
+# construction, as the reference's does. Tests reset this flag.
+_mode_index_warned = False
+
+
+def _warn_mode_index(backend: str) -> None:
+    global _mode_index_warned
+    if _mode_index_warned:
+        return
+    _mode_index_warned = True
+    # stacklevel: this helper -> __post_init__ -> dataclass __init__ ->
+    # the caller's HPCConfig(...) line.
+    warnings.warn(
+        "HPCConfig(mode=..., index=...) is deprecated and will be removed "
+        f"in v2.0; pass backend={backend!r} instead (this warning is "
+        "emitted once per process)",
+        DeprecationWarning, stacklevel=4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,11 +71,15 @@ class CascadeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class HPCConfig:
-    """Tunable knobs of HPC-ColPali (paper §III)."""
+    """Tunable knobs of HPC-ColPali (paper §III). ``backend`` selects the
+    primary search structure; ``mode``/``index`` are the deprecated v0
+    spelling, derived from it."""
 
     k: int = 256                     # codebook size (128/256/512)
     p: float = 60.0                  # top-p% patches kept
     prune_side: Literal["doc", "query", "both", "none"] = "doc"
+    mode: Optional[Literal["float", "quantized", "binary"]] = None
+    index: Optional[Literal["flat", "ivf"]] = None
     kmeans_iters: int = 25
     kmeans_restarts: int = 8         # independent codebook fits, best-of-N
     kmeans_seed_batch: int = 4096    # k-means++ seeding subsample; 0 = all
@@ -42,10 +89,29 @@ class HPCConfig:
                                      # quantized maxsim (0 = off)
     scan_block_docs: int = 256       # docs per streaming-scan block
     scan_impl: str = "auto"          # block scorer: auto|plain
-    backend: str = "flat"            # registry key
+    backend: Optional[str] = None    # registry key; wins over mode/index
     ivf: IVFConfig = dataclasses.field(default_factory=IVFConfig)
     hnsw: HNSWConfig = dataclasses.field(default_factory=HNSWConfig)
     cascade: CascadeConfig = dataclasses.field(default_factory=CascadeConfig)
+
+    def __post_init__(self):
+        if self.backend is None:
+            mode = self.mode if self.mode is not None else "quantized"
+            index = self.index if self.index is not None else "flat"
+            if self.mode is not None or self.index is not None:
+                _warn_mode_index(_MODE_INDEX_TO_BACKEND[(mode, index)])
+            object.__setattr__(
+                self, "backend", _MODE_INDEX_TO_BACKEND[(mode, index)])
+        elif self.backend not in _BACKEND_TO_MODE_INDEX:
+            # unknown names are allowed for out-of-tree backends, but then
+            # the mode/index aliases cannot be derived — leave as given.
+            if self.mode is None or self.index is None:
+                object.__setattr__(self, "mode", self.mode or "quantized")
+                object.__setattr__(self, "index", self.index or "flat")
+            return
+        mode, index = _BACKEND_TO_MODE_INDEX[self.backend]
+        object.__setattr__(self, "mode", mode)
+        object.__setattr__(self, "index", index)
 
     @property
     def bits(self) -> int:

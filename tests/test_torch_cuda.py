@@ -888,3 +888,109 @@ def test_uint16_codes_gather_on_the_card():
         mut = r.add(st_dev, Corpus(*(a[:10].to(dev) for a in corpus)))
         _assert_search_match(r.search(mut, q_dev, k=10),
                              r.search(state_to(mut, "cpu"), q, k=10))
+
+
+# ---------------------------------------------------------------------------
+# the encoder and the RAG path
+# ---------------------------------------------------------------------------
+
+def _cpu_copy(module, make):
+    """A CPU module built by ``make`` holding ``module``'s weights."""
+    cpu = make()
+    cpu.load_state_dict(module.state_dict())
+    return cpu
+
+
+def test_encoder_cut_on_the_card_matches_the_cpu():
+    """A 2-layer cut of the colpali-hpc encoder at full width, float32
+    activations: one 256-patch page and a 32-token query on the card and
+    on the CPU. Embeddings within 1e-4, salience / n_heads within 1e-6."""
+    from repro_torch.configs import colpali_hpc
+    from repro_torch.models import colpali
+    dev = _card()
+    full = colpali_hpc.COLPALI_HPC.config.encoder
+    cfg = dataclasses.replace(full, backbone=dataclasses.replace(
+        full.backbone, n_layers=2, activation_dtype="float32"))
+    enc = colpali.init(cfg, generator=torch.Generator(dev).manual_seed(0),
+                       device=dev)
+    cpu = _cpu_copy(enc, lambda: colpali.ColPaliEncoder(cfg, device="cpu"))
+    g = torch.Generator().manual_seed(1)
+    patches = torch.randn((1, 256, cfg.d_patch), generator=g)
+    mask = torch.ones((1, 256), dtype=torch.bool)
+    mask[0, 200:] = False
+    tok = torch.randint(0, cfg.backbone.vocab, (1, 32), generator=g)
+    tmask = torch.arange(32)[None] < 20
+    heads = cfg.backbone.n_heads
+    for fn, args in (("encode_doc", (patches, mask)),
+                     ("encode_query", (tok, tmask))):
+        e, s = getattr(enc, fn)(*(a.to(dev) for a in args))
+        e_cpu, s_cpu = getattr(cpu, fn)(*args)
+        torch.testing.assert_close(e.cpu(), e_cpu, atol=1e-4, rtol=0)
+        torch.testing.assert_close(s.cpu() / heads, s_cpu / heads,
+                                   atol=1e-6, rtol=0)
+
+
+def test_cached_greedy_equals_uncached_on_the_card():
+    """greedy_generate (prefill + cached decode steps) on the card gives
+    the argmax of a full forward over the growing sequence at every step,
+    and the CPU's tokens."""
+    from repro_torch.core import rag
+    from repro_torch.models import transformer as T
+    dev = _card()
+    cfg = T.LMConfig(n_layers=3, d_model=256, n_heads=8, n_kv_heads=2,
+                     d_ff=512, vocab=1024, head_dim=32, qkv_bias=True,
+                     rope_theta=1e6, q_chunk=16)
+    model = T.init(cfg, generator=torch.Generator(dev).manual_seed(2),
+                   device=dev)
+    prompt = torch.randint(0, cfg.vocab, (6, 14),
+                           generator=torch.Generator().manual_seed(3))
+    got = rag.greedy_generate(model, prompt.to(dev), 5, 14)
+    seq = prompt.to(dev)
+    with torch.no_grad():
+        for i in range(5):
+            h, _, _ = model(seq)
+            nxt = torch.argmax(model.logits(h[:, -1:])[:, 0], -1)
+            assert torch.equal(nxt.to(torch.int32), got[:, i])
+            seq = torch.cat([seq, nxt[:, None]], 1)
+    cpu = _cpu_copy(model, lambda: T.Transformer(cfg, device="cpu"))
+    assert torch.equal(rag.greedy_generate(cpu, prompt, 5, 14), got.cpu())
+
+
+@pytest.mark.parametrize("backend", ["flat", "hamming"])
+def test_rag_pipeline_on_the_card_matches_the_cpu(backend):
+    """rag_pipeline over a small fact corpus: the same retrieved ids,
+    prompts and tokens on the card (the kernels) as on the CPU (the plain
+    path)."""
+    from repro_torch import state_to
+    from repro_torch.core import rag
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer as T
+    from repro_torch.retrieval import Corpus, HPCConfig, Retriever
+    dev = _card()
+    corpus, vocab = synthetic.make_fact_corpus(
+        seed=4, n_docs=96, n_facts_vocab=60, facts_per_doc=3, dim=32,
+        n_patches=12, n_queries=16, seq_len=8, device="cpu")
+    cfg = HPCConfig(k=32 if backend == "flat" else 64, p=60.0,
+                    backend=backend, rerank=8, kmeans_iters=8,
+                    kmeans_restarts=2)
+    state = Retriever(cfg).build(torch.Generator().manual_seed(5), Corpus(
+        corpus.doc_patches, corpus.doc_mask, corpus.doc_salience))
+    lm = T.LMConfig(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                    d_ff=128, vocab=vocab["size"], q_chunk=8, qkv_bias=True)
+    model = T.init(lm, generator=torch.Generator(dev).manual_seed(6),
+                   device=dev)
+    cpu_model = _cpu_copy(model, lambda: T.Transformer(lm, device="cpu"))
+    rcfg = rag.RAGConfig(retriever=cfg, facts_per_doc=3,
+                         fact0=vocab["fact0"], max_answer=3)
+    dev_corpus = synthetic.FactCorpus(*(a.to(dev) for a in corpus))
+    got = rag.retrieve_and_generate(state_to(state, dev), model, dev_corpus,
+                                    rcfg, device=dev)
+    want = rag.retrieve_and_generate(state, cpu_model, corpus, rcfg,
+                                     device="cpu")
+    assert torch.equal(got.ids.cpu(), want.ids)
+    assert torch.equal(got.prompt.cpu(), want.prompt)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    m = rag.rag_pipeline(state_to(state, dev), model, dev_corpus, rcfg, 60,
+                         device=dev)
+    assert m == pytest.approx({**rag.rag_metrics(want, corpus, rcfg, 60),
+                               **{k: m[k] for k in m if k.endswith("ms")}})

@@ -11,9 +11,12 @@ import torch
 
 import repro  # noqa: F401  (the reference is importable beside the port)
 from repro_torch import state_from_numpy
+from repro_torch.configs import colpali_hpc
+from repro_torch.core import rag
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve
+from repro_torch.models import colpali, transformer
 from repro_torch.serving.server import AsyncRetrievalServer, ServeConfig
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,7 +49,10 @@ def test_port_package_is_found():
     assert {"core/binary.py", "kernels/hamming.py", "kernels/maxsim.py",
             "retrieval/float_flat.py", "retrieval/hamming.py",
             "retrieval/cascade.py", "retrieval/ivf.py", "retrieval/hnsw.py",
-            "core/graph.py", "convert.py"} <= names
+            "core/graph.py", "convert.py", "models/layers.py",
+            "models/transformer.py", "models/colpali.py", "core/rag.py",
+            "core/pipeline.py", "configs/colpali_hpc.py",
+            "kernels/ref.py"} <= names
     assert not _forbidden("repro_torch.core.scan")
     assert _forbidden("repro.core.scan") and _forbidden("jax.numpy")
 
@@ -76,6 +82,18 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         AsyncRetrievalServer(lambda q, qm, qs: None, ServeConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--n-docs", "8", "--queries", "2"])
+    enc_cfg = colpali_hpc.COLPALI_HPC.smoke_config.encoder
+    for make in (lambda: transformer.Transformer(enc_cfg.backbone),
+                 lambda: transformer.init_cache(enc_cfg.backbone, 1, 4),
+                 lambda: colpali.ColPaliEncoder(enc_cfg),
+                 lambda: colpali.init(enc_cfg, generator=torch.Generator()),
+                 lambda: synthetic.make_fact_corpus(seed=0, n_docs=8),
+                 lambda: rag.rag_pipeline(None, None, None, rag.RAGConfig(),
+                                          8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    enc = colpali.ColPaliEncoder(enc_cfg, device="cpu")
+    assert enc.backbone.embed.device.type == "cpu"
 
 
 @pytest.mark.parametrize("alone", [False, True])
