@@ -1341,7 +1341,8 @@ def _model_phase(args, torch, np, dev, smi, arch, gen_cfg, kernel_mods):
         emb[i:i + mb], sal[i:i + mb] = enc.encode_doc(patches, mask)
     torch.cuda.synchronize()
     encode_s = time.perf_counter() - t1
-    enc_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    enc_max = torch.cuda.max_memory_allocated()
+    enc_peak = (enc_max - base) / 2**30
     norms = torch.linalg.vector_norm(emb, dim=-1)
     sal_sum = sal.sum(dim=-1)
     norm_dev = float((norms - 1.0).abs().max())
@@ -1358,6 +1359,7 @@ def _model_phase(args, torch, np, dev, smi, arch, gen_cfg, kernel_mods):
     encoder = {
         "pages": ENC_PAGES, "micro_batch": mb, "encode_s": encode_s,
         "pages_per_s": ENC_PAGES / encode_s,
+        "max_memory_allocated_gib": enc_max / 2**30,
         "peak_memory_gib": enc_peak,
         "executed_matmul_tflop_per_page": flops / 1e12,
         "reference_model_tflop_per_page": ref_flops / 1e12,
@@ -1483,6 +1485,8 @@ def _model_phase(args, torch, np, dev, smi, arch, gen_cfg, kernel_mods):
                "latency_ms": m["latency_ms"],
                "launches": launches[f"rag {name}"],
                "build_launches": launches[f"rag {name} build"],
+               "max_memory_allocated_gib":
+                   torch.cuda.max_memory_allocated() / 2**30,
                "peak_memory_gib": (torch.cuda.max_memory_allocated()
                                    - base) / 2**30,
                "untrained_generator_quality": {

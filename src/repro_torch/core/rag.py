@@ -160,8 +160,9 @@ def retrieve_and_generate(index: RetrieverState, model: T.Transformer,
 
     t1 = time.perf_counter()
     gen = greedy_generate(model, prompt, rag_cfg.max_answer, prompt_len)
-    gen = gen.cpu().numpy()
+    _sync(dev)
     t_generate = time.perf_counter() - t1
+    gen = gen.cpu().numpy()
     return RAGRun(ids, prompt, gen, t_retrieve, t_generate)
 
 
