@@ -208,6 +208,7 @@ ENC_QUERIES = 64
 ENC_CUT_LAYERS = 2
 RAG_DOCS, RAG_FACTS, RAG_FPD, RAG_QUERIES, RAG_SEQ = 4096, 1024, 4, 64, 32
 RAG_TOP_K_DOCS, RAG_MAX_ANSWER = 2, 4
+RAG_Q_PATCHES = 4       # make_fact_corpus's patches per query
 RAG_CHECK_PROMPTS = 8
 RAG_RETRIEVERS = (
     ("float_flat", dict(backend="float_flat", prune_side="none")),
@@ -226,6 +227,8 @@ LOGIT_TIE_TOL = 1e-4    # cached vs uncached greedy: a near-tie of logits
 
 QMAXSIM_TOL = 1e-4
 MAXSIM_TOL = 1e-4
+# each retriever's scores against the CPU plain path (hamming's are integers)
+RAG_TOLS = {"float_flat": MAXSIM_TOL, "flat": QMAXSIM_TOL, "hamming": 0}
 KMEANS_AGREE = 0.9999
 KMEANS_TIE_TOL = 1e-4
 
@@ -405,8 +408,6 @@ def _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c, flat_s,
     state, and for phase 8 the state before its compaction, the
     retriever, the host queries and the added documents."""
     from repro_torch import state_to
-    from repro_torch.configs.colpali_hpc import COLPALI_HPC
-    from repro_torch.configs.lm_archs import QWEN2_1_5B
     from repro_torch.core import index as index_mod
     from repro_torch.data.synthetic import make_retrieval_corpus
     from repro_torch.kernels import maxsim as ms
@@ -885,8 +886,6 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
 
     from repro_torch import state_to
     from repro_torch.core import graph as graph_mod
-    from repro_torch.configs.colpali_hpc import COLPALI_HPC
-    from repro_torch.configs.lm_archs import QWEN2_1_5B
     from repro_torch.core import index as index_mod
     from repro_torch.core import late_interaction as li
     from repro_torch.kernels import kmeans_assign as km
@@ -1263,6 +1262,10 @@ def _model_phase(args, torch, np, dev, smi, arch, gen_cfg, kernel_mods):
     enc_cfg = arch.encoder
     bb = enc_cfg.backbone
     heads = bb.n_heads
+    # left at PyTorch's default: the models' entry points clear it for
+    # their own products (layers.float32_accumulation) and restore it
+    caller_flag = torch.backends.cuda.matmul \
+        .allow_bf16_reduced_precision_reduction
     m_pages = enc_cfg.n_patches
     m_keep = pruning.keep_count(m_pages, arch.hpc.p)
     launches = {}
@@ -1495,26 +1498,16 @@ def _model_phase(args, torch, np, dev, smi, arch, gen_cfg, kernel_mods):
         assert run.tokens.shape == (RAG_QUERIES, RAG_MAX_ANSWER)
         assert ((run.ids >= 0) & (run.ids < RAG_DOCS)).all()
         got = launches[f"rag {name}"]
+        # the timed search of all RAG_QUERIES queries against the CPU plain
+        # path: maxsim at 64 x 4 query patches over 1024-patch docs,
+        # hamming_maxsim at 9 bits, quantized_maxsim's sweep and rerank
+        row["search_vs_cpu"] = _check_rag_search(
+            torch, r, state, corpus, run, RAG_TOLS[name])
         if name == "float_flat":
             assert got["maxsim"] >= 1, got
         elif name == "flat":
             assert got["quantized_maxsim"] == 2, got
             assert launches[f"rag {name} build"]["kmeans_assign"] >= 1
-            # the first batch of ids against the CPU plain path
-            q = Query(*(a[:MAX_BATCH] for a in (
-                corpus.query_patches, corpus.query_mask,
-                corpus.query_salience)))
-            dev_s, dev_i = (a.cpu() for a in r.search(state, q,
-                                                      k=RAG_TOP_K_DOCS))
-            cpu_s, cpu_i = r.search(state_to(state, "cpu"), Query(
-                *(a.cpu() for a in q)), k=RAG_TOP_K_DOCS)
-            bad = topk_mismatches(dev_i.numpy(), dev_s.numpy(),
-                                  cpu_i.numpy(), cpu_s.numpy(), QMAXSIM_TOL)
-            assert not bad, f"RAG flat ids differ from the CPU at {bad}"
-            assert torch.equal(run.ids[:MAX_BATCH].cpu(),
-                               torch.clamp(dev_i, min=0))
-            row["first_batch_ids_differing_at_ties"] = int(
-                (dev_i != cpu_i).sum())
             row["greedy_check"] = _greedy_check(torch, T, gen, gen_cfg,
                                                 run.prompt[:RAG_CHECK_PROMPTS])
             row["generate_split_ms"] = _generate_split(torch, T, gen,
@@ -1528,9 +1521,42 @@ def _model_phase(args, torch, np, dev, smi, arch, gen_cfg, kernel_mods):
         torch.cuda.empty_cache()
     del gen, corpus, docs
     torch.cuda.empty_cache()
-    print(f"RAG phase {time.perf_counter() - t0:.1f}s | {smi}")
+    assert (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+            == caller_flag), "a model call left the bf16 flag changed"
+    print(f"RAG phase {time.perf_counter() - t0:.1f}s | {smi} | bf16 "
+          f"reduced-precision reduction as the caller left it: "
+          f"{caller_flag}")
     return {"launches": launches, "encoder": encoder, "rag": rows,
             "cut": cut_err}
+
+
+def _check_rag_search(torch, r, state, corpus, run, tol):
+    """The search ``run`` timed (every query of the fact corpus, one batch)
+    against the same search over a CPU copy of ``state`` (the plain path):
+    the card's search again gives the run's ids, its scores lie within
+    ``tol`` of the CPU's (``tol`` 0: equal) and its ids equal the CPU's
+    outside near-ties. Returns the queries, the largest score error and
+    how many ids differ at all (ties included)."""
+    from repro_torch import state_to
+    from repro_torch.parity import topk_mismatches
+    from repro_torch.retrieval import Query
+    q = Query(corpus.query_patches, corpus.query_mask, corpus.query_salience)
+    dev_s, dev_i = (a.cpu() for a in r.search(state, q, k=RAG_TOP_K_DOCS))
+    assert torch.equal(run.ids.cpu(), torch.clamp(dev_i, min=0)), \
+        "the card's search does not give the timed run's ids"
+    cpu_s, cpu_i = r.search(state_to(state, "cpu"),
+                            Query(*(a.cpu() for a in q)), k=RAG_TOP_K_DOCS)
+    if tol:
+        torch.testing.assert_close(dev_s, cpu_s, atol=tol, rtol=tol)
+    else:
+        assert torch.equal(dev_s, cpu_s), "scores differ from the CPU's"
+    bad = topk_mismatches(dev_i.numpy(), dev_s.numpy(), cpu_i.numpy(),
+                          cpu_s.numpy(), tol)
+    assert not bad, f"RAG ids differ from the CPU plain path at {bad}"
+    return {"queries": int(dev_i.shape[0]),
+            "max_abs_err": float((dev_s.double() - cpu_s.double()).abs()
+                                 .max()),
+            "ids_differing_at_ties": int((dev_i != cpu_i).sum())}
 
 
 def _encoder_split(torch, enc, mb, dev):
@@ -1666,8 +1692,6 @@ def main(argv=None) -> int:
     t0 = _phase("device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # bf16 products accumulate in float32, as the reference's do (phase 9)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
@@ -1687,9 +1711,7 @@ def main(argv=None) -> int:
           f"{popc_per_s:.3e} popcounts/s")
     print(smi)
     print(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} | bf16 "
-          f"reduced-precision reduction "
-          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     # -- 2. build --------------------------------------------------------
     t0 = _phase("build")
@@ -1786,7 +1808,12 @@ def main(argv=None) -> int:
         ("ivf pools", with_holes(table, q_mask, *codes_mask(
             MAX_BATCH, IVF_N_PROBE * IVF_CAP, md_kept)), RERANK, None),
         ("hnsw pools", with_holes(table, q_mask, *codes_mask(
-            MAX_BATCH, HNSW_EF, md_kept)), RERANK, None))
+            MAX_BATCH, HNSW_EF, md_kept)), RERANK, None),
+        ("RAG flat sweep (phase 9c)", with_holes(*adc_inputs(
+            RAG_QUERIES, RAG_Q_PATCHES, K, (RAG_DOCS,), md_kept)), 8, None),
+        ("RAG rerank (phase 9c)", with_holes(*adc_inputs(
+            RAG_QUERIES, RAG_Q_PATCHES, K, (RAG_QUERIES, 8), N_PATCHES)),
+         RAG_TOP_K_DOCS, None))
     for name, inputs, k_top, r in topk_cases:
         b_, n_ = inputs[0].shape[0], inputs[2].shape[-2]
         r = r if r is not None else qm.launch_range_len(b_, n_, dev)
@@ -1837,6 +1864,18 @@ def main(argv=None) -> int:
         want = (-(2 ** 20) * q_w.sum(1)).to(torch.int32)[:, None]
         assert torch.equal(dead, want.expand_as(dead)), \
             "all-masked docs != sum qm * -(2**20)"
+    # phase 9c's hamming retriever: 64 queries of 4 patches, 9-bit codes
+    rag_qc = torch.randint(0, 512, (RAG_QUERIES, RAG_Q_PATCHES),
+                           generator=gen, device=dev, dtype=torch.int32)
+    rag_qw = torch.ones((RAG_QUERIES, RAG_Q_PATCHES), dtype=torch.int32,
+                        device=dev)
+    c, m = codes_mask(BLOCK_DOCS, md_kept, k=512, dtype=torch.uint16)
+    got = hm.hamming_maxsim_cuda(rag_qc, rag_qw, c, m, 9)
+    assert torch.equal(got, hm.hamming_maxsim_plain(rag_qc, rag_qw, c, m, 9)), \
+        "hamming_maxsim at the RAG shape"
+    print(f"hamming_maxsim RAG block (phase 9c): queries "
+          f"{tuple(rag_qc.shape)} x {tuple(c.shape)} bits 9 K=512: equal "
+          f"to the plain version")
 
     # maxsim within 1e-4: stage 3's pools (B, p2, Md, D), a shared-layout
     # block of float_flat, ragged, all-masked, strided per-query pools
@@ -1869,6 +1908,21 @@ def main(argv=None) -> int:
     assert torch.isfinite(dead_got).all(), "all-masked docs not finite"
     assert torch.allclose(dead_got.double(), expect.expand_as(dead_got),
                           rtol=1e-5, atol=0), "all-masked docs != sum qm*-1e30"
+    # phase 9c's float_flat retriever: 64 queries of 4 patches (eight
+    # groups of 8 per block) over a block of unpruned 1024-patch docs
+    rag_q = unit(RAG_QUERIES, RAG_Q_PATCHES, DIM)
+    rag_qm = torch.ones((RAG_QUERIES, RAG_Q_PATCHES), device=dev)
+    f_rag = unit(BLOCK_DOCS, N_PATCHES, DIM)
+    f_rag_m = torch.rand(f_rag.shape[:-1], generator=gen, device=dev) < 0.97
+    got = ms.maxsim_cuda(rag_q, rag_qm, f_rag, f_rag_m)
+    want = ms.maxsim_plain(rag_q, rag_qm, f_rag, f_rag_m)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=MAXSIM_TOL, rtol=MAXSIM_TOL)
+    err = float((got - want).abs().max())
+    ms_abs_err = max(ms_abs_err, err)
+    print(f"maxsim RAG float_flat block (phase 9c): queries "
+          f"{tuple(rag_q.shape)} x {tuple(f_rag.shape)} max |err| {err:.3e}")
+    del f_rag, f_rag_m
     # the shared corpus with one query per block (the earlier grid, timed
     # in phase 6 beside the default)
     got = ms.maxsim_cuda(q_unit, q_mask, f_blk, f_blk_m,

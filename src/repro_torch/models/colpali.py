@@ -76,6 +76,7 @@ class ColPaliEncoder(nn.Module):
         return e.float()
 
     @torch.no_grad()
+    @L.float32_accumulation()
     def encode_doc(self, patches: Tensor, patch_mask: Tensor
                    ) -> Tuple[Tensor, Tensor]:
         """patches (B, M, d_patch) -> (embeddings (B, M, proj_dim) f32,
@@ -87,6 +88,7 @@ class ColPaliEncoder(nn.Module):
                 sal * patch_mask.to(sal.dtype))
 
     @torch.no_grad()
+    @L.float32_accumulation()
     def encode_query(self, tokens: Tensor, token_mask: Tensor
                      ) -> Tuple[Tensor, Tensor]:
         """tokens (B, Lq) -> (embeddings (B, Lq, proj_dim) f32, salience

@@ -22,6 +22,7 @@ chunked-local (iRoPE) mask are not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -31,6 +32,29 @@ from torch import nn
 
 Tensor = torch.Tensor
 NEG_INF = -1e30
+
+
+@contextlib.contextmanager
+def float32_accumulation():
+    """bf16 products on the card accumulate in float32, as the reference's
+    do, for the duration of the block; then PyTorch's flag is restored.
+
+    PyTorch lets cuBLAS reduce bf16 products in bf16 by default
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``),
+    which would make the models' numbers depend on the caller's setting.
+    The models' entry points (``Transformer.forward``/``logits``,
+    ``prefill``, ``decode_step``, ``ColPaliEncoder.encode_doc``/
+    ``encode_query``) run under this; the flag is process-wide, so a
+    matmul on another thread during the call sees it cleared too. Also a
+    decorator. Float32 products (float32 activations) follow PyTorch's
+    TF32 setting, which is off by default."""
+    m = torch.backends.cuda.matmul
+    saved = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction = saved
 
 
 # ---------------------------------------------------------------------------

@@ -59,7 +59,8 @@ class LMConfig:
     global_every: int = 4             # every Nth layer stays full attention
     q_chunk: int = 512                # query block of the attention
     loss_chunk: int = 2048            # CE sequence chunk
-    # dtypes
+    # dtypes; with bfloat16 activations every product casts its weight to
+    # bf16 and accumulates in float32 (layers.float32_accumulation)
     param_dtype: str = "float32"
     activation_dtype: str = "float32"
     # the reference's cost-analysis switch (fully unrolled scans); the
@@ -177,6 +178,7 @@ class Transformer(nn.Module):
         """tokens (B, S) -> (B, S, D) in the activation dtype."""
         return self.embed[tokens.long()].to(self.cfg.adtype)
 
+    @L.float32_accumulation()
     def forward_embeddings(self, x: Tensor, want_salience: bool = False
                            ) -> Tuple[Tensor, Optional[Tensor]]:
         """Every block and ``ln_f`` over embedded inputs (B, S, D) ->
@@ -201,6 +203,7 @@ class Transformer(nn.Module):
                                          want_salience)
         return h, torch.zeros((), dtype=torch.float32, device=h.device), sal
 
+    @L.float32_accumulation()
     def logits(self, h: Tensor) -> Tensor:
         """(B, S, D) -> (B, S, V) float32: the weights cast to h's dtype,
         the products accumulated in float32 (bf16 values widen exactly)."""
@@ -252,6 +255,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device="cuda"
 
 
 @torch.no_grad()
+@L.float32_accumulation()
 def prefill(model: Transformer, tokens: Tensor, max_len: int
             ) -> Tuple[Tensor, KVCache]:
     """Run the prompt (B, S) -> (last position's logits (B, V) f32, the
@@ -270,6 +274,7 @@ def prefill(model: Transformer, tokens: Tensor, max_len: int
 
 
 @torch.no_grad()
+@L.float32_accumulation()
 def decode_step(model: Transformer, token: Tensor, cache: KVCache, pos: int
                 ) -> Tuple[Tensor, KVCache]:
     """One decode step: token (B,) at position ``pos`` (the same for every

@@ -286,7 +286,7 @@ def _ham(seed, b, mq, lead, md, bits, dtype=torch.uint16, p_valid=0.8):
 
 @pytest.mark.parametrize("b,mq,n,md,bits", [
     (1, 4, 16, 8, 4), (3, 5, 33, 17, 8), (8, 32, 256, 615, 8),
-    (2, 40, 50, 64, 9), (8, 32, 100, 615, 16)])
+    (2, 40, 50, 64, 9), (8, 32, 100, 615, 16), (64, 4, 40, 615, 9)])
 @pytest.mark.parametrize("per_query", [False, True])
 def test_hamming_maxsim_kernel_equals_plain(b, mq, n, md, bits, per_query):
     """Bit for bit, all-masked docs included (caveat C4's int32 form)."""
@@ -330,7 +330,8 @@ def _flt(seed, b, mq, d, lead, md, p_valid=0.8):
 @pytest.mark.parametrize("b,mq,d,n,md", [(1, 4, 16, 16, 8), (3, 5, 30, 33, 17),
                                          (8, 32, 128, 64, 615),
                                          (2, 40, 64, 20, 130),
-                                         (2, 16, 300, 12, 32)])
+                                         (2, 16, 300, 12, 32),
+                                         (64, 4, 128, 16, 1024)])
 @pytest.mark.parametrize("per_query", [False, True])
 def test_maxsim_kernel_matches_plain(b, mq, d, n, md, per_query):
     dev = _card()
@@ -956,7 +957,7 @@ def test_cached_greedy_equals_uncached_on_the_card():
     assert torch.equal(rag.greedy_generate(cpu, prompt, 5, 14), got.cpu())
 
 
-@pytest.mark.parametrize("backend", ["flat", "hamming"])
+@pytest.mark.parametrize("backend", ["float_flat", "flat", "hamming"])
 def test_rag_pipeline_on_the_card_matches_the_cpu(backend):
     """rag_pipeline over a small fact corpus: the same retrieved ids,
     prompts and tokens on the card (the kernels) as on the CPU (the plain
@@ -972,7 +973,8 @@ def test_rag_pipeline_on_the_card_matches_the_cpu(backend):
         n_patches=12, n_queries=16, seq_len=8, device="cpu")
     cfg = HPCConfig(k=32 if backend == "flat" else 64, p=60.0,
                     backend=backend, rerank=8, kmeans_iters=8,
-                    kmeans_restarts=2)
+                    kmeans_restarts=2,
+                    prune_side="none" if backend == "float_flat" else "doc")
     state = Retriever(cfg).build(torch.Generator().manual_seed(5), Corpus(
         corpus.doc_patches, corpus.doc_mask, corpus.doc_salience))
     lm = T.LMConfig(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,

@@ -398,6 +398,50 @@ def test_moe_configs_are_not_ported_yet(spec):
         transformer.Transformer(spec.smoke_config, device="cpu")
 
 
+_ENTRY_POINTS = ("forward", "logits", "prefill", "decode_step",
+                 "encode_doc", "encode_query")
+
+
+@pytest.mark.parametrize("entry", _ENTRY_POINTS)
+def test_entry_points_accumulate_bf16_in_float32(entry, monkeypatch):
+    """Each model entry point clears PyTorch's bf16 reduced-precision
+    reduction flag for its products, whatever the caller left it at, and
+    restores it after."""
+    flag = torch.backends.cuda.matmul
+    seen = []
+
+    def recording(fn):
+        def wrapped(*args, **kwargs):
+            seen.append(flag.allow_bf16_reduced_precision_reduction)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(layers, "rms_norm", recording(layers.rms_norm))
+    monkeypatch.setattr(torch, "matmul", recording(torch.matmul))
+    monkeypatch.setattr(flag, "allow_bf16_reduced_precision_reduction", True)
+    gen = torch.Generator().manual_seed(0)
+    enc_cfg = colpali_hpc.COLPALI_HPC.smoke_config.encoder
+    enc = colpali.init(enc_cfg, generator=gen, device="cpu")
+    model = enc.backbone
+    tok = torch.from_numpy(_tokens(14, 2, 6, model.cfg.vocab))
+    calls = {
+        "forward": lambda: model(tok),
+        "logits": lambda: model.logits(torch.ones((2, 1, model.cfg.d_model))),
+        "prefill": lambda: transformer.prefill(model, tok, max_len=8),
+        "decode_step": lambda: transformer.decode_step(
+            model, tok[:, 0], transformer.init_cache(model.cfg, 2, 8,
+                                                     device="cpu"), 0),
+        "encode_doc": lambda: enc.encode_doc(
+            torch.ones((1, enc_cfg.n_patches, enc_cfg.d_patch)),
+            torch.ones((1, enc_cfg.n_patches), dtype=torch.bool)),
+        "encode_query": lambda: enc.encode_query(tok, torch.ones_like(
+            tok, dtype=torch.bool)),
+    }
+    calls[entry]()
+    assert seen and not any(seen), seen
+    assert flag.allow_bf16_reduced_precision_reduction is True
+
+
 def test_chunked_local_attention_is_not_ported_yet():
     cfg = dataclasses.replace(_port_cfg("llama3.2-3b"), attn_chunk=8)
     with pytest.raises(NotImplementedError, match="chunked-local"):
