@@ -107,7 +107,25 @@ any failure exits non-zero, and no phase's error is swallowed:
      generate ms per query and each kernel's launches; the untrained
      generator's ROUGE-L and hallucination under a key that says so), the
      flat retriever's first batch against the CPU plain path, and cached
-     greedy decoding against an uncached forward at every step.
+     greedy decoding against an uncached forward at every step;
+ 10. training on the card: (a) 2-layer full-width cuts (float32) of the
+     qwen2-1.5b LM (batch 4 x seq 128) and the colpali-hpc encoder (4 pages
+     and 4 queries), two AdamW train steps each on the card against a CPU
+     copy (loss within 1e-5, grad norm 1e-4, params as ``_adam_agreement``
+     says), and a batch of NaN patches skipped by the guard with every
+     param, moment and the step unchanged; (b) ColPali's contrastive step
+     through ``launch.train.main`` at 64 pages of 1024 patches for 4 steps
+     (first and median step seconds, pages/s, the executed matmul FLOP rate
+     against the BF16 peak, peak memory, the final checkpoint's bytes and
+     save seconds after a free-space check under build/), then the
+     checkpoint restored into a fresh encoder and optimizer state, equal
+     bit for bit, and removed (``{"colpali_train": ...}``); (c) qwen2-1.5b
+     through the same CLI at batch 8 x seq 128 for 6 steps, the loss
+     falling (``{"lm_train": ...}``); (d) rag_bench's generator trained for
+     300 steps on the card and scored through the float_flat, flat and
+     hamming retrievers (each search held to the CPU plain path) and the
+     single-vector one: ROUGE-L, hallucination and answer accuracy
+     (``{"rag_trained": ...}``).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, the script exits non-zero and prints no result.
@@ -231,6 +249,37 @@ MAXSIM_TOL = 1e-4
 RAG_TOLS = {"float_flat": MAXSIM_TOL, "flat": QMAXSIM_TOL, "hamming": 0}
 KMEANS_AGREE = 0.9999
 KMEANS_TIE_TOL = 1e-4
+
+# phase 10, training on the card. 10a: 2-layer cuts of the qwen2-1.5b LM
+# and the colpali-hpc encoder at full width with float32 activations, two
+# steps each on the card and on a CPU copy (TF32 off: both sides multiply
+# in float32, so the loss agrees to about 1e-6 and the grad norm to about
+# 1e-5, the sums running in other orders; params as _adam_agreement says).
+# 10b: the reference's train_256 cell (src/repro/configs/colpali_hpc.py:37)
+# with its batch cut to 64 pages (256 needs about 86 GB: PERF.md §4).
+# 10c: qwen2-1.5b at batch 8 x seq 128. 10d: benchmarks/rag_bench.py's
+# generator set-up (:20-48): the fact corpus, a 3-layer d-96 LM, 300 steps
+# of batch 32 x seq 24 at lr 2e-3, 20 warm-up steps, weight decay 0.01.
+TRAIN_CUT_LAYERS = 2
+TRAIN_CUT_STEPS = 2
+TRAIN_CUT_LR = 3e-4
+TRAIN_CUT_LM_BATCH = (4, 128)   # batch, seq
+TRAIN_CUT_PAGES = 4             # and as many queries of query_len tokens
+TRAIN_LOSS_TOL = 1e-5           # relative to the loss (or its scores)
+TRAIN_GNORM_TOL = 1e-4          # relative
+TRAIN_PARAM_TOL = 1e-5
+TRAIN_PAGES = 64
+TRAIN_STEPS = 4
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 128, 6
+RAG_GEN_DOCS, RAG_GEN_FACTS, RAG_GEN_FPD = 96, 400, 3
+RAG_GEN_DIM, RAG_GEN_PATCHES, RAG_GEN_QUERIES = 64, 12, 64
+RAG_GEN_LM = dict(n_layers=3, d_model=96, n_heads=4, n_kv_heads=2, d_ff=192,
+                  q_chunk=8, loss_chunk=24, tie_embeddings=True)
+RAG_GEN_OPT = dict(lr=2e-3, warmup_steps=20, weight_decay=0.01)
+RAG_GEN_STEPS, RAG_GEN_BATCH, RAG_GEN_SEQ = 300, 32, 24
+# the trained generator's ROUGE-L with the float retriever: the reference
+# reaches 0.73-0.86 over seeds 0-3 on the CPU (tools/rag_quality_seeds.py)
+RAG_TRAINED_ROUGE_FLOOR = 0.5
 
 
 def _phase(name: str) -> float:
@@ -1653,6 +1702,477 @@ def _greedy_check(torch, T, gen, gen_cfg, prompts):
             "near_ties": ties}
 
 
+def _train_flops(enc_cfg, s: int, page: bool) -> float:
+    """Matmul FLOPs one page (``page``) or query of ``s`` positions
+    executes in a contrastive train step, counted as phase 9b counts the
+    forward: each block's projections and FFN run forward, again in the
+    block's recompute and twice over in the backward (4x); its S x S
+    scores and PV products once more, in the query block's own recompute
+    (5x); a page's patch projection forward and for its weight's grad
+    (2x); the output projection 3x. A query's embedding is a gather."""
+    bb = enc_cfg.backbone
+    d, hd, ff = bb.d_model, bb.hd, bb.d_ff
+    proj = 2 * s * (d * (bb.n_heads + 2 * bb.n_kv_heads) * hd
+                    + bb.n_heads * hd * d + 3 * d * ff)
+    attn = 2 * 2 * bb.n_heads * s * s * hd
+    return (bb.n_layers * (4 * proj + 5 * attn)
+            + (2 * 2 * s * enc_cfg.d_patch * d if page else 0)
+            + 3 * 2 * s * d * enc_cfg.proj_dim)
+
+
+def _adam_agreement(torch, got, want, sum_lr):
+    """Params after Adam steps on the card against the CPU: Adam divides
+    each grad entry by its own running scale, so an entry whose grad is
+    within rounding of zero can step with the other sign (up to 2 x lr a
+    step). Returns the share of entries further apart than
+    TRAIN_PARAM_TOL, the largest |difference| and its bound, 2 x the
+    summed lr; asserts at most 0.1% beyond the tolerance and none beyond
+    the bound."""
+    errs = torch.cat([(got[k].detach().cpu().double()
+                       - want[k].double()).abs().reshape(-1) for k in want])
+    out = {"share_beyond_tol": float((errs > TRAIN_PARAM_TOL).double()
+                                     .mean()),
+           "tol": TRAIN_PARAM_TOL, "max_abs_err": float(errs.max()),
+           "bound": 2 * sum_lr}
+    assert out["share_beyond_tol"] <= 1e-3, out
+    assert out["max_abs_err"] <= out["bound"], out
+    return out
+
+
+def _train_cut(torch, dev, name, model, cpu, step, batches, ocfg,
+               loss_scale=0.0):
+    """Two train steps of ``model`` on the card and of its CPU copy on the
+    same batches: loss and grad norm each step, params after both. The
+    loss is held relative to the larger of itself and ``loss_scale``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+    p_d = T.params_of(model)
+    p_c = T.params_of(cpu)
+    s_d, s_c = opt.init(ocfg, p_d), opt.init(ocfg, p_c)
+    rows, sum_lr = [], 0.0
+    for b in batches:
+        p_d, s_d, m_d = step(model, p_d, s_d,
+                             {k: v.to(dev) for k, v in b.items()}, ocfg)
+        p_c, s_c, m_c = step(cpu, p_c, s_c, b, ocfg)
+        row = {k: [float(m_d[k]), float(m_c[k])]
+               for k in ("loss", "grad_norm")}
+        for k, tol, scale in (("loss", TRAIN_LOSS_TOL, loss_scale),
+                              ("grad_norm", TRAIN_GNORM_TOL, 0.0)):
+            d, c = row[k]
+            assert abs(d - c) <= tol * max(abs(c), scale), \
+                f"10a {name} {k}: {row}"
+        sum_lr += float(m_c["lr"])
+        rows.append(row)
+    agree = _adam_agreement(torch, p_d, p_c, sum_lr)
+    return {"steps": rows, "params": agree}, p_d, s_d
+
+
+def _check_skip(torch, step_fn, params, state, batch):
+    """A non-finite batch through the guarded step: skipped, and params,
+    moments and step equal bit for bit to before."""
+    from repro_torch.ckpt.checkpoint import leaves_with_paths
+    from repro_torch.train.loop import guard_nonfinite
+    p2, s2, m = guard_nonfinite(step_fn)(params, state, batch)
+    assert int(m["skipped"]) == 1 and not bool(torch.isfinite(m["loss"]))
+    same = [torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaves_with_paths((params, state)), leaves_with_paths((p2, s2)))]
+    assert all(same), "10a: a skipped step changed the state"
+    return len(same)
+
+
+def _train_split(torch, loss, ocfg, params, state):
+    """Host wall of one train step's parts at the trained state, each ended
+    by a synchronize, and the peak memory allocated in each: the forward
+    (the autograd graph kept), the backward with the checkpoints'
+    recomputes, the AdamW update, and the non-finite guard's select (leaf
+    by leaf, each result dropped)."""
+    from repro_torch.models import layers as L
+    from repro_torch.optim import optimizer as opt
+    sync = torch.cuda.synchronize
+    times, peaks = [], []
+
+    def mark():
+        sync()
+        times.append(time.perf_counter())
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+
+    mark()
+    with L.float32_accumulation():
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        value, _ = loss(p)
+        mark()
+        grads = torch.autograd.grad(value, list(p.values()))
+        mark()
+    del p
+    new_p, new_s, _ = opt.update(ocfg, dict(zip(params, grads)), state,
+                                 params)
+    del grads
+    mark()
+    ok = torch.isfinite(value.detach())
+    for k in params:
+        torch.where(ok, new_p[k], params[k])
+        for new, old in ((new_s.m[k], state.m[k]), (new_s.v[k], state.v[k])):
+            torch.where(ok, new, old)
+    mark()
+    parts = ("forward", "backward_with_recompute", "optimizer",
+             "guard_select")
+    return {**{f"{n}_s": times[i + 1] - times[i]
+               for i, n in enumerate(parts)},
+            **{f"{n}_peak_gib": peaks[i + 1] for i, n in enumerate(parts)}}
+
+
+def _train_layer_split(torch, enc, pages, dev):
+    """Device time (CUDA events, mean of 3 after a warm-up) of one layer's
+    attention and FFN at the training shape, forward and backward: the
+    attention with its query blocks checkpointed, so its backward includes
+    their recompute, as in a train step; bf16 activations, float32
+    accumulation."""
+    from repro_torch.models import layers as L
+    bb = enc.cfg.backbone
+    s = enc.cfg.n_patches
+    blk = enc.backbone.blocks[0]
+    g = torch.Generator(dev).manual_seed(3)
+    h = torch.randn((pages, s, bb.d_model), device=dev, generator=g).to(
+        bb.adtype).requires_grad_(True)
+    gy = torch.randn((pages, s, bb.d_model), device=dev, generator=g).to(
+        bb.adtype)
+    pos = torch.arange(s, device=dev)[None].expand(pages, -1)
+    dims = dict(n_heads=bb.n_heads, n_kv=bb.n_kv_heads, head_dim=bb.hd,
+                theta=bb.rope_theta, q_chunk=bb.q_chunk)
+    parts = {
+        "attention": lambda: L.attention_kv(blk.attn, h, pos, remat=True,
+                                            **dims)[0],
+        "ffn": lambda: blk.ffn(h)}
+    out = {}
+    with L.float32_accumulation():
+        for name, fn in parts.items():
+            for phase in ("forward", "forward_backward"):
+                def run():
+                    y = fn()
+                    if phase == "forward_backward":
+                        y.backward(gy)
+                run()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(3):
+                    run()
+                end.record()
+                torch.cuda.synchronize()
+                out[f"{name}_{phase}_ms"] = start.elapsed_time(end) / 3
+    for p in blk.parameters():
+        p.grad = None
+    return out
+
+
+def _train_cli_run(torch, np, argv, build, need_bytes, what):
+    """``launch.train.main(argv)`` on the card with its checkpoint under
+    ``build``, after checking the free space there. Returns the run and
+    its readings: step seconds, peak memory, the final checkpoint."""
+    import shutil
+    from repro_torch.launch import train as train_cli
+    free = shutil.disk_usage(build).free
+    if free < need_bytes:
+        raise RuntimeError(f"{what}: {free} bytes free under {build}, the "
+                           f"checkpoint needs {need_bytes:.0f}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = train_cli.main(argv)
+    torch.cuda.synchronize()
+    secs = [h["seconds"] for h in res["history"]]
+    losses = [h["loss"] for h in res["history"]]
+    assert all(np.isfinite(losses)), f"{what}: losses {losses}"
+    peak = torch.cuda.max_memory_allocated()
+    return res, {
+        "step_s": secs, "first_step_s": secs[0],
+        "median_step_s_after_first": float(np.median(secs[1:])),
+        "losses": losses,
+        "max_memory_allocated_gib": peak / 2**30,
+        "peak_memory_gib": (peak - base) / 2**30,
+        "held_before_gib": base / 2**30,
+        "stragglers": res["stats"]["stragglers"],
+        "skipped": res["stats"]["skipped"],
+        "pipeline": res["pipeline"],
+        "checkpoint_bytes": res["checkpoint"]["bytes"],
+        "checkpoint_save_s": res["checkpoint"]["seconds"],
+        "free_bytes_before": free}
+
+
+def _train_phase(args, torch, np, dev, smi, arch, lm_spec, kernel_mods):
+    """Phase 10: training on the card. (a) 2-layer full-width cuts of the
+    LM and the encoder, two train steps each against a CPU copy, and a
+    non-finite batch skipped; (b) ColPali's contrastive step at 64 pages
+    through the training CLI, its checkpoint restored bit for bit; (c)
+    the qwen2-1.5b LM through the CLI; (d) rag_bench's generator trained
+    300 steps and scored through three retrievers and a single-vector
+    one. ``arch`` is the colpali-hpc config (HPCColPaliArch), ``lm_spec``
+    the qwen2-1.5b ArchSpec. Returns the kernels' launches by path and the
+    readings."""
+    import dataclasses
+    import shutil
+    from repro_torch import convert
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.core import late_interaction as li
+    from repro_torch.core import rag
+    from repro_torch.data.synthetic import make_fact_corpus, make_lm_batch
+    from repro_torch.launch.train import colpali_batch
+    from repro_torch.models import colpali
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.retrieval import Corpus, HPCConfig, Retriever
+
+    enc_cfg = arch.encoder
+    lm_cfg = lm_spec.config
+    launches, out = {}, {}
+    caller_flag = torch.backends.cuda.matmul \
+        .allow_bf16_reduced_precision_reduction
+
+    def zero():
+        for mod in kernel_mods.values():
+            mod.launches = 0
+
+    def counts():
+        return {n: mod.launches for n, mod in kernel_mods.items()}
+
+    # -- 10a. 2-layer full-width cuts, card against CPU ---------------------
+    t0 = _phase(f"10a. train steps of {TRAIN_CUT_LAYERS}-layer full-width "
+                f"cuts (float32) on the card against the CPU")
+    ocfg = opt.AdamWConfig(lr=TRAIN_CUT_LR, warmup_steps=1,
+                           total_steps=TRAIN_CUT_STEPS)
+    lm_cut = dataclasses.replace(lm_cfg, n_layers=TRAIN_CUT_LAYERS,
+                                 activation_dtype="float32")
+    enc_cut = dataclasses.replace(enc_cfg, backbone=dataclasses.replace(
+        enc_cfg.backbone, n_layers=TRAIN_CUT_LAYERS,
+        activation_dtype="float32"))
+    hg = torch.Generator().manual_seed(args.seed + 100)
+    zero()
+    cut = {}
+    lm = T.init(lm_cut, generator=torch.Generator(dev).manual_seed(
+        args.seed + 101), device=dev)
+    lm_cpu = T.Transformer(lm_cut, device="cpu")
+    lm_cpu.load_state_dict(lm.state_dict())
+    cut["lm"] = _train_cut(
+        torch, dev, "lm", lm, lm_cpu, T.train_step,
+        [make_lm_batch(hg, lm_cut.vocab, *TRAIN_CUT_LM_BATCH)
+         for _ in range(TRAIN_CUT_STEPS)], ocfg)[0]
+    del lm, lm_cpu
+    enc = colpali.init(enc_cut, generator=torch.Generator(dev).manual_seed(
+        args.seed + 102), device=dev)
+    enc_cpu = colpali.ColPaliEncoder(enc_cut, device="cpu")
+    enc_cpu.load_state_dict(enc.state_dict())
+    cut["colpali"], p_d, s_d = _train_cut(
+        torch, dev, "colpali", enc, enc_cpu, colpali.train_step,
+        [colpali_batch(hg, enc_cut, TRAIN_CUT_PAGES)
+         for _ in range(TRAIN_CUT_STEPS)], ocfg,
+        # the contrastive loss is a difference of scores of up to
+        # query_len / temperature (unit-norm embeddings), 1600 here
+        enc_cut.query_len / enc_cut.temperature)
+    del enc_cpu
+    bad = {k: v.to(dev) for k, v in colpali_batch(
+        hg, enc_cut, TRAIN_CUT_PAGES).items()}
+    bad["doc_patches"][1] = float("nan")
+    cut["nan_batch_leaves_unchanged"] = _check_skip(
+        torch, lambda p, s, b: colpali.train_step(enc, p, s, b, ocfg),
+        p_d, s_d, bad)
+    launches["train cuts"] = counts()
+    del enc, p_d, s_d, bad
+    torch.cuda.empty_cache()
+    cut["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"train_cuts": cut, "smi": smi}))
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+
+    # -- 10b. ColPali contrastive training at full width ---------------------
+    t0 = _phase(f"10b. ColPali contrastive training at full width: "
+                f"{TRAIN_PAGES} pages of {enc_cfg.n_patches} patches, "
+                f"{TRAIN_STEPS} steps, through launch.train")
+    ckpt_dir = build / "train_ckpt_colpali"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_params = enc_cfg.param_count()
+    zero()
+    res, cp = _train_cli_run(
+        torch, np, ["--arch", "colpali-hpc", "--batch", str(TRAIN_PAGES),
+                    "--steps", str(TRAIN_STEPS), "--ckpt-every", "0",
+                    "--ckpt-dir", str(ckpt_dir),
+                    "--seed", str(args.seed + 103)],
+        build, 12 * n_params * 1.01, "10b")
+    launches["colpali train"] = counts()
+    flops = TRAIN_PAGES * (_train_flops(enc_cfg, enc_cfg.n_patches, True)
+                           + _train_flops(enc_cfg, enc_cfg.query_len, False))
+    med = cp["median_step_s_after_first"]
+    cp.update({
+        "pages": TRAIN_PAGES, "params": n_params,
+        "pages_per_s": TRAIN_PAGES / med,
+        "executed_matmul_tflop_per_step": flops / 1e12,
+        "executed_tflop_per_s": flops / med / 1e12,
+        "share_of_bf16_peak": flops / med / PEAK_BF16_FLOPS,
+        "acc": [h["acc"] for h in res["history"]]})
+    enc = res.pop("model")
+    sg = torch.Generator().manual_seed(args.seed + 109)
+    sb = {k: v.to(dev) for k, v in colpali_batch(sg, enc_cfg,
+                                                 TRAIN_PAGES).items()}
+    cp["split_s"] = _train_split(
+        torch, lambda p: colpali.contrastive_loss(enc, p, sb),
+        opt.AdamWConfig(), res["params"], res["opt_state"])
+    del sb
+    cp["one_layer_ms"] = _train_layer_split(torch, enc, TRAIN_PAGES, dev)
+    del enc
+    torch.cuda.empty_cache()
+    # restore the final checkpoint into a fresh encoder and optimizer state
+    fresh = colpali.ColPaliEncoder(enc_cfg, device=dev)
+    like = T.params_of(fresh)
+    fresh_state = opt.init(opt.AdamWConfig(), like)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tree = ck.restore(res["checkpoint"]["path"],
+                      convert.train_template(like, fresh_state))
+    p_r, s_r = convert.train_state_from_tree(tree, like)
+    T.load_params(fresh, p_r)
+    torch.cuda.synchronize()
+    cp["restore_s"] = time.perf_counter() - t1
+    del tree, fresh_state
+    own = dict(fresh.named_parameters())
+    same = [torch.equal(own[k], res["params"][k]) for k in like]
+    same += [torch.equal(a, b) for (_, a), (_, b) in zip(
+        ck.leaves_with_paths(s_r), ck.leaves_with_paths(res["opt_state"]))]
+    assert all(same) and len(same) == 3 * len(like) + 1, \
+        "10b: the restored state differs from the run's"
+    cp["restored_leaves_equal"] = len(same)
+    del fresh, like, p_r, s_r, own, res
+    shutil.rmtree(ckpt_dir)
+    torch.cuda.empty_cache()
+    cp["seconds"] = time.perf_counter() - t0
+    out["colpali_train"] = cp
+    print(json.dumps({"colpali_train": cp, "smi": smi}))
+
+    # -- 10c. the LM at full width -------------------------------------------
+    t0 = _phase(f"10c. {lm_cfg.name} training at full width: batch "
+                f"{LM_TRAIN_BATCH} x seq {LM_TRAIN_SEQ}, {LM_TRAIN_STEPS} "
+                f"steps, through PrefetchPipeline and train.loop.run")
+    ckpt_dir = build / "train_ckpt_lm"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    zero()
+    res, lmr = _train_cli_run(
+        torch, np, ["--arch", lm_spec.arch_id, "--batch",
+                    str(LM_TRAIN_BATCH),
+                    "--seq", str(LM_TRAIN_SEQ), "--steps",
+                    str(LM_TRAIN_STEPS), "--ckpt-every", "0", "--ckpt-dir",
+                    str(ckpt_dir), "--seed", str(args.seed + 104)],
+        build, 12 * lm_cfg.param_count() * 1.01, "10c")
+    launches["lm train"] = counts()
+    assert lmr["losses"][-1] < lmr["losses"][0], \
+        f"10c: the loss did not fall: {lmr['losses']}"
+    lmr["tokens_per_s"] = (LM_TRAIN_BATCH * LM_TRAIN_SEQ
+                           / lmr["median_step_s_after_first"])
+    lmr["params"] = lm_cfg.param_count()
+    lb = {k: v.to(dev) for k, v in make_lm_batch(
+        torch.Generator().manual_seed(args.seed + 110), lm_cfg.vocab,
+        LM_TRAIN_BATCH, LM_TRAIN_SEQ).items()}
+    model = res.pop("model")
+    lmr["split_s"] = _train_split(
+        torch, lambda p: T.loss_fn(model, p, lb["tokens"], lb["targets"]),
+        opt.AdamWConfig(), res["params"], res["opt_state"])
+    del res, model, lb
+    shutil.rmtree(ckpt_dir)
+    torch.cuda.empty_cache()
+    lmr["seconds"] = time.perf_counter() - t0
+    out["lm_train"] = lmr
+    print(json.dumps({"lm_train": lmr, "smi": smi}))
+
+    # -- 10d. a trained RAG generator ---------------------------------------
+    t0 = _phase(f"10d. RAG with a trained generator: rag_bench's set-up, "
+                f"{RAG_GEN_STEPS} steps")
+    corpus, vocab = make_fact_corpus(
+        seed=args.seed + 105, n_docs=RAG_GEN_DOCS,
+        n_facts_vocab=RAG_GEN_FACTS, facts_per_doc=RAG_GEN_FPD,
+        dim=RAG_GEN_DIM, n_patches=RAG_GEN_PATCHES,
+        n_queries=RAG_GEN_QUERIES, seq_len=16, device=dev)
+    gen_cfg = T.LMConfig(vocab=vocab["size"], **RAG_GEN_LM)
+    rcfg = rag.RAGConfig(top_k_docs=2, facts_per_doc=RAG_GEN_FPD,
+                         fact0=vocab["fact0"], max_answer=RAG_GEN_FPD)
+    gen = T.init(gen_cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 106), device=dev)
+    gocfg = opt.AdamWConfig(**RAG_GEN_OPT, total_steps=RAG_GEN_STEPS)
+    p = T.params_of(gen)
+    s = opt.init(gocfg, p)
+    bgen = torch.Generator(dev).manual_seed(args.seed + 107)
+    losses = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(RAG_GEN_STEPS):
+        batch = rag.make_rag_train_batch(bgen, corpus, vocab, rcfg,
+                                         batch=RAG_GEN_BATCH,
+                                         seq_len=RAG_GEN_SEQ,
+                                         n_docs=RAG_GEN_DOCS)
+        p, s, m = T.train_step(gen, p, s, batch, gocfg)
+        if i % 100 == 0 or i == RAG_GEN_STEPS - 1:
+            losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    T.load_params(gen, p)
+    assert losses[-1] < losses[0] / 2, f"10d: generator losses {losses}"
+    rows = {}
+    for name, knobs in RAG_RETRIEVERS:
+        rc = dataclasses.replace(rcfg, retriever=HPCConfig(**knobs))
+        r = Retriever(rc.retriever)
+        zero()
+        state = r.build(torch.Generator(dev).manual_seed(args.seed + 108),
+                        Corpus(corpus.doc_patches, corpus.doc_mask,
+                               corpus.doc_salience))
+        run = rag.retrieve_and_generate(state, gen, corpus, rc, device=dev)
+        launches[f"rag trained {name}"] = counts()
+        m = rag.rag_metrics(run, corpus, rc, RAG_GEN_FACTS)
+        rows[name] = {k: m[k] for k in ("rouge_l", "hallucination",
+                                        "answer_acc", "retrieve_ms",
+                                        "generate_ms")}
+        rows[name]["search_vs_cpu"] = _check_rag_search(
+            torch, r, state, corpus, run, RAG_TOLS[name])
+        got = rows[name]["launches"] = launches[f"rag trained {name}"]
+        # the build's quantizer and the search's kernels ran
+        assert {"float_flat": got["maxsim"] >= 1,
+                "flat": got["quantized_maxsim"] == 2
+                and got["kmeans_assign"] >= 1,
+                "hamming": got["hamming_maxsim"] >= 1
+                and got["kmeans_assign"] >= 2}[name], (name, got)
+        del state, run
+    # the single-vector retriever (rag_bench's DistilCol row)
+    scores = li.single_vector_score(corpus.query_patches, corpus.query_mask,
+                                    corpus.doc_patches, corpus.doc_mask)
+    weak = torch.topk(scores, rcfg.top_k_docs, dim=-1).indices
+    plen = rcfg.top_k_docs * (RAG_GEN_FPD + 1) + corpus.query_tokens.shape[1]
+    prompt = rag.build_prompt(corpus.doc_tokens[weak], corpus.query_tokens,
+                              rcfg, plen)
+    toks = rag.greedy_generate(gen, prompt, RAG_GEN_FPD, plen).cpu().numpy()
+    ctx = [set(r.ravel().tolist())
+           for r in corpus.doc_facts.cpu().numpy()[weak.cpu().numpy()]]
+    gsets = rag.extract_facts(toks, vocab["fact0"], RAG_GEN_FACTS)
+    gold = corpus.gold_facts.cpu().numpy()
+    rows["single_vector"] = {
+        "rouge_l": float(np.mean([rag.rouge_l(sorted(g), sorted(set(
+            r.tolist()))) for g, r in zip(gsets, gold)])),
+        "hallucination": rag.hallucination_rate(gsets, ctx),
+        "answer_acc": float(np.mean([set(r.tolist()) <= g
+                                     for g, r in zip(gsets, gold)]))}
+    for name, row in rows.items():
+        for k in ("rouge_l", "hallucination", "answer_acc"):
+            assert 0.0 <= row[k] <= 1.0, (name, row)
+    assert rows["float_flat"]["rouge_l"] >= RAG_TRAINED_ROUGE_FLOOR, rows
+    out["rag_trained"] = {"train_s": train_s, "losses": losses,
+                          "steps": RAG_GEN_STEPS, "rows": rows,
+                          "seconds": time.perf_counter() - t0}
+    del gen, p, s, corpus
+    torch.cuda.empty_cache()
+    print(json.dumps({"rag_trained": out["rag_trained"], "smi": smi}))
+    assert (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+            == caller_flag), "a train step left the bf16 flag changed"
+    out["cuts"] = cut
+    return {"launches": launches, **out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2382,12 +2902,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     model = _model_phase(args, torch, np, dev, smi, COLPALI_HPC.config,
                          QWEN2_1_5B.config, kernel_mods)
+    train = _train_phase(args, torch, np, dev, smi, COLPALI_HPC.config,
+                         QWEN2_1_5B, kernel_mods)
 
     by_path = {"flat": {"quantized_maxsim": qm_launches,
                         "kmeans_assign": km_launches},
                "cascade": casc_launches,
                "live cascade": live["launches"],
-               **ann["launches"], **model["launches"]}
+               **ann["launches"], **model["launches"],
+               **train["launches"]}
 
     def launches(name):
         return sum(path.get(name, 0) for path in by_path.values())

@@ -14,9 +14,15 @@ Subpackages:
               wrappers and plain PyTorch versions
   retrieval/  the Retriever facade, the backend registry, `flat`,
               `float_flat`, `hamming` and the `cascade` funnel
-  data/       the synthetic retrieval corpus
+  models/     the dense transformer and the ColPali encoder, serving and
+              training (the chunked LM loss, the contrastive step)
+  optim/      AdamW (float32 or int8 moments), the schedule, gradient
+              compression
+  ckpt/       training checkpoints in the reference's format
+  train/      the guarded, checkpointing train loop
+  data/       the synthetic corpora and batches, the prefetch pipeline
   serving/    the asyncio continuous-batching server and its client
-  launch/     the serving CLI
+  launch/     the serving and training CLIs
 """
 
 from repro_torch.convert import (  # noqa: F401

@@ -43,14 +43,28 @@ weights across: they take the reference's param dicts as host arrays
 encoder ``backbone/...``, ``patch_proj``, ``out_proj``) and return the
 port's module on ``device``, each block taking its slice of the stack. A
 missing, unexpected or misshapen array is rejected by name.
+
+The way back: ``params_to_numpy`` turns a module, or a dict of named
+tensors (``transformer.params_of``), into the reference's tree, the
+blocks' tensors stacked on a leading layer axis, and ``params_from_numpy``
+takes such a tree to a dict of named tensors shaped as a given one.
+``adamw_state_to_numpy``/``adamw_state_from_numpy`` do the same for an
+``AdamWState`` (float32 moments or int8 ``QMoment`` ones, named as the
+params). ``train_tree`` (params, optimizer state) is the tree the
+training checkpoints hold, ``train_template`` its shapes without the
+data, and ``train_state_from_tree`` the way back from a restored one:
+the keys, dtypes and stacked shapes of the reference's
+``(params, AdamWState)``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.ckpt.checkpoint import ArraySpec, numpy_dtype
 
 from repro_torch.core.graph import HNSWIndex
 from repro_torch.core.index import (FlatIndex, FloatFlatIndex, HammingIndex,
@@ -58,6 +72,7 @@ from repro_torch.core.index import (FlatIndex, FloatFlatIndex, HammingIndex,
 from repro_torch.device import resolve_device
 from repro_torch.models.colpali import ColPaliConfig, ColPaliEncoder
 from repro_torch.models.transformer import LMConfig, Transformer
+from repro_torch.optim.optimizer import AdamWState, QMoment
 from repro_torch.retrieval.base import RetrieverState
 from repro_torch.retrieval.cascade import STAGES, CascadeState
 from repro_torch.retrieval.hamming import HammingState
@@ -299,31 +314,201 @@ def _reference_path(name: str):
     return "/".join(parts), layer
 
 
-def _load_module(module: torch.nn.Module, tree, what: str):
-    arrays = _flatten(tree)
-    params = dict(module.named_parameters())
-    wanted = {}
-    for name, param in params.items():
+def _by_reference_key(names) -> Dict[str, List[Tuple[Optional[int], str]]]:
+    """Port parameter names grouped by the reference key they map to, each
+    group as (layer or None, name) in layer order."""
+    groups: Dict[str, List[Tuple[Optional[int], str]]] = {}
+    for name in names:
         key, layer = _reference_path(name)
-        wanted.setdefault(key, []).append((layer, param))
-    missing = sorted(set(wanted) - set(arrays))
-    if missing:
-        raise KeyError(f"{what}: missing arrays {missing}")
-    extra = sorted(set(arrays) - set(wanted))
+        groups.setdefault(key, []).append((layer, name))
+    for key, items in groups.items():
+        layers = [layer for layer, _ in items]
+        if layers != [None] and sorted(layers) != list(range(len(layers))):
+            raise ValueError(f"{key}: layers {layers} are not 0..L-1 "
+                             "once each")
+        items.sort(key=lambda t: t[0])
+    return groups
+
+
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{"a/b": x} -> {"a": {"b": x}}."""
+    out: Dict[str, Any] = {}
+    for key, val in flat.items():
+        node = out
+        *head, last = key.split("/")
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = val
+    return out
+
+
+def _lookup(tree, key: str):
+    node = tree
+    for part in key.split("/"):
+        if not isinstance(node, dict) or part not in node:
+            raise KeyError(f"the tree has no array {key}")
+        node = node[part]
+    return node
+
+
+def _reference_tree(named: Dict[str, Any], leaf: Callable) -> Dict[str, Any]:
+    """Named per-layer values -> the reference's nested tree; ``leaf(xs,
+    stacked)`` builds each leaf from its group's values in layer order."""
+    return _nest({key: leaf([named[n] for _, n in items],
+                            items[0][0] is not None)
+                  for key, items in _by_reference_key(named).items()})
+
+
+def _host_leaf(xs: list, stacked: bool):
+    """Tensors (one per layer, or one) -> a host array, stacked on a
+    leading axis; each tensor is copied off its device straight into the
+    array. QMoments field by field."""
+    if isinstance(xs[0], QMoment):
+        return QMoment(*(_host_leaf([getattr(x, f) for x in xs], stacked)
+                         for f in QMoment._fields))
+    first = xs[0]
+    shape = ((len(xs), *first.shape) if stacked else tuple(first.shape))
+    out = np.empty(shape, dtype=numpy_dtype(first.dtype))
+    view = torch.from_numpy(out)
+    for i, x in enumerate(xs):
+        (view[i] if stacked else view).copy_(x.detach())
+    return out
+
+
+def _spec_leaf(xs: list, stacked: bool):
+    if isinstance(xs[0], QMoment):
+        return QMoment(*(_spec_leaf([getattr(x, f) for x in xs], stacked)
+                         for f in QMoment._fields))
+    first = xs[0]
+    shape = ((len(xs), *first.shape) if stacked else tuple(first.shape))
+    return ArraySpec(shape, numpy_dtype(first.dtype))
+
+
+def _named(params) -> Dict[str, Any]:
+    if isinstance(params, torch.nn.Module):
+        return {n: p.detach() for n, p in params.named_parameters()}
+    return dict(params)
+
+
+def params_to_numpy(params) -> Dict[str, Any]:
+    """A port module, or its dict of named tensors, -> the reference's
+    param tree as host arrays (``transformer.init``'s or
+    ``colpali.init``'s structure, the blocks stacked as (L, ...)): the
+    inverse of ``lm_params_from_numpy``/``colpali_params_from_numpy``."""
+    return _reference_tree(_named(params), _host_leaf)
+
+
+def _tensor_from(arr, shape, dtype, device, what: str) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if tuple(arr.shape) != tuple(shape):
+        raise ValueError(f"{what} has shape {arr.shape}, expected "
+                         f"{tuple(shape)}")
+    arr = np.require(arr, requirements="C")
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+def _unstack(tree, like: Dict[str, torch.Tensor], device, take: Callable
+             ) -> Dict[str, Any]:
+    """For each name of ``like``, ``take(node, layer, name, device)`` over
+    its reference node; ``device`` None means ``like[name]``'s device."""
+    dev = None if device is None else resolve_device(device)
+    out = {}
+    for key, items in _by_reference_key(like).items():
+        node = _lookup(tree, key)
+        if items[0][0] is not None:
+            for arr in (node if isinstance(node, QMoment) else (node,)):
+                shape = np.shape(arr)
+                if not shape or shape[0] != len(items):
+                    raise ValueError(f"{key} has shape {shape}, expected "
+                                     f"{len(items)} stacked layers")
+        for layer, name in items:
+            out[name] = take(node, layer, name,
+                             like[name].device if dev is None else dev)
+    return {name: out[name] for name in like}   # like's order: sums follow it
+
+
+def _part(arr, layer):
+    arr = np.asarray(arr)
+    return arr if layer is None else arr[layer]
+
+
+def params_from_numpy(tree, like: Dict[str, torch.Tensor], *, device=None
+                      ) -> Dict[str, torch.Tensor]:
+    """The reference's param tree (host arrays) -> a dict of named tensors
+    with ``like``'s names, shapes and dtypes, on ``device`` (default: each
+    ``like`` tensor's own device)."""
+    return _unstack(tree, like, device, lambda node, layer, name, dev:
+                    _tensor_from(_part(node, layer), like[name].shape,
+                                 like[name].dtype, dev, name))
+
+
+def adamw_state_to_numpy(state: AdamWState) -> AdamWState:
+    """An ``AdamWState`` -> the reference's, as host arrays: ``step`` 0-d
+    int32, the moments as param trees (``QMoment`` leaves for int8)."""
+    return AdamWState(_host_leaf([state.step], False),
+                      _reference_tree(state.m, _host_leaf),
+                      _reference_tree(state.v, _host_leaf))
+
+
+def adamw_state_from_numpy(tree: AdamWState, like: Dict[str, torch.Tensor],
+                           *, device=None) -> AdamWState:
+    """The reference's ``AdamWState`` (host arrays) -> the port's, with the
+    moments named as the params ``like`` and on their devices (or
+    ``device``); a ``QMoment`` leaf gives int8 moments."""
+    def moment(node, layer, name, dev):
+        shape = tuple(like[name].shape)
+        if isinstance(node, QMoment):
+            return QMoment(
+                _tensor_from(_part(node.q, layer), shape, torch.int8, dev,
+                             f"{name}.q"),
+                _tensor_from(_part(node.scale, layer), shape[:-1] + (1,),
+                             torch.float32, dev, f"{name}.scale"))
+        return _tensor_from(_part(node, layer), shape, torch.float32, dev,
+                            name)
+
+    first = next(iter(like.values()))
+    step = _tensor_from(tree.step, (), torch.int32,
+                        first.device if device is None
+                        else resolve_device(device), "step")
+    return AdamWState(step, _unstack(tree.m, like, device, moment),
+                      _unstack(tree.v, like, device, moment))
+
+
+def train_tree(params: Dict[str, torch.Tensor], state: AdamWState) -> tuple:
+    """(params, optimizer state) as the reference's ``(params,
+    AdamWState)`` of host arrays: what a training checkpoint holds."""
+    return (params_to_numpy(params), adamw_state_to_numpy(state))
+
+
+def train_template(params: Dict[str, torch.Tensor], state: AdamWState
+                   ) -> tuple:
+    """``train_tree``'s structure with ``ArraySpec`` leaves (no copies):
+    the template ``ckpt.checkpoint.restore`` checks a checkpoint
+    against."""
+    return (_reference_tree(_named(params), _spec_leaf),
+            AdamWState(ArraySpec((), np.dtype(np.int32)),
+                       _reference_tree(state.m, _spec_leaf),
+                       _reference_tree(state.v, _spec_leaf)))
+
+
+def train_state_from_tree(tree: tuple, like: Dict[str, torch.Tensor], *,
+                          device=None) -> Tuple[Dict[str, torch.Tensor],
+                                                AdamWState]:
+    """A restored ``train_tree`` -> (params, optimizer state) named and
+    shaped as the params ``like``, on their devices (or ``device``)."""
+    return (params_from_numpy(tree[0], like, device=device),
+            adamw_state_from_numpy(tree[1], like, device=device))
+
+
+def _load_module(module: torch.nn.Module, tree, what: str):
+    own = _named(module)
+    extra = sorted(set(_flatten(tree)) - set(_by_reference_key(own)))
     if extra:
         raise KeyError(f"{what}: unexpected arrays {extra}")
-    for key, targets in wanted.items():
-        arr = np.asarray(arrays[key])
-        layers = [layer for layer, _ in targets]
-        shape = targets[0][1].shape
-        want = shape if layers == [None] else (len(layers), *shape)
-        if arr.shape != tuple(want):
-            raise ValueError(f"{what}: {key} has shape {arr.shape}, "
-                             f"expected {tuple(want)}")
-        with torch.no_grad():
-            for layer, param in targets:
-                part = arr if layer is None else arr[layer]
-                param.copy_(torch.from_numpy(np.array(part, copy=True)))
+    # host views of the arrays, copied once into the module's own weights
+    with torch.no_grad():
+        for name, t in params_from_numpy(tree, own, device="cpu").items():
+            own[name].copy_(t)
     return module
 
 

@@ -20,8 +20,8 @@ Metrics (the reference's definitions):
 
 ``rag_pipeline`` is ``rag_metrics`` over ``retrieve_and_generate``, whose
 ``RAGRun`` keeps the retrieved ids, the prompts and the generated tokens.
-The supervised batch of the training half (``make_rag_train_batch``)
-waits for the training slice (ROADMAP.md §A item 5).
+``make_rag_train_batch`` is the generator's supervised batch (the gold
+doc among distractors in the context, the answer its facts).
 """
 from __future__ import annotations
 
@@ -201,3 +201,55 @@ def rag_pipeline(index: RetrieverState, model: T.Transformer, corpus,
     run = retrieve_and_generate(index, model, corpus, rag_cfg, queries_slice,
                                 device=device)
     return rag_metrics(run, corpus, rag_cfg, n_facts_vocab, queries_slice)
+
+
+def make_rag_train_batch(generator: torch.Generator, corpus,
+                         vocab: Dict[str, int], rag_cfg: RAGConfig,
+                         batch: int, seq_len: int, n_docs: int
+                         ) -> Dict[str, Tensor]:
+    """Supervised RAG fine-tuning batch, on the corpus's device (the
+    generator's too): prompt (the gold doc and ``top_k_docs - 1`` random
+    distractors in a random order, then QUERY, a probe fact of the gold
+    doc, SEP) -> answer = the gold doc's facts. The reference's
+    ``make_rag_train_batch`` drawn from ``generator``. Returns int32
+    ``tokens`` and ``targets`` (B, seq_len); targets are -1 outside the
+    answer's positions."""
+    dev = corpus.doc_tokens.device
+    k = rag_cfg.top_k_docs
+    fpd = rag_cfg.facts_per_doc
+
+    def randint(high, *shape):
+        return torch.randint(0, high, shape, generator=generator,
+                             device=dev)
+
+    gold = randint(n_docs, batch)
+    distract = randint(n_docs, batch, k - 1)
+    docs = torch.cat([gold[:, None], distract], dim=1)
+    # the gold doc's position in the context: a random permutation per row
+    perm = torch.argsort(torch.rand((batch, k), generator=generator,
+                                    device=dev), dim=1)
+    docs = torch.take_along_dim(docs, perm, dim=1)
+    doc_toks = corpus.doc_tokens[docs]
+
+    probe_slot = randint(fpd, batch)
+    probe = corpus.doc_facts[gold, probe_slot] + vocab["fact0"]
+    q_tok = torch.zeros((batch, 4), dtype=torch.int32, device=dev)
+    q_tok[:, 0] = vocab["query"]
+    q_tok[:, 1] = probe
+    q_tok[:, 2] = vocab["sep"]
+
+    prompt_len = k * (fpd + 1) + 4
+    prompt = build_prompt(doc_toks, q_tok, rag_cfg, prompt_len)
+    answer = corpus.doc_facts[gold] + vocab["fact0"]        # (B, F)
+    full = torch.cat([prompt, answer.to(prompt.dtype)], dim=1)
+    pad = seq_len + 1 - full.shape[1]
+    if pad < 0:
+        raise ValueError(f"seq_len={seq_len} is shorter than the prompt "
+                         f"and answer ({full.shape[1] - 1} tokens)")
+    full = torch.nn.functional.pad(full, (0, pad))
+    tokens, targets = full[:, :-1], full[:, 1:]
+    pos = torch.arange(seq_len, device=dev)[None, :]
+    is_answer = (pos >= prompt_len - 1) & (pos < prompt_len - 1 + fpd)
+    targets = torch.where(is_answer, targets, -1)
+    return {"tokens": tokens.to(torch.int32),
+            "targets": targets.to(torch.int32)}

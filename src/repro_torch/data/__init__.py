@@ -1,1 +1,2 @@
-"""Synthetic data for the port."""
+"""Data of the port: the synthetic corpora and batches, and the
+prefetching host pipeline."""

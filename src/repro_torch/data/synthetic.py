@@ -193,3 +193,43 @@ def make_fact_corpus(*, seed: int, n_docs: int = 256,
         torch.ones((n_queries, mq), device=dev), gold_doc.to(torch.int32),
         doc_facts[gold_doc].to(torch.int32))
     return fc, vocab
+
+
+# ---------------------------------------------------------------------------
+# LM token streams (order-2 Markov chain — learnable)
+# ---------------------------------------------------------------------------
+
+def make_lm_batch(generator: torch.Generator, vocab: int, batch: int,
+                  seq: int, n_states: int = 64) -> Dict[str, Tensor]:
+    """A batch of an order-2 Markov chain over ``n_states`` states (mod
+    ``vocab``), on the generator's device: the reference's
+    ``make_lm_batch`` drawn from ``generator``.
+
+    Each state pair has 4 moves with Dirichlet(0.5) weights and random
+    next states; every row starts at (0, 1) and draws seq + 1 moves (the
+    Gumbel-max trick over log(p + 1e-9), as ``jax.random.categorical``).
+    Dirichlet(0.5) is drawn as normalised squares of standard normals
+    (Gamma(1/2) = Z^2 / 2). Returns int32 ``tokens`` (B, seq) and
+    ``targets`` (B, seq), the tokens shifted by one."""
+    dev = generator.device
+    z = torch.randn((n_states, n_states, 4), generator=generator,
+                    device=dev)
+    trans = z * z
+    trans = trans / trans.sum(dim=-1, keepdim=True)
+    nxt = torch.randint(0, n_states, (n_states, n_states, 4),
+                        generator=generator, device=dev)
+    logp = torch.log(trans + 1e-9)
+    s1 = torch.zeros((batch,), dtype=torch.long, device=dev)
+    s2 = torch.ones((batch,), dtype=torch.long, device=dev)
+    tiny = torch.finfo(torch.float32).tiny
+    toks = []
+    for _ in range(seq + 1):
+        u = torch.rand((batch, 4), generator=generator, device=dev)
+        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+        choice = torch.argmax(logp[s1, s2] + gumbel, dim=-1)
+        s3 = nxt[s1, s2, choice]
+        toks.append(s3)
+        s1, s2 = s2, s3
+    toks = torch.stack(toks, dim=1) % vocab
+    return {"tokens": toks[:, :seq].to(torch.int32),
+            "targets": toks[:, 1:seq + 1].to(torch.int32)}

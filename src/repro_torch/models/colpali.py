@@ -15,20 +15,27 @@ The counterpart of ``repro.models.colpali`` (its serving half):
     salience that drives the paper's §III-C pruning. It sums to
     ``n_heads`` over a sequence before the mask.
 
-The contrastive loss and the train step wait for the training slice
-(ROADMAP.md §A item 5).
+Training: in-batch contrastive late interaction (ColPali's objective),
+a softmax over MaxSim(query_i, doc_j) / temperature with the matching doc
+on the diagonal. ``contrastive_loss`` and ``train_step`` take the encoder
+and a dict of named tensors (``transformer.params_of``) and run the
+backbone through ``Transformer.run_blocks`` with a checkpoint per block,
+as the reference does; the salience is not computed there (the loss does
+not read it).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch.core import late_interaction as li
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.optim import optimizer as opt
 
 Tensor = torch.Tensor
 
@@ -66,14 +73,29 @@ class ColPaliEncoder(nn.Module):
         self.out_proj = nn.Parameter(torch.empty(
             (bb.d_model, cfg.proj_dim), dtype=bb.pdtype, device=dev))
 
-    def _embed_out(self, h: Tensor, mask: Tensor) -> Tensor:
-        """Hidden states -> L2-normalised (norm in float32, the division in
-        the activation dtype), masked, returned as float32."""
-        e = h @ self.out_proj.to(h.dtype)
+    def _patch_inputs(self, patches: Tensor,
+                      params: Optional[Dict[str, Tensor]] = None) -> Tensor:
+        """Patches (B, M, d_patch) -> (B, M, D) in the activation dtype."""
+        dt = self.cfg.backbone.adtype
+        w = self.patch_proj if params is None else params["patch_proj"]
+        return patches.to(dt) @ w.to(dt)
+
+    def _encode(self, x: Tensor, mask: Tensor,
+                params: Optional[Dict[str, Tensor]], want_salience: bool,
+                remat: bool = False) -> Tuple[Tensor, Optional[Tensor]]:
+        """Embedded inputs (B, S, D) -> (embeddings (B, S, proj_dim) f32,
+        L2-normalised (the norm in float32, the division in the activation
+        dtype), and the salience or None; both zero where ``mask`` is
+        False), over the module's weights or ``params``."""
+        bp = None if params is None else _backbone_params(params)
+        h, sal = self.backbone.run_blocks(x, bp, want_salience=want_salience,
+                                          remat=remat)
+        w = self.out_proj if params is None else params["out_proj"]
+        e = h @ w.to(h.dtype)
         norm = torch.linalg.vector_norm(e.float(), dim=-1, keepdim=True)
         e = e / norm.clamp_min(1e-6).to(e.dtype)
-        e = e * mask[..., None].to(e.dtype)
-        return e.float()
+        e = (e * mask[..., None].to(e.dtype)).float()
+        return e, (sal * mask.to(sal.dtype) if want_salience else None)
 
     @torch.no_grad()
     @L.float32_accumulation()
@@ -81,11 +103,8 @@ class ColPaliEncoder(nn.Module):
                    ) -> Tuple[Tensor, Tensor]:
         """patches (B, M, d_patch) -> (embeddings (B, M, proj_dim) f32,
         salience (B, M) f32), both zero on padded patches."""
-        dt = self.cfg.backbone.adtype
-        x = patches.to(dt) @ self.patch_proj.to(dt)
-        h, sal = self.backbone.forward_embeddings(x, want_salience=True)
-        return (self._embed_out(h, patch_mask),
-                sal * patch_mask.to(sal.dtype))
+        return self._encode(self._patch_inputs(patches), patch_mask, None,
+                            True)
 
     @torch.no_grad()
     @L.float32_accumulation()
@@ -93,10 +112,66 @@ class ColPaliEncoder(nn.Module):
                      ) -> Tuple[Tensor, Tensor]:
         """tokens (B, Lq) -> (embeddings (B, Lq, proj_dim) f32, salience
         (B, Lq) f32), both zero on padded tokens."""
-        x = self.backbone.embed_tokens(tokens)
-        h, sal = self.backbone.forward_embeddings(x, want_salience=True)
-        return (self._embed_out(h, token_mask),
-                sal * token_mask.to(sal.dtype))
+        return self._encode(self.backbone.embed_tokens(tokens), token_mask,
+                            None, True)
+
+
+def _backbone_params(params: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    return {n[len("backbone."):]: t for n, t in params.items()
+            if n.startswith("backbone.")}
+
+
+def encode_doc_train(enc: ColPaliEncoder, params: Dict[str, Tensor],
+                     patches: Tensor, patch_mask: Tensor, *,
+                     remat: bool = True) -> Tensor:
+    """``encode_doc``'s embeddings over ``params``, differentiable in
+    them; no salience."""
+    return enc._encode(enc._patch_inputs(patches, params), patch_mask,
+                       params, False, remat)[0]
+
+
+def encode_query_train(enc: ColPaliEncoder, params: Dict[str, Tensor],
+                       tokens: Tensor, token_mask: Tensor, *,
+                       remat: bool = True) -> Tensor:
+    """``encode_query``'s embeddings over ``params``, differentiable in
+    them; no salience."""
+    x = enc.backbone.embed_tokens(tokens, _backbone_params(params))
+    return enc._encode(x, token_mask, params, False, remat)[0]
+
+
+def contrastive_loss(enc: ColPaliEncoder, params: Dict[str, Tensor],
+                     batch: Dict[str, Tensor], *, remat: bool = True
+                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """In-batch late-interaction contrastive loss over ``params``.
+
+    batch: query_tokens (B, Lq), query_mask, doc_patches (B, M, d_patch),
+    doc_mask. Positive pairs on the diagonal. Returns (loss, {acc}): acc
+    is the share of queries whose best doc (the first maximum) is their
+    own."""
+    q = encode_query_train(enc, params, batch["query_tokens"],
+                           batch["query_mask"], remat=remat)
+    d = encode_doc_train(enc, params, batch["doc_patches"],
+                         batch["doc_mask"], remat=remat)
+    scores = li.maxsim(q, batch["query_mask"], d, batch["doc_mask"])
+    scores = scores / enc.cfg.temperature
+    b = scores.shape[0]
+    labels = torch.arange(b, device=scores.device)
+    logz = torch.logsumexp(scores, dim=-1)
+    gold = scores[labels, labels]
+    loss = torch.mean(logz - gold)
+    acc = torch.mean((torch.argmax(scores, dim=-1) == labels).float())
+    return loss, {"acc": acc}
+
+
+def train_step(enc: ColPaliEncoder, params: Dict[str, Tensor],
+               opt_state: opt.AdamWState, batch: Dict[str, Tensor],
+               opt_cfg: opt.AdamWConfig, *, remat: bool = True):
+    """(params, opt_state, batch) -> (params, opt_state, metrics {loss,
+    acc, lr, grad_norm}); the inputs are left as they were."""
+    loss, parts, grads = T.value_and_grad(
+        lambda p: contrastive_loss(enc, p, batch, remat=remat), params)
+    params, opt_state, om = opt.update(opt_cfg, grads, opt_state, params)
+    return params, opt_state, {"loss": loss, **parts, **om}
 
 
 def init(cfg: ColPaliConfig, *, generator: torch.Generator, device="cuda"

@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
 NEG_INF = -1e30
@@ -44,8 +45,11 @@ def float32_accumulation():
     which would make the models' numbers depend on the caller's setting.
     The models' entry points (``Transformer.forward``/``logits``,
     ``prefill``, ``decode_step``, ``ColPaliEncoder.encode_doc``/
-    ``encode_query``) run under this; the flag is process-wide, so a
-    matmul on another thread during the call sees it cleared too. Also a
+    ``encode_query``) run under this, and the train steps
+    (``transformer.train_step``, ``colpali.train_step``) hold it across
+    the forward, the backward and every checkpoint recompute inside it;
+    the flag is process-wide, so a matmul on another thread during the
+    call (autograd's own workers included) sees it cleared too. Also a
     decorator. Float32 products (float32 activations) follow PyTorch's
     TF32 setting, which is off by default."""
     m = torch.backends.cuda.matmul
@@ -181,10 +185,18 @@ def _sdpa_chunk(q_blk: Tensor, k: Tensor, v: Tensor, mask_blk: Tensor,
 
 def attention_kv(p: Attention, x: Tensor, positions: Tensor, *,
                  n_heads: int, n_kv: int, head_dim: int, theta: float,
-                 q_chunk: int = 512, want_salience: bool = False
+                 q_chunk: int = 512, want_salience: bool = False,
+                 remat: bool = False
                  ) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
     """``attention`` that also returns its post-RoPE keys and its values
-    (B, S, n_kv, hd), which prefill stores in the cache."""
+    (B, S, n_kv, hd), which prefill stores in the cache.
+
+    ``remat`` checkpoints each query block (``torch.utils.checkpoint``,
+    non-reentrant), as the reference's ``jax.checkpoint`` of its q-chunk
+    scan body: the backward keeps only the block's inputs and recomputes
+    its (B, H, qc, S) scores and probabilities. The blocks' outputs are
+    collected and joined once, so no buffer is written in place under
+    autograd."""
     b, s, _ = x.shape
     g = n_heads // n_kv
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim)
@@ -195,18 +207,18 @@ def attention_kv(p: Attention, x: Tensor, positions: Tensor, *,
     while s % qc != 0:
         qc //= 2
     qg = q.view(b, s, n_kv, g, head_dim)
-    out = torch.empty((b, s, n_kv, g, head_dim), dtype=v.dtype,
-                      device=x.device)
-    mass = (torch.zeros((b, s), dtype=torch.float32, device=x.device)
-            if want_salience else None)
+    outs, mass = [], None
     for s0 in range(0, s, qc):
         causal = torch.ones((qc, s), dtype=torch.bool,
                             device=x.device).tril_(s0)     # j <= s0 + i
-        out[:, s0:s0 + qc], m = _sdpa_chunk(qg[:, s0:s0 + qc], k, v,
-                                            causal[None], want_salience)
+        args = (qg[:, s0:s0 + qc], k, v, causal[None], want_salience)
+        o, m = (checkpoint(_sdpa_chunk, *args, use_reentrant=False)
+                if remat else _sdpa_chunk(*args))
+        outs.append(o)
         if want_salience:
-            mass += m
-    y = out.view(b, s, n_heads * head_dim) @ p.wo.to(out.dtype)
+            mass = m if mass is None else mass + m
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    y = out.reshape(b, s, n_heads * head_dim) @ p.wo.to(out.dtype)
     sal = mass / s if want_salience else None
     return y, sal, k, v
 

@@ -5,7 +5,7 @@ The counterpart of ``repro.models.transformer`` for dense layers.
 ``LMConfig`` is the reference's, copied with every field; a config with
 MoE layers (``n_experts > 0``) or chunked-local attention
 (``attn_chunk > 0``) raises ``NotImplementedError`` (ROADMAP.md §A item 5,
-the training half). The reference stacks its layers and scans them; here
+the MoE slice). The reference stacks its layers and scans them; here
 each layer is a ``Block`` module holding its own weights, which
 ``convert.lm_params_from_numpy`` fills from the reference's stacked
 arrays (layer ``l`` takes slice ``l``).
@@ -17,17 +17,28 @@ position of the caches in place and attends over every slot up to it.
 ``prefill`` computes each layer's keys and values once and stores the
 ones its attention used; the reference recomputes them from the same
 inputs, so the caches are the same.
+
+Training: ``loss_fn`` and ``train_step`` take the model and a dict of
+named tensors (``params_of(model)``: ``embed``, ``blocks.<l>.attn.wq``,
+``ln_f.weight``, ...) and run the same blocks through
+``Transformer.run_blocks``, each block called with those tensors
+(``torch.func.functional_call``) inside a non-reentrant checkpoint, as
+the reference checkpoints its scanned block; the attention's query
+blocks and the loss's sequence chunks are checkpointed too. The module's
+own weights serve the no-grad entry points.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.optim import optimizer as opt
 
 Tensor = torch.Tensor
 
@@ -114,12 +125,12 @@ def _check_supported(cfg: LMConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}) are not "
-            "ported yet (ROADMAP.md §A item 5, the training half)")
+            "ported yet (ROADMAP.md §A item 5, the MoE slice)")
     if cfg.attn_chunk > 0:
         raise NotImplementedError(
             f"{cfg.name}: chunked-local attention (attn_chunk="
             f"{cfg.attn_chunk}) is not ported yet (ROADMAP.md §A item 5, "
-            "the training half)")
+            "the MoE slice)")
 
 
 # ---------------------------------------------------------------------------
@@ -140,14 +151,15 @@ class Block(nn.Module):
         self.ffn = L.SwiGLU(cfg.d_model, cfg.d_ff, dt, device)
 
     def forward(self, x: Tensor, positions: Tensor,
-                want_salience: bool = False
+                want_salience: bool = False, remat: bool = False
                 ) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
-        """-> (x, salience or None, post-RoPE keys, values)."""
+        """-> (x, salience or None, post-RoPE keys, values); ``remat``
+        checkpoints the attention's query blocks."""
         cfg = self.cfg
         a, sal, k, v = L.attention_kv(
             self.attn, self.ln1(x), positions, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
-            q_chunk=cfg.q_chunk, want_salience=want_salience)
+            q_chunk=cfg.q_chunk, want_salience=want_salience, remat=remat)
         x = x + a
         x = x + self.ffn(self.ln2(x))
         return x, sal, k, v
@@ -174,33 +186,56 @@ class Transformer(nn.Module):
             torch.empty((cfg.d_model, cfg.vocab), dtype=cfg.pdtype,
                         device=dev)))
 
-    def embed_tokens(self, tokens: Tensor) -> Tensor:
-        """tokens (B, S) -> (B, S, D) in the activation dtype."""
-        return self.embed[tokens.long()].to(self.cfg.adtype)
+    def embed_tokens(self, tokens: Tensor,
+                     params: Optional[Dict[str, Tensor]] = None) -> Tensor:
+        """tokens (B, S) -> (B, S, D) in the activation dtype, from the
+        module's table or ``params["embed"]``."""
+        table = self.embed if params is None else params["embed"]
+        return table[tokens.long()].to(self.cfg.adtype)
 
-    @L.float32_accumulation()
-    def forward_embeddings(self, x: Tensor, want_salience: bool = False
-                           ) -> Tuple[Tensor, Optional[Tensor]]:
+    def run_blocks(self, x: Tensor,
+                   params: Optional[Dict[str, Tensor]] = None, *,
+                   want_salience: bool = False, remat: bool = False
+                   ) -> Tuple[Tensor, Optional[Tensor]]:
         """Every block and ``ln_f`` over embedded inputs (B, S, D) ->
         (hidden, salience (B, S) of the last layer or None). Only the last
         layer computes its attention mass: the reference computes it in
-        every layer and keeps the last."""
+        every layer and keeps the last.
+
+        With ``params`` (named as ``params_of``) each block runs on those
+        tensors, so the result is differentiable in them; ``remat`` then
+        checkpoints every block and, inside it, every attention query
+        block, as the reference does. A block's tensors are passed into
+        its checkpoint, so the recompute in the backward reads the same
+        weights as the forward."""
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         sal = None
         last = len(self.blocks) - 1
         for i, blk in enumerate(self.blocks):
-            x, sal_i, _, _ = blk(x, positions, want_salience and i == last)
+            want = want_salience and i == last
+            if params is None:
+                x, sal_i, _, _ = blk(x, positions, want)
+            else:
+                pre = f"blocks.{i}."
+                bp = {n[len(pre):]: t for n, t in params.items()
+                      if n.startswith(pre)}
+                args = (blk, bp, x, positions, want, remat)
+                x, sal_i = (checkpoint(_block_call, *args,
+                                       use_reentrant=False)
+                            if remat else _block_call(*args))
             if sal_i is not None:
                 sal = sal_i
-        return self.ln_f(x), sal
+        w = self.ln_f.weight if params is None else params["ln_f.weight"]
+        return L.rms_norm(x, w, self.cfg.norm_eps), sal
 
+    @L.float32_accumulation()
     def forward(self, tokens: Tensor, want_salience: bool = False
                 ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
         """tokens (B, S) -> (hidden (B, S, D), aux_loss () f32 (zero: no
         MoE), salience (B, S) or None)."""
-        h, sal = self.forward_embeddings(self.embed_tokens(tokens),
-                                         want_salience)
+        h, sal = self.run_blocks(self.embed_tokens(tokens),
+                                 want_salience=want_salience)
         return h, torch.zeros((), dtype=torch.float32, device=h.device), sal
 
     @L.float32_accumulation()
@@ -209,6 +244,15 @@ class Transformer(nn.Module):
         the products accumulated in float32 (bf16 values widen exactly)."""
         w = self.embed.t() if self.cfg.tie_embeddings else self.unembed
         return torch.matmul(h.float(), w.to(h.dtype).float())
+
+
+def _block_call(blk: Block, bp: Dict[str, Tensor], x: Tensor,
+                positions: Tensor, want_salience: bool, remat: bool
+                ) -> Tuple[Tensor, Optional[Tensor]]:
+    """One block on the tensors ``bp`` (named as the block's own)."""
+    x, sal, _, _ = torch.func.functional_call(
+        blk, bp, (x, positions, want_salience, remat))
+    return x, sal
 
 
 def init(cfg: LMConfig, *, generator: torch.Generator, device="cuda"
@@ -235,6 +279,101 @@ def draw_weights(model: Transformer, generator: torch.Generator
                   blk.ffn.w_gate, blk.ffn.w_up, blk.ffn.w_down):
             p.copy_(L.dense_init(generator, *p.shape, cfg.pdtype))
     return model
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def params_of(model: nn.Module) -> Dict[str, Tensor]:
+    """The model's parameters as a dict of named tensors (detached, sharing
+    the module's storage): the ``params`` of ``loss_fn``, ``train_step``
+    and the optimizer."""
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+@torch.no_grad()
+def load_params(model: nn.Module, params: Dict[str, Tensor]) -> nn.Module:
+    """Copy ``params`` (named as ``params_of``) into the module's own
+    weights, e.g. to serve a trained model; returns the model."""
+    own = dict(model.named_parameters())
+    if set(own) != set(params):
+        raise KeyError(f"load_params: names differ: "
+                       f"{sorted(set(own) ^ set(params))}")
+    for name, p in own.items():
+        p.copy_(params[name])
+    return model
+
+
+def _chunk_ce(h: Tensor, t: Tensor, w: Tensor) -> Tuple[Tensor, Tensor]:
+    """Summed next-token CE of one sequence chunk and its count of valid
+    targets (t >= 0): float32 logits from h and w in h's dtype."""
+    valid = t >= 0
+    safe = torch.clamp(t, min=0).long()
+    logits = torch.matmul(h.float(), w.to(h.dtype).float())
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ce = torch.where(valid, logz - gold, 0.0)
+    return ce.sum(), valid.sum()
+
+
+def loss_fn(model: Transformer, params: Dict[str, Tensor], tokens: Tensor,
+            targets: Tensor, *, remat: bool = True
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Next-token CE over ``params``, in sequence chunks of
+    ``cfg.loss_chunk`` (halved until they divide S), each chunk
+    checkpointed with ``remat`` so its (B, chunk, V) float32 logits are
+    recomputed in the backward. Targets < 0 are masked; the mean is over
+    max(valid, 1) targets. Returns (ce + aux_loss_weight x aux, {ce, aux})
+    with aux zero (no MoE)."""
+    cfg = model.cfg
+    h, _ = model.run_blocks(model.embed_tokens(tokens, params), params,
+                            remat=remat)
+    w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
+    s = h.shape[1]
+    ck = min(cfg.loss_chunk, s)
+    while s % ck != 0:
+        ck //= 2
+    sums, counts = [], []
+    for c0 in range(0, s, ck):
+        args = (h[:, c0:c0 + ck], targets[:, c0:c0 + ck], w)
+        ce_sum, n = (checkpoint(_chunk_ce, *args, use_reentrant=False)
+                     if remat else _chunk_ce(*args))
+        sums.append(ce_sum)
+        counts.append(n)
+    n_valid = torch.clamp(torch.stack(counts).sum(), min=1)
+    ce = torch.stack(sums).sum() / n_valid
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return ce + cfg.aux_loss_weight * aux, {"ce": ce, "aux": aux}
+
+
+def value_and_grad(loss: Callable, params: Dict[str, Tensor], *args,
+                   **kwargs):
+    """(loss(params_with_grad, ...), parts) and its grads, keyed as
+    ``params``, under ``layers.float32_accumulation`` across the forward,
+    the backward and every checkpoint recompute. A parameter the loss does
+    not read gets a zero grad, as ``jax.grad`` gives."""
+    with L.float32_accumulation():
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        value, parts = loss(p, *args, **kwargs)
+        grads = torch.autograd.grad(value, list(p.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+    parts = {k: v.detach() for k, v in parts.items()}
+    return value.detach(), parts, dict(zip(p, grads))
+
+
+def train_step(model: Transformer, params: Dict[str, Tensor],
+               opt_state: opt.AdamWState, batch: Dict[str, Tensor],
+               opt_cfg: opt.AdamWConfig, *, remat: bool = True):
+    """(params, opt_state, {tokens, targets}) -> (params, opt_state,
+    metrics {loss, ce, aux, lr, grad_norm}); the inputs are left as they
+    were."""
+    loss, parts, grads = value_and_grad(
+        lambda p: loss_fn(model, p, batch["tokens"], batch["targets"],
+                          remat=remat), params)
+    params, opt_state, om = opt.update(opt_cfg, grads, opt_state, params)
+    return params, opt_state, {"loss": loss, **parts, **om}
 
 
 # ---------------------------------------------------------------------------

@@ -996,3 +996,185 @@ def test_rag_pipeline_on_the_card_matches_the_cpu(backend):
                          device=dev)
     assert m == pytest.approx({**rag.rag_metrics(want, corpus, rcfg, 60),
                                **{k: m[k] for k in m if k.endswith("ms")}})
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+def _train_setup(which, dev, act="float32", n_layers=None, smoke=True):
+    """(model on ``dev``, its train step, a batch maker) for the qwen2 LM
+    or the colpali encoder of the repo's configs."""
+    from repro_torch.configs import colpali_hpc, lm_archs
+    from repro_torch.launch.train import colpali_batch
+    from repro_torch.models import colpali
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(dev).manual_seed(7)
+    if which == "lm":
+        spec = lm_archs.QWEN2_1_5B
+        cfg = spec.smoke_config if smoke else spec.config
+        cfg = dataclasses.replace(cfg, activation_dtype=act,
+                                  n_layers=n_layers or cfg.n_layers)
+        model = T.init(cfg, generator=gen, device=dev)
+
+        def batch(g, b):
+            tok = torch.randint(0, cfg.vocab, (b, 32), generator=g)
+            return {"tokens": tok, "targets": torch.roll(tok, -1, 1)}
+        return model, T.train_step, batch
+    arch = colpali_hpc.COLPALI_HPC
+    enc = (arch.smoke_config if smoke else arch.config).encoder
+    bb = dataclasses.replace(enc.backbone, activation_dtype=act,
+                             n_layers=n_layers or enc.backbone.n_layers)
+    enc = dataclasses.replace(enc, backbone=bb)
+    model = colpali.init(enc, generator=gen, device=dev)
+    return model, colpali.train_step, lambda g, b: colpali_batch(g, enc, b)
+
+
+@pytest.mark.parametrize("which", ["lm", "colpali"])
+def test_train_steps_on_the_card_match_the_cpu(which):
+    """Two AdamW train steps (float32 activations, TF32 off) on the card
+    and on a CPU copy: loss within 1e-5, grad norm within 1e-4 (sums in
+    other orders); params: at most 0.1% of entries further apart than
+    1e-5, none beyond 2 x the summed lr (an Adam step of a near-zero grad
+    entry can take either sign)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+    dev = _card()
+    model, step, make = _train_setup(which, dev)
+    cpu = _cpu_copy(model, lambda: type(model)(model.cfg, device="cpu"))
+    ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=2)
+    p_d, p_c = T.params_of(model), T.params_of(cpu)
+    s_d, s_c = opt.init(ocfg, p_d), opt.init(ocfg, p_c)
+    g = torch.Generator().manual_seed(8)
+    sum_lr = 0.0
+    for _ in range(2):
+        b = make(g, 4)
+        p_d, s_d, m_d = step(model, p_d, s_d,
+                             {k: v.to(dev) for k, v in b.items()}, ocfg)
+        p_c, s_c, m_c = step(cpu, p_c, s_c, b, ocfg)
+        assert float(m_d["loss"]) == pytest.approx(float(m_c["loss"]),
+                                                   rel=1e-5)
+        assert float(m_d["grad_norm"]) == pytest.approx(
+            float(m_c["grad_norm"]), rel=1e-4)
+        sum_lr += float(m_c["lr"])
+    err = torch.cat([(p_d[k].cpu() - p_c[k]).abs().reshape(-1)
+                     for k in p_c])
+    assert float((err > 1e-5).double().mean()) <= 1e-3
+    assert float(err.max()) <= 2 * sum_lr
+    assert int(s_d.step) == int(s_c.step) == 2
+
+
+@pytest.mark.parametrize("which", ["lm", "colpali"])
+def test_train_step_grads_ignore_the_bf16_flag(which, monkeypatch):
+    """bf16 activations: the grads with PyTorch's bf16 reduced-precision
+    flag set True before the step equal, bit for bit, those with it False:
+    the step clears it across the forward, the backward and the
+    recomputes, and restores it."""
+    from repro_torch.models import colpali
+    from repro_torch.models import transformer as T
+    dev = _card()
+    model, _, make = _train_setup(which, dev, act="bfloat16")
+    b = {k: v.to(dev) for k, v in make(torch.Generator().manual_seed(9),
+                                       4).items()}
+    if which == "lm":
+        def loss(p):
+            return T.loss_fn(model, p, b["tokens"], b["targets"])
+    else:
+        def loss(p):
+            return colpali.contrastive_loss(model, p, b)
+    flag = torch.backends.cuda.matmul
+    grads = {}
+    for value in (True, False, True):
+        monkeypatch.setattr(flag, "allow_bf16_reduced_precision_reduction",
+                            value)
+        _, _, g = T.value_and_grad(loss, T.params_of(model))
+        assert flag.allow_bf16_reduced_precision_reduction is value
+        grads.setdefault(value, []).append(g)
+    for g in grads[True] + grads[False][1:]:
+        assert all(torch.equal(g[k], grads[False][0][k]) for k in g)
+
+
+def test_loop_resume_on_the_card_equals_an_uninterrupted_run(tmp_path):
+    """The LM smoke config on the card: a run stopped at step 3 and
+    resumed from its checkpoint to step 6 ends bit for bit where an
+    uninterrupted 6-step run does."""
+    import functools
+    from repro_torch import convert
+    from repro_torch.ckpt.checkpoint import leaves_with_paths
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.train import loop as train_loop
+    dev = _card()
+    model, step, make = _train_setup("lm", dev)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=6)
+    fn = functools.partial(step, model, opt_cfg=ocfg)
+    batch = {k: v.to(dev) for k, v in make(torch.Generator().manual_seed(10),
+                                           4).items()}
+
+    def run(total, where):
+        p = T.params_of(model)
+        cfg = train_loop.LoopConfig(total_steps=total, ckpt_every=3,
+                                    ckpt_dir=str(tmp_path / where),
+                                    log_every=0)
+        return train_loop.run(fn, p, opt.init(ocfg, p),
+                              iter(lambda: batch, None), cfg,
+                              log_fn=lambda *_: None)
+
+    run(3, "a")
+    resumed = run(6, "a")
+    whole = run(6, "b")
+    assert len(resumed["history"]) == 3
+    assert resumed["params"]["embed"].device.type == dev.type
+    got = convert.train_tree(resumed["params"], resumed["opt_state"])
+    want = convert.train_tree(whole["params"], whole["opt_state"])
+    for (k, a), (_, b) in zip(leaves_with_paths(got),
+                              leaves_with_paths(want)):
+        np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def test_colpali_train_step_peak_memory_at_full_width():
+    """A 2-layer cut of the colpali-hpc encoder at full width (bf16
+    activations, 16 pages of 1024 patches and 16 queries): the step's peak
+    memory stays under the reckoning of what it must hold:
+
+      * params, grads, both moments, and the update's new params and
+        moments: 28 B per parameter;
+      * the update's temporaries for one tensor: 8 of the largest;
+      * the block inputs the remat keeps (bf16), the page batch (float32);
+      * one block recomputed in the backward: 6 bf16 FFN tensors (B, S,
+        d_ff) and 6 float32 (B, H, q_chunk, S) score tensors of one
+        query block.
+
+    Without the per-block and per-query-block remat the two layers' score
+    blocks and FFN tensors would all stay alive, about 2.5x the last
+    item."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+    dev = _card()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    model, step, make = _train_setup("colpali", dev, act="bfloat16",
+                                     n_layers=2, smoke=False)
+    enc, bb = model.cfg, model.cfg.backbone
+    b, s = 16, enc.n_patches
+    p = T.params_of(model)
+    n = sum(t.numel() for t in p.values())
+    largest = max(t.numel() for t in p.values()) * 4
+    ocfg = opt.AdamWConfig()
+    state = opt.init(ocfg, p)
+    batch = {k: v.to(dev) for k, v in make(torch.Generator().manual_seed(11),
+                                           b).items()}
+    qc = min(bb.q_chunk, s)
+    bound = (28 * n + 8 * largest
+             + bb.n_layers * b * s * bb.d_model * 2 + b * s * enc.d_patch * 4
+             + 6 * b * s * bb.d_ff * 2 + 6 * b * bb.n_heads * qc * s * 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p2, s2, m = step(model, p, state, batch, ocfg)
+    torch.cuda.synchronize()
+    # what this test holds at the step's peak: the model's params, the
+    # moments, the batch and what the step allocates
+    peak = torch.cuda.max_memory_allocated() - start
+    print(f"peak {peak / 2**30:.2f} GiB of a {bound / 2**30:.2f} GiB bound")
+    assert bool(torch.isfinite(m["loss"]))
+    assert peak <= bound

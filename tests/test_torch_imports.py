@@ -16,6 +16,7 @@ from repro_torch.core import rag
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve
+from repro_torch.launch import train
 from repro_torch.models import colpali, transformer
 from repro_torch.serving.server import AsyncRetrievalServer, ServeConfig
 
@@ -109,3 +110,12 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_trainer_refuses_the_cpu_unless_asked(tmp_path):
+    _no_card()
+    for arch in ("qwen2-1.5b", "colpali-hpc"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--arch", arch, "--smoke", "--steps", "1",
+                        "--ckpt-dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
