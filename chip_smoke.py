@@ -125,7 +125,29 @@ any failure exits non-zero, and no phase's error is swallowed:
      300 steps on the card and scored through the float_flat, flat and
      hamming retrievers (each search held to the CPU plain path) and the
      single-vector one: ROUGE-L, hallucination and answer accuracy
-     (``{"rag_trained": ...}``).
+     (``{"rag_trained": ...}``);
+ 11. the MoE LM family at full width (no kernel on this path: the
+     reference's router, dispatch and expert products are plain einsums):
+     (a) a 1-layer llama4-scout cut with float32 activations (17.1 GB), a
+     prompt of 2 x 64 and 4 decode steps on the card and on a CPU copy:
+     the same experts chosen and the same assignments kept, outside
+     near-ties of the router's top-k (margin < 1e-4, reported), then the
+     logits within 1e-4; and the smoke configs of llama4-scout and kimi-k2
+     trained 2 steps on the card against the CPU with float32 and int8
+     moments; (b) a 4-layer llama4-scout cut, one iRoPE period (43.5 GB,
+     float32 weights, bf16 activations): a prefill of 1 x 12288 (1.5
+     windows of 8192) into a cache of 16384 and 8 decode steps, with
+     tokens/s, a decode step's host wall and device time, the MoE layer's
+     split (router + top-k + sort, dispatch, expert products, combine),
+     the dropped share per layer at the config's capacity factor 1.25,
+     peak memory and the executed FLOP rate against the BF16 peak
+     (``{"moe_scout": ...}``); prefill and decode held to the
+     teacher-forced forward at the no-drop capacity factor E / k, and a
+     chunked layer's attention at S = 12288 held in float32 to one masked
+     softmax per head with the explicit iRoPE mask; (c) a 1-layer kimi-k2
+     cut (bf16, 384 experts top-8, 38.8 GB): a prefill of 4 x 64 and 4
+     decode steps, the same readings (``{"moe_kimi": ...}``) and the
+     no-drop check.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, the script exits non-zero and prints no result.
@@ -280,6 +302,40 @@ RAG_GEN_STEPS, RAG_GEN_BATCH, RAG_GEN_SEQ = 300, 32, 24
 # the trained generator's ROUGE-L with the float retriever: the reference
 # reaches 0.73-0.86 over seeds 0-3 on the CPU (tools/rag_quality_seeds.py)
 RAG_TRAINED_ROUGE_FLOOR = 0.5
+
+# phase 11, the MoE LM family at full width: the port's copies of
+# LLAMA4_SCOUT.config and KIMI_K2.config (src/repro/configs/lm_archs.py:
+# 70-110), cut in depth only, weights drawn from the seed. 11a: a 1-layer
+# llama4-scout cut with float32 activations (17.1 GB) on the card against
+# a CPU copy, and the smoke configs' train steps; 11b: a 4-layer cut, one
+# iRoPE period (layers 0-2 chunked, layer 3 global; 43.5 GB), in the
+# config's dtypes, a prompt of 1.5 windows and decode steps in the second;
+# 11c: a 1-layer kimi-k2 cut (bf16, 384 experts top-8; 38.8 GB). A
+# prefill or decode is held against the teacher-forced forward at the
+# no-drop capacity factor E / k (the reference's own check,
+# tests/test_models_lm.py:49-80), in expert blocks that keep the dispatch
+# buffers small.
+MOE_CUT_PROMPT = (2, 64)        # batch, tokens
+MOE_CUT_DECODE = 4
+MOE_LOGIT_TOL = 1e-4            # 11a, float32 card against CPU: atol, rtol
+MOE_TIE_TOL = 1e-4              # a router top-k margin under this: near-tie
+MOE_SMOKE_BATCH = (4, 32)
+SCOUT_LAYERS = 4
+SCOUT_PROMPT = 12288            # 1.5 windows of attn_chunk 8192
+SCOUT_MAX_LEN = 16384
+SCOUT_DECODE = 8
+SCOUT_CHECK_CHUNKS = 4          # expert blocks of the no-drop check
+KIMI_PROMPT = (4, 64)
+KIMI_DECODE = 4
+KIMI_CHECK_CHUNKS = 8
+# bf16 activations: prefill or decode logits against the no-drop forward.
+# The two run the same products at other shapes (other rows in the expert
+# products, other key counts in the global layer), so a bf16 rounding can
+# land a step apart and carry through the layers: relative L2 within 2%
+# and each logit within 8 bf16 steps of the largest
+NO_DROP_RMS_TOL = 0.02
+NO_DROP_STEPS = 8
+CHUNK_ATTN_TOL = 1e-4           # float32 chunked layer vs the explicit mask
 
 
 def _phase(name: str) -> float:
@@ -2173,6 +2229,514 @@ def _train_phase(args, torch, np, dev, smi, arch, lm_spec, kernel_mods):
     return {"launches": launches, **out}
 
 
+def _set_moe(model, **changes):
+    """Run ``model`` under its config with ``changes`` (the MoE capacity
+    factor or expert blocks): the weights stay as they are."""
+    import dataclasses
+    cfg = dataclasses.replace(model.cfg, **changes)
+    model.cfg = cfg
+    for blk in model.blocks:
+        blk.cfg = cfg
+
+
+def _record_moe(model):
+    """Hooks on every MoE layer of ``model`` that keep each call's (module,
+    input tokens, capacity factor); returns (records, handles)."""
+    rec = []
+
+    def hook(mod, args, _out):
+        rec.append((mod, args[0].detach(), args[1]))
+    return rec, [blk.moe.register_forward_hook(hook) for blk in model.blocks]
+
+
+def _kept_table(torch, r, n_experts):
+    """A routing's kept assignments as a (T, E) bool table on the host."""
+    t = r.expert.shape[0]
+    kept = torch.zeros((t, n_experts), dtype=torch.bool)
+    keep = r.keep.cpu()
+    kept[r.sorted_token.cpu()[keep], r.sorted_expert.cpu()[keep]] = True
+    return kept
+
+
+def _routing_diff(torch, L, rec_d, rec_c):
+    """Each MoE call on the card against the same call on the CPU: the
+    chosen experts and the kept (token, expert) set of every token. A token
+    whose chosen experts differ must be a near-tie of the CPU router (its
+    k-th and (k+1)-th probs within MOE_TIE_TOL); a token whose kept set
+    alone differs is allowed only in a call with such a flip (an expert's
+    capacity moved). Returns the count of calls and tokens compared and
+    the differing (call, token) pairs."""
+    flips, shifts, n_tok = [], [], 0
+    assert len(rec_d) == len(rec_c), (len(rec_d), len(rec_c))
+    for i, ((m_d, x_d, cf), (m_c, x_c, cf_c)) in enumerate(zip(rec_d,
+                                                               rec_c)):
+        assert cf == cf_c
+        r_d = L.moe_route(m_d, x_d, m_d.top_k, cf)
+        r_c = L.moe_route(m_c, x_c, m_c.top_k, cf)
+        k = m_c.top_k
+        e = r_c.probs.shape[1]
+        chose_d = torch.sort(r_d.expert.cpu(), -1).values
+        chose_c = torch.sort(r_c.expert, -1).values
+        flip = (chose_d != chose_c).any(-1)
+        shift = (_kept_table(torch, r_d, e)
+                 != _kept_table(torch, r_c, e)).any(-1) & ~flip
+        top = torch.topk(r_c.probs, min(k + 1, e), dim=-1).values
+        margin = (top[:, k - 1] - top[:, k] if k < e
+                  else torch.full_like(top[:, 0], float("inf")))
+        for tok in torch.nonzero(flip).flatten().tolist():
+            assert float(margin[tok]) < MOE_TIE_TOL, \
+                f"MoE call {i} token {tok}: experts differ, margin " \
+                f"{float(margin[tok])}"
+            flips.append((i, tok, float(margin[tok])))
+        assert not shift.any() or flip.any(), \
+            f"MoE call {i}: kept sets differ with no near-tie flip"
+        shifts += [(i, t) for t in torch.nonzero(shift).flatten().tolist()]
+        n_tok += x_c.shape[0]
+    return {"calls": len(rec_c), "tokens": n_tok,
+            "near_tie_flips": flips, "capacity_shifts": shifts}
+
+
+def _moe_logit_check(torch, got, want, skip_rows):
+    """float32 logits on the card against the CPU's: atol = rtol =
+    MOE_LOGIT_TOL, outside rows whose routing differed at a near-tie.
+    Returns the largest |difference|."""
+    keep = [r for r in range(want.shape[0]) if r not in skip_rows]
+    g, w = got.cpu()[keep], want[keep]
+    err = (g - w).abs()
+    assert bool((err <= MOE_LOGIT_TOL * (1 + w.abs())).all()), \
+        f"11a logits differ: {float(err.max())}"
+    return float(err.max())
+
+
+def _no_drop_check(torch, got, want):
+    """bf16 logits (prefill and decode steps, rows stacked) against the
+    no-drop forward's: relative L2 within NO_DROP_RMS_TOL and every entry
+    within NO_DROP_STEPS bf16 steps of the largest |logit|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    steps = float((got - want).abs().max()
+                  / (2.0 ** -8 * want.abs().max()))
+    same_argmax = float((got.argmax(-1) == want.argmax(-1)).double().mean())
+    assert rel <= NO_DROP_RMS_TOL and steps <= NO_DROP_STEPS, (rel, steps)
+    return {"rel_l2": rel, "max_err_bf16_steps": steps,
+            "argmax_agree": same_argmax}
+
+
+def _moe_flops(cfg, n_tok, seq, experts_slots, last_logits):
+    """Matmul FLOPs a prefill of ``n_tok`` tokens (sequences of ``seq``)
+    executes: per layer the projections, the plain attention's score and
+    PV products over every key of a query block's window (or of the whole
+    sequence in a global layer), the router, the experts over their
+    ``experts_slots[l]`` slots (empty slots included) and the shared
+    expert; then the last positions' logits."""
+    d, hd = cfg.d_model, cfg.hd
+    total = 0.0
+    for layer, chunked in enumerate(cfg.layer_is_chunked()):
+        keys = cfg.attn_chunk if chunked and 0 < cfg.attn_chunk < seq \
+            else seq
+        total += 2 * n_tok * (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+                              + cfg.n_heads * hd * d)
+        total += 4 * cfg.n_heads * hd * n_tok * keys
+        total += 2 * n_tok * d * cfg.n_experts
+        total += 6 * experts_slots[layer] * d * cfg.moe_d_ff
+        total += 6 * n_tok * d * cfg.moe_d_ff * cfg.n_shared_experts
+    return total + 2 * last_logits * d * cfg.vocab
+
+
+def _moe_split(torch, L, moe, x, cf):
+    """Device time of one MoE layer's parts on tokens x (T, D), each
+    replayed from a CUDA graph: router + top-k + sort (``moe_route``),
+    the dispatch (slot table and gather), the expert products (the
+    weights cast to x's dtype in them, as on the path) and the combine;
+    and the whole layer."""
+    t, d = x.shape
+    e = moe.router.shape[1]
+    r = L.moe_route(moe, x, moe.top_k, cf)
+    x_pad = torch.cat([x, x.new_zeros((1, d))])
+    slots = L.moe_slots(r, t)
+    xg = x_pad[slots].view(e, r.capacity, d)
+    y = L.moe_experts(xg, moe.w_gate, moe.w_up, moe.w_down)
+
+    def combine():
+        rows = torch.sort(torch.argsort(r.order).view(t, moe.top_k),
+                          dim=-1).values
+        return L.moe_combine(y.view(e * r.capacity, d),
+                             r.gate.reshape(-1)[r.order], r, rows, 0, e)
+
+    parts = {
+        "router_topk_sort": lambda: L.moe_route(moe, x, moe.top_k, cf),
+        "dispatch_gather": lambda: x_pad[L.moe_slots(r, t)].view(
+            e, r.capacity, d),
+        "expert_products": lambda: L.moe_experts(xg, moe.w_gate, moe.w_up,
+                                                 moe.w_down),
+        "combine": combine,
+        "whole_layer": lambda: moe(x, cf, 1)}
+    with torch.no_grad(), L.float32_accumulation():
+        out = {name: _time_ms(torch, fn, 3) for name, fn in parts.items()}
+    out.update({"tokens": t, "capacity": r.capacity,
+                "slots": e * r.capacity})
+    return out
+
+
+def _moe_serve(torch, np, T, L, model, prompt, max_len, n_decode, smi,
+               what):
+    """Prefill ``prompt`` at the config's capacity factor and decode
+    ``n_decode`` greedy steps: the prefill's host wall (after a short
+    warm-up prefill), tokens/s, peak memory above what was held, each MoE
+    layer's dropped share, the decode steps' host walls, one decode
+    step's device time (CUDA-graph replay), the MoE split at the prefill's
+    and a decode step's shapes, and the executed matmul FLOP rate against
+    the dense BF16 peak."""
+    cfg = model.cfg
+    b, s = prompt.shape
+    T.prefill(model, prompt[:, :min(s, 256)], max_len=max_len)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec, hooks = _record_moe(model)
+    t1 = time.perf_counter()
+    logits, cache = T.prefill(model, prompt, max_len=max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    for h in hooks:
+        h.remove()
+    peak = torch.cuda.max_memory_allocated()
+    dropped, slots = [], []
+    for mod, x, cf in rec:
+        r = L.moe_route(mod, x, mod.top_k, cf)
+        dropped.append(float((~r.keep).double().mean()))
+        slots.append(cfg.n_experts * r.capacity)
+    flops = _moe_flops(cfg, b * s, s, slots, b)
+    split_prefill = _moe_split(torch, L, model.blocks[0].moe, rec[0][1],
+                               cfg.capacity_factor)
+    del rec
+    walls, tok = [], torch.argmax(logits, -1).to(torch.int32)
+    for i in range(n_decode):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = T.decode_step(model, tok, cache, s + i)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    decode_dev = _time_ms(torch, lambda: T.decode_step(
+        model, tok, cache, s + n_decode - 1), 3)
+    h = L.rms_norm(model.embed_tokens(tok[:, None]),
+                   model.blocks[0].ln2.weight, cfg.norm_eps)[:, 0]
+    split_decode = _moe_split(torch, L, model.blocks[0].moe, h, 2.0)
+    del cache, logits
+    torch.cuda.empty_cache()
+    out = {"prompt": [b, s], "prefill_s": prefill_s,
+           "prefill_tokens_per_s": b * s / prefill_s,
+           "prefill_executed_tflop": flops / 1e12,
+           "prefill_tflop_per_s": flops / prefill_s / 1e12,
+           "prefill_share_of_bf16_peak": flops / prefill_s / PEAK_BF16_FLOPS,
+           "prefill_peak_memory_gib": (peak - base) / 2**30,
+           "max_memory_allocated_gib": peak / 2**30,
+           "dropped_share_by_layer": dropped,
+           "capacity_factor": cfg.capacity_factor,
+           "decode_step_host_wall_ms": walls,
+           "decode_step_host_wall_median_ms": float(np.median(walls)),
+           "decode_step_device_ms": decode_dev,
+           "moe_split_prefill_ms": split_prefill,
+           "moe_split_decode_ms": split_decode}
+    print(json.dumps({what: out, "smi": smi}))
+    return out
+
+
+def _no_drop_run(torch, T, model, prompt, max_len, n_decode, filler, gen):
+    """Prefill and ``n_decode`` greedy decode steps at the model's current
+    (no-drop) capacity, then one teacher-forced forward over the prompt,
+    the decoded tokens and ``filler`` more (so the query blocks keep their
+    size; positions after the last compared one cannot reach it: causal
+    attention, and no token drops). Returns (the prefill's and steps'
+    logits, the forward's at the same positions), rows ordered (step,
+    batch row)."""
+    b, s = prompt.shape
+    logits, cache = T.prefill(model, prompt, max_len=max_len)
+    got, toks = [logits], []
+    for i in range(n_decode):
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        toks.append(nxt)
+        logits, cache = T.decode_step(model, nxt, cache, s + i)
+        got.append(logits)
+    del cache
+    extra = torch.randint(0, model.cfg.vocab, (b, filler), generator=gen,
+                          device=prompt.device, dtype=prompt.dtype)
+    seq = torch.cat([prompt, torch.stack(toks, 1).to(prompt.dtype), extra],
+                    1)
+    with torch.no_grad():
+        h, _, _ = model(seq)
+        want = model.logits(h[:, s - 1:s + n_decode])      # (B, n+1, V)
+    del h
+    return (torch.stack(got, 1).reshape(-1, want.shape[-1]),
+            want.reshape(-1, want.shape[-1]))
+
+
+def _chunk_attn_check(torch, L, blk, cfg, h):
+    """One chunked layer's attention at S = h.shape[1], float32, against
+    an independent form on the card: per head one (S, S) softmax with the
+    explicit iRoPE mask (j <= i, same window of ``attn_chunk``). Returns
+    the largest |difference| over the largest |output|."""
+    import math
+    s = h.shape[1]
+    hf = h.float()
+    pos = torch.arange(s, device=h.device)[None]
+    with torch.no_grad():
+        got, _, _, _ = L.attention_kv(
+            blk.attn, hf, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.hd, theta=cfg.rope_theta, chunk=cfg.attn_chunk,
+            q_chunk=cfg.q_chunk)
+        a = blk.attn
+        q = L.apply_rope((hf @ a.wq.float()).view(1, s, cfg.n_heads, cfg.hd),
+                         pos, cfg.rope_theta)
+        k = L.apply_rope((hf @ a.wk.float()).view(1, s, cfg.n_kv_heads,
+                                                  cfg.hd), pos,
+                         cfg.rope_theta)
+        v = (hf @ a.wv.float()).view(1, s, cfg.n_kv_heads, cfg.hd)
+        i = torch.arange(s, device=h.device)
+        mask = (i[None] <= i[:, None]) & (i[None] // cfg.attn_chunk
+                                          == i[:, None] // cfg.attn_chunk)
+        g = cfg.n_heads // cfg.n_kv_heads
+        outs = []
+        for head in range(cfg.n_heads):
+            sc = (q[0, :, head] @ k[0, :, head // g].t()) / math.sqrt(cfg.hd)
+            sc.masked_fill_(~mask, float("-inf"))
+            outs.append(torch.softmax(sc, -1) @ v[0, :, head // g])
+            del sc
+        want = torch.stack(outs, 1).reshape(1, s, -1) @ a.wo.float()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= CHUNK_ATTN_TOL, f"11b chunked attention differs: {err}"
+    return err
+
+
+def _moe_train_int8(torch, dev, name, model, cpu, batches, ocfg):
+    """Two int8-moment train steps: the first from the same weights on
+    both devices (held as 10a holds its cuts); the second on the card
+    from the CPU's state after the first, copied over. The reference's
+    int8 codec rounds a second moment below half a code to 0, so an entry
+    with a near-zero grad then steps by lr x m / (sqrt(v) + eps) with
+    sqrt(v) near eps and follows its grad's rounding (ROADMAP.md caveat
+    C8): step two is held from one state, each param within 2 x lr + 2%
+    of the CPU's step, at most 0.1% beyond TRAIN_PARAM_TOL, and the new
+    codes equal for 99.99% of entries, within one code."""
+    from repro_torch.ckpt.checkpoint import leaves_with_paths
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+    p_d, p_c = T.params_of(model), T.params_of(cpu)
+    s_d, s_c = opt.init(ocfg, p_d), opt.init(ocfg, p_c)
+    rows = []
+
+    def step(b, p_d, s_d, p_c, s_c):
+        p_d, s_d, m_d = T.train_step(model, p_d, s_d,
+                                     {k: v.to(dev) for k, v in b.items()},
+                                     ocfg)
+        p_c2, s_c2, m_c = T.train_step(cpu, p_c, s_c, b, ocfg)
+        row = {k: [float(m_d[k]), float(m_c[k])]
+               for k in ("loss", "aux", "grad_norm")}
+        for k, tol in (("loss", TRAIN_LOSS_TOL), ("aux", TRAIN_LOSS_TOL),
+                       ("grad_norm", TRAIN_GNORM_TOL)):
+            d, c = row[k]
+            assert abs(d - c) <= tol * abs(c), f"11a {name} {k}: {row}"
+        rows.append(row)
+        return p_d, s_d, p_c2, s_c2, float(m_c["lr"])
+
+    p_d, s_d, p_c1, s_c1, lr = step(batches[0], p_d, s_d, p_c, s_c)
+    first = _adam_agreement(torch, p_d, p_c1, lr)
+    p_d = {k: v.to(dev) for k, v in p_c1.items()}
+    s_d = opt.AdamWState(s_c1.step.to(dev),
+                         *({k: opt.QMoment(q.q.to(dev), q.scale.to(dev))
+                            for k, q in mom.items()}
+                           for mom in (s_c1.m, s_c1.v)))
+    p_d, s_d, p_c2, s_c2, lr = step(batches[1], p_d, s_d, p_c1, s_c1)
+    err = torch.cat([(p_d[k].cpu().double() - p_c2[k].double()).abs()
+                     .reshape(-1) for k in p_c2])
+    stp = torch.cat([(p_c2[k].double() - p_c1[k].double()).abs()
+                     .reshape(-1) for k in p_c2])
+    share = float((err > TRAIN_PARAM_TOL).double().mean())
+    assert share <= 1e-3, (name, share)
+    assert bool((err <= 2 * lr + 0.02 * stp).all()), \
+        f"11a {name}: int8 step two differs by {float(err.max())}"
+    codes = [(a, b) for (ka, a), (_, b) in zip(
+        leaves_with_paths((s_d.m, s_d.v)), leaves_with_paths((s_c2.m,
+                                                             s_c2.v)))
+             if a.dtype == torch.int8]
+    differ = sum(int((a.cpu() != b).sum()) for a, b in codes)
+    n = sum(b.numel() for _, b in codes)
+    assert differ <= 1e-4 * n, (name, differ, n)
+    assert all(int((a.cpu().int() - b.int()).abs().max()) <= 1
+               for a, b in codes)
+    return {"steps": rows, "first_step_params": first,
+            "second_step": {"share_beyond_tol": share,
+                            "max_abs_err": float(err.max()),
+                            "largest_step": float(stp.max()),
+                            "codes_differ": differ, "codes": n}}
+
+
+def _moe_phase(args, torch, np, dev, smi, scout_spec, kimi_spec,
+               kernel_mods):
+    """Phase 11: the MoE LM family. (a) a 1-layer full-width llama4-scout
+    cut (float32) on the card against a CPU copy: routing, then logits;
+    and the smoke configs' train steps against the CPU; (b) a 4-layer
+    llama4-scout cut in its own dtypes: prefill of 1.5 windows, decode in
+    the second, readings, the no-drop check and a chunked layer against
+    its explicit mask; (c) a 1-layer kimi-k2 cut: readings and the no-drop
+    check. Returns the launches (none: no kernel is on this path) and the
+    readings."""
+    import dataclasses
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+
+    out = {}
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    torch.cuda.empty_cache()
+    print(f"phase 11 starts with {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated on the card")
+
+    # -- 11a. a 1-layer full-width llama4-scout cut, card against CPU --------
+    t0 = _phase("11a. MoE: a 1-layer full-width llama4-scout cut (float32) "
+                "on the card against the CPU; smoke train steps")
+    cfg = dataclasses.replace(scout_spec.config, n_layers=1,
+                              activation_dtype="float32")
+    model = T.init(cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 110), device=dev)
+    cpu = T.Transformer(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    hg = torch.Generator().manual_seed(args.seed + 111)
+    b, s = MOE_CUT_PROMPT
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=hg)
+    rec_d, hooks_d = _record_moe(model)
+    rec_c, hooks_c = _record_moe(cpu)
+    got, cache = T.prefill(model, prompt.to(dev), max_len=s + MOE_CUT_DECODE)
+    want, cache_c = T.prefill(cpu, prompt, max_len=s + MOE_CUT_DECODE)
+    pairs = [(got, want)]
+    for i in range(MOE_CUT_DECODE):
+        nxt = torch.argmax(want, -1).to(torch.int32)
+        got, cache = T.decode_step(model, nxt.to(dev), cache, s + i)
+        want, cache_c = T.decode_step(cpu, nxt, cache_c, s + i)
+        pairs.append((got, want))
+    for h in hooks_d + hooks_c:
+        h.remove()
+    routing = _routing_diff(torch, L, rec_d, rec_c)
+    # the logits of a row whose last token routed otherwise are not held
+    flipped = {(c, t) for c, t, _ in routing["near_tie_flips"]}
+    skip = [{r for r in range(b) if (0, r * s + s - 1) in flipped}]
+    skip += [{r for r in range(b) if (1 + i, r) in flipped}
+             for i in range(MOE_CUT_DECODE)]
+    errs = [_moe_logit_check(torch, g, w, sk)
+            for (g, w), sk in zip(pairs, skip)]
+    cut = {"routing": routing, "logits_max_abs_err": errs,
+           "skipped_rows": [sorted(x) for x in skip]}
+    del model, cpu, cache, cache_c, rec_d, rec_c, pairs, got, want
+    torch.cuda.empty_cache()
+    smoke = {}
+    for spec in (scout_spec, kimi_spec):
+        for md in ("fp32", "int8"):
+            scfg = spec.smoke_config
+            m = T.init(scfg, generator=torch.Generator(dev).manual_seed(
+                args.seed + 112), device=dev)
+            c = T.Transformer(scfg, device="cpu")
+            c.load_state_dict(m.state_dict())
+            ocfg = opt.AdamWConfig(lr=TRAIN_CUT_LR, warmup_steps=1,
+                                   total_steps=TRAIN_CUT_STEPS,
+                                   moment_dtype=md)
+            batches = [make_lm_batch(hg, scfg.vocab, *MOE_SMOKE_BATCH)
+                       for _ in range(TRAIN_CUT_STEPS)]
+            name = f"{spec.arch_id} {md}"
+            smoke[name] = (
+                _train_cut(torch, dev, name, m, c, T.train_step, batches,
+                           ocfg)[0]
+                if md == "fp32" else
+                _moe_train_int8(torch, dev, name, m, c, batches, ocfg))
+            del m, c
+    cut["smoke_train"] = smoke
+    cut["seconds"] = time.perf_counter() - t0
+    out["cut"] = cut
+    print(json.dumps({"moe_cut": cut, "smi": smi}))
+
+    # -- 11b. llama4-scout, one iRoPE period at full width -------------------
+    cfg = dataclasses.replace(scout_spec.config, n_layers=SCOUT_LAYERS)
+    t0 = _phase(f"11b. llama4-scout at full width, {SCOUT_LAYERS} layers "
+                f"(chunked {cfg.layer_is_chunked()}): prefill 1 x "
+                f"{SCOUT_PROMPT} into {SCOUT_MAX_LEN}, {SCOUT_DECODE} "
+                f"decode steps")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = T.init(cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 113), device=dev)
+    weights_gib = (torch.cuda.memory_allocated() - base) / 2**30
+    g = torch.Generator(dev).manual_seed(args.seed + 114)
+    prompt = torch.randint(0, cfg.vocab, (1, SCOUT_PROMPT), generator=g,
+                           device=dev, dtype=torch.int32)
+    scout = _moe_serve(torch, np, T, L, model, prompt, SCOUT_MAX_LEN,
+                       SCOUT_DECODE, smi, "moe_scout")
+    scout["weights_gib"] = weights_gib
+    cf = cfg.n_experts / cfg.moe_top_k
+    _set_moe(model, capacity_factor=cf, moe_expert_chunks=SCOUT_CHECK_CHUNKS)
+    t1 = time.perf_counter()
+    got, want = _no_drop_run(torch, T, model, prompt, SCOUT_MAX_LEN,
+                             SCOUT_DECODE,
+                             -(SCOUT_PROMPT + SCOUT_DECODE) % cfg.q_chunk,
+                             g)
+    scout["no_drop"] = _no_drop_check(torch, got, want)
+    scout["no_drop"].update(capacity_factor=cf,
+                            expert_chunks=SCOUT_CHECK_CHUNKS,
+                            seconds=time.perf_counter() - t1)
+    del got, want
+    _set_moe(model, capacity_factor=cfg.capacity_factor,
+             moe_expert_chunks=cfg.moe_expert_chunks)
+    torch.cuda.empty_cache()
+    blk = model.blocks[0]
+    assert blk.chunked
+    with torch.no_grad():
+        h = blk.ln1(model.embed_tokens(prompt))
+    scout["chunked_layer_rel_err"] = _chunk_attn_check(torch, L, blk, cfg, h)
+    del h, model, prompt
+    torch.cuda.empty_cache()
+    scout["seconds"] = time.perf_counter() - t0
+    out["scout"] = scout
+    print(json.dumps({"moe_scout_checks": {
+        k: scout[k] for k in ("no_drop", "chunked_layer_rel_err",
+                              "weights_gib", "seconds")}, "smi": smi}))
+
+    # -- 11c. kimi-k2, one layer at full width --------------------------------
+    cfg = dataclasses.replace(kimi_spec.config, n_layers=1)
+    b, s = KIMI_PROMPT
+    t0 = _phase(f"11c. kimi-k2 at full width, 1 layer ({cfg.n_experts} "
+                f"experts top-{cfg.moe_top_k}, bf16): prefill {b} x {s}, "
+                f"{KIMI_DECODE} decode steps")
+    base = torch.cuda.memory_allocated()
+    model = T.init(cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 115), device=dev)
+    weights_gib = (torch.cuda.memory_allocated() - base) / 2**30
+    g = torch.Generator(dev).manual_seed(args.seed + 116)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev,
+                           dtype=torch.int32)
+    kimi = _moe_serve(torch, np, T, L, model, prompt, s + KIMI_DECODE,
+                      KIMI_DECODE, smi, "moe_kimi")
+    kimi["weights_gib"] = weights_gib
+    cf = cfg.n_experts / cfg.moe_top_k
+    _set_moe(model, capacity_factor=cf, moe_expert_chunks=KIMI_CHECK_CHUNKS)
+    got, want = _no_drop_run(torch, T, model, prompt, s + KIMI_DECODE,
+                             KIMI_DECODE, 0, g)
+    kimi["no_drop"] = _no_drop_check(torch, got, want)
+    kimi["no_drop"].update(capacity_factor=cf,
+                           expert_chunks=KIMI_CHECK_CHUNKS)
+    del got, want, model, prompt
+    torch.cuda.empty_cache()
+    kimi["seconds"] = time.perf_counter() - t0
+    out["kimi"] = kimi
+    print(json.dumps({"moe_kimi_checks": {
+        k: kimi[k] for k in ("no_drop", "weights_gib", "seconds")},
+        "smi": smi}))
+    launches = {"moe": {n: mod.launches for n, mod in kernel_mods.items()}}
+    assert not any(launches["moe"].values()), launches
+    return {"launches": launches, **out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2185,7 +2749,7 @@ def main(argv=None) -> int:
         return 2
     from repro_torch import state_to
     from repro_torch.configs.colpali_hpc import COLPALI_HPC
-    from repro_torch.configs.lm_archs import QWEN2_1_5B
+    from repro_torch.configs.lm_archs import KIMI_K2, LLAMA4_SCOUT, QWEN2_1_5B
     from repro_torch.core import index as index_mod
     from repro_torch.core import pruning
     from repro_torch.core import scan as scan_mod
@@ -2904,13 +3468,15 @@ def main(argv=None) -> int:
                          QWEN2_1_5B.config, kernel_mods)
     train = _train_phase(args, torch, np, dev, smi, COLPALI_HPC.config,
                          QWEN2_1_5B, kernel_mods)
+    moe = _moe_phase(args, torch, np, dev, smi, LLAMA4_SCOUT, KIMI_K2,
+                     kernel_mods)
 
     by_path = {"flat": {"quantized_maxsim": qm_launches,
                         "kmeans_assign": km_launches},
                "cascade": casc_launches,
                "live cascade": live["launches"],
                **ann["launches"], **model["launches"],
-               **train["launches"]}
+               **train["launches"], **moe["launches"]}
 
     def launches(name):
         return sum(path.get(name, 0) for path in by_path.values())

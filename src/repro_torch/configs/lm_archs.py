@@ -1,9 +1,9 @@
 """Assigned LM-family architecture configs (exact public configs).
 
 The reference's ``repro.configs.lm_archs``, copied as data over the
-port's ``LMConfig``. The port runs the dense ones (glm4-9b, qwen2-1.5b,
-llama3.2-3b); llama4-scout (MoE, chunked-local attention) and kimi-k2
-(MoE) raise ``NotImplementedError`` when a model is built from them.
+port's ``LMConfig``: the dense glm4-9b, qwen2-1.5b and llama3.2-3b, and
+the MoE llama4-scout (16 experts top-1, a shared expert, chunked-local
+attention) and kimi-k2 (384 experts top-8).
 
 long_500k policy (docs/design.md §6): glm4/qwen2/llama3.2/kimi-k2 are pure
 full-attention per their public configs -> the 500k decode cell is skipped

@@ -1,10 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
 The counterpart of ``repro.configs.registry`` over the archs the port
-has: the five LM archs (the dense ones run; llama4-scout and kimi-k2 raise
-``NotImplementedError`` when a model is built, ROADMAP.md §A item 5) and
-colpali-hpc. The gnn and recsys arch ids raise ``NotImplementedError``
-(ROADMAP.md §A item 7).
+has: the five LM archs (dense and MoE) and colpali-hpc. The gnn and
+recsys arch ids raise ``NotImplementedError`` (ROADMAP.md §A item 7).
 """
 from __future__ import annotations
 

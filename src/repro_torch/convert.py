@@ -39,8 +39,10 @@ the reference; ints of the wrapper dataclasses are knobs, not leaves.
 ``lm_params_from_numpy`` and ``colpali_params_from_numpy`` carry a model's
 weights across: they take the reference's param dicts as host arrays
 (nested dicts, or flat ``/``-joined keys: ``embed``, ``ln_f``, optional
-``unembed``, the stacked ``blocks/...`` of shape (L, ...), and for the
-encoder ``backbone/...``, ``patch_proj``, ``out_proj``) and return the
+``unembed``, the stacked ``blocks/...`` of shape (L, ...) (a MoE layer's
+``blocks/moe/router``, ``blocks/moe/w_gate`` (L, E, D, F), ...,
+``blocks/moe/shared/...``), and for the encoder ``backbone/...``,
+``patch_proj``, ``out_proj``) and return the
 port's module on ``device``, each block taking its slice of the stack. A
 missing, unexpected or misshapen array is rejected by name.
 

@@ -4,11 +4,11 @@
         --smoke --steps 50 --batch 8 --seq 128 [--device cpu]
 
 Runs the family's train step (``transformer.train_step`` for the lm
-archs, ``colpali.train_step`` for colpali-hpc) through the fault-tolerant
-loop (checkpoint/restart in the reference's format, the non-finite guard,
-the straggler watchdog). The counterpart of ``repro.launch.train`` for
-the lm and colpali families; gnn and recsys arch ids raise
-``NotImplementedError`` (ROADMAP.md §A item 7).
+archs, dense and MoE, ``colpali.train_step`` for colpali-hpc) through the
+fault-tolerant loop (checkpoint/restart in the reference's format, the
+non-finite guard, the straggler watchdog). The counterpart of
+``repro.launch.train`` for the lm and colpali families; gnn and recsys
+arch ids raise ``NotImplementedError`` (ROADMAP.md §A item 7).
 
 Batches are drawn on the host from a generator seeded by ``--seed`` and
 reach the device through ``PrefetchPipeline`` (a pinned, non-blocking

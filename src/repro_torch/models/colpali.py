@@ -88,8 +88,9 @@ class ColPaliEncoder(nn.Module):
         dtype), and the salience or None; both zero where ``mask`` is
         False), over the module's weights or ``params``."""
         bp = None if params is None else _backbone_params(params)
-        h, sal = self.backbone.run_blocks(x, bp, want_salience=want_salience,
-                                          remat=remat)
+        h, _, sal = self.backbone.run_blocks(x, bp,
+                                             want_salience=want_salience,
+                                             remat=remat)
         w = self.out_proj if params is None else params["out_proj"]
         e = h @ w.to(h.dtype)
         norm = torch.linalg.vector_norm(e.float(), dim=-1, keepdim=True)

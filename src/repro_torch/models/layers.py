@@ -1,8 +1,8 @@
 """Shared model building blocks: init, RMSNorm, RoPE, GQA attention with
-the per-key attention mass, and the SwiGLU FFN.
+the per-key attention mass (full or chunked-local), the SwiGLU FFN and the
+MoE FFN.
 
-The counterpart of ``repro.models.layers`` (its dense parts). The same
-conventions:
+The counterpart of ``repro.models.layers``. The same conventions:
 
   * weights are stored (in, out) in the param dtype and cast to the
     activation dtype at each product; norms, attention scores and softmax
@@ -13,18 +13,25 @@ conventions:
     most (B, H, q_chunk, S);
   * the scores are float32 products: bf16 q and k are widened first, which
     is exact (bf16 values are float32 values), so the product is the
-    reference's ``preferred_element_type=float32`` one.
+    reference's ``preferred_element_type=float32`` one;
+  * chunked-local attention (Llama-4's iRoPE layers) attends only within
+    a fixed window: query i sees keys [floor(i/chunk)*chunk, i];
+  * the MoE FFN routes each token to its top-k experts, sorts the
+    assignments by expert, fills each expert's ``capacity`` slots in token
+    order and drops the rest (Switch-style), runs the experts as batched
+    products over (E, C, D) buffers and adds the gated outputs back in
+    the sorted order, then returns the load-balance aux loss.
 
-The attention is plain PyTorch in every layer, as the reference keeps it
+The attention and the MoE are plain PyTorch, as the reference keeps them
 outside Pallas: the last layer's probabilities give the salience, which
-``scaled_dot_product_attention`` does not return. MoE layers and the
-chunked-local (iRoPE) mask are not ported yet.
+``scaled_dot_product_attention`` does not return, and the reference's
+router, dispatch and expert products are einsums and gathers.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -185,16 +192,23 @@ def _sdpa_chunk(q_blk: Tensor, k: Tensor, v: Tensor, mask_blk: Tensor,
 
 def attention_kv(p: Attention, x: Tensor, positions: Tensor, *,
                  n_heads: int, n_kv: int, head_dim: int, theta: float,
-                 q_chunk: int = 512, want_salience: bool = False,
-                 remat: bool = False
+                 chunk: int = 0, q_chunk: int = 512,
+                 want_salience: bool = False, remat: bool = False
                  ) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
     """``attention`` that also returns its post-RoPE keys and its values
     (B, S, n_kv, hd), which prefill stores in the cache.
 
+    ``chunk`` with 0 < chunk < S makes it chunked-local: the keys are
+    padded to a multiple of ``chunk``, and a query block starting at s0
+    attends only to its window [floor(s0/chunk)*chunk, +chunk), masked
+    j <= i, so the query block must not straddle a window edge
+    (chunk % q block == 0). The per-key mass of each window is summed
+    into the window's slice and cut back to S.
+
     ``remat`` checkpoints each query block (``torch.utils.checkpoint``,
     non-reentrant), as the reference's ``jax.checkpoint`` of its q-chunk
     scan body: the backward keeps only the block's inputs and recomputes
-    its (B, H, qc, S) scores and probabilities. The blocks' outputs are
+    its (B, H, qc, keys) scores and probabilities. The blocks' outputs are
     collected and joined once, so no buffer is written in place under
     autograd."""
     b, s, _ = x.shape
@@ -206,45 +220,64 @@ def attention_kv(p: Attention, x: Tensor, positions: Tensor, *,
     qc = min(q_chunk, s)
     while s % qc != 0:
         qc //= 2
+    local = 0 < chunk < s
+    kp, vp = k, v
+    if local:
+        assert chunk % qc == 0, (chunk, qc)
+        pad = (-s) % chunk
+        if pad:
+            kp = F.pad(k, (0, 0, 0, 0, 0, pad))
+            vp = F.pad(v, (0, 0, 0, 0, 0, pad))
     qg = q.view(b, s, n_kv, g, head_dim)
-    outs, mass = [], None
+    outs, mass = [], {}
     for s0 in range(0, s, qc):
-        causal = torch.ones((qc, s), dtype=torch.bool,
-                            device=x.device).tril_(s0)     # j <= s0 + i
-        args = (qg[:, s0:s0 + qc], k, v, causal[None], want_salience)
+        if local:
+            w0 = s0 // chunk * chunk
+            keys, vals = kp[:, w0:w0 + chunk], vp[:, w0:w0 + chunk]
+        else:
+            w0, keys, vals = 0, k, v
+        causal = torch.ones((qc, keys.shape[1]), dtype=torch.bool,
+                            device=x.device).tril_(s0 - w0)  # j <= s0 + i
+        args = (qg[:, s0:s0 + qc], keys, vals, causal[None], want_salience)
         o, m = (checkpoint(_sdpa_chunk, *args, use_reentrant=False)
                 if remat else _sdpa_chunk(*args))
         outs.append(o)
         if want_salience:
-            mass = m if mass is None else mass + m
+            mass[w0] = m if w0 not in mass else mass[w0] + m
     out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     y = out.reshape(b, s, n_heads * head_dim) @ p.wo.to(out.dtype)
-    sal = mass / s if want_salience else None
+    sal = None
+    if want_salience:
+        sal = torch.cat([mass[w] for w in sorted(mass)], dim=1)[:, :s] / s
     return y, sal, k, v
 
 
 def attention(p: Attention, x: Tensor, positions: Tensor, *,
               n_heads: int, n_kv: int, head_dim: int, theta: float,
-              q_chunk: int = 512, want_salience: bool = False
+              chunk: int = 0, q_chunk: int = 512,
+              want_salience: bool = False
               ) -> Tuple[Tensor, Optional[Tensor]]:
-    """Causal self-attention over x (B, S, D) -> (out (B, S, D), salience
-    (B, S) f32 or None): the salience of key j is the attention mass it
-    receives, summed over heads and queries, over S."""
+    """Causal (optionally chunked-local) self-attention over x (B, S, D)
+    -> (out (B, S, D), salience (B, S) f32 or None): the salience of key j
+    is the attention mass it receives, summed over heads and queries, over
+    S."""
     y, sal, _, _ = attention_kv(p, x, positions, n_heads=n_heads, n_kv=n_kv,
-                                head_dim=head_dim, theta=theta,
+                                head_dim=head_dim, theta=theta, chunk=chunk,
                                 q_chunk=q_chunk, want_salience=want_salience)
     return y, sal
 
 
 def attention_decode(p: Attention, x: Tensor, pos: int, k_cache: Tensor,
                      v_cache: Tensor, *, n_heads: int, n_kv: int,
-                     head_dim: int, theta: float
+                     head_dim: int, theta: float, chunk: int = 0
                      ) -> Tuple[Tensor, Tensor, Tensor]:
     """Single-token decode. x (B, 1, D); caches (B, S_max, n_kv, hd).
 
     Writes the new key and value into the caches in place at ``pos`` and
-    attends over every cache slot ``j <= pos``. Returns (out (B, 1, D),
-    k_cache, v_cache).
+    attends over every cache slot ``j <= pos``; with 0 < chunk < S_max
+    (a chunked-local layer) only over the slots of ``pos``'s window
+    [floor(pos/chunk)*chunk, +chunk), which needs S_max % chunk == 0.
+    Returns (out (B, 1, D), k_cache, v_cache).
     """
     b = x.shape[0]
     s_max = k_cache.shape[1]
@@ -255,9 +288,15 @@ def attention_decode(p: Attention, x: Tensor, pos: int, k_cache: Tensor,
     k_new = apply_rope(k_new, posb, theta)
     k_cache[:, pos] = k_new[:, 0]
     v_cache[:, pos] = v_new[:, 0]
-    mask = (torch.arange(s_max, device=x.device) <= pos)[None, None, :]
-    out, _ = _sdpa_chunk(q.view(b, 1, n_kv, g, head_dim), k_cache, v_cache,
-                         mask, want_mass=False)
+    if 0 < chunk < s_max:
+        assert s_max % chunk == 0, (s_max, chunk)
+        w0 = pos // chunk * chunk
+        k_att, v_att = k_cache[:, w0:w0 + chunk], v_cache[:, w0:w0 + chunk]
+    else:
+        w0, k_att, v_att = 0, k_cache, v_cache
+    j = torch.arange(w0, w0 + k_att.shape[1], device=x.device)
+    out, _ = _sdpa_chunk(q.view(b, 1, n_kv, g, head_dim), k_att, v_att,
+                         (j <= pos)[None, None, :], want_mass=False)
     out = out.reshape(b, 1, n_heads * head_dim) @ p.wo.to(x.dtype)
     return out, k_cache, v_cache
 
@@ -301,3 +340,193 @@ def ffn_apply(p: SwiGLU, x: Tensor) -> Tensor:
     dt = x.dtype
     h = F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
     return h @ p.w_down.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN: top-k routing, sort-based dispatch, capacity dropping
+# ---------------------------------------------------------------------------
+
+def moe_capacity(n_tokens: int, n_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Slots per expert: ceil(T k cf / E) rounded up to a multiple of 8,
+    at least 8."""
+    c = math.ceil(n_tokens * top_k * capacity_factor / n_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+class MoE(nn.Module):
+    """The MoE FFN's weights: ``router`` (D, E), always float32;
+    ``w_gate``, ``w_up`` (E, D, F) and ``w_down`` (E, F, D) in the param
+    dtype; and with ``n_shared`` a ``shared`` SwiGLU of width F x
+    n_shared that every token runs through."""
+
+    def __init__(self, d_model: int, d_ff: int, n_experts: int,
+                 n_shared: int, top_k: int, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        self.top_k = top_k
+
+        def param(*shape, dt=dtype):
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=device))
+
+        self.router = param(d_model, n_experts, dt=torch.float32)
+        self.w_gate = param(n_experts, d_model, d_ff)
+        self.w_up = param(n_experts, d_model, d_ff)
+        self.w_down = param(n_experts, d_ff, d_model)
+        self.shared = (SwiGLU(d_model, d_ff * n_shared, dtype, device)
+                       if n_shared else None)
+
+    def forward(self, x: Tensor, capacity_factor: float = 1.25,
+                expert_chunks: int = 1, remat: bool = False
+                ) -> Tuple[Tensor, Tensor]:
+        return moe_apply(self, x, top_k=self.top_k,
+                         capacity_factor=capacity_factor,
+                         expert_chunks=expert_chunks, remat=remat)
+
+
+@torch.no_grad()
+def moe_init(p: MoE, generator: torch.Generator) -> MoE:
+    """Draw ``p``'s weights in place by the reference's scales: normal x
+    1/sqrt(D) for the router, ``w_gate`` and ``w_up``, x 1/sqrt(F) for
+    ``w_down``; the shared expert as a dense SwiGLU. An expert's matrix is
+    drawn at a time, so the float32 draw of a bf16 stack is never whole."""
+    p.router.copy_(dense_init(generator, *p.router.shape, torch.float32))
+    for w in (p.w_gate, p.w_up, p.w_down):
+        for e in range(w.shape[0]):
+            w[e].copy_(dense_init(generator, *w.shape[1:], w.dtype))
+    if p.shared is not None:
+        for w in (p.shared.w_gate, p.shared.w_up, p.shared.w_down):
+            w.copy_(dense_init(generator, *w.shape, w.dtype))
+    return p
+
+
+class MoERouting(NamedTuple):
+    """Where each of the T x k assignments goes. ``order`` is the stable
+    sort of the flattened (token, slot) assignments by expert; the
+    ``sorted_*`` fields, ``keep`` and ``target`` are in that order."""
+    probs: Tensor           # (T, E) f32, the router's softmax
+    gate: Tensor            # (T, k) f32, the top-k probs renormalised
+    expert: Tensor          # (T, k) int64, the chosen experts
+    order: Tensor           # (T k,) int64
+    sorted_expert: Tensor   # (T k,) int64
+    sorted_token: Tensor    # (T k,) int64
+    keep: Tensor            # (T k,) bool: within the expert's capacity
+    target: Tensor          # (T k,) int64: slot e*C + position, E*C if dropped
+    capacity: int
+
+
+def moe_route(p: MoE, x: Tensor, top_k: int,
+              capacity_factor: float) -> MoERouting:
+    """Router, top-k and sort for tokens x (T, D): the softmax of the
+    float32 router logits, the top-k renormalised by their sum (floored at
+    1e-9), the assignments stably sorted by expert, and each one's
+    position inside its expert (its index minus the expert's exclusive
+    start): positions >= capacity are dropped, so an expert keeps its
+    earliest tokens. No host sync, so a CUDA graph can hold it."""
+    t = x.shape[0]
+    e = p.router.shape[1]
+    c = moe_capacity(t, e, top_k, capacity_factor)
+    probs = torch.softmax(x.float() @ p.router, dim=-1)
+    gate, idx = torch.topk(probs, top_k, dim=-1)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    counts = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    start = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(t * top_k, device=x.device) - start[se]
+    keep = pos < c
+    target = torch.where(keep, se * c + pos, e * c)
+    return MoERouting(probs, gate, idx, order, se, order // top_k, keep,
+                      target, c)
+
+
+def moe_slots(r: MoERouting, n_tokens: int) -> Tensor:
+    """``token_for_slot`` (E*C,): the token each expert slot holds, or
+    ``n_tokens`` (a zero row) where the slot is empty. Dropped assignments
+    all write the spare slot E*C, which is cut off."""
+    e_c = r.probs.shape[1] * r.capacity
+    slots = torch.full((e_c + 1,), n_tokens, dtype=torch.int64,
+                       device=r.order.device)
+    slots[r.target] = r.sorted_token
+    return slots[:e_c]
+
+
+def moe_experts(xg: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor
+                ) -> Tensor:
+    """The experts' SwiGLU over their slots, xg (E', C, D) -> (E', C, D):
+    batched products in xg's dtype (bf16 accumulates in float32 under
+    ``float32_accumulation``), each cast back as the reference casts it."""
+    dt = xg.dtype
+    h = torch.bmm(xg, w_gate.to(dt))
+    u = torch.bmm(xg, w_up.to(dt))
+    return torch.bmm(F.silu(h) * u, w_down.to(dt))
+
+
+def moe_combine(y: Tensor, gate_sorted: Tensor, r: MoERouting,
+                rows: Tensor, lo: int, n: int) -> Tensor:
+    """The outputs of experts [lo, lo + n), y (n*C, D), gated and added
+    back into their tokens -> (T, D) in y's dtype. A token's k
+    contributions are added in the sorted order (ascending expert), one
+    after another, as the reference's scatter-add applies them; no float
+    atomics, so the sum is the same on every run. ``rows`` (T, k) holds
+    each token's positions in the sorted order, ascending."""
+    c = r.capacity
+    in_blk = (r.sorted_expert >= lo) & (r.sorted_expert < lo + n) & r.keep
+    w = torch.where(in_blk, gate_sorted, 0.0).to(y.dtype)
+    slot = torch.clamp(r.target - lo * c, 0, n * c - 1)
+    contrib = w[rows][..., None] * y[slot[rows]]        # (T, k, D)
+    out = contrib[:, 0]                                 # 0 + x is x
+    for j in range(1, contrib.shape[1]):
+        out = out + contrib[:, j]
+    return out
+
+
+def _moe_block(x_pad: Tensor, slots: Tensor, w_gate: Tensor, w_up: Tensor,
+               w_down: Tensor, gate_sorted: Tensor, r: MoERouting,
+               rows: Tensor, lo: int, n: int) -> Tensor:
+    """Experts [lo, lo + n): gather their slots' tokens, run them, combine
+    -> (T, D)."""
+    c = r.capacity
+    xg = x_pad[slots[lo * c:(lo + n) * c]].view(n, c, -1)
+    y = moe_experts(xg, w_gate[lo:lo + n], w_up[lo:lo + n],
+                    w_down[lo:lo + n])
+    return moe_combine(y.view(n * c, -1), gate_sorted, r, rows, lo, n)
+
+
+def moe_apply(p: MoE, x: Tensor, *, top_k: int,
+              capacity_factor: float = 1.25, expert_chunks: int = 1,
+              remat: bool = False) -> Tuple[Tensor, Tensor]:
+    """x (T, D) -> (out (T, D) in x's dtype, aux_loss () f32).
+
+    The reference's single-device form (one token group): ``moe_route``,
+    then E / expert_chunks experts at a time (a smaller dispatch buffer
+    for many experts) gathered from x with a zero row for empty slots,
+    run, and combined; the blocks' sums are added in block order, each
+    block checkpointed with ``remat`` when there is more than one, as the
+    reference's scan checkpoints its body. The shared expert is added
+    after. The aux loss is Switch's E x sum over experts of the mean
+    router prob times the share of the T x k assignments it kept."""
+    t, d = x.shape
+    e = p.w_gate.shape[0]
+    assert e % expert_chunks == 0, (e, expert_chunks)
+    n = e // expert_chunks
+    r = moe_route(p, x, top_k, capacity_factor)
+    slots = moe_slots(r, t)
+    x_pad = torch.cat([x, x.new_zeros((1, d))])
+    gate_sorted = r.gate.reshape(-1)[r.order]
+    rows = torch.sort(torch.argsort(r.order).view(t, top_k), dim=-1).values
+    out = None
+    for blk in range(expert_chunks):
+        args = (x_pad, slots, p.w_gate, p.w_up, p.w_down, gate_sorted, r,
+                rows, blk * n, n)
+        y = (checkpoint(_moe_block, *args, use_reentrant=False)
+             if remat and expert_chunks > 1 else _moe_block(*args))
+        out = y if out is None else out + y
+    if p.shared is not None:
+        out = out + ffn_apply(p.shared, x)
+    kept = torch.zeros(e, dtype=torch.float32, device=x.device).scatter_add_(
+        0, r.sorted_expert, r.keep.float())
+    aux = e * torch.sum(r.probs.mean(0) * (kept / (t * top_k)))
+    return out, aux

@@ -1,36 +1,42 @@
-"""Decoder-only LM (dense, GQA, RoPE): the generator of the RAG path and
-the ColPali encoder's backbone.
+"""Decoder-only LM (dense + MoE, GQA, RoPE, chunked-local attention): the
+generator of the RAG path, the ColPali encoder's backbone, and the MoE
+archs (llama4-scout, kimi-k2).
 
-The counterpart of ``repro.models.transformer`` for dense layers.
-``LMConfig`` is the reference's, copied with every field; a config with
-MoE layers (``n_experts > 0``) or chunked-local attention
-(``attn_chunk > 0``) raises ``NotImplementedError`` (ROADMAP.md §A item 5,
-the MoE slice). The reference stacks its layers and scans them; here
-each layer is a ``Block`` module holding its own weights, which
+The counterpart of ``repro.models.transformer``. ``LMConfig`` is the
+reference's, copied with every field. The reference stacks its layers and
+scans them; here each layer is a ``Block`` module holding its own weights
+(an ``ffn``, or a ``moe`` for ``n_experts > 0``), which
 ``convert.lm_params_from_numpy`` fills from the reference's stacked
-arrays (layer ``l`` takes slice ``l``).
+arrays (layer ``l`` takes slice ``l``). A layer that
+``LMConfig.layer_is_chunked`` marks attends within windows of
+``attn_chunk`` positions whenever the sequence (or the cache) is longer
+than one window; every ``global_every``-th layer attends globally.
 
 Serving: ``prefill`` runs the prompt and returns the last position's
 logits and the KV caches (post-RoPE keys and raw values in the
 activation dtype, padded to ``max_len``); ``decode_step`` writes one
-position of the caches in place and attends over every slot up to it.
-``prefill`` computes each layer's keys and values once and stores the
-ones its attention used; the reference recomputes them from the same
-inputs, so the caches are the same.
+position of the caches in place and attends over every slot up to it (or
+over its window, in a chunked layer), its MoE layers routing at capacity
+factor 2.0 in one expert block, as the reference's do. ``prefill``
+computes each layer's keys and values once and stores the ones its
+attention used; the reference recomputes them from the same inputs, so
+the caches are the same.
 
 Training: ``loss_fn`` and ``train_step`` take the model and a dict of
 named tensors (``params_of(model)``: ``embed``, ``blocks.<l>.attn.wq``,
-``ln_f.weight``, ...) and run the same blocks through
-``Transformer.run_blocks``, each block called with those tensors
+``blocks.<l>.moe.w_gate``, ``ln_f.weight``, ...) and run the same blocks
+through ``Transformer.run_blocks``, each block called with those tensors
 (``torch.func.functional_call``) inside a non-reentrant checkpoint, as
 the reference checkpoints its scanned block; the attention's query
-blocks and the loss's sequence chunks are checkpointed too. The module's
-own weights serve the no-grad entry points.
+blocks, the MoE's expert blocks and the loss's sequence chunks are
+checkpointed too. The loss adds ``aux_loss_weight`` x the MoE layers'
+summed load-balance loss. The module's own weights serve the no-grad
+entry points.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,6 +47,10 @@ from repro_torch.models import layers as L
 from repro_torch.optim import optimizer as opt
 
 Tensor = torch.Tensor
+
+# the MoE capacity factor of a decode step, whatever the config's
+# (repro.models.transformer.decode_step routes at 2.0 in one expert block)
+DECODE_CAPACITY_FACTOR = 2.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +106,14 @@ class LMConfig:
         return (torch.bfloat16 if self.activation_dtype == "bfloat16"
                 else torch.float32)
 
+    def layer_is_chunked(self) -> List[bool]:
+        """Which layers use chunked-local attention: all but every
+        ``global_every``-th when ``attn_chunk > 0``."""
+        if self.attn_chunk <= 0:
+            return [False] * self.n_layers
+        return [i % self.global_every != self.global_every - 1
+                for i in range(self.n_layers)]
+
     def param_count(self) -> int:
         d, hd = self.d_model, self.hd
         attn = self.n_layers * (d * (self.n_heads + 2 * self.n_kv_heads) * hd
@@ -120,67 +138,84 @@ class LMConfig:
         return full - all_experts + active
 
 
-def _check_supported(cfg: LMConfig) -> None:
-    """Raise NotImplementedError for the layer kinds not ported yet."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}) are not "
-            "ported yet (ROADMAP.md §A item 5, the MoE slice)")
-    if cfg.attn_chunk > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: chunked-local attention (attn_chunk="
-            f"{cfg.attn_chunk}) is not ported yet (ROADMAP.md §A item 5, "
-            "the MoE slice)")
-
-
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One pre-norm transformer block: ``ln1``, ``attn``, ``ln2``, ``ffn``."""
+    """One pre-norm transformer block: ``ln1``, ``attn``, ``ln2`` and an
+    ``ffn`` (dense) or a ``moe``. ``chunked`` marks a chunked-local
+    attention layer."""
 
-    def __init__(self, cfg: LMConfig, device: torch.device):
+    def __init__(self, cfg: LMConfig, device: torch.device,
+                 chunked: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.chunked = chunked
         dt = cfg.pdtype
         self.ln1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         self.ln2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         self.attn = L.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                 cfg.hd, cfg.qkv_bias, dt, device)
-        self.ffn = L.SwiGLU(cfg.d_model, cfg.d_ff, dt, device)
+        if cfg.is_moe:
+            self.moe = L.MoE(cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+                             cfg.n_shared_experts, cfg.moe_top_k, dt, device)
+        else:
+            self.ffn = L.SwiGLU(cfg.d_model, cfg.d_ff, dt, device)
+
+    def attn_chunk(self, n_keys: int) -> int:
+        """The attention window over ``n_keys`` positions: ``attn_chunk``
+        in a chunked layer when a window is shorter than them, else 0
+        (global)."""
+        c = self.cfg.attn_chunk
+        return c if self.chunked and 0 < c < n_keys else 0
+
+    def feed_forward(self, h: Tensor, capacity_factor: float,
+                     expert_chunks: int, remat: bool = False
+                     ) -> Tuple[Tensor, Optional[Tensor]]:
+        """The FFN or the MoE over normed h (B, S, D) -> (out, the MoE's
+        aux loss or None)."""
+        if not self.cfg.is_moe:
+            return self.ffn(h), None
+        b, s, d = h.shape
+        out, aux = self.moe(h.reshape(b * s, d), capacity_factor,
+                            expert_chunks, remat)
+        return out.view(b, s, d), aux
 
     def forward(self, x: Tensor, positions: Tensor,
                 want_salience: bool = False, remat: bool = False
-                ) -> Tuple[Tensor, Optional[Tensor], Tensor, Tensor]:
-        """-> (x, salience or None, post-RoPE keys, values); ``remat``
-        checkpoints the attention's query blocks."""
+                ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor],
+                           Tensor, Tensor]:
+        """-> (x, aux or None, salience or None, post-RoPE keys, values);
+        ``remat`` checkpoints the attention's query blocks and the MoE's
+        expert blocks."""
         cfg = self.cfg
         a, sal, k, v = L.attention_kv(
             self.attn, self.ln1(x), positions, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
-            q_chunk=cfg.q_chunk, want_salience=want_salience, remat=remat)
+            chunk=self.attn_chunk(x.shape[1]), q_chunk=cfg.q_chunk,
+            want_salience=want_salience, remat=remat)
         x = x + a
-        x = x + self.ffn(self.ln2(x))
-        return x, sal, k, v
+        ff, aux = self.feed_forward(self.ln2(x), cfg.capacity_factor,
+                                    cfg.moe_expert_chunks, remat)
+        return x + ff, aux, sal, k, v
 
 
 class Transformer(nn.Module):
-    """The dense LM: ``embed`` (V, D), ``blocks``, ``ln_f`` and, without
-    tied embeddings, ``unembed`` (D, V). Weights are allocated in the
-    param dtype on ``device`` (default ``cuda``; raises on a host without
-    a card unless given ``device="cpu"``) and left undrawn: ``init`` draws
-    them from a generator, ``convert.lm_params_from_numpy`` copies them."""
+    """The LM: ``embed`` (V, D), ``blocks``, ``ln_f`` and, without tied
+    embeddings, ``unembed`` (D, V). Weights are allocated in the param
+    dtype on ``device`` (default ``cuda``; raises on a host without a card
+    unless given ``device="cpu"``) and left undrawn: ``init`` draws them
+    from a generator, ``convert.lm_params_from_numpy`` copies them."""
 
     def __init__(self, cfg: LMConfig, *, device="cuda"):
         super().__init__()
-        _check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(
             (cfg.vocab, cfg.d_model), dtype=cfg.pdtype, device=dev))
-        self.blocks = nn.ModuleList(Block(cfg, dev)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, dev, chunked)
+                                    for chunked in cfg.layer_is_chunked())
         self.ln_f = L.RMSNorm(cfg.d_model, cfg.norm_eps, cfg.pdtype, dev)
         self.unembed = (None if cfg.tie_embeddings else nn.Parameter(
             torch.empty((cfg.d_model, cfg.vocab), dtype=cfg.pdtype,
@@ -196,47 +231,52 @@ class Transformer(nn.Module):
     def run_blocks(self, x: Tensor,
                    params: Optional[Dict[str, Tensor]] = None, *,
                    want_salience: bool = False, remat: bool = False
-                   ) -> Tuple[Tensor, Optional[Tensor]]:
+                   ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
         """Every block and ``ln_f`` over embedded inputs (B, S, D) ->
-        (hidden, salience (B, S) of the last layer or None). Only the last
+        (hidden, aux () f32 summed over the MoE layers (zero without
+        them), salience (B, S) of the last layer or None). Only the last
         layer computes its attention mass: the reference computes it in
         every layer and keeps the last.
 
         With ``params`` (named as ``params_of``) each block runs on those
         tensors, so the result is differentiable in them; ``remat`` then
         checkpoints every block and, inside it, every attention query
-        block, as the reference does. A block's tensors are passed into
-        its checkpoint, so the recompute in the backward reads the same
-        weights as the forward."""
+        block and MoE expert block, as the reference does. A block's
+        tensors are passed into its checkpoint, so the recompute in the
+        backward reads the same weights as the forward."""
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        sal = None
+        sal, auxes = None, []
         last = len(self.blocks) - 1
         for i, blk in enumerate(self.blocks):
             want = want_salience and i == last
             if params is None:
-                x, sal_i, _, _ = blk(x, positions, want)
+                x, aux, sal_i, _, _ = blk(x, positions, want)
             else:
                 pre = f"blocks.{i}."
                 bp = {n[len(pre):]: t for n, t in params.items()
                       if n.startswith(pre)}
                 args = (blk, bp, x, positions, want, remat)
-                x, sal_i = (checkpoint(_block_call, *args,
-                                       use_reentrant=False)
-                            if remat else _block_call(*args))
+                x, aux, sal_i = (checkpoint(_block_call, *args,
+                                            use_reentrant=False)
+                                 if remat else _block_call(*args))
+            if aux is not None:
+                auxes.append(aux)
             if sal_i is not None:
                 sal = sal_i
         w = self.ln_f.weight if params is None else params["ln_f.weight"]
-        return L.rms_norm(x, w, self.cfg.norm_eps), sal
+        aux = (torch.stack(auxes).sum() if auxes else
+               torch.zeros((), dtype=torch.float32, device=x.device))
+        return L.rms_norm(x, w, self.cfg.norm_eps), aux, sal
 
     @L.float32_accumulation()
     def forward(self, tokens: Tensor, want_salience: bool = False
                 ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
-        """tokens (B, S) -> (hidden (B, S, D), aux_loss () f32 (zero: no
-        MoE), salience (B, S) or None)."""
-        h, sal = self.run_blocks(self.embed_tokens(tokens),
-                                 want_salience=want_salience)
-        return h, torch.zeros((), dtype=torch.float32, device=h.device), sal
+        """tokens (B, S) -> (hidden (B, S, D), aux_loss () f32 (the MoE
+        layers' summed load-balance loss; zero without them), salience
+        (B, S) or None)."""
+        return self.run_blocks(self.embed_tokens(tokens),
+                               want_salience=want_salience)
 
     @L.float32_accumulation()
     def logits(self, h: Tensor) -> Tensor:
@@ -248,11 +288,12 @@ class Transformer(nn.Module):
 
 def _block_call(blk: Block, bp: Dict[str, Tensor], x: Tensor,
                 positions: Tensor, want_salience: bool, remat: bool
-                ) -> Tuple[Tensor, Optional[Tensor]]:
-    """One block on the tensors ``bp`` (named as the block's own)."""
-    x, sal, _, _ = torch.func.functional_call(
+                ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
+    """One block on the tensors ``bp`` (named as the block's own) -> (x,
+    aux or None, salience or None)."""
+    x, aux, sal, _, _ = torch.func.functional_call(
         blk, bp, (x, positions, want_salience, remat))
-    return x, sal
+    return x, aux, sal
 
 
 def init(cfg: LMConfig, *, generator: torch.Generator, device="cuda"
@@ -266,8 +307,8 @@ def init(cfg: LMConfig, *, generator: torch.Generator, device="cuda"
 @torch.no_grad()
 def draw_weights(model: Transformer, generator: torch.Generator
                  ) -> Transformer:
-    """Draw ``model``'s embedding and projections in place (its norms and
-    biases keep their ones and zeros); returns the model."""
+    """Draw ``model``'s embedding, projections and experts in place (its
+    norms and biases keep their ones and zeros); returns the model."""
     cfg = model.cfg
     model.embed.copy_(L.embed_init(generator, cfg.vocab, cfg.d_model,
                                    cfg.pdtype))
@@ -275,9 +316,13 @@ def draw_weights(model: Transformer, generator: torch.Generator
         model.unembed.copy_(L.dense_init(generator, cfg.d_model, cfg.vocab,
                                          cfg.pdtype))
     for blk in model.blocks:
-        for p in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo,
-                  blk.ffn.w_gate, blk.ffn.w_up, blk.ffn.w_down):
+        for p in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo):
             p.copy_(L.dense_init(generator, *p.shape, cfg.pdtype))
+        if cfg.is_moe:
+            L.moe_init(blk.moe, generator)
+        else:
+            for p in (blk.ffn.w_gate, blk.ffn.w_up, blk.ffn.w_down):
+                p.copy_(L.dense_init(generator, *p.shape, cfg.pdtype))
     return model
 
 
@@ -325,10 +370,11 @@ def loss_fn(model: Transformer, params: Dict[str, Tensor], tokens: Tensor,
     checkpointed with ``remat`` so its (B, chunk, V) float32 logits are
     recomputed in the backward. Targets < 0 are masked; the mean is over
     max(valid, 1) targets. Returns (ce + aux_loss_weight x aux, {ce, aux})
-    with aux zero (no MoE)."""
+    with aux the MoE layers' summed load-balance loss (zero without
+    them)."""
     cfg = model.cfg
-    h, _ = model.run_blocks(model.embed_tokens(tokens, params), params,
-                            remat=remat)
+    h, aux, _ = model.run_blocks(model.embed_tokens(tokens, params), params,
+                                 remat=remat)
     w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
     s = h.shape[1]
     ck = min(cfg.loss_chunk, s)
@@ -343,7 +389,6 @@ def loss_fn(model: Transformer, params: Dict[str, Tensor], tokens: Tensor,
         counts.append(n)
     n_valid = torch.clamp(torch.stack(counts).sum(), min=1)
     ce = torch.stack(sums).sum() / n_valid
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return ce + cfg.aux_loss_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -398,14 +443,17 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device="cuda"
 def prefill(model: Transformer, tokens: Tensor, max_len: int
             ) -> Tuple[Tensor, KVCache]:
     """Run the prompt (B, S) -> (last position's logits (B, V) f32, the
-    caches filled at positions [0, S) and zero up to ``max_len``)."""
+    caches filled at positions [0, S) and zero up to ``max_len``). The
+    blocks run as in ``forward``: chunked layers attend within windows
+    when S exceeds one, and the MoE routes at the config's capacity
+    factor and expert chunks."""
     cfg = model.cfg
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_len, device=tokens.device)
     x = model.embed_tokens(tokens)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for i, blk in enumerate(model.blocks):
-        x, _, k, v = blk(x, positions)
+        x, _, _, k, v = blk(x, positions)
         cache.k[i, :, :s] = k
         cache.v[i, :, :s] = v
     x = model.ln_f(x)
@@ -418,15 +466,19 @@ def decode_step(model: Transformer, token: Tensor, cache: KVCache, pos: int
                 ) -> Tuple[Tensor, KVCache]:
     """One decode step: token (B,) at position ``pos`` (the same for every
     row). Updates the caches in place; returns (logits (B, V) f32,
-    cache)."""
+    cache). A chunked layer attends within ``pos``'s window when the
+    cache is longer than one; MoE layers route the B tokens at
+    ``DECODE_CAPACITY_FACTOR`` in one expert block, whatever the
+    config's."""
     cfg = model.cfg
     x = model.embed_tokens(token[:, None])
     for i, blk in enumerate(model.blocks):
         a, _, _ = L.attention_decode(
             blk.attn, blk.ln1(x), pos, cache.k[i], cache.v[i],
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-            theta=cfg.rope_theta)
+            theta=cfg.rope_theta, chunk=blk.attn_chunk(cache.k.shape[2]))
         x = x + a
-        x = x + blk.ffn(blk.ln2(x))
+        ff, _ = blk.feed_forward(blk.ln2(x), DECODE_CAPACITY_FACTOR, 1)
+        x = x + ff
     x = model.ln_f(x)
     return model.logits(x)[:, 0], cache

@@ -1178,3 +1178,103 @@ def test_colpali_train_step_peak_memory_at_full_width():
     print(f"peak {peak / 2**30:.2f} GiB of a {bound / 2**30:.2f} GiB bound")
     assert bool(torch.isfinite(m["loss"]))
     assert peak <= bound
+
+
+# ---------------------------------------------------------------------------
+# the MoE LM family on the card
+# ---------------------------------------------------------------------------
+
+_MOE_ARCHS = ("llama4-scout-17b-a16e", "kimi-k2-1t-a32b")
+
+
+def _moe_pair(arch, dev, **changes):
+    """(smoke model on the card, its CPU copy) of a MoE arch, float32."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(registry.get(arch).smoke_config, **changes)
+    model = T.init(cfg, generator=torch.Generator(dev).manual_seed(11),
+                   device=dev)
+    return model, _cpu_copy(model, lambda: T.Transformer(cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("arch", _MOE_ARCHS)
+def test_moe_forward_and_decode_on_the_card_match_the_cpu(arch):
+    """The smoke config's forward (hidden, aux, logits) over 2 x 32 tokens
+    (llama4-scout's chunked layers in windows of 8) and a prefill of 12
+    plus 4 decode steps, on the card and on a CPU copy: the same routing,
+    so values within 1e-4."""
+    from repro_torch.models import transformer as T
+    dev = _card()
+    model, cpu = _moe_pair(arch, dev)
+    g = torch.Generator().manual_seed(12)
+    tok = torch.randint(0, model.cfg.vocab, (2, 32), generator=g)
+    with torch.no_grad():
+        h, aux, _ = model(tok.to(dev))
+        h_c, aux_c, _ = cpu(tok)
+        torch.testing.assert_close(h.cpu(), h_c, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(model.logits(h).cpu(), cpu.logits(h_c),
+                                   atol=1e-4, rtol=1e-4)
+    assert float(aux) == pytest.approx(float(aux_c), rel=1e-5)
+    logits, cache = T.prefill(model, tok[:, :12].to(dev), max_len=16)
+    logits_c, cache_c = T.prefill(cpu, tok[:, :12], max_len=16)
+    for i in range(4):
+        torch.testing.assert_close(logits.cpu(), logits_c, atol=1e-4,
+                                   rtol=1e-4)
+        nxt = torch.argmax(logits_c, -1).to(torch.int32)
+        logits, cache = T.decode_step(model, nxt.to(dev), cache, 12 + i)
+        logits_c, cache_c = T.decode_step(cpu, nxt, cache_c, 12 + i)
+    torch.testing.assert_close(cache.k.cpu(), cache_c.k, atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", _MOE_ARCHS)
+def test_moe_train_step_on_the_card_matches_the_cpu(arch):
+    """One AdamW step of the smoke config on the card and on a CPU copy
+    (float32, TF32 off): loss within 1e-5, grad norm within 1e-4, params
+    at most 0.1% beyond 1e-5 and none beyond 2 x lr."""
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+    dev = _card()
+    model, cpu = _moe_pair(arch, dev)
+    ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=1)
+    b = make_lm_batch(torch.Generator().manual_seed(13), model.cfg.vocab,
+                      4, 32)
+    p_d, s_d, m_d = T.train_step(
+        model, T.params_of(model), opt.init(ocfg, T.params_of(model)),
+        {k: v.to(dev) for k, v in b.items()}, ocfg)
+    p_c, s_c, m_c = T.train_step(cpu, T.params_of(cpu),
+                                 opt.init(ocfg, T.params_of(cpu)), b, ocfg)
+    for k in ("loss", "aux"):
+        assert float(m_d[k]) == pytest.approx(float(m_c[k]), rel=1e-5), k
+    assert float(m_d["grad_norm"]) == pytest.approx(float(m_c["grad_norm"]),
+                                                    rel=1e-4)
+    err = torch.cat([(p_d[k].cpu() - p_c[k]).abs().reshape(-1) for k in p_c])
+    assert float((err > 1e-5).double().mean()) <= 1e-3
+    assert float(err.max()) <= 2 * float(m_c["lr"])
+
+
+def test_chunked_decode_across_a_window_edge_on_the_card():
+    """llama4-scout's smoke config (windows of 8) with no drops: a prompt
+    of 5 and 7 decode steps that cross the window edge at 8, in a cache
+    of 16, on the card against the CPU and against the card's own
+    teacher-forced forward (within 1e-4)."""
+    from repro_torch.models import transformer as T
+    dev = _card()
+    model, cpu = _moe_pair("llama4-scout-17b-a16e", dev, capacity_factor=4.0)
+    tok = torch.randint(0, model.cfg.vocab, (3, 5),
+                        generator=torch.Generator().manual_seed(14))
+    logits, cache = T.prefill(model, tok.to(dev), max_len=16)
+    logits_c, cache_c = T.prefill(cpu, tok, max_len=16)
+    seq = tok.to(dev)
+    for i in range(7):
+        torch.testing.assert_close(logits.cpu(), logits_c, atol=1e-4,
+                                   rtol=1e-4)
+        with torch.no_grad():
+            ref = model.logits(model(seq)[0][:, -1:])[:, 0]
+        torch.testing.assert_close(logits, ref, atol=1e-4, rtol=1e-4)
+        nxt = torch.argmax(logits_c, -1).to(torch.int32)
+        seq = torch.cat([seq, nxt[:, None].to(dev)], dim=1)
+        logits, cache = T.decode_step(model, nxt.to(dev), cache, 5 + i)
+        logits_c, cache_c = T.decode_step(cpu, nxt, cache_c, 5 + i)
+    assert [blk.attn_chunk(16) for blk in model.blocks] == [8, 8, 8, 0]

@@ -362,7 +362,7 @@ def test_port_init_follows_the_reference_layout():
 
 
 # ---------------------------------------------------------------------------
-# convert and the unported layer kinds
+# convert, the entry points' flag and the configs
 # ---------------------------------------------------------------------------
 
 def test_convert_rejects_a_missing_array_by_name(lm):
@@ -389,13 +389,6 @@ def test_convert_rejects_a_wrong_shape_by_name(lm):
         **params["blocks"]["ffn"], "w_up": stack[:1]}}
     with pytest.raises(ValueError, match="blocks/ffn/w_up"):
         lm_params_from_numpy(bad, _port_cfg(arch), device="cpu")
-
-
-@pytest.mark.parametrize("spec", [lm_archs.LLAMA4_SCOUT, lm_archs.KIMI_K2],
-                         ids=lambda s: s.arch_id)
-def test_moe_configs_are_not_ported_yet(spec):
-    with pytest.raises(NotImplementedError, match="MoE"):
-        transformer.Transformer(spec.smoke_config, device="cpu")
 
 
 _ENTRY_POINTS = ("forward", "logits", "prefill", "decode_step",
@@ -440,12 +433,6 @@ def test_entry_points_accumulate_bf16_in_float32(entry, monkeypatch):
     calls[entry]()
     assert seen and not any(seen), seen
     assert flag.allow_bf16_reduced_precision_reduction is True
-
-
-def test_chunked_local_attention_is_not_ported_yet():
-    cfg = dataclasses.replace(_port_cfg("llama3.2-3b"), attn_chunk=8)
-    with pytest.raises(NotImplementedError, match="chunked-local"):
-        transformer.Transformer(cfg, device="cpu")
 
 
 def test_configs_are_the_reference_configs():
