@@ -147,7 +147,28 @@ any failure exits non-zero, and no phase's error is swallowed:
      softmax per head with the explicit iRoPE mask; (c) a 1-layer kimi-k2
      cut (bf16, 384 experts top-8, 38.8 GB): a prefill of 4 x 64 and 4
      decode steps, the same readings (``{"moe_kimi": ...}``) and the
-     no-drop check.
+     no-drop check;
+ 12. the recsys and GNN families at full width: (a) DCN-v2, DIN (history
+     pruning off and at 50%), DIEN and DLRM-MLPerf with each table cut to
+     524,288 rows, on the card against a CPU copy at serve_p99's batch of
+     512 (logits, loss and every grad leaf within 1e-5 relative), PNA at
+     full_graph_sm within the larger of 1e-4 and 4 x what shuffling its
+     edges moves on the CPU (atomic segment sums), and ``quantize`` at
+     D=16 and D=18 against ``kmeans_assign_plain``; (b) each recsys cell:
+     4 train steps at 65,536 (DCN-v2, DIN and DIEN through
+     ``launch.train.main``), serve_p99, serve_bulk and retrieval_cand (1
+     user x 10^6 candidates, held to ``forward`` on its first 512 rows;
+     DIN's and DIEN's in passes of 262,144), host wall, device time,
+     samples/s and peak memory each (``{"recsys_<arch>": ...}``);
+     DLRM-MLPerf serving its full 187.8M rows in bf16, training on the
+     row cut; ``quantize_tables`` over the 26 tables of DCN-v2 and of the
+     DLRM cut (seconds, bytes, lookup error; each table's codes held to
+     the plain version), 52 ``kmeans_assign`` launches; DIEN's kernels per
+     train step and serve call; kmeans_assign's times at the tables'
+     shapes; (c) PNA's full_graph_sm and molecule cells and minibatch_lg
+     (a 232,965-node, 114.6M-edge graph made and its CSR built on the
+     host, 3 steps on sampled subgraphs of 1024 seeds, fanout 15-10, the
+     sampler's host ms beside each step's device ms; ``{"pna": ...}``).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, the script exits non-zero and prints no result.
@@ -336,6 +357,37 @@ KIMI_CHECK_CHUNKS = 8
 NO_DROP_RMS_TOL = 0.02
 NO_DROP_STEPS = 8
 CHUNK_ATTN_TOL = 1e-4           # float32 chunked layer vs the explicit mask
+
+# phase 12, the recsys and GNN families at full width: the port's copies of
+# the reference's configs (src/repro/configs/recsys_archs.py, gnn_archs.py)
+# and cells (src/repro/configs/base.py RECSYS_SHAPES, GNN_SHAPES), weights
+# drawn from the seed. 12a holds each family on the card to a CPU copy at
+# serve_p99's batch, DLRM-MLPerf with each table cut to DLRM_CUT_ROWS rows
+# (2.15 GB of tables). 12b runs the recsys cells at full width: DLRM-MLPerf
+# serves at its full 187.8M rows in bfloat16, the config's own dtype field
+# (48.1 GB of tables; float32 needs 96.1 GB) and trains and quantizes on the
+# row cut; DIN's and DIEN's retrieval_cand runs in passes of CAND_PASS
+# candidates (one pass of 10^6 candidates x 100 history items holds ~68 GB
+# of DIN's attention-MLP inputs and activations, and 43 GB of DIEN's
+# interest states, 86 GB while they are stacked). 12c runs PNA's full_graph_sm, molecule and
+# minibatch_lg cells; ogb_products (2,449,408 nodes, 61,865,984 edges) needs
+# over 80 GB for one layer's edge tensors and waits for sharding.
+DLRM_CUT_ROWS = 524_288
+RECSYS_TOL = 1e-5       # 12a: logits, loss and each grad leaf, relative
+# 12a, PNA: its segment sums are atomics on the card, in an order that
+# changes from run to run, and a node without in-edges scales its
+# aggregates by delta / 1e-5 = 2.5e5 (the std's sqrt(1e-5) among them), so
+# the order shows in the grads: held to the larger of PNA_TOL and
+# PNA_REORDER x what shuffling the edges moves on the CPU
+PNA_TOL = 1e-4
+PNA_REORDER = 4.0
+CAND_TOL = 1e-5         # score_candidates against forward on the same rows
+CAND_TOL_BF16 = 2.0 ** -5
+CAND_CHECK = 512
+RECSYS_TRAIN_STEPS = 4
+QT_K, QT_ITERS, QT_RESTARTS = 256, 10, 2
+CAND_PASS = 262_144
+PNA_STEPS = 3
 
 
 def _phase(name: str) -> float:
@@ -2737,6 +2789,632 @@ def _moe_phase(args, torch, np, dev, smi, scout_spec, kimi_spec,
     return {"launches": launches, **out}
 
 
+def _rel(torch, got, want) -> float:
+    """max |got - want| / max |want|, ``want`` on the CPU."""
+    w = want.detach().double()
+    d = (got.detach().cpu().double() - w).abs().max()
+    return float(d / w.abs().max().clamp_min(1e-30))
+
+
+def _errors(torch, mod, logits_fn, cfg, model, batch, ref, ref_batch):
+    """``model`` on ``batch`` against ``ref`` (on the CPU) on ``ref_batch``:
+    the logits', the loss's and the grads' relative errors (a grad leaf to
+    its largest entry, floored at 1e-3 x the tree's largest), and the
+    worst leaf."""
+    from repro_torch.models import transformer as T
+    p_d, p_c = T.params_of(model), T.params_of(ref)
+    with torch.no_grad():
+        lg_d, lg_c = logits_fn(p_d, batch), logits_fn(p_c, ref_batch)
+    l_d, _, g_d = T.value_and_grad(lambda p: mod.loss_fn(p, batch, cfg), p_d)
+    l_c, _, g_c = T.value_and_grad(lambda p: mod.loss_fn(p, ref_batch, cfg),
+                                   p_c)
+    assert bool(torch.isfinite(lg_c).all()) and bool(torch.isfinite(l_c))
+    top = max(float(g.abs().max()) for g in g_c.values())
+    grads = {k: float((g_d[k].cpu() - g).abs().max())
+             / max(float(g.abs().max()), 1e-3 * top, 1e-30)
+             for k, g in g_c.items()}
+    worst = max(grads, key=grads.get)
+    return {"logits": _rel(torch, lg_d, lg_c),
+            "loss": abs(float(l_d) - float(l_c)) / abs(float(l_c)),
+            "grad": grads[worst], "grad_worst_leaf": worst,
+            "grad_leaves": len(grads)}
+
+
+def _card_vs_cpu(torch, name, mod, logits_fn, model, cpu, cfg, batch, dev,
+                 tol):
+    """``model`` on the card against ``cpu`` (the same params, through
+    ``convert``) on one batch: the logits, the loss and the grads, each
+    within ``tol`` relative (a float, or one per key). Returns the
+    errors."""
+    bd = {k: v.to(dev) for k, v in batch.items()}
+    out = _errors(torch, mod, logits_fn, cfg, model, bd, cpu, batch)
+    tols = tol if isinstance(tol, dict) else dict.fromkeys(
+        ("logits", "loss", "grad"), tol)
+    out["tol"] = tols
+    print(f"12a {name}: logits {out['logits']:.2e}, loss {out['loss']:.2e}, "
+          f"grads {out['grad']:.2e} (worst leaf {out['grad_worst_leaf']} of "
+          f"{out['grad_leaves']}), relative; tolerance {tols}")
+    for key, t in tols.items():
+        assert out[key] <= t, f"12a {name} {key}: {out}"
+    return out
+
+
+def _event_ms(torch, fn, reps: int) -> float:
+    """Device time of one call: CUDA events around ``reps`` calls after a
+    warm one (launch gaps included)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _serve_readings(torch, np, fn, n, graph: bool):
+    """One cell's readings: the peak memory of a call above what was held,
+    the host wall (median of 9 calls, each ended by a synchronize),
+    samples/s from it, and the device time, from a CUDA-graph replay when
+    ``graph`` (small calls, so host time is not counted) or CUDA events
+    around 3 calls. Returns (readings, the first call's output)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    first = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    walls = []
+    for _ in range(9):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    wall = float(np.median(walls))
+    torch.cuda.empty_cache()
+    dev_ms = _time_ms(torch, fn, 3) if graph else _event_ms(torch, fn, 3)
+    return {"batch": n, "host_wall_ms": wall, "device_ms": dev_ms,
+            "device_time_from": "cuda graph" if graph else "cuda events",
+            "samples_per_s": n / wall * 1e3,
+            "device_samples_per_s": n / dev_ms * 1e3,
+            "peak_gib": peak / 2**30}, first
+
+
+def _count_kernels(torch, fn) -> int:
+    """Kernels the card ran in one call of ``fn``, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if str(e.device_type).endswith("CUDA"))
+
+
+def _recsys_cells(torch, np, cfg, params, dev, seed, cand_pass=None):
+    """serve_p99, serve_bulk and retrieval_cand (1 user x 10^6 candidates,
+    ids below the last table's rows) of one recsys config: readings, every
+    output finite and of its shape, and ``score_candidates`` against
+    ``forward`` on its first CAND_CHECK candidates' explicit rows."""
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.data.synthetic import make_recsys_batch
+    from repro_torch.models import recsys
+    dims = {c.name: c.dims for c in RECSYS_SHAPES}
+    g = torch.Generator().manual_seed(seed)
+
+    def batch(n):
+        b = make_recsys_batch(g, n, cfg.n_dense, cfg.table_rows,
+                              seq_len=cfg.seq_len, family=cfg.family)
+        return {k: v.to(dev) for k, v in b.items() if k != "label"}
+
+    out = {}
+    for cell in ("serve_p99", "serve_bulk"):
+        n = dims[cell]["batch"]
+        b = batch(n)
+        out[cell], probs = _serve_readings(
+            torch, np, lambda: recsys.serve_step(params, b, cfg), n,
+            graph=cell == "serve_p99")
+        assert probs.shape == (n,) and bool(torch.isfinite(probs).all())
+        assert bool(((probs >= 0) & (probs <= 1)).all())
+        del b, probs
+    n_c = dims["retrieval_cand"]["n_candidates"]
+    user = {k: v[:1] for k, v in batch(1).items()}
+    cands = torch.randint(0, cfg.table_rows[-1], (n_c,), generator=g,
+                          dtype=torch.int32).to(dev)
+    step = cand_pass or n_c
+
+    def score():
+        return torch.cat([recsys.score_candidates(params, user,
+                                                   cands[i:i + step], cfg)
+                          for i in range(0, n_c, step)])
+
+    out["retrieval_cand"], logits = _serve_readings(torch, np, score, n_c,
+                                                    graph=False)
+    out["retrieval_cand"]["passes"] = -(-n_c // step)
+    assert logits.shape == (n_c,) and bool(torch.isfinite(logits).all())
+    c = cands[:CAND_CHECK]
+    if cfg.family in ("din", "dien"):
+        rows = {"hist_ids": user["hist_ids"].expand(CAND_CHECK, -1),
+                "hist_mask": user["hist_mask"].expand(CAND_CHECK, -1),
+                "target_ids": c}
+    else:
+        sparse = user["sparse_ids"].expand(CAND_CHECK, -1).clone()
+        sparse[:, -1] = c
+        rows = {"dense": user["dense"].expand(CAND_CHECK, -1),
+                "sparse_ids": sparse}
+    with torch.no_grad():
+        want = recsys.forward(params, rows, cfg)
+    err = _rel(torch, logits[:CAND_CHECK], want.cpu())
+    tol = CAND_TOL_BF16 if cfg.param_dtype == "bfloat16" else CAND_TOL
+    out["retrieval_cand"]["vs_forward_rel_err"] = err
+    assert err <= tol, f"{cfg.name} retrieval_cand vs forward: {err}"
+    for cell, r in out.items():
+        print(f"{cfg.name} {cell}: host wall {r['host_wall_ms']:.3f} ms "
+              f"({r['samples_per_s']:.0f} samples/s), device "
+              f"{r['device_ms']:.3f} ms ({r['device_time_from']}), peak "
+              f"{r['peak_gib']:.2f} GiB")
+    return out
+
+
+def _recsys_train(torch, np, cfg, params, dev, seed, steps, batch):
+    """``steps`` AdamW steps of ``recsys.train_step`` at ``batch`` from
+    ``params`` (fresh moments) on batches drawn on the host: per-step
+    seconds (each ended by a synchronize), samples/s from the median after
+    the first, peak memory, the losses. Returns (readings, params,
+    state)."""
+    from repro_torch.data.synthetic import make_recsys_batch
+    from repro_torch.models import recsys
+    from repro_torch.optim import optimizer as opt
+    ocfg = opt.AdamWConfig(total_steps=steps,
+                           warmup_steps=max(1, steps // 10))
+    state = opt.init(ocfg, params)
+    g = torch.Generator().manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = [], []
+    for _ in range(steps):
+        b = {k: v.to(dev) for k, v in make_recsys_batch(
+            g, batch, cfg.n_dense, cfg.table_rows, seq_len=cfg.seq_len,
+            family=cfg.family).items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, state, m = recsys.train_step(params, state, b, cfg, ocfg)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t1)
+    assert all(np.isfinite(losses)), f"{cfg.name} losses {losses}"
+    med = float(np.median(secs[1:]))
+    return {"step_s": secs, "median_step_s_after_first": med,
+            "samples_per_s": batch / med, "losses": losses,
+            "peak_memory_gib": (torch.cuda.max_memory_allocated() - base)
+            / 2**30}, params, state
+
+
+def _quantize_cell(torch, np, cfg, params, dev, seed):
+    """``quantize_tables`` over every table of ``cfg`` (k=QT_K,
+    iters=QT_ITERS, restarts=QT_RESTARTS): seconds, bytes against the
+    float tables, ``quantized_lookup``'s relative reconstruction error
+    over a serve_bulk batch of ids, and each table's codes held to
+    ``kmeans_assign_plain`` (a comparison, not the path's launches)."""
+    from repro_torch.data.synthetic import make_recsys_batch
+    from repro_torch.models import recsys
+    tables = recsys.tables_of(params, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    qt = recsys.quantize_tables(torch.Generator(dev).manual_seed(seed),
+                                tables, k=QT_K, iters=QT_ITERS,
+                                restarts=QT_RESTARTS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    from repro_torch.configs.base import RECSYS_SHAPES
+    n = {c.name: c.dims for c in RECSYS_SHAPES}["serve_bulk"]["batch"]
+    ids = make_recsys_batch(torch.Generator().manual_seed(seed), n,
+                            cfg.n_dense, cfg.table_rows,
+                            family=cfg.family)["sparse_ids"].to(dev)
+    with torch.no_grad():
+        full = recsys.lookup(tables, ids).float()
+        approx = recsys.quantized_lookup(qt, ids).float()
+    rel = float(((approx - full) ** 2).mean() / (full ** 2).mean())
+    del full, approx
+    return {"seconds": secs, "tables": len(tables),
+            "tables_nbytes": recsys.tables_nbytes(tables),
+            "qtables_nbytes": recsys.qtables_nbytes(qt),
+            "compression": recsys.tables_nbytes(tables)
+            / recsys.qtables_nbytes(qt),
+            "lookup_rel_sq_err": rel}, list(zip(tables, qt["codebooks"],
+                                                qt["codes"]))
+
+
+def _check_table_codes(torch, triples):
+    """Each table's codes (from the kernel, in ``quantize_tables``) against
+    ``kmeans_assign_plain`` with ``_check_assign``; the largest gap."""
+    from repro_torch.kernels import kmeans_assign as km
+    gap = 0.0
+    for t, cb, codes in triples:
+        x = t.float()
+        gap = max(gap, _check_assign(torch, x, cb, codes.to(torch.int32),
+                                     km.kmeans_assign_plain(x, cb)))
+    return gap
+
+
+def _recsys_phase(args, torch, np, dev, smi, kernel_mods):
+    """Phase 12a-b: the recsys family. (a) DCN-v2, DIN (p 0 and 50), DIEN
+    and the DLRM-MLPerf row cut on the card against CPU copies at
+    serve_p99's batch, and ``quantize`` at D=16 and D=18 against
+    ``kmeans_assign_plain``; (b) every recsys cell at full width. Returns
+    the launches of 12b, the readings, and kmeans_assign's times at the
+    tables' shapes."""
+    import dataclasses
+    import shutil
+    from repro_torch import convert
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.configs.recsys_archs import (DCN_V2, DIEN, DIN,
+                                                  DLRM_MLPERF)
+    from repro_torch.core import quantization as quant
+    from repro_torch.data.synthetic import make_recsys_batch
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.models import recsys
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+
+    build = ROOT / "build"
+    ocfg = opt.AdamWConfig(total_steps=RECSYS_TRAIN_STEPS)
+    out = {}
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    torch.cuda.empty_cache()
+    print(f"phase 12 starts with {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated on the card")
+    dlrm_cut = dataclasses.replace(DLRM_MLPERF.config, table_rows=tuple(
+        min(r, DLRM_CUT_ROWS) for r in DLRM_MLPERF.config.table_rows))
+    din_p50 = dataclasses.replace(DIN.config, din_prune_p=50.0)
+    dims = {c.name: c.dims["batch"] for c in RECSYS_SHAPES}
+    p99, train_b = dims["serve_p99"], dims["train_batch"]
+
+    # -- 12a. card against CPU -------------------------------------------
+    t0 = _phase(f"12a. recsys at full width (float32) on the card against "
+                f"the CPU, batch {p99}; quantize at D=16 and D=18")
+    checks, km_gap = {}, 0.0
+    for i, cfg in enumerate((DCN_V2.config, DIN.config, din_p50,
+                             DIEN.config, dlrm_cut)):
+        name = cfg.name + ("-p50" if cfg.din_prune_p else "") + (
+            "-cut" if cfg is dlrm_cut else "")
+        model = recsys.init(cfg, generator=torch.Generator(dev).manual_seed(
+            args.seed + 120 + i), device=dev)
+        cpu = convert.recsys_params_from_numpy(
+            convert.params_to_numpy(model), cfg, device="cpu")
+        b = make_recsys_batch(torch.Generator().manual_seed(args.seed + 130
+                                                            + i), p99,
+                              cfg.n_dense, cfg.table_rows,
+                              seq_len=cfg.seq_len, family=cfg.family)
+        checks[name] = _card_vs_cpu(
+            torch, name, recsys,
+            lambda p, bb, c=cfg: recsys.forward(p, bb, c), model, cpu, cfg,
+            b, dev, RECSYS_TOL)
+        if cfg.family in ("dcn", "din") and not cfg.din_prune_p:
+            # the kernel at D = 16 (DCN-v2's largest table) and D = 18
+            t = max(model.tables, key=lambda x: x.shape[0]).detach()
+            cb, _ = quant.kmeans_fit(torch.Generator(dev).manual_seed(
+                args.seed + 140), t, quant.KMeansConfig(k=QT_K, iters=3,
+                                                        n_restarts=1))
+            km_gap = max(km_gap, _check_assign(
+                torch, t, cb, quant.quantize(t, cb).to(torch.int32),
+                km.kmeans_assign_plain(t, cb)))
+        del model, cpu
+        torch.cuda.empty_cache()
+    out["card_vs_cpu"] = checks
+    print(json.dumps({"recsys_card_vs_cpu": checks,
+                      "seconds": time.perf_counter() - t0}))
+
+    # -- 12b. the recsys cells at full width --------------------------------
+    launches = {}
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    cells = {}
+    t0 = _phase(f"12b. dcn-v2 at full width: {RECSYS_TRAIN_STEPS} train "
+                f"steps at {train_b} through launch.train, the serving "
+                f"cells, quantize_tables")
+    ckpt_dir = build / "train_ckpt_dcn"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = DCN_V2.config
+    tb = sum(cfg.table_rows) * cfg.embed_dim * 4
+    res, tr = _train_cli_run(
+        torch, np, ["--arch", "dcn-v2", "--batch", str(train_b), "--steps",
+                    str(RECSYS_TRAIN_STEPS), "--ckpt-every", "0",
+                    "--ckpt-dir", str(ckpt_dir), "--seed",
+                    str(args.seed + 150)], build, 3.1 * tb, "12b dcn-v2")
+    res.pop("model")
+    tr["samples_per_s"] = train_b / tr["median_step_s_after_first"]
+    sb = {k: v.to(dev) for k, v in make_recsys_batch(
+        torch.Generator().manual_seed(args.seed + 151), train_b, cfg.n_dense,
+        cfg.table_rows, family=cfg.family).items()}
+    tr["split"] = _train_split(torch, lambda p: recsys.loss_fn(p, sb, cfg),
+                               ocfg, res["params"], res["opt_state"])
+    tr["table_bytes"] = tb
+    del sb
+    shutil.rmtree(ckpt_dir)
+    params = res["params"]
+    del res
+    torch.cuda.empty_cache()
+    dcn = {"train": tr, **_recsys_cells(torch, np, cfg, params, dev,
+                                        args.seed + 152)}
+    dcn["quantize"], triples = _quantize_cell(torch, np, cfg, params, dev,
+                                              args.seed + 153)
+    dcn["quantize"]["codes_max_gap_vs_plain"] = _check_table_codes(
+        torch, triples)
+    km_tables = {"dcn": max(triples, key=lambda x: x[0].shape[0])[:2]}
+    del triples, params
+    torch.cuda.empty_cache()
+    dcn["seconds"] = time.perf_counter() - t0
+    cells["dcn-v2"] = dcn
+    print(json.dumps({"recsys_dcn_v2": dcn, "smi": smi}))
+
+    cfg = dataclasses.replace(DLRM_MLPERF.config, param_dtype="bfloat16")
+    t0 = _phase(f"12b. dlrm-mlperf serving at its full {sum(cfg.table_rows)}"
+                f" rows in bfloat16")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    model = recsys.init(cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 160), device=dev)
+    torch.cuda.synchronize()
+    dlrm = {"init_s": time.perf_counter() - t1,
+            "weights_gib": (torch.cuda.memory_allocated() - base) / 2**30,
+            **_recsys_cells(torch, np, cfg, T.params_of(model), dev,
+                            args.seed + 161)}
+    del model
+    torch.cuda.empty_cache()
+    cfg = dlrm_cut
+    t1 = _phase(f"12b. dlrm-mlperf on its {DLRM_CUT_ROWS}-row cut (float32): "
+                f"{RECSYS_TRAIN_STEPS} train steps at {train_b}, "
+                f"quantize_tables")
+    model = recsys.init(cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 162), device=dev)
+    dlrm["cut_train"], params, _ = _recsys_train(
+        torch, np, cfg, T.params_of(model), dev, args.seed + 163,
+        RECSYS_TRAIN_STEPS, train_b)
+    del model
+    dlrm["cut_quantize"], triples = _quantize_cell(
+        torch, np, cfg, params, dev, args.seed + 164)
+    dlrm["cut_quantize"]["codes_max_gap_vs_plain"] = _check_table_codes(
+        torch, triples)
+    km_tables["dlrm_cut"] = max(triples, key=lambda x: x[0].shape[0])[:2]
+    del triples, params
+    torch.cuda.empty_cache()
+    dlrm["seconds"] = time.perf_counter() - t0
+    cells["dlrm-mlperf"] = dlrm
+    print(json.dumps({"recsys_dlrm_mlperf": dlrm, "smi": smi}))
+
+    for spec, cut in ((DIN, None), (DIN, 50.0), (DIEN, None)):
+        name = spec.arch_id + (f"-p{cut:g}" if cut else "")
+        t0 = _phase(f"12b. {name} at full width: {RECSYS_TRAIN_STEPS} train "
+                    f"steps at {train_b} x {spec.config.seq_len}, the serving "
+                    f"cells")
+        if cut is None:
+            ckpt_dir = build / f"train_ckpt_{name}"
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            res, tr = _train_cli_run(
+                torch, np, ["--arch", spec.arch_id, "--batch", str(train_b),
+                            "--steps", str(RECSYS_TRAIN_STEPS),
+                            "--ckpt-every", "0", "--ckpt-dir",
+                            str(ckpt_dir), "--seed", str(args.seed + 170)],
+                build, 1 << 30, f"12b {name}")
+            res.pop("model")
+            tr["samples_per_s"] = train_b / tr["median_step_s_after_first"]
+            shutil.rmtree(ckpt_dir)
+            params, cfg = res["params"], spec.config
+            state = res["opt_state"]
+            del res
+        else:
+            cfg = dataclasses.replace(spec.config, din_prune_p=cut)
+            tr, params, state = _recsys_train(
+                torch, np, cfg, params, dev, args.seed + 171,
+                RECSYS_TRAIN_STEPS, train_b)
+        if cfg.family == "dien":
+            sb = {k: v.to(dev) for k, v in make_recsys_batch(
+                torch.Generator().manual_seed(args.seed + 172), train_b,
+                cfg.n_dense, cfg.table_rows, seq_len=cfg.seq_len,
+                family=cfg.family).items()}
+            tr["kernels_per_train_step"] = _count_kernels(
+                torch, lambda: recsys.train_step(params, state, sb, cfg,
+                                                 ocfg))
+            tr["kernels_per_serve_call"] = _count_kernels(
+                torch, lambda: recsys.serve_step(params, sb, cfg))
+            del sb
+        del state
+        cells[name] = {"train": tr, **_recsys_cells(
+            torch, np, cfg, params, dev, args.seed + 173,
+            cand_pass=CAND_PASS)}
+        if cfg.family == "dien":
+            del params
+        cells[name]["seconds"] = time.perf_counter() - t0
+        print(json.dumps({f"recsys_{name}": cells[name], "smi": smi}))
+    launches["recsys"] = {n: mod.launches for n, mod in kernel_mods.items()}
+    want = len(DCN_V2.config.table_rows) + len(dlrm_cut.table_rows)
+    assert launches["recsys"]["kmeans_assign"] == want, launches
+    out["cells"] = cells
+    out["launches"] = launches
+
+    # kmeans_assign at the tables' shapes (after the path's count)
+    din_t = recsys.init(DIN.config, generator=torch.Generator(
+        dev).manual_seed(args.seed + 180), device=dev).tables[0].detach()
+    din_cb, _ = quant.kmeans_fit(torch.Generator(dev).manual_seed(1), din_t,
+                                 quant.KMeansConfig(k=QT_K, iters=2,
+                                                    n_restarts=1))
+    km_tables["din"] = (din_t, din_cb)
+    km_times = {}
+    for key, (t, cb) in km_tables.items():
+        x = t.float().contiguous()
+        n, d = x.shape
+        c2 = (cb * cb).sum(-1)
+        b = _gemm_bounds(n * d * 4 + cb.numel() * 4 + n * 4,
+                         2.0 * n * cb.shape[0] * d)
+        km_times[key] = {
+            "shape": f"{n} x {d} against K={cb.shape[0]}",
+            "ms": _time_ms(torch, lambda: km.kmeans_assign_cuda(x, cb), 10),
+            "plain_ms": _time_ms(torch, lambda: km.kmeans_assign_plain(
+                x, cb), 3),
+            "addmm_yardstick_ms": _time_ms(torch, lambda: torch.addmm(
+                c2, x, cb.t(), alpha=-2.0), 3),
+            "bound_ms": b[0], "bound_by": b[1], "f32_fma_bound_ms": b[2],
+            "tf32x3_bound_ms": b[3]}
+        print(f"kmeans_assign {key} table: {json.dumps(km_times[key])}")
+    out["kmeans_assign_at_tables"] = km_times
+    out["kmeans_max_gap"] = max(
+        km_gap, cells["dcn-v2"]["quantize"]["codes_max_gap_vs_plain"],
+        cells["dlrm-mlperf"]["cut_quantize"]["codes_max_gap_vs_plain"])
+    del km_tables, din_t, din_cb
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pna_steps(torch, np, gnn, cfg, params, state, ocfg, batches):
+    """One train step per batch: host wall (ended by a synchronize) and
+    device time (CUDA events) of each, and the losses."""
+    walls, devs, losses = [], [], []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        start.record()
+        params, state, m = gnn.train_step(params, state, b, cfg, ocfg)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        devs.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses)), f"{cfg.name} losses {losses}"
+    return {"step_host_wall_ms": walls, "step_device_ms": devs,
+            "losses": losses}, params, state
+
+
+def _pna_phase(args, torch, np, dev, smi, kernel_mods):
+    """Phase 12a (PNA) and 12c: PNA at full_graph_sm on the card against a
+    CPU copy; then the full_graph_sm and molecule cells and minibatch_lg
+    (a Reddit-scale graph, its CSR built on the host, subgraphs from the
+    sampler). Returns the launches (none: no kernel is on this path) and
+    the readings."""
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.gnn_archs import PNA
+    from repro_torch.data import sampler
+    from repro_torch.data.synthetic import make_graph, make_molecule_batch
+    from repro_torch.models import gnn
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+
+    dims = {c.name: c.dims for c in GNN_SHAPES}
+    out = {}
+    sm = dims["full_graph_sm"]
+    cfg = dataclasses.replace(PNA.config, d_feat=sm["d_feat"],
+                              n_classes=sm["n_classes"])
+    t0 = _phase(f"12a. pna at full_graph_sm ({sm['n_nodes']} nodes, "
+                f"{sm['n_edges']} edges, d_feat {sm['d_feat']}) on the card "
+                f"against the CPU")
+    model = gnn.init(cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 190), device=dev)
+    cpu = convert.pna_params_from_numpy(convert.params_to_numpy(model), cfg,
+                                        device="cpu")
+    g_sm = make_graph(torch.Generator().manual_seed(args.seed + 191),
+                      sm["n_nodes"], sm["n_edges"], sm["d_feat"],
+                      sm["n_classes"])
+    # the card's atomics sum each node's messages in another order: the
+    # bound is the larger of PNA_TOL and PNA_REORDER x what the same edges
+    # in a shuffled order move on the CPU
+    logits_fn = lambda p, b: gnn.serve_step(p, b, cfg)      # noqa: E731
+    perm = torch.randperm(sm["n_edges"], generator=torch.Generator()
+                          .manual_seed(args.seed + 197))
+    shuffled = dict(g_sm, edge_index=g_sm["edge_index"][:, perm])
+    reorder = _errors(torch, gnn, logits_fn, cfg, cpu, shuffled, cpu, g_sm)
+    print(f"12a pna: the CPU with its edges shuffled: {json.dumps(reorder)}")
+    tol = {k: max(PNA_TOL, PNA_REORDER * reorder[k])
+           for k in ("logits", "loss", "grad")}
+    out["card_vs_cpu"] = _card_vs_cpu(
+        torch, "pna full_graph_sm", gnn, logits_fn, model, cpu, cfg, g_sm,
+        dev, tol)
+    out["card_vs_cpu"]["cpu_reordered"] = reorder
+    del cpu
+
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    ocfg = opt.AdamWConfig(total_steps=PNA_STEPS, warmup_steps=1)
+    t0 = _phase(f"12c. pna: full_graph_sm and molecule, {PNA_STEPS} train "
+                f"steps each; minibatch_lg from the sampler")
+    params = T.params_of(model)
+    b = {k: v.to(dev) for k, v in g_sm.items()}
+    out["full_graph_sm"], _, _ = _pna_steps(
+        torch, np, gnn, cfg, params, opt.init(ocfg, params), ocfg,
+        [b] * PNA_STEPS)
+    del model, params, b
+    mol = dims["molecule"]
+    cfg = dataclasses.replace(PNA.config, d_feat=mol["d_feat"],
+                              n_classes=mol["n_classes"], task="graph")
+    model = gnn.init(cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 192), device=dev)
+    params = T.params_of(model)
+    mg = torch.Generator().manual_seed(args.seed + 193)
+    batches = [{k: v.to(dev) for k, v in make_molecule_batch(
+        mg, mol["n_graphs"], mol["nodes_per"], mol["edges_per"],
+        mol["d_feat"]).items()} for _ in range(PNA_STEPS)]
+    out["molecule"], _, _ = _pna_steps(torch, np, gnn, cfg, params,
+                                       opt.init(ocfg, params), ocfg,
+                                       batches)
+    del model, params, batches
+
+    lg = dims["minibatch_lg"]
+    t1 = time.perf_counter()
+    graph = make_graph(torch.Generator().manual_seed(args.seed + 194),
+                       lg["graph_nodes"], lg["graph_edges"], lg["d_feat"],
+                       lg["n_classes"])
+    make_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    csr = sampler.build_csr(lg["graph_nodes"], graph["edge_index"].numpy(),
+                            graph["feats"].numpy(), graph["labels"].numpy())
+    csr_s = time.perf_counter() - t1
+    del graph
+    cfg = dataclasses.replace(PNA.config, d_feat=lg["d_feat"],
+                              n_classes=lg["n_classes"])
+    model = gnn.init(cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 195), device=dev)
+    params = T.params_of(model)
+    state = opt.init(ocfg, params)
+    rng = np.random.default_rng(args.seed + 196)
+    sample_ms, rows = [], []
+    for _ in range(PNA_STEPS):
+        seeds = rng.choice(lg["graph_nodes"], lg["batch_nodes"],
+                           replace=False)
+        t1 = time.perf_counter()
+        sub = sampler.sample_subgraph(rng, csr, seeds, lg["fanout"])
+        sample_ms.append((time.perf_counter() - t1) * 1e3)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in sub.items()}
+        r, params, state = _pna_steps(torch, np, gnn, cfg, params, state,
+                                      ocfg, [b])
+        rows.append(r)
+    out["minibatch_lg"] = {
+        "graph_nodes": lg["graph_nodes"], "graph_edges": lg["graph_edges"],
+        "make_graph_s": make_s, "build_csr_s": csr_s,
+        "subgraph_nodes": int(sub["feats"].shape[0]),
+        "subgraph_edges": int(sub["edge_index"].shape[1]),
+        "sampler_host_ms": sample_ms,
+        "step_device_ms": [r["step_device_ms"][0] for r in rows],
+        "step_host_wall_ms": [r["step_host_wall_ms"][0] for r in rows],
+        "losses": [r["losses"][0] for r in rows]}
+    del model, params, state, csr, sub, b
+    torch.cuda.empty_cache()
+    print("pna ogb_products: left out (one layer's edge tensors exceed the "
+          "card's 80 GB: ROADMAP.md item 6)")
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"pna": out, "smi": smi}))
+    launches = {"pna": {n: mod.launches for n, mod in kernel_mods.items()}}
+    assert not any(launches["pna"].values()), launches
+    return {"launches": launches, **out}
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3470,13 +4148,17 @@ def main(argv=None) -> int:
                          QWEN2_1_5B, kernel_mods)
     moe = _moe_phase(args, torch, np, dev, smi, LLAMA4_SCOUT, KIMI_K2,
                      kernel_mods)
+    recsys_out = _recsys_phase(args, torch, np, dev, smi, kernel_mods)
+    pna = _pna_phase(args, torch, np, dev, smi, kernel_mods)
+    km_abs_err = max(km_abs_err, recsys_out["kmeans_max_gap"])
 
     by_path = {"flat": {"quantized_maxsim": qm_launches,
                         "kmeans_assign": km_launches},
                "cascade": casc_launches,
                "live cascade": live["launches"],
                **ann["launches"], **model["launches"],
-               **train["launches"], **moe["launches"]}
+               **train["launches"], **moe["launches"],
+               **recsys_out["launches"], **pna["launches"]}
 
     def launches(name):
         return sum(path.get(name, 0) for path in by_path.values())
@@ -3540,7 +4222,8 @@ def main(argv=None) -> int:
          "ivf_route_assign_bound_ms": ann["ivf_assign"]["bound"][0],
          "ivf_route_assign_bound_by": ann["ivf_assign"]["bound"][1],
          "ivf_route_assign_addmm_yardstick_ms": ann["ivf_assign"]["addmm_ms"],
-         "ivf_route_assign_shape": ann["ivf_assign"]["shape"]},
+         "ivf_route_assign_shape": ann["ivf_assign"]["shape"],
+         "recsys_tables": recsys_out["kmeans_assign_at_tables"]},
         {"name": "hamming_maxsim", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming_maxsim.cu",
          "replaces": "src/repro/kernels/hamming.py:74",

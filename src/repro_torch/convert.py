@@ -36,14 +36,17 @@ the reference; ints of the wrapper dataclasses are knobs, not leaves.
 
 ``state_to`` copies a built state of any backend to another device.
 
-``lm_params_from_numpy`` and ``colpali_params_from_numpy`` carry a model's
-weights across: they take the reference's param dicts as host arrays
+``lm_params_from_numpy``, ``colpali_params_from_numpy``,
+``recsys_params_from_numpy`` and ``pna_params_from_numpy`` carry a
+model's weights across: they take the reference's param dicts as host arrays
 (nested dicts, or flat ``/``-joined keys: ``embed``, ``ln_f``, optional
 ``unembed``, the stacked ``blocks/...`` of shape (L, ...) (a MoE layer's
 ``blocks/moe/router``, ``blocks/moe/w_gate`` (L, E, D, F), ...,
 ``blocks/moe/shared/...``), and for the encoder ``backbone/...``,
-``patch_proj``, ``out_proj``) and return the
-port's module on ``device``, each block taking its slice of the stack. A
+``patch_proj``, ``out_proj``; the recsys and PNA trees' lists of dicts,
+``tables[i]``, ``bot[i]['w']``, ``layers[i]['pre'][0]['b']``) and return
+the port's module on ``device``, each block taking its slice of the stack
+(a list item is the parameter ``<name>.<i>``). A
 missing, unexpected or misshapen array is rejected by name.
 
 The way back: ``params_to_numpy`` turns a module, or a dict of named
@@ -73,6 +76,8 @@ from repro_torch.core.index import (FlatIndex, FloatFlatIndex, HammingIndex,
                                     IVFIndex, SegmentedState)
 from repro_torch.device import resolve_device
 from repro_torch.models.colpali import ColPaliConfig, ColPaliEncoder
+from repro_torch.models.gnn import PNAConfig, PNAModel
+from repro_torch.models.recsys import RecsysConfig, RecsysModel
 from repro_torch.models.transformer import LMConfig, Transformer
 from repro_torch.optim.optimizer import AdamWState, QMoment
 from repro_torch.retrieval.base import RetrieverState
@@ -293,7 +298,10 @@ def state_to(state: Any, device) -> Any:
 # ---------------------------------------------------------------------------
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
-    """A nested dict of arrays -> {"a/b/c": array}."""
+    """A nested dict (or list) of arrays -> {"a/b/c": array}, a list's
+    items keyed by their index ("bot/0/w")."""
+    if isinstance(tree, list):
+        tree = {str(i): v for i, v in enumerate(tree)}
     if not isinstance(tree, dict):
         return {prefix.rstrip("/"): tree}
     out = {}
@@ -332,8 +340,19 @@ def _by_reference_key(names) -> Dict[str, List[Tuple[Optional[int], str]]]:
     return groups
 
 
+def _listify(node):
+    """Dicts keyed "0".."n-1" -> lists, at any depth: the reference's
+    list-of-dict trees (``tables[i]``, ``layers[i]['pre'][j]['w']``)."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _listify(v) for k, v in node.items()}
+    if out and sorted(out) == sorted(str(i) for i in range(len(out))):
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
 def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
-    """{"a/b": x} -> {"a": {"b": x}}."""
+    """{"a/b": x, "c/0/w": y} -> {"a": {"b": x}, "c": [{"w": y}]}."""
     out: Dict[str, Any] = {}
     for key, val in flat.items():
         node = out
@@ -341,15 +360,19 @@ def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
         for part in head:
             node = node.setdefault(part, {})
         node[last] = val
-    return out
+    return _listify(out)
 
 
 def _lookup(tree, key: str):
     node = tree
     for part in key.split("/"):
-        if not isinstance(node, dict) or part not in node:
+        if isinstance(node, list) and part.isdigit() \
+                and int(part) < len(node):
+            node = node[int(part)]
+        elif isinstance(node, dict) and part in node:
+            node = node[part]
+        else:
             raise KeyError(f"the tree has no array {key}")
-        node = node[part]
     return node
 
 
@@ -528,3 +551,21 @@ def colpali_params_from_numpy(tree, cfg: ColPaliConfig, *, device="cuda"
     tree, as host arrays) -> the port's ``ColPaliEncoder`` on ``device``."""
     return _load_module(ColPaliEncoder(cfg, device=device), tree,
                         "colpali_params_from_numpy")
+
+
+def recsys_params_from_numpy(tree, cfg: RecsysConfig, *, device="cuda"
+                             ) -> RecsysModel:
+    """The reference's recsys params (``repro.models.recsys.init``'s tree
+    of lists: ``tables[i]``, ``bot[i]['w']``, ``gru1['wx']``, ... as host
+    arrays) -> the port's ``RecsysModel`` on ``device``."""
+    return _load_module(RecsysModel(cfg, device=device), tree,
+                        "recsys_params_from_numpy")
+
+
+def pna_params_from_numpy(tree, cfg: PNAConfig, *, device="cuda"
+                          ) -> PNAModel:
+    """The reference's PNA params (``repro.models.gnn.init``'s tree:
+    ``encoder[0]['w']``, ``layers[i]['pre'][0]['b']``, ``head[0]['w']``,
+    ... as host arrays) -> the port's ``PNAModel`` on ``device``."""
+    return _load_module(PNAModel(cfg, device=device), tree,
+                        "pna_params_from_numpy")

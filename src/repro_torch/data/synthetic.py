@@ -1,10 +1,10 @@
-"""Synthetic corpora with planted structure: the multi-vector retrieval
-corpus with graded relevance, and the RAG fact corpus.
+"""Synthetic corpora and batches with planted structure: the multi-vector
+retrieval corpus with graded relevance, the RAG fact corpus, LM token
+streams, graphs and molecule batches, and recsys batches.
 
-The counterparts of ``repro.data.synthetic.make_retrieval_corpus`` and
-``make_fact_corpus``: the same planted structure, drawn from a
-``torch.Generator`` on the target device, so the random numbers differ
-from the JAX corpora at the same seed.
+The counterparts of ``repro.data.synthetic``'s makers: the same planted
+structure, drawn from a ``torch.Generator`` on the target device, so the
+random numbers differ from the JAX ones at the same seed.
 
 Retrieval corpus: each topic owns a bank of patch prototypes. A document
 samples its salient patches from its topic bank (shared within a group of
@@ -233,3 +233,123 @@ def make_lm_batch(generator: torch.Generator, vocab: int, batch: int,
     toks = torch.stack(toks, dim=1) % vocab
     return {"tokens": toks[:, :seq].to(torch.int32),
             "targets": toks[:, 1:seq + 1].to(torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# Graphs
+# ---------------------------------------------------------------------------
+
+def make_graph(generator: torch.Generator, n_nodes: int, n_edges: int,
+               d_feat: int, n_classes: int, n_comm: int = 8
+               ) -> Dict[str, Tensor]:
+    """A community-structured graph on the generator's device, the
+    reference's ``make_graph`` drawn from ``generator``: 80% of the edges
+    join a node to one 1-4 places after it in community order (the same
+    community, mostly), the rest are random; labels are the community mod
+    ``n_classes`` and features lie around a class centre (noise 0.8).
+    Returns float32 ``feats`` (N, d_feat), int32 ``edge_index`` (2, E)
+    and ``labels`` (N,)."""
+    dev = generator.device
+
+    def randint(low, high, n):
+        return torch.randint(low, high, (n,), generator=generator,
+                             device=dev)
+
+    comm = randint(0, n_comm, n_nodes)
+    n_intra = int(n_edges * 0.8)
+    src_i = randint(0, n_nodes, n_intra)
+    perm = torch.argsort(comm, stable=True)
+    pos_of = torch.empty_like(perm)
+    pos_of[perm] = torch.arange(n_nodes, device=dev)
+    off = randint(1, 5, n_intra)
+    dst_i = perm[torch.clamp(pos_of[src_i] + off, 0, n_nodes - 1)]
+    src_r = randint(0, n_nodes, n_edges - n_intra)
+    dst_r = randint(0, n_nodes, n_edges - n_intra)
+    edge_index = torch.stack([torch.cat([src_i, src_r]),
+                              torch.cat([dst_i, dst_r])]).to(torch.int32)
+    labels = comm % n_classes
+    centers = torch.randn((n_classes, d_feat), generator=generator,
+                          device=dev)
+    feats = centers[labels] + 0.8 * torch.randn((n_nodes, d_feat),
+                                                generator=generator,
+                                                device=dev)
+    return {"feats": feats, "edge_index": edge_index,
+            "labels": labels.to(torch.int32)}
+
+
+def make_molecule_batch(generator: torch.Generator, n_graphs: int,
+                        nodes_per: int, edges_per: int, d_feat: int
+                        ) -> Dict[str, Tensor]:
+    """``n_graphs`` small graphs of ``nodes_per`` nodes, each a ring plus
+    ``edges_per - nodes_per`` random chords, on the generator's device;
+    a graph's label is whether its nodes' first features sum above 0.
+    Returns ``feats``, ``edge_index``, ``graph_ids`` and
+    ``graph_labels``."""
+    dev = generator.device
+    n = n_graphs * nodes_per
+    feats = torch.randn((n, d_feat), generator=generator, device=dev)
+    base = torch.arange(nodes_per, device=dev)
+    off = torch.repeat_interleave(torch.arange(n_graphs, device=dev)
+                                  * nodes_per, nodes_per)
+    ring_src = base.repeat(n_graphs) + off
+    ring_dst = ((base + 1) % nodes_per).repeat(n_graphs) + off
+    extra = edges_per - nodes_per
+    goff = torch.arange(n_graphs, device=dev)[:, None] * nodes_per
+    es = torch.randint(0, nodes_per, (n_graphs, extra), generator=generator,
+                       device=dev) + goff
+    ed = torch.randint(0, nodes_per, (n_graphs, extra), generator=generator,
+                       device=dev) + goff
+    graph_ids = torch.repeat_interleave(torch.arange(n_graphs, device=dev),
+                                        nodes_per)
+    pooled = torch.zeros((n_graphs,), device=dev).index_add_(
+        0, graph_ids, feats[:, 0])
+    return {"feats": feats,
+            "edge_index": torch.stack([
+                torch.cat([ring_src, es.reshape(-1)]),
+                torch.cat([ring_dst, ed.reshape(-1)])]).to(torch.int32),
+            "graph_ids": graph_ids.to(torch.int32),
+            "graph_labels": (pooled > 0).to(torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# RecSys batches (planted logistic teacher)
+# ---------------------------------------------------------------------------
+
+def make_recsys_batch(generator: torch.Generator, batch: int, n_dense: int,
+                      table_rows, seq_len: int = 0, family: str = "dlrm"
+                      ) -> Dict[str, Tensor]:
+    """A recsys batch with a planted signal, on the generator's device: the
+    reference's ``make_recsys_batch`` drawn from ``generator``, for any
+    number of tables (the reference's runs out of keys past 6).
+
+    din/dien: ``hist_ids`` (B, S) int32 with ``hist_mask`` valid for the
+    first S/2..S items, ``target_ids``, and a click when the target's id
+    mod 7 matches the sum of the history's ids mod 7, flipped with
+    probability 0.1. dlrm/dcn: ``dense`` (B, n_dense) normal, one id per
+    table in ``sparse_ids``, and a click drawn from a logistic teacher
+    over the dense features and the ids mod 5."""
+    dev = generator.device
+    if family in ("din", "dien"):
+        n_items = table_rows[0]
+        hist = torch.randint(0, n_items, (batch, seq_len),
+                             generator=generator, device=dev)
+        hl = torch.randint(seq_len // 2, seq_len + 1, (batch,),
+                           generator=generator, device=dev)
+        mask = torch.arange(seq_len, device=dev)[None, :] < hl[:, None]
+        target = torch.randint(0, n_items, (batch,), generator=generator,
+                               device=dev)
+        sig = (torch.sum((hist % 7) * mask, dim=1) % 7) == (target % 7)
+        noise = torch.rand((batch,), generator=generator, device=dev) < 0.1
+        return {"hist_ids": hist.to(torch.int32), "hist_mask": mask,
+                "target_ids": target.to(torch.int32),
+                "label": (sig ^ noise).to(torch.float32)}
+    dense = torch.randn((batch, n_dense), generator=generator, device=dev)
+    sparse = torch.stack([torch.randint(0, r, (batch,), generator=generator,
+                                        device=dev) for r in table_rows],
+                         dim=1)
+    w = torch.randn((n_dense,), generator=generator, device=dev)
+    logit = dense @ w + 0.5 * torch.sum((sparse % 5) - 2, dim=1) / len(
+        table_rows)
+    u = torch.rand((batch,), generator=generator, device=dev)
+    return {"dense": dense, "sparse_ids": sparse.to(torch.int32),
+            "label": (torch.sigmoid(logit) > u).to(torch.float32)}

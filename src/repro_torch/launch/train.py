@@ -4,11 +4,13 @@
         --smoke --steps 50 --batch 8 --seq 128 [--device cpu]
 
 Runs the family's train step (``transformer.train_step`` for the lm
-archs, dense and MoE, ``colpali.train_step`` for colpali-hpc) through the
-fault-tolerant loop (checkpoint/restart in the reference's format, the
-non-finite guard, the straggler watchdog). The counterpart of
-``repro.launch.train`` for the lm and colpali families; gnn and recsys
-arch ids raise ``NotImplementedError`` (ROADMAP.md §A item 7).
+archs, dense and MoE, ``colpali.train_step`` for colpali-hpc,
+``gnn.train_step`` for pna, ``recsys.train_step`` for dlrm-mlperf,
+dcn-v2, din and dien) through the fault-tolerant loop (checkpoint/restart
+in the reference's format, the non-finite guard, the straggler watchdog).
+The counterpart of ``repro.launch.train``: pna trains on one community
+graph of 512 nodes and 2048 edges, every step; recsys archs on fresh
+batches of ``--batch`` from ``data.synthetic.make_recsys_batch``.
 
 Batches are drawn on the host from a generator seeded by ``--seed`` and
 reach the device through ``PrefetchPipeline`` (a pinned, non-blocking
@@ -30,6 +32,8 @@ from repro_torch.data import synthetic
 from repro_torch.data.pipeline import PrefetchPipeline, device_put_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import colpali as colpali_mod
+from repro_torch.models import gnn as gnn_mod
+from repro_torch.models import recsys as recsys_mod
 from repro_torch.models import transformer as T
 from repro_torch.optim import optimizer as opt
 from repro_torch.train import loop as train_loop
@@ -90,8 +94,23 @@ def main(argv=None):
                                  opt_cfg=ocfg)
         mk = functools.partial(colpali_batch, enc=cfg.encoder,
                                batch=args.batch)
+    elif spec.family == "gnn":
+        model = gnn_mod.init(cfg, generator=init_gen, device=dev)
+        step = functools.partial(gnn_mod.train_step, cfg=cfg, opt_cfg=ocfg)
+        graph = synthetic.make_graph(
+            torch.Generator().manual_seed(args.seed + 1), 512, 2048,
+            cfg.d_feat, cfg.n_classes)
+        mk = lambda gen: graph                          # noqa: E731
+    elif spec.family == "recsys":
+        model = recsys_mod.init(cfg, generator=init_gen, device=dev)
+        step = functools.partial(recsys_mod.train_step, cfg=cfg,
+                                 opt_cfg=ocfg)
+        mk = functools.partial(synthetic.make_recsys_batch, batch=args.batch,
+                               n_dense=cfg.n_dense,
+                               table_rows=cfg.table_rows,
+                               seq_len=cfg.seq_len, family=cfg.family)
     else:
-        raise NotImplementedError(f"family {spec.family!r}")
+        raise ValueError(f"family {spec.family!r}")
     params = T.params_of(model)
 
     pipe = PrefetchPipeline(batch_stream(mk, args.seed + 1),

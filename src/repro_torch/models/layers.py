@@ -1,6 +1,7 @@
 """Shared model building blocks: init, RMSNorm, RoPE, GQA attention with
-the per-key attention mass (full or chunked-local), the SwiGLU FFN and the
-MoE FFN.
+the per-key attention mass (full or chunked-local), the SwiGLU FFN, the
+MoE FFN, and for the recsys and GNN families the plain MLPs, ``jnp.take``'s
+gather (``take_rows``) and the segment reductions.
 
 The counterpart of ``repro.models.layers``. The same conventions:
 
@@ -52,8 +53,9 @@ def float32_accumulation():
     which would make the models' numbers depend on the caller's setting.
     The models' entry points (``Transformer.forward``/``logits``,
     ``prefill``, ``decode_step``, ``ColPaliEncoder.encode_doc``/
-    ``encode_query``) run under this, and the train steps
-    (``transformer.train_step``, ``colpali.train_step``) hold it across
+    ``encode_query``, ``recsys.forward``, ``gnn.forward``) run under this,
+    and the train steps (every one through ``transformer.value_and_grad``)
+    hold it across
     the forward, the backward and every checkpoint recompute inside it;
     the flag is process-wide, so a matmul on another thread during the
     call (autograd's own workers included) sees it cleared too. Also a
@@ -340,6 +342,109 @@ def ffn_apply(p: SwiGLU, x: Tensor) -> Tensor:
     dt = x.dtype
     h = F.silu(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
     return h @ p.w_down.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# plain MLPs (the recsys and GNN families)
+# ---------------------------------------------------------------------------
+
+class Dense(nn.Module):
+    """One affine layer: ``w`` (in, out) and ``b`` (out,), the reference's
+    ``{"w", "b"}`` dict."""
+
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty((d_in, d_out), dtype=dtype,
+                                          device=device))
+        self.b = nn.Parameter(torch.zeros((d_out,), dtype=dtype,
+                                          device=device))
+
+
+def mlp(dims, dtype: torch.dtype, device: torch.device) -> nn.ModuleList:
+    """Layers ``dims[0] -> dims[1] -> ...`` as a list of ``Dense``: the
+    reference's list of ``{"w", "b"}`` dicts (params ``<name>.<i>.w``)."""
+    return nn.ModuleList(Dense(dims[i], dims[i + 1], dtype, device)
+                         for i in range(len(dims) - 1))
+
+
+@torch.no_grad()
+def draw_dense(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw the ``w`` of every ``Dense`` in ``model`` by ``dense_init``, in
+    module order (biases stay zero); returns the model."""
+    for mod in model.modules():
+        if isinstance(mod, Dense):
+            mod.w.copy_(dense_init(generator, *mod.w.shape, mod.w.dtype))
+    return model
+
+
+def mlp_apply(params, prefix: str, x: Tensor, final_act: bool = False
+              ) -> Tensor:
+    """``x @ w + b`` through the layers ``<prefix>.<i>`` of the named
+    tensors ``params``, ReLU between them (and after the last with
+    ``final_act``)."""
+    n = 0
+    while f"{prefix}.{n}.w" in params:
+        n += 1
+    for i in range(n):
+        x = x @ params[f"{prefix}.{i}.w"] + params[f"{prefix}.{i}.b"]
+        if i < n - 1 or final_act:
+            x = torch.relu(x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# gathers and segment reductions with the reference's index semantics
+# ---------------------------------------------------------------------------
+
+def _fill_value(dtype: torch.dtype):
+    """``jnp.take``'s fill for out-of-range ids: NaN for floats, the
+    minimum for signed ints, the maximum for unsigned ints, True for
+    bools."""
+    if dtype == torch.bool:
+        return True
+    if dtype.is_floating_point:
+        return float("nan")
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+def take_rows(table: Tensor, ids: Tensor) -> Tensor:
+    """``jnp.take(table, ids, axis=0)``: rows of ``table`` (rows, ...) at
+    ``ids`` (any shape) -> ids.shape + table.shape[1:]. Ids in [-rows, -1]
+    wrap; any other id outside the table gives a row of ``_fill_value``,
+    and the gather itself never reads outside the table (on the card an
+    out-of-range index would be a device-side assert)."""
+    rows = table.shape[0]
+    ids = ids.to(torch.int64)
+    ids = torch.where(ids < 0, ids + rows, ids)
+    ok = (ids >= 0) & (ids < rows)
+    out = table.index_select(0, torch.where(ok, ids, 0).reshape(-1))
+    out = out.reshape(*ids.shape, *table.shape[1:])
+    ok = ok.reshape(*ids.shape, *(1,) * (table.dim() - 1))
+    return torch.where(ok, out, _fill_value(table.dtype))
+
+
+def segment_reduce(data: Tensor, segment_ids: Tensor, num_segments: int,
+                   reduce: str = "sum") -> Tensor:
+    """``jax.ops.segment_{sum,max,min}`` over the leading axis: data (E,
+    ...) by segment id into (num_segments, ...). Ids outside [0,
+    num_segments) are dropped (they go to a spare row that is cut off).
+    ``reduce`` "sum" adds with ``index_add``; "amax"/"amin" take
+    ``scatter_reduce`` without the initial value, so an empty segment
+    stays 0 where the reference gives -inf/+inf (its callers map those
+    to 0). On the card the adds are atomics: their order, and so the
+    float rounding, varies from run to run."""
+    seg = segment_ids.to(torch.int64)
+    seg = torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
+    out = torch.zeros((num_segments + 1, *data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    if reduce == "sum":
+        out = out.index_add(0, seg, data)
+    else:
+        idx = seg.reshape(-1, *(1,) * (data.dim() - 1)).expand_as(data)
+        out = out.scatter_reduce(0, idx, data, reduce, include_self=False)
+    return out[:num_segments]
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,11 @@ import torch
 from repro.ckpt import checkpoint as jax_ck
 from repro.configs import colpali_hpc as jax_colpali_hpc
 from repro.configs import lm_archs as jax_lm_archs
+from repro.configs import registry as jax_registry
+from repro.launch import train as jax_train_cli
 from repro.models import colpali as jax_colpali
+from repro.models import gnn as jax_gnn
+from repro.models import recsys as jax_recsys
 from repro.models import transformer as jax_transformer
 from repro.optim import optimizer as jax_opt
 from repro_torch import convert
@@ -460,7 +464,33 @@ def test_train_cli_colpali_smoke(tmp_path):
                                       "skipped", "seconds"}
 
 
-@pytest.mark.parametrize("arch", ["pna", "dlrm-mlperf"])
-def test_train_cli_refuses_the_unported_families(arch):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_cli.main(["--arch", arch, "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["pna", "dlrm-mlperf", "dcn-v2", "din",
+                                  "dien"])
+def test_train_cli_gnn_and_recsys_checkpoints_cross_packages(tmp_path,
+                                                             arch):
+    """The port's CLI trains 2 steps and its checkpoint restores in the
+    reference's (params, AdamWState), every value equal; the reference's
+    CLI trains 2 steps and the port's resumes that run from step 2."""
+    args = ["--arch", arch, "--smoke", "--batch", "4", "--ckpt-every", "0"]
+    out = train_cli.main(args + ["--steps", "2", "--device", "cpu",
+                                 "--ckpt-dir", str(tmp_path / "port")])
+    assert out["step"] == 2
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    jspec = jax_registry.get(arch)
+    init = jax_gnn.init if jspec.family == "gnn" else jax_recsys.init
+    jparams = _host(init(jax.random.PRNGKey(0), jspec.smoke_config))
+    template = (jparams, jax_opt.init(jax_opt.AdamWConfig(), jparams))
+    back = _host(jax_ck.restore(
+        out["checkpoint"]["path"], template))
+    want = dict(ck.leaves_with_paths(convert.train_tree(out["params"],
+                                                        out["opt_state"])))
+    got = dict(ck.leaves_with_paths(back))
+    assert sorted(got) == sorted(want)
+    for key, val in want.items():
+        np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+    jax_train_cli.main(args + ["--steps", "2", "--ckpt-dir",
+                               str(tmp_path / "jax")])
+    res = train_cli.main(args + ["--steps", "3", "--device", "cpu",
+                                 "--ckpt-dir", str(tmp_path / "jax")])
+    assert res["step"] == 3 and len(res["history"]) == 1

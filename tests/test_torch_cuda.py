@@ -1278,3 +1278,111 @@ def test_chunked_decode_across_a_window_edge_on_the_card():
         logits, cache = T.decode_step(model, nxt.to(dev), cache, 5 + i)
         logits_c, cache_c = T.decode_step(cpu, nxt, cache_c, 5 + i)
     assert [blk.attn_chunk(16) for blk in model.blocks] == [8, 8, 8, 0]
+
+
+# -- the recsys and GNN families: kmeans_assign at the tables' shapes, the
+# fill rule of the lookups, and the smoke configs against the CPU ----------
+
+@pytest.mark.parametrize("n,d,offset", [
+    (4096, 16, 0),            # DCN-v2's tables: D = 16
+    (3001, 16, 1),            # ... from an unaligned pointer
+    (63488, 18, 0),           # the DIN/DIEN table: D % 4 != 0
+    (3001, 18, 1),            # ... from an unaligned pointer
+    (10_131_456, 16, 0)])     # DCN-v2's largest table
+def test_kmeans_assign_kernel_at_the_recsys_tables(n, d, offset):
+    """K = 256 codes of a table against the plain version: equal but for
+    near-ties (at most 1 in 1000 rows, distances within 1e-4); an offset
+    view takes the kernel's non-vector loads."""
+    dev = _card()
+    g = torch.Generator(dev).manual_seed(n + d + offset)
+    buf = torch.randn((n * d + offset,), generator=g, device=dev) / d ** 0.5
+    x = buf[offset:].view(n, d)
+    c = torch.randn((256, d), generator=g, device=dev) / d ** 0.5
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == bool(offset)
+    before = km.launches
+    got = km.kmeans_assign_cuda(x, c)
+    assert km.launches == before + 1
+    _assert_codes_match(x, c, got, km.kmeans_assign_plain(x, c),
+                        max(1, n // 1000))
+
+
+def test_take_rows_out_of_range_on_the_card():
+    """Ids past either end of a table give the fill row, not a device
+    assert: the next operation on the card still runs."""
+    from repro_torch.models.layers import take_rows
+    dev = _card()
+    table = torch.arange(12, dtype=torch.float32, device=dev).reshape(6, 2)
+    ids = torch.tensor([[0, 6, -1], [100, -7, 5]], device=dev)
+    got = take_rows(table, ids)
+    torch.cuda.synchronize()
+    want = take_rows(table.cpu(), ids.cpu())
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert torch.isnan(got[0, 1]).all() and torch.equal(got[0, 2],
+                                                        table[5])
+    codes = take_rows(table.to(torch.uint8), ids)
+    assert int(codes[1, 0, 0]) == 255
+    assert float((table * 2).sum()) == 132.0
+
+
+_FAMILIES = ("dlrm-mlperf", "dcn-v2", "din", "din-prune50", "dien",
+             "pna-node", "pna-graph")
+
+
+def _family_pair(name, dev):
+    """(module, CPU copy, cfg, functions module, batch maker) of a smoke
+    config, float32."""
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.models import gnn, recsys
+    arch = name.split("-prune")[0].replace("-node", "").replace("-graph", "")
+    cfg = registry.get(arch).smoke_config
+    if name == "din-prune50":
+        cfg = dataclasses.replace(cfg, din_prune_p=50.0)
+    if name == "pna-graph":
+        cfg = dataclasses.replace(cfg, d_feat=6, n_classes=2, task="graph")
+    mod, cls = ((gnn, gnn.PNAModel) if arch == "pna"
+                else (recsys, recsys.RecsysModel))
+    model = mod.init(cfg, generator=torch.Generator(dev).manual_seed(15),
+                     device=dev)
+    cpu = _cpu_copy(model, lambda: cls(cfg, device="cpu"))
+
+    def make(g):
+        if name == "pna-node":
+            return synthetic.make_graph(g, 200, 3200, cfg.d_feat,
+                                        cfg.n_classes)
+        if name == "pna-graph":
+            return synthetic.make_molecule_batch(g, 16, 10, 20, 6)
+        return synthetic.make_recsys_batch(g, 64, cfg.n_dense,
+                                           cfg.table_rows, cfg.seq_len,
+                                           cfg.family)
+    return model, cpu, cfg, mod, make
+
+
+@pytest.mark.parametrize("name", _FAMILIES)
+def test_family_train_step_on_the_card_matches_the_cpu(name):
+    """The smoke config's serve step and one AdamW step (float32, TF32
+    off) on the card and on a CPU copy: outputs within 1e-5 (1e-4 for
+    PNA, whose segment sums are atomics on the card), loss within 1e-5,
+    grad norm within 1e-4, params at most 0.1% beyond 1e-5 and none
+    beyond 2 x lr."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+    dev = _card()
+    model, cpu, cfg, mod, make = _family_pair(name, dev)
+    b = make(torch.Generator().manual_seed(16))
+    bd = {k: v.to(dev) for k, v in b.items()}
+    tol = 1e-4 if name.startswith("pna") else 1e-5
+    torch.testing.assert_close(
+        mod.serve_step(T.params_of(model), bd, cfg).cpu(),
+        mod.serve_step(T.params_of(cpu), b, cfg), atol=tol, rtol=tol)
+    ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=1)
+    p_d, s_d, m_d = mod.train_step(T.params_of(model), opt.init(
+        ocfg, T.params_of(model)), bd, cfg, ocfg)
+    p_c, s_c, m_c = mod.train_step(T.params_of(cpu), opt.init(
+        ocfg, T.params_of(cpu)), b, cfg, ocfg)
+    assert float(m_d["loss"]) == pytest.approx(float(m_c["loss"]), rel=1e-5)
+    assert float(m_d["grad_norm"]) == pytest.approx(float(m_c["grad_norm"]),
+                                                    rel=1e-4)
+    err = torch.cat([(p_d[k].cpu() - p_c[k]).abs().reshape(-1) for k in p_c])
+    assert float((err > 1e-5).double().mean()) <= 1e-3
+    assert float(err.max()) <= 2 * float(m_c["lr"])

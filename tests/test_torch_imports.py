@@ -53,7 +53,9 @@ def test_port_package_is_found():
             "core/graph.py", "convert.py", "models/layers.py",
             "models/transformer.py", "models/colpali.py", "core/rag.py",
             "core/pipeline.py", "configs/colpali_hpc.py",
-            "kernels/ref.py"} <= names
+            "kernels/ref.py", "models/recsys.py", "models/gnn.py",
+            "configs/recsys_archs.py", "configs/gnn_archs.py",
+            "data/sampler.py"} <= names
     assert not _forbidden("repro_torch.core.scan")
     assert _forbidden("repro.core.scan") and _forbidden("jax.numpy")
 
@@ -114,8 +116,21 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
 
 def test_trainer_refuses_the_cpu_unless_asked(tmp_path):
     _no_card()
-    for arch in ("qwen2-1.5b", "colpali-hpc"):
+    for arch in ("qwen2-1.5b", "colpali-hpc", "pna", "dlrm-mlperf",
+                 "dcn-v2", "din", "dien"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--arch", arch, "--smoke", "--steps", "1",
                         "--ckpt-dir", str(tmp_path)])
     assert not any(tmp_path.iterdir())
+
+
+def test_family_models_refuse_the_cpu_unless_asked():
+    _no_card()
+    from repro_torch.configs import gnn_archs, recsys_archs
+    from repro_torch.models import gnn, recsys
+    for spec, mod in ((recsys_archs.DIEN, recsys), (gnn_archs.PNA, gnn)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.init(spec.smoke_config, generator=torch.Generator())
+        model = mod.init(spec.smoke_config, generator=torch.Generator(),
+                         device="cpu")
+        assert all(p.device.type == "cpu" for p in model.parameters())
