@@ -168,7 +168,27 @@ any failure exits non-zero, and no phase's error is swallowed:
      shapes; (c) PNA's full_graph_sm and molecule cells and minibatch_lg
      (a 232,965-node, 114.6M-edge graph made and its CSR built on the
      host, 3 steps on sampled subgraphs of 1024 seeds, fanout 15-10, the
-     sampler's host ms beside each step's device ms; ``{"pna": ...}``).
+     sampler's host ms beside each step's device ms; ``{"pna": ...}``);
+ 13. distribution at world size 1 (a one-rank NCCL group on an in-memory
+     store, a (1, 1) ("data", "model") mesh): (a) the reference's
+     serve_query cell, 64 queries of 32 patches against 4,194,304 docs of
+     616 uint8 codes, 615 of them valid as doc-side top-p leaves a full
+     page (5.2 GB drawn on the card), top 128, through
+     ``core.distributed.sharded_search_fn``: the quantized_maxsim
+     launches counted, the answer equal to ``core/scan`` without the mesh,
+     one whole launch's range lists equal to the plain version's outside
+     near-ties, the returned docs' scores within 1e-4 of it, no doc of
+     a seeded sample of 65,536 others above the 128th score, host wall
+     (median of 5), device time (CUDA events), the kernel's time beside
+     its bound; (b) phase 4's corpus through ``Retriever.build(mesh=)``
+     (the sharded k-means, full-batch Lloyd in 65,536-row E-step blocks;
+     ``sharded_quantize`` through kmeans_assign, 1 launch), ``shard`` and
+     its 64 queries searched: codes equal to ``quantize`` under the
+     codebook, mean inertia at most 5% above phase 4's codebook's, hit@10
+     >= 0.95 x phase 4's, a batch equal to the unsharded search; (c) a
+     checkpoint (float32, uint16, bfloat16 leaves) restored onto the mesh
+     by ``restore_elastic`` bit for bit, GPipe and the ring matmul; one
+     ``{"sharded": ...}`` line each.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, the script exits non-zero and prints no result.
@@ -390,6 +410,32 @@ CAND_PASS = 262_144
 PNA_STEPS = 3
 
 
+# phase 13, distribution at world size 1 (one card: a one-rank NCCL group
+# and a (1, 1) ("data", "model") mesh). 13a is the reference's serve_query
+# cell (src/repro/configs/colpali_hpc.py:8-11, 22-26, 36-39: 64 queries
+# of query_len 32 against 4,194,304 docs of kept_patches 616, top_k 128)
+# through sharded_search_fn, on codes drawn on the card (no build: the
+# cell's input is codes). Each doc's codes are drawn from a window of
+# SERVE_WINDOW consecutive codebook entries; its mask holds the 615 of 616
+# slots that doc-side top-p (p 60) keeps of a full 1024-patch page, and
+# every query's 32 patches are valid. 13b is phase 4's build
+# through Retriever.build(mesh=): full-batch Lloyd over all 16.7M patches
+# with kmeans_minibatch = 65536 as the E-step's row block (phase 4 runs
+# mini-batch Lloyd, so the codebooks differ by design). 13c: a checkpoint
+# restored onto the mesh, GPipe over a one-stage "pipe" axis and the ring
+# matmul over a one-rank "model" axis.
+SERVE_DOCS = 4_194_304
+SERVE_MD = 616
+SERVE_QUERIES = 64
+SERVE_TOP_K = 128
+SERVE_WINDOW = 64
+SERVE_SAMPLE = 65_536       # docs outside the top-k held to its last score
+SERVE_WALLS = 5
+SERVE_PLAIN_DOCS = 16_384   # the plain version's time is taken over these
+INERTIA_TOL = 0.05          # 13b: mean inertia at most 5% above phase 4's
+GPIPE_MICRO = 8
+
+
 def _phase(name: str) -> float:
     print(f"== {name}", flush=True)
     return time.perf_counter()
@@ -466,18 +512,20 @@ def _split(torch, fns, walls_of: int = 9):
     return out
 
 
-def _qmaxsim_cost(table, codes, mask, io_bytes):
+def _qmaxsim_cost(table, q_mask, codes, mask, io_bytes):
     """(bytes, masked max-lookups) one quantized_maxsim call needs: every
     input read once, the output written once (``io_bytes``: the output and
-    any input besides table, q_mask, codes and mask); lookups over valid
-    slots."""
+    any input besides table, q_mask, codes and mask); a lookup per valid
+    query patch and valid doc slot of that query's docs."""
     b, mq, _ = table.shape
     n_bytes = (table.numel() * 4 + b * mq * 4
                + codes.numel() * codes.element_size()
                + mask.numel() * mask.element_size() + io_bytes)
-    valid = int(mask.sum())
-    lookups = mq * valid * (1 if codes.dim() == 3 else b)
-    return n_bytes, lookups
+    q_valid = (q_mask != 0).reshape(b, mq).sum(dim=1)          # (B,)
+    if codes.dim() == 3:                           # per-query pools
+        d_valid = (mask != 0).reshape(b, -1).sum(dim=1)
+        return n_bytes, int((q_valid * d_valid).sum())
+    return n_bytes, int(q_valid.sum()) * int((mask != 0).sum())
 
 
 def _hamming_cost(q_codes, codes, mask):
@@ -1111,8 +1159,8 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
         kernel, its plain version and its bounds."""
         r_len = qm.launch_range_len(MAX_BATCH, c.shape[-2], dev)
         lists = MAX_BATCH * -(-c.shape[-2] // r_len) * min(RERANK, r_len) * 8
-        n_bytes, ops = _qmaxsim_cost(tab, c, m, v.numel() + lists)
         qmf = qg.mask.float().contiguous()
+        n_bytes, ops = _qmaxsim_cost(tab, qmf, c, m, v.numel() + lists)
         return {"ms": _time_ms(torch, lambda: qm.quantized_maxsim_topk_cuda(
                     tab, qmf, c, m, v, k=RERANK, range_len=r_len), 50),
                 "plain_ms": _time_ms(
@@ -3415,6 +3463,356 @@ def _pna_phase(args, torch, np, dev, smi, kernel_mods):
     assert not any(launches["pna"].values()), launches
     return {"launches": launches, **out}
 
+def _serve_cell(args, torch, np, dev, mesh, lds_per_s):
+    """Phase 13a: the serve_query cell through sharded_search_fn. Returns
+    (launches, readings)."""
+    from repro_torch.core import distributed as dist_core
+    from repro_torch.core import late_interaction as li
+    from repro_torch.core import pruning
+    from repro_torch.core import scan as scan_mod
+    from repro_torch.kernels import quantized_maxsim as qm
+    from repro_torch.parity import topk_mismatches
+
+    t0 = _phase(f"13a. serve_query: {SERVE_QUERIES} queries x "
+                f"{SERVE_DOCS} docs x {SERVE_MD} codes through "
+                f"sharded_search_fn on one rank")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 300)
+    codes = torch.empty((SERVE_DOCS, SERVE_MD), dtype=torch.uint8,
+                        device=dev)
+    for start in range(0, SERVE_DOCS, 1 << 18):
+        n = min(1 << 18, SERVE_DOCS - start)
+        base = torch.randint(0, K, (n, 1), generator=gen, device=dev)
+        off = torch.randint(0, SERVE_WINDOW, (n, SERVE_MD), generator=gen,
+                            device=dev)
+        codes[start:start + n] = ((base + off) % K).to(torch.uint8)
+    del base, off
+    # doc-side top-p of a full 1024-patch page keeps keep_count(1024, 60)
+    # = 615 patches; the 616th slot pads the row to a multiple of 8
+    n_valid = pruning.keep_count(N_PATCHES, P)
+    mask = (torch.arange(SERVE_MD, device=dev) < n_valid).expand(
+        SERVE_DOCS, SERVE_MD).contiguous()
+    ids = torch.arange(SERVE_DOCS, dtype=torch.int32, device=dev)
+    q = torch.randn((SERVE_QUERIES, N_Q_PATCHES, DIM), generator=gen,
+                    device=dev)
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    q_mask = torch.ones((SERVE_QUERIES, N_Q_PATCHES), dtype=torch.bool,
+                        device=dev)                 # query_len 32, all valid
+    cb = torch.randn((K, DIM), generator=gen, device=dev)
+    cb = cb / torch.linalg.vector_norm(cb, dim=-1, keepdim=True)
+    valid_slots = int(mask.sum())
+    torch.cuda.synchronize()
+    print(f"codes and masks drawn: {codes.numel() + mask.numel()} bytes, "
+          f"{valid_slots / mask.numel():.3f} of the slots valid, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    search = dist_core.sharded_search_fn(mesh, ("data", "model"),
+                                         k=SERVE_TOP_K)
+    args_ = (q, q_mask, codes, mask, ids, cb)
+    # the main path's run: counters from 0 just before, read just after
+    qm.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    top_s, top_i = search(*args_)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    launches = qm.launches
+    r = qm.launch_range_len(SERVE_QUERIES, SERVE_DOCS, dev)
+    chunk = r * max(1, scan_mod.MAX_CANDIDATES
+                    // (SERVE_QUERIES * min(SERVE_TOP_K, r)))
+    want_launches = math.ceil(SERVE_DOCS / chunk)
+    print(f"first search {first_s:.3f}s; quantized_maxsim launches "
+          f"{launches} (expected {want_launches}: ranges of {r}, "
+          f"{chunk} docs a launch)")
+    assert launches == want_launches, "serve-cell launches off"
+    assert tuple(top_s.shape) == (SERVE_QUERIES, SERVE_TOP_K)
+    assert bool(torch.isfinite(top_s).all()) and bool((top_i >= 0).all())
+
+    # the same search without the mesh: the same answer
+    ref_s, ref_i = scan_mod.quantized_maxsim_topk(
+        q, q_mask, codes, mask, cb, k=SERVE_TOP_K, doc_ids=ids)
+    assert torch.equal(ref_s, top_s) and torch.equal(ref_i, top_i), \
+        "sharded search differs from the unsharded scan"
+    # the returned docs' scores by the plain version
+    table = li.adc_table(q, cb).contiguous()
+    qmf = q_mask.float().contiguous()
+    rows = top_i.to(torch.int64)
+    plain = qm.quantized_maxsim_plain(table, qmf, codes[rows], mask[rows])
+    err = float((plain - top_s).abs().max())
+    torch.testing.assert_close(top_s, plain, atol=QMAXSIM_TOL,
+                               rtol=QMAXSIM_TOL)
+    # a seeded sample of the other docs: none above the k-th score
+    pick = torch.randperm(SERVE_DOCS, generator=gen,
+                          device=dev)[:SERVE_SAMPLE]
+    best = torch.full((SERVE_QUERIES,), float("-inf"), device=dev)
+    blk = 256
+    for start in range(0, SERVE_SAMPLE, blk):
+        sel = pick[start:start + blk]
+        sc = qm.quantized_maxsim_plain(table, qmf, codes[sel], mask[sel])
+        inside = (sel[None, :, None] == rows[:, None, :]).any(dim=-1)
+        best = torch.maximum(best, torch.where(inside, float("-inf"),
+                                               sc).amax(dim=1))
+    above = int((best > top_s[:, -1] + QMAXSIM_TOL).sum())
+    print(f"top-{SERVE_TOP_K} == the unsharded scan; its scores within "
+          f"{err:.2e} of the plain version; of {SERVE_SAMPLE} sampled docs "
+          f"{above} queries have one above the {SERVE_TOP_K}-th score "
+          f"(largest margin {float((best - top_s[:, -1]).max()):.3e})")
+    assert above == 0, "a sampled doc scores above the k-th"
+
+    walls = []
+    for _ in range(SERVE_WALLS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        search(*args_)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    search(*args_)
+    end_ev.record()
+    end_ev.synchronize()
+    device_ms = start_ev.elapsed_time(end_ev)
+    # the kernel alone: the sweep's launches, replayed from a CUDA graph
+    all_valid = torch.ones(SERVE_DOCS, dtype=torch.bool, device=dev)
+
+    def sweep():
+        for start in range(0, SERVE_DOCS, chunk):
+            qm.quantized_maxsim_topk_cuda(
+                table, qmf, codes[start:start + chunk],
+                mask[start:start + chunk], all_valid[start:start + chunk],
+                k=SERVE_TOP_K, range_len=r)
+
+    # the first launch's range lists against the plain version's on the
+    # same 131,072 docs: scores within QMAXSIM_TOL, positions equal
+    # outside near-ties (phase 3's rule)
+    got = qm.quantized_maxsim_topk_cuda(
+        table, qmf, codes[:chunk], mask[:chunk], all_valid[:chunk],
+        k=SERVE_TOP_K, range_len=r)
+    want = qm.quantized_maxsim_topk_plain(
+        table, qmf, codes[:chunk], mask[:chunk], all_valid[:chunk],
+        k=SERVE_TOP_K, range_len=r)
+    torch.testing.assert_close(got[0], want[0], atol=QMAXSIM_TOL,
+                               rtol=QMAXSIM_TOL)
+    err = max(err, float((got[0] - want[0]).abs().max()))
+    kk = got[0].shape[-1]
+    g_s, g_p, w_s, w_p = (t.reshape(-1, kk) for t in (*got, *want))
+    rows_off = (g_p != w_p).any(dim=1)
+    bad = topk_mismatches(*(t[rows_off].cpu().numpy()
+                            for t in (g_p, g_s, w_p, w_s)), QMAXSIM_TOL)
+    assert not bad, f"serve-cell launch: positions {bad[:5]}"
+    print(f"one launch ({chunk} docs, {g_s.shape[0]} range lists of {kk}) "
+          f"== the plain version: scores within {err:.2e}, "
+          f"{int(rows_off.sum())} lists reordered only within near-ties")
+    del got, want, g_s, g_p, w_s, w_p, rows_off
+
+    kernel_ms = _time_ms(torch, sweep, 1)
+    plain_ms = _time_ms(torch, lambda: qm.quantized_maxsim_topk_plain(
+        table, qmf, codes[:SERVE_PLAIN_DOCS], mask[:SERVE_PLAIN_DOCS],
+        all_valid[:SERVE_PLAIN_DOCS], k=SERVE_TOP_K, range_len=r), 1)
+    n_ranges = math.ceil(SERVE_DOCS / r)
+    lists = SERVE_QUERIES * n_ranges * min(SERVE_TOP_K, r) * 8
+    n_bytes, lookups = _qmaxsim_cost(table, qmf, codes, mask,
+                                     all_valid.numel() + lists)
+    bound, bound_by = _bound(n_bytes, lookups)
+    lds_bound = lookups / lds_per_s * 1e3
+    out = {"docs": SERVE_DOCS, "queries": SERVE_QUERIES,
+           "kept_codes": SERVE_MD, "top_k": SERVE_TOP_K,
+           "valid_slot_share": valid_slots / mask.numel(),
+           "host_wall_ms_median": float(np.median(walls)),
+           "host_wall_ms": walls, "device_ms": device_ms,
+           "first_search_s": first_s, "launches": launches,
+           "kernel_ms": kernel_ms, "kernel_plain_ms_16384_docs": plain_ms,
+           "bound_ms": bound, "bound_by": bound_by,
+           "lds_bound_ms": lds_bound, "bytes": n_bytes,
+           "lookups": lookups, "max_abs_err": err,
+           "range_len": r, "docs_per_launch": chunk,
+           "codes_and_masks_bytes": codes.numel() + mask.numel(),
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps({"sharded": {"serve_query": out}}))
+    del codes, mask, ids, all_valid, plain, table
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _sharded_build(args, torch, np, dev, mesh, cfg, flat_codebook,
+                   flat_hit):
+    """Phase 13b: phase 4's corpus through Retriever.build(mesh=), shard
+    and search. Returns (launches, readings)."""
+    from repro_torch.core import quantization as quant
+    from repro_torch.data.synthetic import CorpusSpec, make_retrieval_corpus
+    from repro_torch.kernels import kmeans_assign as km
+    from repro_torch.kernels import quantized_maxsim as qm
+    from repro_torch.retrieval import Corpus, Query, Retriever
+
+    t0 = _phase(f"13b. the flat build through Retriever.build(mesh=) over "
+                f"{N_DOCS} docs, shard, search")
+    spec = CorpusSpec(n_docs=N_DOCS, n_queries=N_REQUESTS,
+                      n_patches=N_PATCHES, n_q_patches=N_Q_PATCHES, dim=DIM)
+    data = make_retrieval_corpus(spec, seed=args.seed, device=dev)
+    corpus = Corpus(data.doc_patches, data.doc_mask, data.doc_salience)
+    queries = [Query(data.query_patches[i:i + MAX_BATCH],
+                     data.query_mask[i:i + MAX_BATCH],
+                     data.query_salience[i:i + MAX_BATCH])
+               for i in range(0, N_REQUESTS, MAX_BATCH)]
+    relevance = data.relevance.cpu().numpy()
+    r = Retriever(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run: build, shard, serve every query
+    km.launches = 0
+    qm.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state = r.build(torch.Generator(device=dev).manual_seed(args.seed + 1),
+                    corpus, mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    sharded = r.shard(state, mesh)
+    results = [r.search(sharded, qb, k=TOP_K) for qb in queries]
+    torch.cuda.synchronize()
+    launches = {"kmeans_assign": km.launches,
+                "quantized_maxsim": qm.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"build {build_s:.2f}s, peak {peak:.2f} GiB; launches {launches} "
+          f"(expected 1 kmeans_assign, {2 * len(queries)} "
+          f"quantized_maxsim)")
+    assert launches == {"kmeans_assign": 1,
+                        "quantized_maxsim": 2 * len(queries)}, launches
+    # codes: quantize under the same codebook
+    codes = quant.quantize(corpus.embeddings, state.codebook,
+                           code_dtype=torch.uint8)
+    assert torch.equal(codes, state.rerank_codes), "build codes"
+    del codes
+    # mean inertia of the two codebooks over the training rows
+    x = corpus.embeddings.reshape(-1, DIM)
+
+    def inertia(cb):
+        tot = 0.0
+        for start in range(0, x.shape[0], 1 << 20):
+            tot += float(quant.pairwise_sq_dists(
+                x[start:start + (1 << 20)], cb).amin(dim=-1).sum())
+        return tot / x.shape[0]
+
+    i_mesh, i_flat = inertia(state.codebook), inertia(flat_codebook)
+    hits = sum(int((relevance[b * MAX_BATCH + j][ids[ids >= 0]] > 0).any())
+               for b, (_, idb) in enumerate(results)
+               for j, ids in enumerate(idb.cpu().numpy()))
+    hit = hits / N_REQUESTS
+    want = r.search(state, queries[0], k=TOP_K)
+    same = (torch.equal(want[0], results[0][0])
+            and torch.equal(want[1], results[0][1]))
+    print(f"codes == quantize under the codebook; mean inertia "
+          f"{i_mesh:.6f} (phase 4's codebook {i_flat:.6f}); hit@{TOP_K} "
+          f"{hit:.3f} (phase 4 {flat_hit:.3f}); shard + search == search: "
+          f"{same}")
+    assert i_mesh <= (1.0 + INERTIA_TOL) * i_flat, "inertia"
+    assert hit >= 0.95 * flat_hit, "hit@10 of the sharded build"
+    assert same, "shard + search differs from the unsharded search"
+    out = {"build_s": build_s, "launches": launches,
+           "inertia": i_mesh, "phase4_inertia": i_flat,
+           "hit_at_10": hit, "phase4_hit_at_10": flat_hit,
+           "kmeans_iters": cfg.kmeans_iters,
+           "kmeans_restarts": cfg.kmeans_restarts,
+           "e_step_block_rows": cfg.kmeans_minibatch,
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps({"sharded": {"build": out}}))
+    del data, corpus, x, state, sharded, results, want
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _world1_paths(args, torch, np, dev, mesh):
+    """Phase 13c: a checkpoint restored onto the mesh, GPipe and the ring
+    matmul at world size 1."""
+    import tempfile
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import full_tensor
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import elastic
+    from repro_torch.train.loop import make_pipelined_fn
+
+    t0 = _phase("13c. restore_elastic, GPipe and the ring matmul at world "
+                "size 1")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 310)
+    tree = {"w": torch.randn((4096, 1024), generator=gen, device=dev),
+            "codes": torch.randint(0, 512, (4096, SERVE_MD), generator=gen,
+                                   device=dev, dtype=torch.int32
+                                   ).to(torch.uint16),
+            "h": torch.randn((1024, 1024), generator=gen,
+                             device=dev).to(torch.bfloat16)}
+    specs = {"w": ("batch", "mlp"), "codes": ("corpus", None),
+             "h": (None, "mlp")}
+    out_dir = ROOT / "build"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir, prefix="elastic_") as tmp:
+        t1 = time.perf_counter()
+        ck.save(tmp, 5, tree)
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        step, got = elastic.restore_elastic(
+            tmp, {k: torch.zeros_like(v) for k, v in tree.items()}, specs,
+            mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+    assert step == 5
+    for key, v in tree.items():
+        assert got[key].device_mesh == mesh
+        assert got[key].to_local().device.type == dev.type
+        assert torch.equal(full_tensor(got[key]), v), key
+    pipe = make_host_mesh((1,), ("pipe",), device=dev)
+    ws = torch.randn((1, 1024, 1024), generator=gen, device=dev) / 32.0
+    xp = torch.randn((GPIPE_MICRO * 64, 1024), generator=gen, device=dev)
+    y = make_pipelined_fn(pipe, lambda sp, x: torch.tanh(x @ sp["w"]),
+                          GPIPE_MICRO)({"w": ws}, xp)
+    gpipe_err = float((y - torch.tanh(xp @ ws[0])).abs().max())
+    ring = make_host_mesh((1,), ("model",), device=dev)
+    xr = torch.randn((2048, 1024), generator=gen, device=dev)
+    wr = torch.randn((1024, 4096), generator=gen, device=dev)
+    ring_err = float((collectives.ring_allgather_matmul(ring, "model")(
+        xr, wr) - xr @ wr).abs().max())
+    print(f"restore_elastic: step {step}, 3 leaves (float32, uint16, "
+          f"bfloat16) bit for bit as DTensors; save {save_s:.2f}s, restore "
+          f"{restore_s:.2f}s; GPipe (1 stage, {GPIPE_MICRO} microbatches) "
+          f"max err {gpipe_err:.2e}; ring matmul max err {ring_err:.2e}")
+    assert gpipe_err <= 1e-4 and ring_err == 0.0
+    out = {"save_s": save_s, "restore_s": restore_s,
+           "gpipe_max_abs_err": gpipe_err, "ring_max_abs_err": ring_err,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps({"sharded": {"world1": out}}))
+    return out
+
+
+def _sharded_phase(args, torch, np, dev, cfg, flat_codebook, flat_hit,
+                   lds_per_s):
+    """Phase 13: a one-rank NCCL group and a (1, 1) ("data", "model")
+    mesh; 13a, 13b, 13c. Returns the launches by path and the readings."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, open_local_group
+
+    t0 = _phase("13. distribution: a one-rank NCCL group")
+    backend = open_local_group(dev)
+    mesh = make_host_mesh((1, 1), ("data", "model"), device=dev)
+    print(f"process group: {backend}, world size {dist.get_world_size()}; "
+          f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+          f"{mesh.device_type}")
+    serve_launches, serve = _serve_cell(args, torch, np, dev, mesh,
+                                        lds_per_s)
+    build_launches, build = _sharded_build(args, torch, np, dev, mesh, cfg,
+                                           flat_codebook, flat_hit)
+    world1 = _world1_paths(args, torch, np, dev, mesh)
+    dist.destroy_process_group()
+    print(f"phase 13 {time.perf_counter() - t0:.1f}s")
+    return {"launches": {"serve_query (sharded)":
+                         {"quantized_maxsim": serve_launches},
+                         "sharded build": build_launches},
+            "serve": serve, "build": build, "world1": world1}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3941,7 +4339,8 @@ def main(argv=None) -> int:
         n_ = c.shape[-2]
         r = qm.launch_range_len(MAX_BATCH, n_, dev)
         lists = MAX_BATCH * -(-n_ // r) * min(k_top, r) * 8
-        return _qmaxsim_cost(tab, c, m, v.numel() * v.element_size() + lists)
+        return _qmaxsim_cost(tab, qmf, c, m,
+                             v.numel() * v.element_size() + lists)
 
     sweep_ms = _time_ms(torch, topk_fn(table, codes, mask, all_valid,
                                        RERANK), 20)
@@ -4140,6 +4539,7 @@ def main(argv=None) -> int:
     ann = _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever,
                      flat_queries, flat_relevance, live["delta"],
                      kernel_mods, lds_per_s)
+    flat_codebook = flat_s.codebook.clone()
     del flat_s, flat_retriever, live["delta"]
     torch.cuda.empty_cache()
     model = _model_phase(args, torch, np, dev, smi, COLPALI_HPC.config,
@@ -4151,6 +4551,10 @@ def main(argv=None) -> int:
     recsys_out = _recsys_phase(args, torch, np, dev, smi, kernel_mods)
     pna = _pna_phase(args, torch, np, dev, smi, kernel_mods)
     km_abs_err = max(km_abs_err, recsys_out["kmeans_max_gap"])
+    sharded = _sharded_phase(args, torch, np, dev, cfg, flat_codebook,
+                             flat_hit, lds_per_s)
+    serve = sharded["serve"]
+    qm_abs_err = max(qm_abs_err, serve["max_abs_err"])
 
     by_path = {"flat": {"quantized_maxsim": qm_launches,
                         "kmeans_assign": km_launches},
@@ -4158,7 +4562,8 @@ def main(argv=None) -> int:
                "live cascade": live["launches"],
                **ann["launches"], **model["launches"],
                **train["launches"], **moe["launches"],
-               **recsys_out["launches"], **pna["launches"]}
+               **recsys_out["launches"], **pna["launches"],
+               **sharded["launches"]}
 
     def launches(name):
         return sum(path.get(name, 0) for path in by_path.values())
@@ -4195,7 +4600,20 @@ def main(argv=None) -> int:
          "cascade_stage2_ms_by_range_len": s2_by_range,
          **{f"{router}_pool_{key}": val
             for router in ("ivf", "hnsw")
-            for key, val in ann[f"{router}_pool"].items()}},
+            for key, val in ann[f"{router}_pool"].items()},
+         "serve_cell_ms": serve["kernel_ms"],
+         "serve_cell_plain_ms_16384_docs":
+             serve["kernel_plain_ms_16384_docs"],
+         "serve_cell_bound_ms": serve["bound_ms"],
+         "serve_cell_bound_by": serve["bound_by"],
+         "serve_cell_lds_bound_ms": serve["lds_bound_ms"],
+         "serve_cell_launches": serve["launches"],
+         "serve_cell_shape": f"serve_query through sharded_search_fn: "
+                             f"B={SERVE_QUERIES} Mq={N_Q_PATCHES} K={K} "
+                             f"{SERVE_DOCS} docs x Md={SERVE_MD}, "
+                             f"per-range top-{SERVE_TOP_K}, ranges of "
+                             f"{serve['range_len']}, "
+                             f"{serve['docs_per_launch']} docs a launch"},
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
          "replaces": "src/repro/kernels/kmeans_assign.py:58",
@@ -4223,7 +4641,12 @@ def main(argv=None) -> int:
          "ivf_route_assign_bound_by": ann["ivf_assign"]["bound"][1],
          "ivf_route_assign_addmm_yardstick_ms": ann["ivf_assign"]["addmm_ms"],
          "ivf_route_assign_shape": ann["ivf_assign"]["shape"],
-         "recsys_tables": recsys_out["kmeans_assign_at_tables"]},
+         "recsys_tables": recsys_out["kmeans_assign_at_tables"],
+         "sharded_build_launches":
+             sharded["build"]["launches"]["kmeans_assign"],
+         "sharded_build_shape": f"sharded_quantize of {N_DOCS * N_PATCHES} "
+                                f"x {DIM} against K={K} (the build's "
+                                f"shape, timed above) on one rank"},
         {"name": "hamming_maxsim", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming_maxsim.cu",
          "replaces": "src/repro/kernels/hamming.py:74",

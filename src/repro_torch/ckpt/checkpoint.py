@@ -9,11 +9,22 @@ either package restores in the other. One directory per step:
   meta.json    step, time, and per leaf its shape, dtype and crc32
   COMMIT       written last; a directory without it is never restored
 
+bfloat16 has no numpy dtype of its own. On the host a bf16 leaf is its
+bits in a 2-byte void array (``BF16_HOST``), the form the reference's
+``np.savez`` writes ``ml_dtypes.bfloat16`` arrays in, with ``"dtype":
+"bfloat16"`` in meta.json; ``restore`` reads such a leaf back by that
+dtype, bit for bit. ``host_tensor`` turns a host array (a bf16 one too)
+into a tensor sharing its memory.
+
 A tree is nested dicts (keys in sorted order, as ``jax.tree_util``
 flattens them), tuples and lists, and named tuples (their fields, as
 attributes), with numpy arrays or tensors as leaves; ``None`` holds no
 leaf. ``convert.train_tree`` turns the port's (params, optimizer state)
 into the reference's tree, block weights stacked on a leading layer axis.
+
+Elasticity: leaves are stored whole, so ``restore`` with ``shardings``
+(a matching tree of ``dist.sharding.NamedSharding``) places each leaf on
+its mesh as a DTensor: a checkpoint of one mesh restores onto another.
 
 Atomicity: the step is written into ``<dir>.tmp``, every file is fsynced
 and then the directory, and ``os.replace`` renames it into place: the
@@ -89,21 +100,61 @@ def map_with_paths(fn: Callable[[str, Any], Any], tree: PyTree,
     return fn(path, tree)
 
 
+# a bfloat16 leaf's bits on the host
+BF16_HOST = np.dtype("V2")
+
+
+def is_bf16_host(dtype) -> bool:
+    """A host dtype that holds bfloat16 bits: ``BF16_HOST`` or
+    ``ml_dtypes.bfloat16`` (both 2-byte voids to numpy)."""
+    dtype = np.dtype(dtype)
+    return dtype.kind == "V" and dtype.itemsize == 2
+
+
 def numpy_dtype(dtype) -> np.dtype:
-    """A torch or numpy dtype as a numpy dtype; bfloat16 has none."""
+    """A torch or numpy dtype as a numpy dtype (bfloat16: ``BF16_HOST``)."""
     if isinstance(dtype, torch.dtype):
         if dtype == torch.bfloat16:
-            raise TypeError("bfloat16 leaves have no numpy dtype")
+            return BF16_HOST
         return torch.empty((), dtype=dtype).numpy().dtype
     return np.dtype(dtype)
 
 
+def host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A contiguous host array as a CPU tensor sharing its memory; bf16
+    bits become a bfloat16 tensor."""
+    if is_bf16_host(arr.dtype):
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def to_host(leaf) -> np.ndarray:
-    """A leaf as a host numpy array (a tensor is copied off its device)."""
+    """A leaf as a host numpy array (a tensor is copied off its device; a
+    bfloat16 one as its bits, ``BF16_HOST``)."""
     if isinstance(leaf, torch.Tensor):
-        numpy_dtype(leaf.dtype)
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).cpu().numpy().view(BF16_HOST)
+        return t.cpu().numpy()
     return np.asarray(leaf)
+
+
+def _meta_dtype(arr: np.ndarray) -> str:
+    return "bfloat16" if is_bf16_host(arr.dtype) else str(arr.dtype)
+
+
+def _cast_host(arr: np.ndarray, dtype: np.dtype) -> np.ndarray:
+    """A host array as ``dtype`` (bf16 bits on either side go through
+    torch's bfloat16)."""
+    if arr.dtype == dtype or (is_bf16_host(arr.dtype)
+                              and is_bf16_host(dtype)):
+        return arr
+    if not (is_bf16_host(arr.dtype) or is_bf16_host(dtype)):
+        return arr.astype(dtype, copy=False)
+    t = host_tensor(np.require(arr, requirements="C"))
+    if is_bf16_host(dtype):
+        return to_host(t.to(torch.bfloat16))
+    return t.float().numpy().astype(dtype, copy=False)
 
 
 def _flatten(tree: PyTree) -> Dict[str, np.ndarray]:
@@ -128,15 +179,17 @@ def save(directory: str, step: int, tree: PyTree) -> str:
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     arrays = _flatten(tree)
-    _write_fsync(os.path.join(tmp, "arrays.npz"),
-                 lambda f: np.savez(f, **arrays))
     meta = {
         "step": step,
         "time": time.time(),
-        "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype),
+        "leaves": {k: {"shape": list(v.shape), "dtype": _meta_dtype(v),
                        "crc32": leaf_crc32(v)}
                    for k, v in arrays.items()},
     }
+    arrays = {k: v.view(BF16_HOST) if is_bf16_host(v.dtype) else v
+              for k, v in arrays.items()}
+    _write_fsync(os.path.join(tmp, "arrays.npz"),
+                 lambda f: np.savez(f, **arrays))
     _write_fsync(os.path.join(tmp, "meta.json"),
                  lambda f: f.write(json.dumps(meta).encode()))
     _write_fsync(os.path.join(tmp, "COMMIT"), lambda f: f.write(b"ok"))
@@ -148,12 +201,17 @@ def save(directory: str, step: int, tree: PyTree) -> str:
     return path
 
 
-def restore(path: str, template: PyTree) -> PyTree:
+def restore(path: str, template: PyTree,
+            shardings: Optional[PyTree] = None) -> PyTree:
     """Load the checkpoint at ``path`` into the structure of ``template``.
 
     Each template leaf gives the shape the stored array must have and the
     dtype it is cast to: a tensor leaf is restored as a tensor on that
-    tensor's device, an array or ``ArraySpec`` leaf as a numpy array.
+    tensor's device, an array or ``ArraySpec`` leaf as a numpy array. A
+    leaf stored as bfloat16 (meta.json's dtype) is read as its bits.
+    ``shardings``, a tree matching ``template`` with a
+    ``dist.sharding.NamedSharding`` (or None) per leaf, places each leaf
+    on its mesh as a DTensor instead (every rank reads the file).
     Every leaf's crc32 is checked before any is placed; a mismatch names
     the leaf."""
     if not os.path.exists(os.path.join(path, "COMMIT")):
@@ -163,7 +221,10 @@ def restore(path: str, template: PyTree) -> PyTree:
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     for key, arr in arrays.items():
-        want = meta.get("leaves", {}).get(key, {}).get("crc32")
+        info = meta.get("leaves", {}).get(key, {})
+        if info.get("dtype") == "bfloat16":
+            arrays[key] = arr = arr.view(BF16_HOST)
+        want = info.get("crc32")
         if want is None:
             continue  # a checkpoint without crc32: nothing to verify
         got = leaf_crc32(arr)
@@ -172,6 +233,8 @@ def restore(path: str, template: PyTree) -> PyTree:
                 f"checkpoint {path!r}: checksum mismatch on leaf {key!r} "
                 f"(crc32 {got:#010x} != stored {int(want):#010x}) — "
                 "corrupt; restore an earlier committed step")
+    placed = (dict(leaves_with_paths(shardings)) if shardings is not None
+              else {})
 
     def place(key, leaf):
         if key not in arrays:
@@ -181,10 +244,15 @@ def restore(path: str, template: PyTree) -> PyTree:
         if tuple(arr.shape) != expect:
             raise ValueError(f"shape mismatch at {key}: "
                              f"ckpt {arr.shape} vs template {expect}")
-        arr = arr.astype(numpy_dtype(leaf.dtype), copy=False)
+        arr = np.require(_cast_host(arr, numpy_dtype(leaf.dtype)),
+                         requirements="C")
+        sharding = placed.get(key)
+        if sharding is not None:
+            from repro_torch.dist.sharding import distribute, mesh_device
+            return distribute(host_tensor(arr).to(mesh_device(sharding.mesh)),
+                              sharding)
         if isinstance(leaf, torch.Tensor):
-            arr = np.require(arr, requirements="C")
-            return torch.from_numpy(arr).to(leaf.device)
+            return host_tensor(arr).to(leaf.device)
         return arr
 
     return map_with_paths(place, template)
@@ -268,10 +336,13 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, template: PyTree) -> Optional[tuple]:
-        """(step, tree) of the latest committed checkpoint, or None."""
+    def restore_latest(self, template: PyTree,
+                       shardings: Optional[PyTree] = None
+                       ) -> Optional[tuple]:
+        """(step, tree) of the latest committed checkpoint, or None;
+        ``shardings`` as ``restore`` takes them."""
         step = latest_step(self.directory)
         if step is None:
             return None
         path = os.path.join(self.directory, f"step_{step:08d}")
-        return step, restore(path, template)
+        return step, restore(path, template, shardings)

@@ -63,13 +63,12 @@ the keys, dtypes and stacked shapes of the reference's
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.ckpt.checkpoint import ArraySpec, numpy_dtype
+from repro_torch.ckpt.checkpoint import ArraySpec, host_tensor, numpy_dtype
 
 from repro_torch.core.graph import HNSWIndex
 from repro_torch.core.index import (FlatIndex, FloatFlatIndex, HammingIndex,
@@ -80,7 +79,8 @@ from repro_torch.models.gnn import PNAConfig, PNAModel
 from repro_torch.models.recsys import RecsysConfig, RecsysModel
 from repro_torch.models.transformer import LMConfig, Transformer
 from repro_torch.optim.optimizer import AdamWState, QMoment
-from repro_torch.retrieval.base import RetrieverState
+from repro_torch.retrieval.base import (RetrieverState, state_map,
+                                        walk_state)
 from repro_torch.retrieval.cascade import STAGES, CascadeState
 from repro_torch.retrieval.hamming import HammingState
 from repro_torch.retrieval.hnsw import HNSWState
@@ -212,29 +212,6 @@ def _host(t) -> np.ndarray:
     return np.asarray(t, np.int32)
 
 
-def _is_int(v) -> bool:
-    return isinstance(v, int) and not isinstance(v, bool)
-
-
-def _walk(node, leaf: Callable, int_leaf: Callable):
-    """Rebuild ``node`` with each tensor slot (a tensor or None) mapped by
-    ``leaf`` and each named-tuple int by ``int_leaf``, in the reference's
-    flatten order; dataclass ints (knobs) are kept."""
-    if node is None or isinstance(node, torch.Tensor):
-        return leaf(node)
-    if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return type(node)(*(int_leaf(v) if _is_int(v)
-                            else _walk(v, leaf, int_leaf) for v in node))
-    if isinstance(node, tuple):
-        return tuple(_walk(v, leaf, int_leaf) for v in node)
-    if dataclasses.is_dataclass(node):
-        return dataclasses.replace(node, **{
-            f.name: _walk(getattr(node, f.name), leaf, int_leaf)
-            for f in dataclasses.fields(node)
-            if not _is_int(getattr(node, f.name))})
-    raise TypeError(f"not a state node: {type(node).__name__}")
-
-
 def state_leaves(state: RetrieverState) -> List[np.ndarray]:
     """The state's arrays on the host, in the reference's flatten order."""
     out: List[np.ndarray] = []
@@ -243,7 +220,7 @@ def state_leaves(state: RetrieverState) -> List[np.ndarray]:
         out.append(_host(v))
         return v
 
-    _walk(state, collect, collect)
+    walk_state(state, collect, collect)
     return out
 
 
@@ -255,7 +232,7 @@ def n_leaves(template: RetrieverState) -> int:
         out[0] += 1
         return v
 
-    _walk(template, count, count)
+    walk_state(template, count, count)
     return out[0]
 
 
@@ -274,23 +251,12 @@ def state_from_leaves(template: RetrieverState, leaves: List[np.ndarray],
     def integer(_):
         return int(next(it))
 
-    return _walk(template, tensor, integer)
+    return walk_state(template, tensor, integer)
 
 
 def state_to(state: Any, device) -> Any:
-    """A copy of ``state`` (tensors inside named tuples, dataclasses and
-    tuples, at any depth) with every tensor on ``device``."""
-    if isinstance(state, torch.Tensor):
-        return state.to(device)
-    if isinstance(state, tuple):
-        moved = [state_to(x, device) for x in state]
-        return type(state)(*moved) if hasattr(state, "_fields") else \
-            tuple(moved)
-    if dataclasses.is_dataclass(state):
-        return dataclasses.replace(state, **{
-            f.name: state_to(getattr(state, f.name), device)
-            for f in dataclasses.fields(state)})
-    return state
+    """A copy of ``state`` with every tensor on ``device``."""
+    return state_map(lambda t: t.to(device), state)
 
 
 # ---------------------------------------------------------------------------
@@ -394,7 +360,7 @@ def _host_leaf(xs: list, stacked: bool):
     first = xs[0]
     shape = ((len(xs), *first.shape) if stacked else tuple(first.shape))
     out = np.empty(shape, dtype=numpy_dtype(first.dtype))
-    view = torch.from_numpy(out)
+    view = host_tensor(out)
     for i, x in enumerate(xs):
         (view[i] if stacked else view).copy_(x.detach())
     return out
@@ -429,7 +395,7 @@ def _tensor_from(arr, shape, dtype, device, what: str) -> torch.Tensor:
         raise ValueError(f"{what} has shape {arr.shape}, expected "
                          f"{tuple(shape)}")
     arr = np.require(arr, requirements="C")
-    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+    return host_tensor(arr).to(device=device, dtype=dtype)
 
 
 def _unstack(tree, like: Dict[str, torch.Tensor], device, take: Callable

@@ -87,17 +87,29 @@ class PrefetchPipeline:
             self._thread.join(timeout=0.05)
 
 
-def device_put_batch(batch: Dict[str, torch.Tensor], device
-                     ) -> Dict[str, torch.Tensor]:
-    """A host batch onto ``device``: to a card through pinned memory with a
-    non-blocking copy (ordered before later work on the same stream);
-    tensors already there, or a CPU target, are returned as they are."""
-    dev = torch.device(device)
-    out = {}
-    for k, v in batch.items():
-        if dev.type == "cuda" and v.device.type == "cpu":
-            v = v.pin_memory().to(dev, non_blocking=True)
-        else:
-            v = v.to(dev)
-        out[k] = v
-    return out
+def device_put_batch(batch: Dict[str, torch.Tensor], target
+                     ) -> Dict[str, Any]:
+    """A host batch onto ``target``: a device, or a dict of per-key
+    ``dist.sharding.NamedSharding`` (a key without one stays as it is).
+
+    To a card through pinned memory with a non-blocking copy (ordered
+    before later work on the same stream); tensors already there, or a
+    CPU target, are returned as they are. With shardings each tensor goes
+    to its mesh's device and becomes a DTensor of its placements (every
+    rank holds the same batch)."""
+    if isinstance(target, dict):
+        from repro_torch.dist.sharding import distribute, mesh_device
+        out = {}
+        for k, v in batch.items():
+            shd = target.get(k)
+            out[k] = v if shd is None else distribute(
+                _to(v, mesh_device(shd.mesh)), shd)
+        return out
+    dev = torch.device(target)
+    return {k: _to(v, dev) for k, v in batch.items()}
+
+
+def _to(v: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    if dev.type == "cuda" and v.device.type == "cpu":
+        return v.pin_memory().to(dev, non_blocking=True)
+    return v.to(dev)

@@ -1,0 +1,114 @@
+"""Device meshes over ``torch.distributed`` process groups.
+
+The counterpart of ``repro.launch.mesh``. The reference builds a JAX mesh
+over the devices of one controller; here a mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the
+current process group, one rank per device:
+
+  * ``make_host_mesh(shape, axes, device)`` — a small mesh (tests, one
+    card): NCCL ranks for ``device="cuda"``, gloo ranks for ``"cpu"``;
+  * ``make_production_mesh(multi_pod)`` — the reference's production
+    shapes and axis names: (16, 16) over ("data", "model"), and
+    (2, 16, 16) over ("pod", "data", "model"), where "pod" is a pure
+    data-parallel axis across pods.
+
+The caller opens the process group (``torch.distributed.init_process_group``
+with its own address, world size and rank); ``open_local_group`` opens a
+one-rank group through an in-memory store, without a port, for one card
+or one CPU process.
+
+The hardware figures are the NVIDIA H100 SXM data sheet's (NVIDIA H100
+80GB HBM3, 700 W), the figures ``PERF.md`` bounds the kernels with.
+``HBM_BYTES`` is read from the card when one is present.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from repro_torch.device import resolve_device
+
+# NVIDIA H100 80GB HBM3, 700 W (H100 SXM data sheet): dense BF16 on the
+# tensor cores and HBM3 bandwidth, per card
+PEAK_FLOPS_BF16 = 989e12
+HBM_BW = 3.35e12
+# the data sheet's memory; ``HBM_BYTES`` is the present card's own
+HBM_BYTES_DATASHEET = 80 * 2 ** 30
+# No link figure yet: at world size 1 no NVLink is crossed. The dry-run
+# slice, which reckons collective time, adds the NVLink rate.
+
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def __getattr__(name: str):
+    if name == "HBM_BYTES":
+        if torch.cuda.is_available():
+            return torch.cuda.get_device_properties(
+                torch.cuda.current_device()).total_memory
+        return HBM_BYTES_DATASHEET
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def open_local_group(device="cuda") -> str:
+    """Open a one-rank default process group on an in-memory store (no
+    port, no environment variables): NCCL for ``device="cuda"``, gloo for
+    ``"cpu"``. A group that is already open is kept if it has one rank
+    and that backend. Returns the backend."""
+    dev = resolve_device(device)
+    backend = BACKENDS[dev.type]
+    if dist.is_initialized():
+        if dist.get_world_size() != 1 or dist.get_backend() != backend:
+            raise RuntimeError(
+                f"a process group of {dist.get_world_size()} ranks on "
+                f"{dist.get_backend()} is already open; open_local_group "
+                f"wants one rank on {backend}")
+        return backend
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index if dev.index is not None else 0)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    return backend
+
+
+def _mesh(device, shape: Sequence[int], axes: Sequence[str]) -> DeviceMesh:
+    dev = resolve_device(device)
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
+                         "length")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "no process group is open: call "
+            "torch.distributed.init_process_group (or "
+            "repro_torch.launch.mesh.open_local_group for one rank) first")
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(f"a mesh of shape {shape} needs "
+                         f"{math.prod(shape)} ranks; the process group has "
+                         f"{world}")
+    backend = dist.get_backend()
+    if backend != BACKENDS[dev.type]:
+        raise ValueError(f"a {dev.type} mesh needs a {BACKENDS[dev.type]} "
+                         f"process group; this one is {backend}")
+    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+
+
+def make_host_mesh(shape: Tuple[int, ...] = (1, 1),
+                   axes: Tuple[str, ...] = ("data", "model"),
+                   device="cuda") -> DeviceMesh:
+    """A mesh of ``shape`` over the current process group's ranks (one
+    rank per device; world size = prod(shape))."""
+    return _mesh(device, shape, axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cuda") -> DeviceMesh:
+    """The reference's production mesh: (16, 16) ("data", "model") on 256
+    ranks, or (2, 16, 16) ("pod", "data", "model") on 512."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(device, shape, axes)

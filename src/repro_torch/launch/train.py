@@ -115,7 +115,7 @@ def main(argv=None):
 
     pipe = PrefetchPipeline(batch_stream(mk, args.seed + 1),
                             put_fn=functools.partial(device_put_batch,
-                                                     device=dev), depth=2)
+                                                     target=dev), depth=2)
     loop_cfg = train_loop.LoopConfig(
         total_steps=args.steps, ckpt_every=args.ckpt_every,
         ckpt_dir=args.ckpt_dir, log_every=max(1, args.steps // 10))

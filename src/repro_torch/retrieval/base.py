@@ -29,7 +29,7 @@ import dataclasses
 import os
 import time
 import zlib
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -153,9 +153,13 @@ def kmeans_config(cfg: HPCConfig) -> quant.KMeansConfig:
 
 
 def fit_codebook(gen: torch.Generator, corpus: Corpus,
-                 cfg: HPCConfig) -> Tensor:
+                 cfg: HPCConfig, mesh=None) -> Tensor:
     """Train the K-Means codebook on valid patches only: invalid rows are
-    replaced by resampled valid rows, so Lloyd sees real data."""
+    replaced by resampled valid rows, so Lloyd sees real data. With a
+    ``mesh``, training runs through the sharded k-means
+    (``core.distributed``): points sharded over the corpus axes,
+    per-cluster sums all-reduced, the seeds and algorithm of the
+    single-host path."""
     d = corpus.embeddings.shape[-1]
     flat = corpus.embeddings.reshape(-1, d)
     flat_mask = corpus.mask.reshape(-1).to(torch.bool)
@@ -165,23 +169,39 @@ def fit_codebook(gen: torch.Generator, corpus: Corpus,
     gather_idx = torch.where(
         pos < n_valid, valid_idx,
         valid_idx[torch.remainder(pos, torch.clamp(n_valid, min=1))])
-    codebook, _ = quant.kmeans_fit(gen, flat[gather_idx], kmeans_config(cfg))
+    train_x = flat[gather_idx]
+    del gather_idx, valid_idx, pos
+    if mesh is not None:
+        from repro_torch.core import distributed as dist_core
+        codebook, _ = dist_core.sharded_kmeans_fit(mesh, gen, train_x,
+                                                   kmeans_config(cfg))
+    else:
+        codebook, _ = quant.kmeans_fit(gen, train_x, kmeans_config(cfg))
     return codebook
 
 
-def encode_corpus(gen: torch.Generator, corpus: Corpus, cfg: HPCConfig
+def encode_corpus(gen: torch.Generator, corpus: Corpus, cfg: HPCConfig,
+                  mesh=None
                   ) -> Tuple[torch.Generator, Tensor, Tensor, Tensor, Tensor]:
     """Shared offline stages of the code-based backends: train the
     codebook, quantize the full corpus (the rerank rows) and prune the doc
-    patches for the primary structure.
+    patches for the primary structure. With a ``mesh``, codebook training
+    and corpus quantization run sharded over the mesh's corpus axes (the
+    assignment through the ``kmeans_assign`` kernel on a card); the codes
+    come back whole on every rank.
 
     Returns (generator, codebook, codes_full, codes, mask); the generator,
     advanced past the codebook's draws, is free for the backend's own
     structure.
     """
-    codebook = fit_codebook(gen, corpus, cfg)
-    codes_full = quant.quantize(corpus.embeddings, codebook,
-                                code_dtype=code_dtype(cfg.k))  # (N, Md)
+    codebook = fit_codebook(gen, corpus, cfg, mesh=mesh)
+    if mesh is None:
+        codes_full = quant.quantize(corpus.embeddings, codebook,
+                                    code_dtype=code_dtype(cfg.k))  # (N, Md)
+    else:
+        from repro_torch.core import distributed as dist_core
+        codes_full = dist_core.sharded_quantize(
+            mesh, corpus.embeddings, codebook, code_dtype(cfg.k))  # (N, Md)
     if cfg.prune_side in ("doc", "both"):
         codes, _, mask, _ = pruning.prune_topp_codes(
             codes_full, corpus.salience, corpus.mask, p=cfg.p)
@@ -212,6 +232,46 @@ def encode_delta(codebook: Tensor, delta: Corpus, cfg: HPCConfig
     return codes_full, codes, mask
 
 
+def state_map(fn: Callable, state: Any) -> Any:
+    """``state`` (tensors inside named tuples, dataclasses and tuples, at
+    any depth) with every tensor ``t`` replaced by ``fn(t)``; DTensors
+    count as tensors."""
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    if isinstance(state, tuple):
+        moved = [state_map(fn, x) for x in state]
+        return type(state)(*moved) if hasattr(state, "_fields") else \
+            tuple(moved)
+    if dataclasses.is_dataclass(state):
+        return dataclasses.replace(state, **{
+            f.name: state_map(fn, getattr(state, f.name))
+            for f in dataclasses.fields(state)})
+    return state
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+def walk_state(node, leaf: Callable, int_leaf: Callable):
+    """Rebuild ``node`` with each tensor slot (a tensor or None) mapped by
+    ``leaf`` and each named-tuple int by ``int_leaf``, in the reference's
+    flatten order; dataclass ints (knobs) are kept."""
+    if node is None or isinstance(node, torch.Tensor):
+        return leaf(node)
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(int_leaf(v) if _is_int(v)
+                            else walk_state(v, leaf, int_leaf) for v in node))
+    if isinstance(node, tuple):
+        return tuple(walk_state(v, leaf, int_leaf) for v in node)
+    if dataclasses.is_dataclass(node):
+        return dataclasses.replace(node, **{
+            f.name: walk_state(getattr(node, f.name), leaf, int_leaf)
+            for f in dataclasses.fields(node)
+            if not _is_int(getattr(node, f.name))})
+    raise TypeError(f"not a state node: {type(node).__name__}")
+
+
 def _host_ids(doc_ids) -> np.ndarray:
     """Doc ids from a tensor, an array or a sequence, as host int64."""
     if isinstance(doc_ids, torch.Tensor):
@@ -232,8 +292,9 @@ class IndexBackend:
     exact_scores: bool = False
 
     def build(self, gen: torch.Generator, corpus: Corpus,
-              cfg: HPCConfig) -> RetrieverState:
-        """Offline indexing."""
+              cfg: HPCConfig, mesh=None) -> RetrieverState:
+        """Offline indexing; with a ``mesh`` the shared encode stages run
+        sharded (``encode_corpus``)."""
         raise NotImplementedError
 
     def search(self, state: RetrieverState, query: Query, *, k: int,
@@ -527,6 +588,38 @@ class IndexBackend:
         tombstone_frac) for a segmented one."""
         seg = self._segmented(state)
         return self._segment_stats(seg) if seg is not None else {}
+
+    # -- sharding -------------------------------------------------------------
+
+    def shard_specs(self, state: RetrieverState):
+        """Logical-axis spec tree matching ``state`` (the same structure,
+        a spec tuple where a tensor sits).
+
+        Default: dim 0 of every backend-state tensor over the "corpus"
+        logical axis (documents or buckets over the mesh), the codebook
+        replicated, the rerank rows over "corpus" too. Backends with
+        other leading dims override this. A segmented state shards each
+        segment's dim 0 on its own; the id->position map replicates, so
+        every shard resolves global ids locally.
+        """
+        def leaf_spec(leaf):
+            nd = leaf.dim()
+            return ("corpus",) + (None,) * (nd - 1) if nd else ()
+
+        backend_specs = walk_state(state.backend_state, leaf_spec,
+                                   lambda _: ())
+        if self._segmented(state) is not None:
+            def fix(sp):
+                return dataclasses.replace(sp, pos_of_id=(None,))
+            backend_specs = (
+                dataclasses.replace(backend_specs, index=fix(
+                    backend_specs.index))
+                if self._is_wrapper(backend_specs) else fix(backend_specs))
+        return RetrieverState(
+            codebook=(None, None),
+            backend_state=backend_specs,
+            rerank_codes=("corpus", None),
+            rerank_mask=("corpus", None))
 
     # -- persistence ----------------------------------------------------------
     #

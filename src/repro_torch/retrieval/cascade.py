@@ -64,11 +64,12 @@ class CascadeBackend(IndexBackend):
     exact_scores = True
 
     def build(self, gen: torch.Generator, corpus: Corpus,
-              cfg: HPCConfig) -> RetrieverState:
+              cfg: HPCConfig, mesh=None) -> RetrieverState:
         """One shared encode, three member structures over it: the Hamming
         and ADC stages index the same pruned codes, so the funnel adds only
         the float stage's embeddings to what `flat` alone would store."""
-        _, codebook, codes_full, codes, mask = encode_corpus(gen, corpus, cfg)
+        _, codebook, codes_full, codes, mask = encode_corpus(gen, corpus, cfg,
+                                                             mesh=mesh)
         ham = HammingState(index_mod.build_hamming(codes, mask, cfg.bits),
                            cfg.bits)
         flat = index_mod.build_flat(codes, mask, codebook)
@@ -227,6 +228,19 @@ class CascadeBackend(IndexBackend):
                 out.setdefault("codebook", b["codebook"])
         out["payload"] = total
         return out
+
+    def shard_specs(self, state: RetrieverState):
+        """Compose the members' spec trees (each member backend's own
+        policy)."""
+        s = state.backend_state
+        member_specs = tuple(
+            backend.shard_specs(view).backend_state
+            for backend, view in self._views(state))
+        return RetrieverState(
+            codebook=(None, None),
+            backend_state=CascadeState(member_specs, s.p1, s.p2),
+            rerank_codes=("corpus", None),
+            rerank_mask=("corpus", None))
 
     # -- persistence ------------------------------------------------------
 

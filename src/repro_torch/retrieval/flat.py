@@ -5,6 +5,7 @@ The paper's main configuration (quantized + flat), and the counterpart of
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import torch
@@ -22,8 +23,9 @@ Tensor = torch.Tensor
 class FlatBackend(IndexBackend):
 
     def build(self, gen: torch.Generator, corpus: Corpus,
-              cfg: HPCConfig) -> RetrieverState:
-        _, codebook, codes_full, codes, mask = encode_corpus(gen, corpus, cfg)
+              cfg: HPCConfig, mesh=None) -> RetrieverState:
+        _, codebook, codes_full, codes, mask = encode_corpus(gen, corpus, cfg,
+                                                             mesh=mesh)
         return RetrieverState(
             codebook=codebook,
             backend_state=index_mod.build_flat(codes, mask, codebook),
@@ -52,6 +54,18 @@ class FlatBackend(IndexBackend):
         return index_mod.search_flat_candidates(
             state.backend_state, query.embeddings, query.mask,
             candidate_ids, k=k, scan=scan)
+
+    def shard_specs(self, state: RetrieverState):
+        specs = super().shard_specs(state)
+        # the FlatIndex carries its own codebook copy: replicate it
+        seg = self._segmented(state)
+        if seg is not None:
+            bs = specs.backend_state
+            return specs._replace(backend_state=dataclasses.replace(
+                bs, segments=tuple(p._replace(codebook=(None, None))
+                                   for p in bs.segments)))
+        return specs._replace(
+            backend_state=specs.backend_state._replace(codebook=(None, None)))
 
     # -- mutation hooks ------------------------------------------------------
 

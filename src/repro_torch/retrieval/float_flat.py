@@ -35,7 +35,8 @@ class FloatFlatBackend(IndexBackend):
     exact_scores = True
 
     def build(self, gen: torch.Generator, corpus: Corpus,
-              cfg: HPCConfig) -> RetrieverState:
+              cfg: HPCConfig, mesh=None) -> RetrieverState:
+        """No codebook to train: ``mesh`` is accepted and not used."""
         n, _, d = corpus.embeddings.shape
         dev = corpus.embeddings.device
         emb, mask = pruned_embeddings(corpus, cfg)

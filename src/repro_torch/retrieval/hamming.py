@@ -35,8 +35,9 @@ class HammingState:
 class HammingBackend(IndexBackend):
 
     def build(self, gen: torch.Generator, corpus: Corpus,
-              cfg: HPCConfig) -> RetrieverState:
-        _, codebook, codes_full, codes, mask = encode_corpus(gen, corpus, cfg)
+              cfg: HPCConfig, mesh=None) -> RetrieverState:
+        _, codebook, codes_full, codes, mask = encode_corpus(gen, corpus, cfg,
+                                                             mesh=mesh)
         ham = index_mod.build_hamming(codes, mask, cfg.bits)
         return RetrieverState(
             codebook=codebook,

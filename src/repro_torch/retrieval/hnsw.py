@@ -45,10 +45,11 @@ def _mean_degree_l0(ix: graph_mod.HNSWIndex) -> float:
 class HNSWBackend(IndexBackend):
 
     def build(self, gen: torch.Generator, corpus: Corpus,
-              cfg: HPCConfig) -> RetrieverState:
+              cfg: HPCConfig, mesh=None) -> RetrieverState:
         """Encode, then insert every document into the graph on the host
         (sequential; the level draws come from ``gen``)."""
-        _, codebook, codes_full, codes, mask = encode_corpus(gen, corpus, cfg)
+        _, codebook, codes_full, codes, mask = encode_corpus(gen, corpus, cfg,
+                                                             mesh=mesh)
         hn = graph_mod.build_hnsw(gen, codes, mask, codebook, cfg.hnsw)
         return RetrieverState(
             codebook=codebook,
@@ -129,6 +130,36 @@ class HNSWBackend(IndexBackend):
         return {"mean_degree_l0": _mean_degree_l0(ix),
                 "levels": int(ix.neighbors.shape[0]),
                 "entry_level": int(ix.node_level[ix.entry])}
+
+    def shard_specs(self, state: RetrieverState):
+        # The walk needs the whole adjacency and routing vectors, so the
+        # graph replicates; the scan payload (codes) and the rerank rows
+        # shard over the corpus axis like every other backend.
+        def graph_leaf_specs():
+            return graph_mod.HNSWIndex(
+                doc_vecs=(None, None),
+                neighbors=(None, None, None),
+                entry=(),
+                node_level=(None,),
+                codes=("corpus", None),
+                mask=("corpus", None),
+                doc_ids=("corpus",),
+                codebook=(None, None))
+
+        seg = self._segmented(state)
+        if seg is not None:
+            # live bits replicate: the walk reads them on every shard
+            bs = index_mod.SegmentedState(
+                tuple(graph_leaf_specs() for _ in seg.segments),
+                tuple((None,) for _ in seg.live),
+                (None,))
+        else:
+            bs = graph_leaf_specs()
+        return RetrieverState(
+            codebook=(None, None),
+            backend_state=HNSWState(bs, state.backend_state.ef_search),
+            rerank_codes=("corpus", None),
+            rerank_mask=("corpus", None))
 
     # -- persistence ------------------------------------------------------
 

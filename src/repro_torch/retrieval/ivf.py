@@ -37,11 +37,12 @@ class IVFState:
 class IVFBackend(IndexBackend):
 
     def build(self, gen: torch.Generator, corpus: Corpus,
-              cfg: HPCConfig) -> RetrieverState:
+              cfg: HPCConfig, mesh=None) -> RetrieverState:
         """Encode, then bucket. Fails if bucket overflow dropped more than
         ``cfg.ivf.max_drop_rate`` of the documents (they would be absent
         from every search), and warns on any drop."""
-        _, codebook, codes_full, codes, mask = encode_corpus(gen, corpus, cfg)
+        _, codebook, codes_full, codes, mask = encode_corpus(gen, corpus, cfg,
+                                                             mesh=mesh)
         ivf = index_mod.build_ivf(gen, codes, mask, codebook, cfg.ivf)
         n_docs = corpus.embeddings.shape[0]
         drop = index_mod.ivf_drop_rate(ivf, n_docs)
@@ -130,6 +131,32 @@ class IVFBackend(IndexBackend):
         return {"ivf_drop_rate": index_mod.ivf_drop_rate(ix, n_docs),
                 "n_list": int(ix.bucket_valid.shape[0]),
                 "bucket_cap": int(ix.bucket_valid.shape[1])}
+
+    def shard_specs(self, state: RetrieverState):
+        # buckets (dim 0 = n_list) spread over the corpus axes; routing
+        # centroids and codebook replicated (every query scores them all)
+        def ivf_leaf_specs():
+            return index_mod.IVFIndex(
+                routing_centroids=(None, None),
+                bucket_codes=("corpus", None, None),
+                bucket_mask=("corpus", None, None),
+                bucket_valid=("corpus", None),
+                bucket_doc_ids=("corpus", None),
+                codebook=(None, None))
+
+        seg = self._segmented(state)
+        if seg is not None:
+            bs = index_mod.SegmentedState(
+                tuple(ivf_leaf_specs() for _ in seg.segments),
+                tuple(("corpus", None) for _ in seg.live),
+                (None,))
+        else:
+            bs = ivf_leaf_specs()
+        return RetrieverState(
+            codebook=(None, None),
+            backend_state=IVFState(bs, state.backend_state.n_probe),
+            rerank_codes=("corpus", None),
+            rerank_mask=("corpus", None))
 
     # -- persistence ------------------------------------------------------
 

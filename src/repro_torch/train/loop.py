@@ -1,7 +1,6 @@
 """The fault-tolerant training loop.
 
-The counterpart of ``repro.train.loop`` without its GPipe part (which
-waits for the distribution slice, ROADMAP.md §A item 6):
+The counterpart of ``repro.train.loop``:
 
   * checkpoint/restart: ``CheckpointManager`` (atomic, async) in the
     reference's format, auto-resume from the latest committed step;
@@ -18,6 +17,9 @@ named tensors and opt_state an ``optim.optimizer.AdamWState`` (what
 ``transformer.train_step`` and ``colpali.train_step`` take). The loop
 reads the metrics once per step, in one device-to-host copy: its only
 sync.
+
+``make_pipelined_fn`` is GPipe pipeline parallelism over a mesh axis: one
+stage per rank, activations passed to the next stage point to point.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import convert
 from repro_torch.ckpt.checkpoint import (CheckpointManager, leaves_with_paths,
@@ -133,3 +137,71 @@ def run(step_fn: Callable, params: Dict[str, torch.Tensor], opt_state,
     return {"params": params, "opt_state": opt_state, "step": step + 1,
             "history": history, "stats": stats,
             "checkpoint": manager.last_save}
+
+
+# ---------------------------------------------------------------------------
+# GPipe pipeline parallelism (one stage per rank, point-to-point rotation)
+# ---------------------------------------------------------------------------
+
+def make_pipelined_fn(mesh, stage_fn: Callable, n_microbatches: int,
+                      axis: str = "pipe") -> Callable:
+    """Build f(stage_params, x) running ``stage_fn`` depth-sharded over
+    ``axis``: rank s of the axis runs stage s.
+
+    stage_params: a tree (dicts, lists, tuples) whose leaves have a leading
+    dim of n_stages (DTensors sharded over ``axis`` on it, or tensors every
+    rank holds whole); ``stage_fn(sp, x_mb)`` gets the stage's slice.
+    x: (n_microbatches * mb, ...) activations entering stage 0, the same
+    on every rank. Schedule: GPipe fill/flush, T = n_micro + n_stages - 1
+    ticks; at each tick every stage runs the microbatch it holds (a stage
+    without one computes on its stale buffer, which is never committed),
+    then passes the output and its microbatch tag to the next stage
+    (``batch_isend_irecv`` on the axis' group). The last stage commits
+    finished microbatches; an all-reduce SUM over the axis gives every
+    rank the output. Bubble fraction (n_stages - 1) / T.
+    """
+    ax = mesh.mesh_dim_names.index(axis)
+    n_stages = mesh.size(ax)
+    group = mesh.get_group(axis)
+
+    def pipelined(stage_params, x: torch.Tensor) -> torch.Tensor:
+        stage = mesh.get_coordinate()[ax]
+        sp = map_with_paths(
+            lambda _, a: a.to_local()[0] if isinstance(a, DTensor)
+            else a[stage], stage_params)
+        mb = x.shape[0] // n_microbatches
+        mbs = x.reshape(n_microbatches, mb, *x.shape[1:])
+        out = torch.zeros_like(mbs)
+        buf = torch.zeros_like(mbs[0])
+        tag = torch.full((1,), -1, dtype=torch.int32, device=x.device)
+        nxt = dist.get_global_rank(group, (stage + 1) % n_stages)
+        prv = dist.get_global_rank(group, (stage - 1) % n_stages)
+        for t in range(n_microbatches + n_stages - 1):
+            if stage == 0 and t < n_microbatches:    # stage 0 injects
+                buf = mbs[t]
+                tag = torch.full_like(tag, t)
+            y = stage_fn(sp, buf)
+            if stage == n_stages - 1:                # the last commits
+                slot = torch.clamp(tag, min=0).to(torch.int64)
+                out.index_copy_(0, slot, torch.where(
+                    tag >= 0, y, out.index_select(0, slot)[0])[None])
+            if n_stages == 1:
+                buf, tag = y, torch.full_like(tag, -1)
+                continue
+            y = y.contiguous()
+            buf, new_tag = torch.empty_like(y), torch.empty_like(tag)
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, y, nxt, group),
+                    dist.P2POp(dist.isend, tag, nxt, group, tag=1),
+                    dist.P2POp(dist.irecv, buf, prv, group),
+                    dist.P2POp(dist.irecv, new_tag, prv, group, tag=1)]):
+                req.wait()
+            # stage 0 receives from the last stage: that buffer is done
+            tag = torch.full_like(tag, -1) if stage == 0 else new_tag
+        if stage != n_stages - 1:
+            out.zero_()
+        if n_stages > 1:
+            dist.all_reduce(out, group=group)
+        return out.reshape(x.shape)
+
+    return pipelined

@@ -1,0 +1,319 @@
+"""One gloo rank of the port's distribution tests (tests/test_torch_dist.py).
+
+    python tests/_torch_dist_ranks.py RANK WORLD WORKDIR
+
+Imports only torch, numpy and repro_torch. Reads the inputs and the
+reference's outputs from ``WORKDIR/../inputs.npz`` (made by the test
+process from a seed with numpy and run through the JAX package), meets
+the other ranks through a ``file://`` rendezvous in WORKDIR (one rank
+opens a group on an in-memory store), runs every check of its world size
+in order and writes ``WORKDIR/rank<RANK>.json``: {case: "ok" or the
+error}. It stops at the first failure: a later collective would pair
+with the wrong call on the other ranks.
+"""
+from __future__ import annotations
+
+import datetime
+import json
+import sys
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import distributed as D
+from repro_torch.data.pipeline import device_put_batch
+from repro_torch.data.synthetic import CorpusSpec, make_retrieval_corpus
+from repro_torch.dist import collectives, sharding
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.retrieval import Corpus, HPCConfig, Query, Retriever
+from repro_torch.train import elastic
+from repro_torch.train.loop import make_pipelined_fn
+
+torch.set_num_threads(1)
+
+BACKENDS = ("flat", "float_flat", "hamming", "ivf", "hnsw", "cascade")
+MESH = {1: (1, 1), 2: (2, 1), 4: (2, 2)}     # ("data", "model")
+
+
+def t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def cases(world: int):
+    """(name, check) of a world size, in the order every rank runs them."""
+    out = [("mesh_checks", check_mesh)]
+    out += [(f"search_{dt}_k{k}", lambda z, m, dt=dt, k=k: check_search(
+        z, m, dt, k)) for dt in ("reference", "port") for k in (8, 20)]
+    out += [("kmeans_refine", check_refine), ("kmeans_fit", check_fit),
+            ("kmeans_fit_falls_back", check_fallback),
+            ("quantize_k256", lambda z, m: check_quantize(z, m, 256)),
+            ("quantize_k512", lambda z, m: check_quantize(z, m, 512)),
+            ("gpipe", check_gpipe), ("ring_matmul", check_ring)]
+    if world == 1:
+        out += [(f"build_mesh_{b}", lambda z, m, b=b: check_build(z, m, b))
+                for b in ("flat", "ivf", "hamming")]
+        out += [(f"shard_search_{b}", lambda z, m, b=b: check_shard(z, m, b))
+                for b in BACKENDS]
+    else:
+        out += [("shard_search_flat", lambda z, m: check_shard(z, m, "flat")),
+                ("shard_search_hamming_raises", check_shard_raises)]
+    if world == 2:
+        out += [("restore_elastic", check_elastic),
+                ("device_put_batch", check_put),
+                ("constraint_redistributes", check_constraint)]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# checks
+# ---------------------------------------------------------------------------
+
+def check_mesh(z, mesh):
+    world = dist.get_world_size()
+    assert mesh.mesh_dim_names == ("data", "model")
+    assert tuple(mesh.shape) == MESH[world]
+    for bad in ((4, 4), (world, 2)):
+        try:
+            mesh_mod.make_host_mesh(bad, device="cpu")
+        except ValueError as e:
+            assert "ranks" in str(e)
+        else:
+            raise AssertionError(f"a {bad} mesh over {world} ranks")
+    try:
+        mesh_mod.make_production_mesh(device="cpu")
+    except ValueError as e:
+        assert "256" in str(e)
+    else:
+        raise AssertionError("a production mesh over the test ranks")
+
+
+def check_search(z, mesh, dtypes, k):
+    codes, mask = z["s_codes"], z["s_mask"]
+    if dtypes == "port":
+        codes, mask = codes.astype(np.uint8), mask > 0
+    fn = D.sharded_search_fn(mesh, ("data", "model"), k=k)
+    s, i = fn(t(z["s_q"]), t(z["s_qm"]), t(codes), t(mask),
+              t(z["s_ids"]), t(z["s_cb"]))
+    s, i = s.numpy(), i.numpy()
+    want = z[f"s_top{k}"]
+    np.testing.assert_allclose(s, want, atol=1e-4)
+    # ids may differ on exact ties (documents with the same codes): every
+    # returned id's true score must be its reported score
+    true = np.take_along_axis(z["s_full"], i, axis=1)
+    np.testing.assert_allclose(true, s, atol=1e-4)
+
+
+def check_refine(z, mesh):
+    x, c0 = z["km_x"], z["km_c0"]
+    fn = D.sharded_kmeans_refine_fn(mesh, ("data", "model"), k=c0.shape[0],
+                                    iters=int(z["km_iters"]),
+                                    n_total=x.shape[0], block_rows=10)
+    c, hist, best = fn(t(x), t(c0))
+    np.testing.assert_allclose(c.numpy(), z["km_best_c"], atol=1e-5)
+    np.testing.assert_allclose(hist.numpy(), z["km_hist"], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(best), float(z["km_best_i"]), rtol=1e-5)
+
+
+def check_fit(z, mesh):
+    """The sharded fit from the single-host fit's generator state: the
+    same seeds, restarts and Lloyd steps (1e-4: the ranks' sums add in
+    another order, as the reference's own test allows)."""
+    from repro_torch.core import quantization as quant
+    cfg = quant.KMeansConfig(k=12, iters=6, seed_batch=48, n_restarts=2)
+    x = t(z["km_x"])
+    c, hist = D.sharded_kmeans_fit(mesh, torch.Generator().manual_seed(4),
+                                   x, cfg)
+    c_ref, hist_ref = quant.kmeans_fit(torch.Generator().manual_seed(4), x,
+                                       cfg)
+    np.testing.assert_allclose(c.numpy(), c_ref.numpy(), atol=1e-4)
+    np.testing.assert_allclose(hist.numpy(), hist_ref.numpy(), atol=1e-4)
+
+
+def check_fallback(z, mesh):
+    """No corpus axis divides N (97 rows over 2 or 4 ranks; at one rank
+    every N divides): a warning and the single-host fit and quantizer."""
+    import warnings
+    from repro_torch.core import quantization as quant
+    x = t(z["km_x"][:1] if dist.get_world_size() == 1 else
+          np.concatenate([z["km_x"], z["km_x"][:1]]))
+    cfg = quant.KMeansConfig(k=4, iters=2, n_restarts=1)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        c, _ = D.sharded_kmeans_fit(mesh, torch.Generator().manual_seed(6),
+                                    x, cfg)
+        codes = D.sharded_quantize(mesh, x[:, None], c, torch.uint8)
+    if dist.get_world_size() > 1:
+        assert len(caught) == 2 and "falling back" in str(caught[0].message)
+    c_ref, _ = quant.kmeans_fit(torch.Generator().manual_seed(6), x, cfg)
+    assert torch.equal(c, c_ref)
+    assert torch.equal(codes, quant.quantize(x[:, None], c))
+
+
+def check_quantize(z, mesh, k):
+    x, cb = z["q_x"], z[f"q_cb{k}"]
+    dtype = torch.uint8 if k == 256 else torch.uint16
+    got = D.sharded_quantize(mesh, t(x), t(cb), dtype)
+    assert got.dtype == dtype and tuple(got.shape) == x.shape[:-1]
+    want, tie = z[f"q_codes{k}"], z[f"q_tie{k}"]
+    diff = (got.to(torch.int64).numpy() != want) & ~tie
+    assert not diff.any(), f"codes differ outside near-ties at {diff.sum()}"
+
+
+def check_gpipe(z, mesh):
+    world = dist.get_world_size()
+    pipe = mesh_mod.make_host_mesh((world,), ("pipe",), device="cpu")
+    ws = z[f"pipe_w{world}"]
+    f = make_pipelined_fn(pipe, lambda sp, x: torch.tanh(x @ sp["w"]),
+                          n_microbatches=int(z["pipe_micro"]))
+    y = f({"w": t(ws)}, t(z["pipe_x"]))
+    np.testing.assert_allclose(y.numpy(), z[f"pipe_y{world}"], atol=1e-4)
+
+
+def check_ring(z, mesh):
+    world = dist.get_world_size()
+    ring = mesh_mod.make_host_mesh((world,), ("model",), device="cpu")
+    y = collectives.ring_allgather_matmul(ring, "model")(
+        t(z["ring_x"]), t(z["ring_w"]))
+    if world > 1:
+        assert isinstance(y, torch.distributed.tensor.DTensor)
+        assert y.to_local().shape[0] == z["ring_x"].shape[0] // world
+    np.testing.assert_allclose(sharding.full_tensor(y).numpy(),
+                               z["ring_y"], atol=1e-5)
+
+
+def _corpus(n_docs=64):
+    data = make_retrieval_corpus(
+        CorpusSpec(n_docs=n_docs, n_queries=8, n_patches=12, n_q_patches=4,
+                   dim=16, n_topics=4, patches_per_topic=16),
+        seed=3, device="cpu")
+    return (Corpus(data.doc_patches, data.doc_mask, data.doc_salience),
+            Query(data.query_patches, data.query_mask, data.query_salience))
+
+
+def _cfg(backend):
+    return HPCConfig(k=16, p=60.0, backend=backend, prune_side="doc",
+                     kmeans_iters=4, kmeans_restarts=2, kmeans_minibatch=0,
+                     rerank=12)
+
+
+def _build(backend, mesh=None):
+    corpus, query = _corpus()
+    r = Retriever(_cfg(backend))
+    gen = torch.Generator().manual_seed(5)
+    return r, r.build(gen, corpus, mesh=mesh), query
+
+
+def check_build(z, mesh, backend):
+    r, st_mesh, q = _build(backend, mesh)
+    _, st_local, _ = _build(backend)
+    np.testing.assert_allclose(st_mesh.codebook.numpy(),
+                               st_local.codebook.numpy(), atol=1e-5)
+    assert torch.equal(st_mesh.rerank_codes, st_local.rerank_codes)
+    s_m, i_m = r.search(st_mesh, q, k=5)
+    s_l, i_l = r.search(st_local, q, k=5)
+    np.testing.assert_allclose(s_m.numpy(), s_l.numpy(), atol=1e-6)
+    assert torch.equal(i_m, i_l)
+
+
+def check_shard(z, mesh, backend):
+    r, state, q = _build(backend)
+    sharded = r.shard(state, mesh)
+    assert isinstance(sharded.rerank_codes, torch.distributed.tensor.DTensor)
+    s_sh, i_sh = r.search(sharded, q, k=5)
+    s, i = r.search(state, q, k=5)
+    np.testing.assert_allclose(s_sh.numpy(), s.numpy(), atol=1e-6)
+    assert torch.equal(i_sh, i)
+    if backend == "flat":       # each rank holds its rows only
+        n_local = state.rerank_codes.shape[0] // dist.get_world_size()
+        assert sharded.rerank_codes.to_local().shape[0] == n_local
+
+
+def check_shard_raises(z, mesh):
+    r, state, q = _build("hamming")
+    try:
+        r.search(r.shard(state, mesh), q, k=5)
+    except NotImplementedError as e:
+        assert "ROADMAP.md" in str(e)
+    else:
+        raise AssertionError("a hamming state searched across ranks")
+
+
+def check_elastic(z, mesh):
+    mesh = mesh_mod.make_host_mesh((1, 2), device="cpu")
+    template = {"w": torch.zeros((8, 8)),
+                "codes": torch.zeros((8, 4), dtype=torch.uint16),
+                "h": torch.zeros((4, 6), dtype=torch.bfloat16)}
+    specs = {"w": ("batch", "mlp"), "codes": (None, "mlp"),
+             "h": (None, "mlp")}
+    step, got = elastic.restore_elastic(str(Path(z["ck_dir"].item())),
+                                        template, specs, mesh)
+    assert step == 3
+    assert got["w"].to_local().shape == (8, 4)
+    assert got["codes"].to_local().shape == (8, 2)
+    assert got["h"].to_local().shape == (4, 3)
+    np.testing.assert_array_equal(sharding.full_tensor(got["w"]).numpy(),
+                                  z["ck_w"])
+    np.testing.assert_array_equal(
+        sharding.full_tensor(got["codes"]).numpy(), z["ck_codes"])
+    h = sharding.full_tensor(got["h"]).view(torch.int16).numpy()
+    np.testing.assert_array_equal(h.view(np.uint16), z["ck_h_bits"])
+
+
+def check_put(z, mesh):
+    batch = {"x": torch.arange(24.0).reshape(8, 3),
+             "ids": torch.arange(8, dtype=torch.int16), "keep": torch.ones(2)}
+    shd = sharding.Sharder(mesh)
+    out = device_put_batch(batch, {
+        "x": shd.named(("batch", None), (8, 3)),
+        "ids": shd.named(("batch",), (8,))})
+    assert out["x"].to_local().shape == (4, 3)
+    assert out["keep"] is batch["keep"]
+    assert torch.equal(sharding.full_tensor(out["ids"]), batch["ids"])
+
+
+def check_constraint(z, mesh):
+    shd = sharding.Sharder(mesh)
+    x = torch.arange(32.0).reshape(8, 4)
+    dt = sharding.distribute(x, shd.named(("batch", None), (8, 4)))
+    assert dt.to_local().shape == (4, 4)
+    full = shd.constraint(dt, None, None)
+    assert full.to_local().shape == (8, 4) and torch.equal(full.to_local(), x)
+    assert shd.constraint(x, "batch", None) is x
+    assert sharding.NULL.constraint(dt, "batch") is dt
+
+
+# ---------------------------------------------------------------------------
+
+def main(rank: int, world: int, workdir: Path) -> int:
+    if world == 1:
+        mesh_mod.open_local_group("cpu")
+    else:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{workdir / 'rendezvous'}",
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=60))
+    mesh = mesh_mod.make_host_mesh(MESH[world], device="cpu")
+    results = {}
+    with np.load(workdir.parent / "inputs.npz") as npz:
+        z = {k: npz[k] for k in npz.files}
+    code = 0
+    for name, check in cases(world):
+        try:
+            check(z, mesh)
+            results[name] = "ok"
+        except BaseException:
+            results[name] = traceback.format_exc()
+            code = 1
+            break
+    (workdir / f"rank{rank}.json").write_text(json.dumps(results))
+    if code == 0:
+        dist.destroy_process_group()
+    return code
+
+
+if __name__ == "__main__":
+    sys.exit(main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3])))

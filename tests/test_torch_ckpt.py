@@ -6,6 +6,7 @@ the other, with the same keys, dtypes and bytes."""
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -156,11 +157,15 @@ def test_async_save(tmp_path, tree):
 
 
 def test_async_save_error_is_raised_by_wait(tmp_path):
-    mgr = ck.CheckpointManager(str(tmp_path))
-    mgr.save_async(1, {"w": torch.zeros(2, dtype=torch.bfloat16).float()})
+    """The background write's error surfaces on wait(), not before."""
+    d = tmp_path / "ck"
+    mgr = ck.CheckpointManager(str(d))
+    mgr.save_async(1, {"w": torch.zeros(2, dtype=torch.bfloat16)})
     mgr.wait()
-    with pytest.raises(TypeError, match="bfloat16"):
-        mgr.save_async(2, {"w": torch.zeros(2, dtype=torch.bfloat16)})
+    shutil.rmtree(d)
+    d.write_text("a file where the checkpoint directory was")
+    mgr.save_async(2, {"w": torch.zeros(2)})
+    with pytest.raises(OSError):
         mgr.wait()
 
 

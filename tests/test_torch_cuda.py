@@ -1386,3 +1386,117 @@ def test_family_train_step_on_the_card_matches_the_cpu(name):
     err = torch.cat([(p_d[k].cpu() - p_c[k]).abs().reshape(-1) for k in p_c])
     assert float((err > 1e-5).double().mean()) <= 1e-3
     assert float(err.max()) <= 2 * float(m_c["lr"])
+
+
+# ---------------------------------------------------------------------------
+# distribution at world size 1: a one-rank NCCL group on the card
+# ---------------------------------------------------------------------------
+
+def _nccl_mesh():
+    from repro_torch.launch import mesh as mesh_mod
+    _card()
+    mesh_mod.open_local_group("cuda")
+    return mesh_mod.make_host_mesh((1, 1), device="cuda")
+
+
+def test_sharded_search_on_the_card_matches_the_plain_version():
+    """``sharded_search_fn`` over a one-rank NCCL mesh launches the
+    ``quantized_maxsim`` kernel and agrees with the plain scan on the CPU:
+    scores within 1e-4, ids outside near-ties; the reference's int32 codes
+    and float masks give the same answer."""
+    from repro_torch.core import distributed as D
+    mesh = _nccl_mesh()
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(31)
+    n, md, k = 300, 24, 64
+    q = torch.randn((5, 8, 16), generator=g)
+    q_mask = torch.rand((5, 8), generator=g) < 0.9
+    codes = torch.randint(0, k, (n, md), generator=g).to(torch.uint8)
+    mask = torch.rand((n, md), generator=g) < 0.8
+    ids = torch.arange(n, dtype=torch.int32) * 3
+    cb = torch.randn((k, 16), generator=g)
+    want = scan.quantized_maxsim_topk(q, q_mask, codes, mask, cb, k=20,
+                                      doc_ids=ids,
+                                      scan=scan.ScanConfig(impl="plain"))
+    fn = D.sharded_search_fn(mesh, ("data", "model"), k=20)
+    before = qm.launches
+    got = fn(*(a.to(dev) for a in (q, q_mask, codes, mask, ids, cb)))
+    assert qm.launches == before + 1
+    _assert_search_match(got, want)
+    ref = fn(*(a.to(dev) for a in (q, q_mask.float(), codes.int(),
+                                   mask.float(), ids, cb)))
+    assert torch.equal(ref[0], got[0]) and torch.equal(ref[1], got[1])
+
+
+def test_sharded_quantize_on_the_card_matches_kmeans_assign_plain():
+    """``sharded_quantize`` launches ``kmeans_assign`` on the card: codes
+    equal to the plain version's but for near-ties (distance gap <= 1e-4),
+    for K = 256 (uint8) and K = 512 (uint16)."""
+    from repro_torch.core import distributed as D
+    mesh = _nccl_mesh()
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(32)
+    x = torch.randn((64, 20, 32), generator=g)
+    for k, dtype in ((256, torch.uint8), (512, torch.uint16)):
+        cb = torch.randn((k, 32), generator=g)
+        before = km.launches
+        got = D.sharded_quantize(mesh, x.to(dev), cb.to(dev), dtype)
+        assert km.launches == before + 1 and got.dtype == dtype
+        want = km.kmeans_assign_plain(x.reshape(-1, 32), cb)
+        diff = torch.nonzero(got.cpu().reshape(-1).long() != want.long())[:, 0]
+        xd, cd = x.reshape(-1, 32)[diff].double(), cb.double()
+        c2 = (cd * cd).sum(-1)
+
+        def dist(codes):
+            return c2[codes] - 2.0 * (xd * cd[codes]).sum(-1)
+
+        gap = (dist(got.cpu().reshape(-1)[diff].long())
+               - dist(want[diff].long())).abs()
+        assert diff.numel() <= 1e-3 * want.numel() and (gap <= 1e-4).all()
+
+
+def test_uint16_shard_round_trip_over_nccl():
+    """16-bit codes cross NCCL (which has no 16-bit integer) as a uint8
+    view: placed, gathered and all-gathered back bit for bit. On one rank
+    the port's helpers skip their collectives, so the view also goes
+    through one NCCL all-gather of its own."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives, sharding
+    mesh = _nccl_mesh()
+    codes = torch.randint(0, 65536, (40, 7), generator=torch.Generator()
+                          .manual_seed(33), dtype=torch.int32).to(
+        torch.uint16).cuda()
+    shd = sharding.Sharder(mesh)
+    dt = sharding.distribute(codes, shd.named(("corpus", None), (40, 7)))
+    assert dt.dtype == torch.uint16 and dt.to_local().is_cuda
+    assert torch.equal(sharding.full_tensor(dt), codes)
+    assert torch.equal(collectives.all_gather_axes(
+        codes, mesh, ("data", "model")), codes)
+    view = sharding._bytes_view(codes)
+    assert view.dtype == torch.uint8
+    out = torch.empty_like(view)
+    dist.all_gather_into_tensor(out, view, group=mesh.get_group("data"))
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.uint16).squeeze(-1), codes)
+
+
+def test_sharded_build_and_search_on_the_card():
+    """``Retriever.build(mesh=)`` on a one-rank NCCL mesh quantizes through
+    ``kmeans_assign``; ``shard`` + search equals the unsharded search of
+    the same state."""
+    from repro_torch.retrieval import Corpus, Query, Retriever
+    mesh = _nccl_mesh()
+    dev = torch.device("cuda")
+    d = _small_corpus(34)
+    corpus = Corpus(*(a.to(dev) for a in (d.doc_patches, d.doc_mask,
+                                          d.doc_salience)))
+    q = Query(*(a.to(dev) for a in (d.query_patches, d.query_mask,
+                                    d.query_salience)))
+    r = Retriever(_cfg("flat"))
+    before = km.launches
+    st = r.build(torch.Generator(device=dev).manual_seed(0), corpus,
+                 mesh=mesh)
+    assert km.launches > before
+    want = r.search(st, q, k=10)
+    got = r.search(r.shard(st, mesh), q, k=10)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -1,0 +1,194 @@
+"""The port's distribution layer against the reference, on gloo ranks.
+
+This process makes the inputs from a seed with numpy, runs the reference
+(the JAX package, on its single CPU device) for the expected outputs, and
+writes both to ``inputs.npz``. It then spawns worlds of 1, 2 and 4 gloo
+ranks (``tests/_torch_dist_ranks.py``, which imports only torch and
+repro_torch); each world runs every check once, and each check is a case
+here. Ranks meet through a ``file://`` rendezvous under ``tmp_path`` (no
+port), each collective has a 60 s timeout, and this process waits at most
+``SPAWN_TIMEOUT`` for a world and names the rank that hung.
+
+Held, as the reference's own tests hold its mesh paths
+(``tests/test_distributed.py``) but against single-device results
+(caveat C3 of ROADMAP.md: the reference's mesh paths fail under this
+JAX):
+  * ``sharded_search_fn`` against ``late_interaction.quantized_maxsim`` +
+    ``top_k``: scores within 1e-4, and every returned id's true score its
+    reported one (ties may pick other ids), with the reference's int32
+    codes and f32 masks and with the port's uint8 and bool, at k above
+    and below a rank's share;
+  * ``sharded_kmeans_refine_fn`` against ``quantization.kmeans_refine``
+    from the same x and c0 (three centroids start far from every point,
+    so the repair runs): within 1e-5;
+  * ``sharded_quantize`` against ``quantization.quantize`` outside
+    near-ties (distance gap <= 1e-4), K = 256 (uint8) and 512 (uint16);
+  * GPipe against the stages run in sequence (1e-4, the reference's);
+    ``ring_allgather_matmul`` against ``x @ w`` (1e-5);
+  * at world 1: ``Retriever.build(mesh=)`` against the port's single-host
+    build (codebook 1e-5, rerank codes and search equal) for flat, ivf and
+    hamming, and ``Retriever.shard`` + search equal to the unsharded search
+    for all six backends; at worlds 2 and 4 the same for flat, and a
+    sharded hamming state's search raising;
+  * at world 2: ``restore_elastic`` of a reference-written checkpoint
+    (float32, uint16 and bfloat16 leaves) onto a (1, 2) mesh, equal to the
+    tree with the expected local shards; ``device_put_batch`` by
+    placements.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.ckpt import checkpoint as jax_ck
+from repro.core import late_interaction as jax_li
+from repro.core import quantization as jax_quant
+from tests import _torch_dist_ranks as ranks
+
+ROOT = Path(__file__).resolve().parents[1]
+SPAWN_TIMEOUT = 240
+WORLDS = (1, 2, 4)
+TIE_TOL = 1e-4
+
+
+def _inputs(path: Path) -> None:
+    """Inputs and the reference's outputs, written to ``path``."""
+    rng = np.random.default_rng(0)
+    z = {}
+    # search: 64 docs of ragged patch masks, 3 queries (one patch off)
+    n, md, mq, b, d, k = 64, 6, 4, 3, 16, 16
+    codes = rng.integers(0, k, (n, md)).astype(np.int32)
+    mask = (rng.random((n, md)) < 0.8).astype(np.float32)
+    mask[:, 0] = 1.0
+    q = rng.standard_normal((b, mq, d)).astype(np.float32)
+    qm = np.ones((b, mq), np.float32)
+    qm[2, 3] = 0.0
+    cb = rng.standard_normal((k, d)).astype(np.float32)
+    full = np.asarray(jax_li.quantized_maxsim(q, qm, codes, mask, cb))
+    z.update(s_codes=codes, s_mask=mask, s_q=q, s_qm=qm, s_cb=cb,
+             s_ids=np.arange(n, dtype=np.int32), s_full=full)
+    for top in (8, 20):
+        z[f"s_top{top}"] = np.asarray(jax.lax.top_k(full, top)[0])
+    # k-means: 96 points, 12 centroids of which 3 start far from them all
+    x = rng.standard_normal((96, 8)).astype(np.float32)
+    c0 = np.concatenate([x[:9], 100.0 + rng.standard_normal((3, 8))]
+                        ).astype(np.float32)
+    best_c, hist, best_i = jax_quant.kmeans_refine(jnp.asarray(x),
+                                                   jnp.asarray(c0), 6)
+    z.update(km_x=x, km_c0=c0, km_iters=np.int64(6),
+             km_best_c=np.asarray(best_c), km_hist=np.asarray(hist),
+             km_best_i=np.asarray(best_i))
+    # quantize: (32, 5, 8) against K = 256 and 512
+    xq = rng.standard_normal((32, 5, 8)).astype(np.float32)
+    z["q_x"] = xq
+    for kk, dt in ((256, jnp.uint8), (512, jnp.uint16)):
+        cbk = rng.standard_normal((kk, 8)).astype(np.float32)
+        dist2 = ((xq[..., None, :].astype(np.float64) - cbk) ** 2).sum(-1)
+        two = np.sort(dist2, axis=-1)[..., :2]
+        z[f"q_cb{kk}"] = cbk
+        z[f"q_codes{kk}"] = np.asarray(jax_quant.quantize(
+            jnp.asarray(xq), jnp.asarray(cbk), code_dtype=dt)).astype(np.int64)
+        z[f"q_tie{kk}"] = (two[..., 1] - two[..., 0]) <= TIE_TOL
+    # GPipe: 8 microbatches of 4, d 16, one stage per rank
+    n_micro, mb, dp = 8, 4, 16
+    xp = rng.standard_normal((n_micro * mb, dp)).astype(np.float32)
+    z.update(pipe_x=xp, pipe_micro=np.int64(n_micro))
+    for world in WORLDS:
+        ws = (rng.standard_normal((world, dp, dp)) / np.sqrt(dp)
+              ).astype(np.float32)
+        y = jnp.asarray(xp)
+        for i in range(world):
+            y = jnp.tanh(y @ ws[i])
+        z[f"pipe_w{world}"], z[f"pipe_y{world}"] = ws, np.asarray(y)
+    # ring matmul
+    xr = rng.standard_normal((16, 8)).astype(np.float32)
+    wr = rng.standard_normal((8, 12)).astype(np.float32)
+    z.update(ring_x=xr, ring_w=wr, ring_y=xr @ wr)
+    # a checkpoint the reference writes
+    ck_dir = path.parent / "ck"
+    w = np.arange(64, dtype=np.float32).reshape(8, 8)
+    codes16 = rng.integers(0, 512, (8, 4)).astype(np.uint16)
+    h = jnp.asarray(rng.standard_normal((4, 6)), jnp.bfloat16)
+    jax_ck.save(str(ck_dir), 3, {"w": jnp.asarray(w), "codes": codes16,
+                                 "h": h})
+    z.update(ck_dir=np.array(str(ck_dir)), ck_w=w, ck_codes=codes16,
+             ck_h_bits=np.asarray(h).view(np.uint16))
+    np.savez(path, **z)
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory) -> Path:
+    path = tmp_path_factory.mktemp("dist") / "inputs.npz"
+    _inputs(path)
+    return path
+
+
+def _spawn(world: int, inputs: Path) -> dict:
+    """Run one world; -> {case: "ok" or what went wrong}."""
+    workdir = inputs.parent / f"world{world}"
+    workdir.mkdir()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(ranks.__file__)), str(r), str(world),
+         str(workdir)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    deadline = time.monotonic() + SPAWN_TIMEOUT
+    outs = {}
+    try:
+        for r, p in enumerate(procs):
+            left = max(1.0, deadline - time.monotonic())
+            try:
+                outs[r] = p.communicate(timeout=left)[0]
+            except subprocess.TimeoutExpired:
+                return {c: f"rank {r} of {world} hung past "
+                           f"{SPAWN_TIMEOUT} s" for c, _ in ranks.cases(world)}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    per_rank = []
+    for r, p in enumerate(procs):
+        got = workdir / f"rank{r}.json"
+        if not got.exists():
+            return {c: f"rank {r} of {world} exited {p.returncode} without "
+                       f"results:\n{outs[r][-4000:]}"
+                    for c, _ in ranks.cases(world)}
+        per_rank.append(json.loads(got.read_text()))
+    results = {}
+    for case, _ in ranks.cases(world):   # ok only if every rank says so
+        bad = [f"rank {r}: {res.get(case, 'not run')}"
+               for r, res in enumerate(per_rank) if res.get(case) != "ok"]
+        results[case] = bad[0] if bad else "ok"
+    return results
+
+
+@pytest.fixture(scope="module")
+def world_results(inputs):
+    cache = {}
+
+    def get(world: int) -> dict:
+        if world not in cache:
+            cache[world] = _spawn(world, inputs)
+        return cache[world]
+
+    return get
+
+
+@pytest.mark.parametrize("world,case", [
+    (w, c) for w in WORLDS for c, _ in ranks.cases(w)],
+    ids=[f"w{w}-{c}" for w in WORLDS for c, _ in ranks.cases(w)])
+def test_on_gloo_ranks(world, case, world_results):
+    res = world_results(world)[case]
+    assert res == "ok", res

@@ -15,6 +15,7 @@ from repro_torch.configs import colpali_hpc
 from repro_torch.core import rag
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import serve
 from repro_torch.launch import train
 from repro_torch.models import colpali, transformer
@@ -55,7 +56,9 @@ def test_port_package_is_found():
             "core/pipeline.py", "configs/colpali_hpc.py",
             "kernels/ref.py", "models/recsys.py", "models/gnn.py",
             "configs/recsys_archs.py", "configs/gnn_archs.py",
-            "data/sampler.py"} <= names
+            "data/sampler.py", "launch/mesh.py", "dist/sharding.py",
+            "dist/collectives.py", "core/distributed.py",
+            "train/elastic.py"} <= names
     assert not _forbidden("repro_torch.core.scan")
     assert _forbidden("repro.core.scan") and _forbidden("jax.numpy")
 
@@ -97,6 +100,10 @@ def test_entry_points_refuse_the_cpu_unless_asked():
             make()
     enc = colpali.ColPaliEncoder(enc_cfg, device="cpu")
     assert enc.backbone.embed.device.type == "cpu"
+    for make in (mesh_mod.make_host_mesh, mesh_mod.make_production_mesh,
+                 mesh_mod.open_local_group):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 @pytest.mark.parametrize("alone", [False, True])

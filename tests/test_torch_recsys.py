@@ -184,9 +184,7 @@ def test_dlrm_bf16_params_match_the_reference():
     jcfg = dataclasses.replace(jcfg, param_dtype="bfloat16")
     tcfg = dataclasses.replace(tcfg, param_dtype="bfloat16")
     params = _perturb(_host(jax_init(jax.random.PRNGKey(6), cfg=jcfg)), 7)
-    model = convert.recsys_params_from_numpy(
-        jax.tree.map(lambda a: np.asarray(a, np.float32), params), tcfg,
-        device="cpu")
+    model = convert.recsys_params_from_numpy(params, tcfg, device="cpu")
     assert model.tables[0].dtype == torch.bfloat16
     batch = _batch(jcfg, 32, seed=8)
     want = np.asarray(jax_forward(params, batch, cfg=jcfg))

@@ -98,8 +98,8 @@ def test_encode_corpus_with_jax_codebook(reference, monkeypatch):
     build with the clamped full distance)."""
     data, _, jstate = reference
     codebook = torch.from_numpy(np.array(jstate.codebook))
-    monkeypatch.setattr(base, "fit_codebook", lambda gen, corpus, cfg:
-                        codebook)
+    monkeypatch.setattr(base, "fit_codebook",
+                        lambda gen, corpus, cfg, mesh=None: codebook)
     corpus = Corpus(*to_torch(data.doc_patches, data.doc_mask,
                               data.doc_salience))
     _, cb, codes_full, codes, mask = base.encode_corpus(
