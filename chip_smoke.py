@@ -188,7 +188,25 @@ any failure exits non-zero, and no phase's error is swallowed:
      >= 0.95 x phase 4's, a batch equal to the unsharded search; (c) a
      checkpoint (float32, uint16, bfloat16 leaves) restored onto the mesh
      by ``restore_elastic`` bit for bit, GPipe and the ring matmul; one
-     ``{"sharded": ...}`` line each.
+     ``{"sharded": ...}`` line each;
+ 14. the analysis engines and the dry run: (a) every lint rule
+     (E9/F401/F811/F541, TORCH01/02/04/05) over ``src/repro_torch`` and
+     this script: no finding; (b) the four kernels' launch geometry at
+     every distinct shape phases 3-13 launched, the Python mirror
+     (``kernels.vmem``) equal to the library's ``hpc_*_geometry``; PAL01-04
+     against the card's opt-in shared memory and a fresh build's register
+     counts (held equal to ``csrc/registers.json``), at every registered
+     site and every launched shape; PAL03 again on the card at every
+     site, outputs filled with a sentinel and launched once, none left
+     (one ``{"launch_check": [...]}`` line); (c) the dry run of every
+     non-skipped cell on fake CUDA tensors at world size 1, in worker
+     processes (one ``{"dryrun": [...]}`` line), held to the card: each
+     cell phases 12-13 ran at its registry shape has its predicted peak
+     within 10% or 256 MiB of the measured one (what phase 12-13 held
+     accounted for as ``_HELD`` says) and its FLOPs equal to the real
+     run's (``{"dryrun_vs_card": [...]}``); (d) the cost model of every
+     manifest on the h100 roofline, held to ``COST_baseline_torch.json``
+     (one ``{"cost": ...}`` line).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, the script exits non-zero and prints no result.
@@ -434,6 +452,17 @@ SERVE_WALLS = 5
 SERVE_PLAIN_DOCS = 16_384   # the plain version's time is taken over these
 INERTIA_TOL = 0.05          # 13b: mean inertia at most 5% above phase 4's
 GPIPE_MICRO = 8
+
+
+# phase 14: the analysis engines and the dry run. The dry run's predicted
+# peak is held to the card's within PEAK_BAND of the measured peak or
+# PEAK_FLOOR, whichever is larger (the caching allocator rounds blocks to
+# 512 B; cuBLAS's workspace is held before the measured calls; the
+# kernels take no scratch).
+DRYRUN_WORKERS = 6
+PEAK_BAND = 0.10
+PEAK_FLOOR = 256 * 2 ** 20
+PREFETCH_BATCHES = 3    # launch.train's pipeline: 2 queued + 1 in hand
 
 
 def _phase(name: str) -> float:
@@ -2298,7 +2327,8 @@ def _train_phase(args, torch, np, dev, smi, arch, lm_spec, kernel_mods):
     # the single-vector retriever (rag_bench's DistilCol row)
     scores = li.single_vector_score(corpus.query_patches, corpus.query_mask,
                                     corpus.doc_patches, corpus.doc_mask)
-    weak = torch.topk(scores, rcfg.top_k_docs, dim=-1).indices
+    # top_k_docs <= RAG_DOCS, the corpus the scores cover
+    weak = torch.topk(scores, rcfg.top_k_docs, dim=-1).indices  # noqa: TORCH04
     plen = rcfg.top_k_docs * (RAG_GEN_FPD + 1) + corpus.query_tokens.shape[1]
     prompt = rag.build_prompt(corpus.doc_tokens[weak], corpus.query_tokens,
                               rcfg, plen)
@@ -2380,7 +2410,8 @@ def _routing_diff(torch, L, rec_d, rec_c):
         flip = (chose_d != chose_c).any(-1)
         shift = (_kept_table(torch, r_d, e)
                  != _kept_table(torch, r_c, e)).any(-1) & ~flip
-        top = torch.topk(r_c.probs, min(k + 1, e), dim=-1).values
+        top = torch.topk(r_c.probs, min(k + 1, e),  # noqa: TORCH04 (<= e)
+                         dim=-1).values
         margin = (top[:, k - 1] - top[:, k] if k < e
                   else torch.full_like(top[:, 0], float("inf")))
         for tok in torch.nonzero(flip).flatten().tolist():
@@ -2911,7 +2942,7 @@ def _serve_readings(torch, np, fn, n, graph: bool):
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    first = fn()
+    first, flops = _real_flops(fn)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     walls = []
@@ -2928,7 +2959,21 @@ def _serve_readings(torch, np, fn, n, graph: bool):
             "device_time_from": "cuda graph" if graph else "cuda events",
             "samples_per_s": n / wall * 1e3,
             "device_samples_per_s": n / dev_ms * 1e3,
-            "peak_gib": peak / 2**30}, first
+            "peak_gib": peak / 2**30, "peak_bytes": peak,
+            "flops": flops}, first
+
+
+def _real_flops(fn):
+    """(fn(), its FLOPs as the dry run counts them: FlopCounterMode plus
+    the kernels' recorded launches) for phase 14's comparison."""
+    from repro_torch.launch.dryrun import real_flops
+    return real_flops(fn)
+
+
+def _flops_of(fn) -> float:
+    """The FLOPs of one extra call of ``fn`` (its output dropped at once,
+    so no step's params or moments outlive it)."""
+    return _real_flops(fn)[1]
 
 
 def _count_kernels(torch, fn) -> int:
@@ -3060,7 +3105,9 @@ def _quantize_cell(torch, np, cfg, params, dev, seed):
     secs = time.perf_counter() - t1
     from repro_torch.configs.base import RECSYS_SHAPES
     n = {c.name: c.dims for c in RECSYS_SHAPES}["serve_bulk"]["batch"]
-    ids = make_recsys_batch(torch.Generator().manual_seed(seed), n,
+    # a CPU Mersenne Twister for the ids, the card's Philox for k-means:
+    # one seed, two unrelated streams
+    ids = make_recsys_batch(torch.Generator().manual_seed(seed), n,  # noqa: TORCH01
                             cfg.n_dense, cfg.table_rows,
                             family=cfg.family)["sparse_ids"].to(dev)
     with torch.no_grad():
@@ -3182,6 +3229,10 @@ def _recsys_phase(args, torch, np, dev, smi, kernel_mods):
         cfg.table_rows, family=cfg.family).items()}
     tr["split"] = _train_split(torch, lambda p: recsys.loss_fn(p, sb, cfg),
                                ocfg, res["params"], res["opt_state"])
+    tr["flops"] = _flops_of(lambda: recsys.train_step(
+        res["params"], res["opt_state"], sb, cfg, ocfg))
+    tr["params_bytes"] = sum(t.numel() * t.element_size()
+                             for t in res["params"].values())
     tr["table_bytes"] = tb
     del sb
     shutil.rmtree(ckpt_dir)
@@ -3257,6 +3308,15 @@ def _recsys_phase(args, torch, np, dev, smi, kernel_mods):
             params, cfg = res["params"], spec.config
             state = res["opt_state"]
             del res
+            fb = {k: v.to(dev) for k, v in make_recsys_batch(
+                torch.Generator().manual_seed(args.seed + 174), train_b,
+                cfg.n_dense, cfg.table_rows, seq_len=cfg.seq_len,
+                family=cfg.family).items()}
+            tr["flops"] = _flops_of(lambda: recsys.train_step(
+                params, state, fb, cfg, ocfg))
+            tr["params_bytes"] = sum(t.numel() * t.element_size()
+                                     for t in params.values())
+            del fb
         else:
             cfg = dataclasses.replace(spec.config, din_prune_p=cut)
             tr, params, state = _recsys_train(
@@ -3396,9 +3456,16 @@ def _pna_phase(args, torch, np, dev, smi, kernel_mods):
                 f"steps each; minibatch_lg from the sampler")
     params = T.params_of(model)
     b = {k: v.to(dev) for k, v in g_sm.items()}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     out["full_graph_sm"], _, _ = _pna_steps(
         torch, np, gnn, cfg, params, opt.init(ocfg, params), ocfg,
         [b] * PNA_STEPS)
+    out["full_graph_sm"]["peak_above_held_bytes"] = (
+        torch.cuda.max_memory_allocated() - held)
+    out["full_graph_sm"]["flops"] = _flops_of(
+        lambda: gnn.train_step(params, opt.init(ocfg, params), b, cfg, ocfg))
     del model, params, b
     mol = dims["molecule"]
     cfg = dataclasses.replace(PNA.config, d_feat=mol["d_feat"],
@@ -3410,9 +3477,16 @@ def _pna_phase(args, torch, np, dev, smi, kernel_mods):
     batches = [{k: v.to(dev) for k, v in make_molecule_batch(
         mg, mol["n_graphs"], mol["nodes_per"], mol["edges_per"],
         mol["d_feat"]).items()} for _ in range(PNA_STEPS)]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     out["molecule"], _, _ = _pna_steps(torch, np, gnn, cfg, params,
                                        opt.init(ocfg, params), ocfg,
                                        batches)
+    out["molecule"]["peak_above_held_bytes"] = (
+        torch.cuda.max_memory_allocated() - held)
+    out["molecule"]["flops"] = _flops_of(lambda: gnn.train_step(
+        params, opt.init(ocfg, params), batches[0], cfg, ocfg))
     del model, params, batches
 
     lg = dims["minibatch_lg"]
@@ -3512,10 +3586,14 @@ def _serve_cell(args, torch, np, dev, mesh, lds_per_s):
     # the main path's run: counters from 0 just before, read just after
     qm.launches = 0
     torch.cuda.synchronize()
+    pre_peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     top_s, top_i = search(*args_)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t1
+    first_peak = torch.cuda.max_memory_allocated() - held
     launches = qm.launches
     r = qm.launch_range_len(SERVE_QUERIES, SERVE_DOCS, dev)
     chunk = r * max(1, scan_mod.MAX_CANDIDATES
@@ -3573,6 +3651,7 @@ def _serve_cell(args, torch, np, dev, mesh, lds_per_s):
     end_ev.record()
     end_ev.synchronize()
     device_ms = start_ev.elapsed_time(end_ev)
+    search_flops = _flops_of(lambda: search(*args_))
     # the kernel alone: the sweep's launches, replayed from a CUDA graph
     all_valid = torch.ones(SERVE_DOCS, dtype=torch.bool, device=dev)
 
@@ -3629,7 +3708,9 @@ def _serve_cell(args, torch, np, dev, mesh, lds_per_s):
            "range_len": r, "docs_per_launch": chunk,
            "codes_and_masks_bytes": codes.numel() + mask.numel(),
            "max_memory_allocated_gib":
-               torch.cuda.max_memory_allocated() / 2**30,
+               max(pre_peak, torch.cuda.max_memory_allocated()) / 2**30,
+           "first_search_peak_above_held_bytes": first_peak,
+           "flops": search_flops,
            "seconds": time.perf_counter() - t0}
     print(json.dumps({"sharded": {"serve_query": out}}))
     del codes, mask, ids, all_valid, plain, table
@@ -3811,6 +3892,258 @@ def _sharded_phase(args, torch, np, dev, cfg, flat_codebook, flat_hit,
                          {"quantized_maxsim": serve_launches},
                          "sharded build": build_launches},
             "serve": serve, "build": build, "world1": world1}
+
+
+def _card_cells(recsys_out, pna, sharded):
+    """The cells phases 12-13 ran at their registry shapes, with what each
+    measured: (arch, shape, config changes, how it held its memory,
+    measured peak bytes, measured FLOPs). ``_HELD`` says what each
+    accounting adds to the dry run's peak."""
+    c = recsys_out["cells"]
+    gib = 2 ** 30
+    serve_query = sharded["serve"]
+
+    def cli(arch):
+        tr = c[arch]["train"]
+        return (arch, "train_batch", {}, "cli",
+                tr["peak_memory_gib"] * gib, tr["flops"])
+
+    def serve(arch, shape, changes=None):
+        r = c[arch][shape]
+        return (arch, shape, changes or {}, "serve", r["peak_bytes"],
+                r["flops"])
+
+    return [
+        cli("dcn-v2"), serve("dcn-v2", "serve_bulk"),
+        serve("dcn-v2", "retrieval_cand"),
+        serve("dlrm-mlperf", "serve_bulk", {"param_dtype": "bfloat16"}),
+        cli("din"), cli("dien"), serve("dien", "serve_bulk"),
+        *[("pna", shape, {}, "steps", pna[shape]["peak_above_held_bytes"],
+           pna[shape]["flops"]) for shape in ("full_graph_sm", "molecule")],
+        ("colpali-hpc", "serve_query", {}, "serve",
+         serve_query["first_search_peak_above_held_bytes"],
+         serve_query["flops"]),
+    ]
+
+
+# What a phase's measurement held beside the step, in the dry run's terms
+# (args = params + optimizer state + batch for a train step; "temp" = the
+# peak above the arguments):
+#   serve: the params and the batch were held before the call: temp;
+#   cli:   launch.train held nothing before it and, from the second step
+#          on, keeps the model's initial weights beside the loop's params
+#          and up to PREFETCH_BATCHES device batches in its pipeline:
+#          args + params + temp + PREFETCH_BATCHES x batch;
+#   steps: the model's params and the batches were held; the optimizer
+#          state and, from the second step on, the loop's params came
+#          after: args - batch + temp.
+_HELD = {
+    "serve": lambda m: m["temp_bytes"],
+    "cli": lambda m: (m["argument_bytes"] + m["argument_bytes_each"][0]
+                      + m["temp_bytes"]
+                      + PREFETCH_BATCHES * m["argument_bytes_each"][2]),
+    "steps": lambda m: (m["argument_bytes"] - m["argument_bytes_each"][2]
+                        + m["temp_bytes"]),
+}
+
+
+def _fresh_registers(torch):
+    """Registers per thread of each kernel source, from a build's ptxas
+    lines: this run's build, or a fresh compile under build/ when the
+    library came from an earlier run."""
+    import tempfile
+    from repro_torch.kernels import _build
+    if _build.last_build.get("compiled"):
+        return _build.registers(), "this run's build"
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        log = _build._compile(_build._sources(), Path(tmp) / _build.LIB_NAME)
+    return _build.registers(log), "a fresh compile"
+
+
+def _launch_checks(torch, dev, kernel_mods):
+    """14b: the launched shapes' geometry against the library's, PAL01-04
+    at the sites and launched shapes, PAL03 on the card at every site."""
+    from repro_torch.analysis import pallas_check as pc
+    from repro_torch.kernels import _build, vmem
+    exports = {"quantized_maxsim": "hpc_qmaxsim_geometry",
+               "maxsim": "hpc_maxsim_geometry",
+               "hamming_maxsim": "hpc_hamming_geometry",
+               "kmeans_assign": "hpc_kmeans_assign_geometry"}
+    dtypes = {"quantized_maxsim": (torch.float32,),
+              "quantized_maxsim_topk": (torch.float32, torch.int32),
+              "maxsim": (torch.float32,), "hamming_maxsim": (torch.int32,),
+              "kmeans_assign": (torch.int32,)}
+    budget = vmem.device_budget(dev)
+    regs, regs_from = _fresh_registers(torch)
+    table = json.loads(pc.REGISTERS_JSON.read_text())["registers"]
+    assert regs == table, f"csrc/registers.json {table} != {regs_from} {regs}"
+    rows, findings, n_shapes = [], [], 0
+    for name, mod in kernel_mods.items():
+        for key, geom in sorted(mod.launch_shapes.items()):
+            n_shapes += 1
+            c = _build.c_geometry(exports[name], *key)
+            assert c == geom.as_c(), \
+                f"{name} at {key}: Python {geom.as_c()} != library {c}"
+            f = pc.check_geometry(geom, f"{name}{list(key)}",
+                                  dtypes[geom.kernel], budget=budget,
+                                  registers=regs)
+            findings += f
+            rows.append({"kernel": geom.kernel, "shape": list(key),
+                         "grid": list(geom.grid), "block": geom.threads,
+                         "smem": geom.smem, "config": list(geom.config),
+                         "registers": regs[pc._SOURCES[geom.kernel]],
+                         "findings": [str(x) for x in f]})
+    for site in pc.kernel_sites():
+        geom = site.geometry(budget)
+        c = _build.c_geometry(site.c_call[0], *site.c_call[1])
+        assert c == geom.as_c(), \
+            f"site {site.name}: Python {geom.as_c()} != library {c}"
+        f = pc.check_site(site, budget=budget, registers=regs)
+        findings += f
+        card = pc.launch_site(site, dev)
+        assert card["unwritten"] == 0, f"PAL03 on the card: {card}"
+        rows.append({"kernel": geom.kernel, "site": site.name,
+                     "shape": dict(site.dims), "grid": list(geom.grid),
+                     "block": geom.threads, "smem": geom.smem,
+                     "config": list(geom.config),
+                     "registers": regs[pc._SOURCES[geom.kernel]],
+                     "sentinel_elements": card["elements"],
+                     "sentinel_unwritten": card["unwritten"],
+                     "findings": [str(x) for x in f]})
+    torch.cuda.empty_cache()
+    print(json.dumps({"launch_check": rows}))
+    print(f"launch geometry: {n_shapes} launched shapes and "
+          f"{len(pc.kernel_sites())} sites equal to the library's; "
+          f"registers {regs} ({regs_from}) == csrc/registers.json; budget "
+          f"{budget.smem} B shared, {budget.regs_per_sm} registers per SM "
+          f"({budget.source}); {len(findings)} finding(s)")
+    assert not findings, "\n".join(map(str, findings))
+    return {"launched_shapes": n_shapes, "sites": len(pc.kernel_sites()),
+            "registers": regs, "registers_from": regs_from}
+
+
+def _dryrun_checks(torch, dev, recsys_out, pna, sharded):
+    """14c: every non-skipped cell on fake CUDA tensors, then the cells
+    phases 12-13 ran held to the card."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    t1 = time.perf_counter()
+    todo = [(a, c.name) for a, c in registry.all_cells()]
+    recs = dryrun.run_cells(todo, workers=DRYRUN_WORKERS, device="cuda")
+    wall = time.perf_counter() - t1
+    bad = [(r["arch"], r["shape"], r.get("error")) for r in recs
+           if r["status"] != "ok"]
+    print(json.dumps({"dryrun": [
+        {"arch": r["arch"], "shape": r["shape"], "status": r["status"],
+         **({"trace_s": r["trace_s"], "cost_source": r["cost_source"],
+             "flops": r["flops_per_dev"],
+             "model_flops": r["meta"]["model_flops"],
+             "hbm_bytes": r["hbm_bytes_per_dev"],
+             "peak_bytes": r["mem"]["peak_bytes"],
+             "peak_source": r["mem"]["peak_source"],
+             "fits": r["mem"]["fits"],
+             "dominant": r["roofline"]["dominant"],
+             "roofline_frac": r["roofline"]["roofline_frac"]}
+            if r["status"] == "ok" else {"error": r.get("error")})}
+        for r in recs], "workers": DRYRUN_WORKERS, "wall_s": wall}))
+    assert len(recs) == 39 and not bad, f"dry run failed: {bad}"
+    by_cell = {(r["arch"], r["shape"]): r for r in recs}
+    rows = []
+    for arch, shape, changes, held, measured, real in _card_cells(
+            recsys_out, pna, sharded):
+        if changes:
+            spec = registry.get(arch)
+            spec = dataclasses.replace(spec, config=dataclasses.replace(
+                spec.config, **changes))
+            cell = next(c for c in spec.shapes if c.name == shape)
+            world = dryrun._world_mesh("cuda") if cell.kind == "search" \
+                else None
+            m = dryrun.exact_cost_metrics(spec, cell, world, device="cuda")
+            mem = {"argument_bytes": m["argument_bytes"],
+                   "argument_bytes_each": m["argument_bytes_each"],
+                   "temp_bytes": m["peak_above_args"]}
+            flops = m["flops"]
+        else:
+            mem, flops = by_cell[(arch, shape)]["mem"], \
+                by_cell[(arch, shape)]["flops_per_dev"]
+        predicted = _HELD[held](mem)
+        band = max(PEAK_BAND * measured, PEAK_FLOOR)
+        rows.append({"arch": arch, "shape": shape, "changes": changes,
+                     "held": held, "predicted_bytes": predicted,
+                     "measured_bytes": measured,
+                     "ratio": predicted / measured if measured else None,
+                     "band_bytes": band,
+                     "ok": abs(predicted - measured) <= band,
+                     "flops_fake": flops, "flops_real": real})
+    print(json.dumps({"dryrun_vs_card": rows}))
+    for r in rows:
+        print(f"{r['arch']} {r['shape']} ({r['held']}): predicted "
+              f"{r['predicted_bytes'] / 2**30:.3f} GiB, measured "
+              f"{r['measured_bytes'] / 2**30:.3f} GiB (x{r['ratio']:.4f}); "
+              f"FLOPs fake {r['flops_fake']:.6g} real {r['flops_real']:.6g}")
+    off = [r for r in rows if not r["ok"]]
+    assert not off, f"dry-run peaks outside the band: {off}"
+    flop_off = [r for r in rows if r["flops_fake"] != r["flops_real"]]
+    assert not flop_off, f"fake FLOPs != real FLOPs: {flop_off}"
+    return {"cells": len(recs), "wall_s": wall, "vs_card": rows}
+
+
+def _cost_checks():
+    """14d: every manifest's cost on the h100 roofline, held to
+    COST_baseline_torch.json."""
+    from repro_torch.analysis.cost_model import (check_against_baseline,
+                                                 cost_report, load_baseline)
+    from repro_torch.analysis.manifests import manifests
+    reports = [cost_report(m) for m in manifests()]
+    drift = check_against_baseline(reports, load_baseline())
+    print(json.dumps({"cost": {
+        r["manifest"]: {"flops": r["flops"], "hbm_bytes": r["hbm_bytes"],
+                        "flops_per_doc": r["flops_per_doc"],
+                        "bytes_per_doc": r["bytes_per_doc"],
+                        "intensity": r["intensity"],
+                        "bound_h100": r["bound"]["h100"],
+                        "roofline_s_h100": r["roofline_s"]["h100"],
+                        "ok": r["ok"]} for r in reports},
+        "drift": [str(d) for d in drift]}))
+    assert all(r["ok"] for r in reports), \
+        [r["violations"] for r in reports if not r["ok"]]
+    assert not drift, [str(d) for d in drift]
+    return {"manifests": len(reports)}
+
+
+def _analysis_phase(args, torch, np, dev, smi, kernel_mods, recsys_out, pna,
+                    sharded):
+    """Phase 14: (a) lint, (b) launch geometry, (c) the dry run held to
+    the card, (d) the cost model."""
+    from repro_torch.analysis.astchecks import TORCH_RULES
+    from repro_torch.analysis.lintcore import RUFF_FALLBACK_RULES, run_paths
+    t0 = _phase("14. analysis: lint, launch geometry, the dry run, the cost "
+                "model")
+    t1 = time.perf_counter()
+    findings = run_paths([ROOT / "src" / "repro_torch",
+                          Path(__file__).resolve()],
+                         tuple(RUFF_FALLBACK_RULES) + tuple(TORCH_RULES))
+    print(json.dumps({"lint": {"findings": [str(f) for f in findings],
+                               "seconds": time.perf_counter() - t1}}))
+    assert not findings, "\n".join(map(str, findings))
+    t1 = time.perf_counter()
+    out = {"launch": _launch_checks(torch, dev, kernel_mods)}
+    out["launch"]["seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["dryrun"] = _dryrun_checks(torch, dev, recsys_out, pna, sharded)
+    out["dryrun"]["seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["cost"] = _cost_checks()
+    out["cost"]["seconds"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"analysis": {k: (v if not isinstance(v, dict) else
+                                       {kk: vv for kk, vv in v.items()
+                                        if kk != "vs_card"})
+                                   for k, v in out.items()}, "smi": smi}))
+    print(f"phase 14 {out['seconds']:.1f}s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -4554,6 +4887,8 @@ def main(argv=None) -> int:
     sharded = _sharded_phase(args, torch, np, dev, cfg, flat_codebook,
                              flat_hit, lds_per_s)
     serve = sharded["serve"]
+    _analysis_phase(args, torch, np, dev, smi, kernel_mods, recsys_out, pna,
+                    sharded)
     qm_abs_err = max(qm_abs_err, serve["max_abs_err"])
 
     by_path = {"flat": {"quantized_maxsim": qm_launches,

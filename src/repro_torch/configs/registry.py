@@ -23,6 +23,9 @@ ARCHS: Dict[str, ArchSpec] = {
 }
 
 
+ASSIGNED = [a for a in ARCHS if a != "colpali-hpc"]
+
+
 def get(arch_id: str) -> ArchSpec:
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch '{arch_id}'; known: {sorted(ARCHS)}")

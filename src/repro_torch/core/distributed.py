@@ -124,7 +124,7 @@ def _farthest(min_d2: Tensor, kk: int) -> Tensor:
     a top-k threshold so only the candidates are sorted."""
     if kk >= min_d2.shape[0]:
         return torch.sort(min_d2, descending=True, stable=True).indices
-    thr = torch.topk(min_d2, kk).values[-1]
+    thr = torch.topk(min_d2, kk).values[-1]  # noqa: TORCH04 (kk < len)
     cand = torch.nonzero(min_d2 >= thr)[:, 0]
     order = torch.sort(min_d2[cand], descending=True, stable=True).indices
     return cand[order[:kk]]

@@ -54,6 +54,7 @@ from repro_torch.core import late_interaction as li
 from repro_torch.kernels import hamming as hamming_k
 from repro_torch.kernels import maxsim as maxsim_k
 from repro_torch.kernels import quantized_maxsim as qmaxsim_k
+from repro_torch.kernels import vmem
 
 NEG_INF = li.NEG_INF
 Tensor = torch.Tensor
@@ -128,6 +129,18 @@ def _merge(top_s: Tensor, top_i: Tensor, s: Tensor, ids: Tensor, k: int
     return srt[:, :k], torch.gather(cat_i, 1, sel[:, :k])
 
 
+def _head(s: Tensor, ids: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """The candidates' own top k in the merge's order (score descending,
+    then list order): merging the buffer with it gives what merging it
+    with every candidate gives, both sorts being stable, and the (B, k +
+    C) concatenation of a sweep's lists never exists (it held the ADC
+    sweep's peak above the reference's budget of 16 B per document)."""
+    if s.shape[1] <= k:
+        return s, ids
+    srt, sel = torch.sort(s, dim=1, descending=True, stable=True)
+    return srt[:, :k].contiguous(), torch.gather(ids, 1, sel[:, :k])
+
+
 def _streaming_topk(score_block: Callable[..., Tensor], payload: tuple,
                     doc_ids: Tensor, valid: Tensor, *, b: int, n: int,
                     k: int, block_docs: int, per_query: bool,
@@ -152,7 +165,7 @@ def _streaming_topk(score_block: Callable[..., Tensor], payload: tuple,
     invalid_score = NEG_INF if score_dtype.is_floating_point else sent
 
     # full blocks, then the ragged N % block tail at its natural size
-    for start in range(0, n, block):
+    for start in vmem.sweep(range(0, n, block), n):
         t = min(block, n - start)
         blk = tuple(a.narrow(axis, start, t) for a in payload)
         ids = doc_ids.narrow(doc_ids.dim() - 1, start, t)
@@ -220,18 +233,24 @@ def quantized_maxsim_topk(q: Tensor, q_mask: Tensor, codes: Tensor,
     # positions per launch and merge: whole ranges, the lists within bound
     chunk = r * max(1, MAX_CANDIDATES // max(1, b * min(k, r)))
     axis = 1 if per_query else 0
-    for start in range(0, n, chunk):
+    for start in vmem.sweep(range(0, n, chunk), n):
         t = min(chunk, n - start)
         s, pos = lists(table, q_mask_f, codes.narrow(axis, start, t),
                        d_mask.narrow(axis, start, t),
                        valid.narrow(valid.dim() - 1, start, t), k=k,
                        range_len=r)
+        # positions -> ids, each list-sized temporary dropped once used
         pos = pos.reshape(b, -1)
-        ids = doc_ids.narrow(doc_ids.dim() - 1, start, t)
+        ok = pos >= 0
         safe = torch.clamp(pos, min=0).to(torch.int64)
+        del pos
+        ids = doc_ids.narrow(doc_ids.dim() - 1, start, t)
         ids = ids[safe] if ids.dim() == 1 else torch.gather(ids, 1, safe)
-        top_s, top_i = _merge(top_s, top_i, s.reshape(b, -1),
-                              torch.where(pos >= 0, ids, -1), k)
+        del safe
+        ids = torch.where(ok, ids, -1)
+        del ok
+        top_s, top_i = _merge(top_s, top_i, *_head(s.reshape(b, -1), ids, k),
+                              k)
     return top_s, top_i
 
 

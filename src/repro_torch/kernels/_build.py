@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,8 +40,6 @@ LIB_NAME = "libhpc_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# shared memory one block may use on Hopper (227 KB)
-MAX_SMEM = 232448
 # what the kernels read as stored: codes by their byte width, 1-byte masks
 CODE_BYTES = {torch.uint8: 1, torch.uint16: 2}
 MASK_DTYPES = (torch.bool, torch.uint8)
@@ -48,7 +47,6 @@ MASK_DTYPES = (torch.bool, torch.uint8)
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 last_build: Dict[str, object] = {}
-_sm_counts: Dict[int, int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,6 +65,11 @@ _SIGNATURES = {
     "hpc_maxsim": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL,
                     _LL, _LL, _I, _P, _P, _P, _I, _I, _P], _I),
     "hpc_maxsim_smem_bytes": ([_I, _I, _I, _I], _LL),
+    "hpc_hamming_geometry": ([_I, _I, _I, _P], _I),
+    "hpc_kmeans_assign_geometry": ([_LL, _I, _I, _I, _P], _I),
+    "hpc_maxsim_geometry": ([_I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "hpc_qmaxsim_geometry": ([_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I),
     "hpc_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -147,15 +150,30 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device (the persistent grids'
-    cap)."""
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if index not in _sm_counts:
-        _sm_counts[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _sm_counts[index]
+def c_geometry(name: str, *args) -> Optional[tuple]:
+    """One ``hpc_*_geometry`` export's numbers (grid.x, grid.y, threads,
+    shared bytes, config) at these arguments, or None where its launcher
+    launches nothing or refuses them."""
+    out = (ctypes.c_longlong * 8)()
+    if getattr(library(), name)(*args, out) != 0:
+        return None
+    return tuple(int(v) for v in out)
+
+
+def registers(log: Optional[str] = None) -> Dict[str, int]:
+    """Registers per thread of each source's kernels from the ``-Xptxas
+    -v`` lines of a build log (``last_build["log"]`` by default): the most
+    any of its template instances uses, keyed by the source's stem."""
+    log = last_build.get("log", "") if log is None else log
+    out: Dict[str, int] = {}
+    src = None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip().rsplit(".", 1)[0]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and src is not None:
+            out[src] = max(out.get(src, 0), int(m.group(1)))
+    return out
 
 
 def check(err: int, what: str) -> None:

@@ -129,6 +129,17 @@ int launch(const int32_t* q_codes, const int32_t* q_w, const void* codes,
 
 extern "C" {
 
+// The launch hpc_hamming_maxsim makes at these shapes: out[0..7] = grid.x,
+// grid.y, threads per block, dynamic shared bytes, documents per block,
+// 0, 0, 0. Returns 0, or -1 when it launches nothing or refuses them.
+int hpc_hamming_geometry(int b, int n, int bits, long long* out) {
+  if (b <= 0 || n <= 0 || bits < 1 || bits > 16 || b > 65535) return -1;
+  const long long v[8] = {(n + kWarps - 1) / kWarps, b, kWarps * 32, 0,
+                          kWarps, 0, 0, 0};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
 // Returns a cudaError_t (0 on success). q_codes and q_w are (B, Mq) int32;
 // code_bytes is 1 (uint8 codes) or 2 (uint16); d_mask is 1 byte per patch;
 // out is (B, N) int32; strides are in elements.

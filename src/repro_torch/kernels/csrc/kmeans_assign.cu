@@ -335,6 +335,24 @@ long long hpc_kmeans_assign_smem_bytes(int d, int k) {
   return cfg.smem;
 }
 
+// The launch hpc_kmeans_assign makes at these shapes: out[0..7] = grid.x,
+// grid.y, threads per block, dynamic shared bytes, rows per tile, n tiles
+// per warp, codebook chunk, ring slots. Returns 0, or -1 when it launches
+// nothing or refuses them.
+int hpc_kmeans_assign_geometry(long long n, int d, int k, int sm_count,
+                               long long* out) {
+  Config cfg;
+  if (n <= 0 || d <= 0 || k <= 0 || sm_count <= 0 ||
+      !choose(d, k, n, sm_count, &cfg))
+    return -1;
+  const long long n_tiles = (n + cfg.wm * 32 - 1) / (cfg.wm * 32);
+  const long long v[8] = {n_tiles < sm_count ? n_tiles : sm_count, 1,
+                          kThreads, cfg.smem, cfg.wm * 32, cfg.nt, cfg.kc,
+                          cfg.stages};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
 // Returns a cudaError_t (0 on success). x (N, D) and c (K, D) f32 and
 // contiguous, out (N,) int32; sm_count caps the persistent grid.
 int hpc_kmeans_assign(const float* x, const float* c, int32_t* out,

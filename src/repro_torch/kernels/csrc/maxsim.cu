@@ -446,6 +446,27 @@ long long hpc_maxsim_smem_bytes(int layout, int b, int mq, int d) {
   return cfg.smem;
 }
 
+// The launch hpc_maxsim makes at these shapes: out[0..7] = grid.x, grid.y,
+// threads per block, dynamic shared bytes, queries per block, warps along
+// the patches, ring slots, whether the query rows are split once. Returns
+// 0, or -1 when it launches nothing or refuses them.
+int hpc_maxsim_geometry(int layout, int b, int mq, int n_out, int md, int d,
+                        int max_qpb, int sm_count, long long* out) {
+  Config cfg;
+  if (b <= 0 || n_out <= 0 || mq <= 0 || md <= 0 || sm_count <= 0 ||
+      layout < 0 || layout > 2 || !choose(layout, b, mq, d, max_qpb, &cfg))
+    return -1;
+  const int groups = (b + cfg.qpb - 1) / cfg.qpb;
+  int per_group = sm_count / groups;
+  if (per_group < 1) per_group = 1;
+  if (groups > 65535) return -1;
+  const long long v[8] = {n_out < per_group ? n_out : per_group, groups,
+                          kThreads, cfg.smem, cfg.qpb, cfg.mg, cfg.stages,
+                          cfg.pre ? 1 : 0};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
 // Returns a cudaError_t (0 on success). q (B, Mq, D) f32 contiguous, qm
 // (B, Mq) f32, masks 1 byte per patch, out (B, n_out) f32. layout 0:
 // docs (N, Md, D), n_out = N; 1: docs (B, P, Md, D) with batch strides

@@ -429,6 +429,30 @@ int hpc_qmaxsim_topk(const float* table, const float* q_mask,
                         static_cast<cudaStream_t>(stream));
 }
 
+// The launch hpc_qmaxsim (top_k = 0, max_q 2) or hpc_qmaxsim_topk makes at
+// these shapes, per_query != 0 for pools (a nonzero batch stride):
+// out[0..7] = grid.x, grid.y, threads per block, dynamic shared bytes,
+// queries per block, 0, 0, 0. Returns 0, or -1 when it launches nothing or
+// refuses them.
+int hpc_qmaxsim_geometry(int code_bytes, int b, int mq, int k, int n, int md,
+                         int per_query, int range_len, int top_k, int max_q,
+                         long long* out) {
+  const Params p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, mq, k, n, md, (mq + 31) / 32, range_len, top_k,
+                 per_query ? 1LL : 0LL, per_query ? 1LL : 0LL, 0};
+  if (b <= 0 || n <= 0 || (code_bytes != 1 && code_bytes != 2)) return -1;
+  const int q = queries_per_block(p, code_bytes, b, max_q);
+  const long long smem = smem_for(code_bytes, mq, k, md, range_len, q);
+  if (smem > kMaxDynamicSmem || b > 65535 || mq <= 0 || k <= 0 || md <= 0 ||
+      range_len <= 0 || range_len > kMaxRange ||
+      (top_k != 0 && (top_k < 0 || top_k > range_len)))
+    return -1;
+  const long long v[8] = {(n + range_len - 1) / range_len, (b + q - 1) / q,
+                          kThreads, smem, q, 0, 0, 0};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
 const char* hpc_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

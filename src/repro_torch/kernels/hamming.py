@@ -18,7 +18,11 @@ Both functions take the two layouts of the streaming scan: a shared corpus
 (codes/d_mask (N, Md)) and per-query pools (codes/d_mask (B, P, Md)).
 ``hamming_maxsim_cuda`` reads the codes (uint8 or uint16) and the bool mask
 as stored; a slice of a per-query pool along P goes in through its batch
-stride. ``launches`` counts the kernel launches of this process.
+stride. ``launches`` counts the kernel launches of this process and
+``launch_shapes`` maps each distinct launch's ``hpc_hamming_geometry``
+arguments to its geometry (``kernels.vmem``). Under a ``FakeTensorMode``
+the wrapper launches nothing: it records the launch and returns an empty
+output of the declared shape (``vmem.fake_launch``).
 """
 from __future__ import annotations
 
@@ -28,10 +32,22 @@ import torch
 
 from repro_torch.core import binary as binary_mod
 from repro_torch.core.late_interaction import BINARY_MASKED
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, vmem
 
 launches = 0
+launch_shapes: dict = {}
 _count_lock = threading.Lock()
+
+
+def launch_cost(b: int, mq: int, n: int, md: int, code_bytes: int,
+                mask_bytes: int, per_query: bool):
+    """(FLOPs, bytes) of one launch with every patch valid: a popcount per
+    query patch and doc patch; every input read once, the output written
+    once (chip_smoke.py's ``_hamming_cost``)."""
+    slots = (b if per_query else 1) * n * md
+    pops = mq * slots * (1 if per_query else b)
+    return float(pops), float(2 * b * mq * 4 + slots * (code_bytes + mask_bytes)
+                              + b * n * 4)
 
 
 def hamming_maxsim_plain(q_codes: torch.Tensor, q_mask: torch.Tensor,
@@ -110,8 +126,15 @@ def hamming_maxsim_cuda(q_codes: torch.Tensor, q_mask: torch.Tensor,
     _build.check_layout("d_mask", d_mask, codes.shape,
                         batch_strided=codes.dim() == 3)
     per_query = codes.dim() == 3
+    geom = vmem.hamming_geometry(b, n, bits)
+    key = (b, n, bits)
+    cost = launch_cost(b, mq, n, md, _build.CODE_BYTES[codes.dtype],
+                       d_mask.element_size(), per_query)
+    if vmem.is_fake(q_codes):
+        return vmem.fake_launch(geom, q_codes.device, {"args": key},
+                                *cost, outputs=(((b, n), torch.int32),))
     out = torch.empty((b, n), dtype=torch.int32, device=q_codes.device)
-    if b == 0 or n == 0:
+    if geom is None:
         return out
     lib = _build.library()
     stream = torch.cuda.current_stream(q_codes.device).cuda_stream
@@ -123,4 +146,6 @@ def hamming_maxsim_cuda(q_codes: torch.Tensor, q_mask: torch.Tensor,
     _build.check(err, "hamming_maxsim kernel launch")
     with _count_lock:
         launches += 1
+        launch_shapes.setdefault(key, geom)
+    vmem.record_launch(geom, {"args": key}, *cost)
     return out

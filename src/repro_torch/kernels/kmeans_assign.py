@@ -9,7 +9,10 @@ out, as the TPU kernel leaves it out. The kernel is
 ``csrc/kmeans_assign.cu``: the product runs on the tensor cores in 3xTF32
 (a split-precision f32 product, within a few f32 ulps of f32 FMAs), so its
 codes agree with the plain version's except at near-ties. ``launches``
-counts its launches in this process.
+counts its launches in this process and ``launch_shapes`` maps each
+distinct launch's ``hpc_kmeans_assign_geometry`` arguments to its geometry
+(``kernels.vmem``); under a ``FakeTensorMode`` nothing is launched
+(``vmem.fake_launch``).
 """
 from __future__ import annotations
 
@@ -17,10 +20,17 @@ import threading
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, vmem
 
 launches = 0
+launch_shapes: dict = {}
 _count_lock = threading.Lock()
+
+
+def launch_cost(n: int, d: int, k: int):
+    """(FLOPs, bytes) of one launch: the (N, K) product's 2 N K D; x, the
+    codebook and the codes once each."""
+    return 2.0 * n * k * d, float(n * d * 4 + k * d * 4 + n * 4)
 
 
 def kmeans_assign_plain(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -52,18 +62,24 @@ def kmeans_assign_cuda(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor
     k = centroids.shape[0]
     if k == 0:
         raise ValueError("kmeans_assign_cuda needs at least one centroid")
+    fake = vmem.is_fake(x)
+    sms = vmem.sm_count(x.device)
+    geom = vmem.kmeans_assign_geometry(n, d, k, sms)
+    key = (n, d, k, sms)
+    cost = launch_cost(n, d, k)
+    if fake:
+        return vmem.fake_launch(geom, x.device, {"args": key}, *cost,
+                                outputs=(((n,), torch.int32),))
     out = torch.empty((n,), dtype=torch.int32, device=x.device)
-    if n == 0:
+    if geom is None:
         return out
     lib = _build.library()
-    if lib.hpc_kmeans_assign_smem_bytes(d, k) < 0:
-        raise ValueError(f"kmeans_assign_cuda: D={d} leaves no room for a "
-                         f"row tile and a codebook chunk in shared memory")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.hpc_kmeans_assign(x.data_ptr(), centroids.data_ptr(),
-                                out.data_ptr(), n, d, k,
-                                _build.sm_count(x.device), stream)
+                                out.data_ptr(), n, d, k, sms, stream)
     _build.check(err, "kmeans_assign kernel launch")
     with _count_lock:
         launches += 1
+        launch_shapes.setdefault(key, geom)
+    vmem.record_launch(geom, {"args": key}, *cost)
     return out

@@ -22,7 +22,9 @@ order. The kernel reads them through a table of at most
 ``MAX_SEGMENTS`` entries per launch. A -1 slot scores NEG_INF, the
 scan's score for an empty slot; an id >= N (N = every segment's rows)
 scores NaN (the kernel never reads it). ``launches`` counts the kernel
-launches of this process.
+launches of this process and ``launch_shapes`` maps each distinct launch's
+``hpc_maxsim_geometry`` arguments to its geometry (``kernels.vmem``);
+under a ``FakeTensorMode`` nothing is launched (``vmem.fake_launch``).
 """
 from __future__ import annotations
 
@@ -33,9 +35,10 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.core.late_interaction import NEG_INF
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, vmem
 
 launches = 0
+launch_shapes: dict = {}
 _count_lock = threading.Lock()
 
 # the kernel's layouts (csrc/maxsim.cu)
@@ -45,6 +48,19 @@ _SHARED, _PER_QUERY, _ROWS = 0, 1, 2
 MAX_SEGMENTS = 32
 
 Corpus = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def launch_cost(b: int, mq: int, n_out: int, md: int, d: int,
+                mask_bytes: int, rows: bool):
+    """(FLOPs, bytes) of one launch with every patch valid: 2 D FLOPs per
+    query patch and doc patch of each query's docs; every input read once
+    (with rows: each slot's row), the output written once (chip_smoke.py's
+    ``_maxsim_cost``)."""
+    per_query_docs = n_out
+    flops = 2.0 * d * mq * md * per_query_docs * b
+    docs = (b * n_out if rows else n_out) * md * (d * 4 + mask_bytes)
+    return flops, float(b * mq * d * 4 + b * mq * 4 + docs
+                        + (b * n_out * 4 if rows else 0) + b * n_out * 4)
 
 
 def _segments(docs: Corpus, d_mask: Corpus
@@ -191,6 +207,7 @@ def _launch(q, q_mask, docs, d_mask, rows, table, max_queries_per_block):
     _build.check_layout("d_mask", d_mask, docs.shape[:-1],
                         batch_strided=per_query)
     n_seg, seg_docs, seg_mask, seg_start = 0, None, None, None
+    fake = vmem.is_fake(q)
     if rows is not None:
         segs, masks, starts = table
         for i, (seg, m) in enumerate(zip(segs, masks)):
@@ -201,9 +218,11 @@ def _launch(q, q_mask, docs, d_mask, rows, table, max_queries_per_block):
             _build.check_layout(f"segment {i} mask", m, (seg.shape[0], md))
         n_seg = len(segs)
         n = starts[-1] + int(segs[-1].shape[0])
-        seg_docs = (ctypes.c_void_p * n_seg)(*[t.data_ptr() for t in segs])
-        seg_mask = (ctypes.c_void_p * n_seg)(*[t.data_ptr() for t in masks])
-        seg_start = (ctypes.c_int * n_seg)(*starts)
+        if not fake:
+            seg_docs = (ctypes.c_void_p * n_seg)(*[t.data_ptr() for t in segs])
+            seg_mask = (ctypes.c_void_p * n_seg)(*[t.data_ptr()
+                                                   for t in masks])
+            seg_start = (ctypes.c_int * n_seg)(*starts)
     n_out = rows.shape[1] if rows is not None else n
     if b == 0 or n_out == 0 or mq == 0:
         return torch.zeros((b, n_out), dtype=torch.float32, device=q.device)
@@ -214,11 +233,14 @@ def _launch(q, q_mask, docs, d_mask, rows, table, max_queries_per_block):
                          f"{max_queries_per_block}")
     layout = _ROWS if rows is not None else (_PER_QUERY if per_query
                                              else _SHARED)
+    sms = vmem.sm_count(q.device)
+    key = (layout, b, mq, n_out, md, d, max_queries_per_block, sms)
+    geom = vmem.maxsim_geometry(*key)
+    cost = launch_cost(b, mq, n_out, md, d, d_mask.element_size(),
+                       rows is not None)
+    if fake:
+        return vmem.fake_launch(geom, q.device, {"args": key}, *cost)
     lib = _build.library()
-    if lib.hpc_maxsim_smem_bytes(layout, b, mq, d) < 0:
-        raise ValueError(f"maxsim_cuda: Mq={mq}, D={d} do not fit in a "
-                         f"block's {_build.MAX_SMEM} B of shared memory "
-                         f"(Mq <= 256)")
     out = torch.empty((b, n_out), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.hpc_maxsim(
@@ -228,8 +250,10 @@ def _launch(q, q_mask, docs, d_mask, rows, table, max_queries_per_block):
         docs.stride(0) if per_query else 0,
         d_mask.stride(0) if per_query else 0,
         rows.stride(0) if rows is not None else 0, n_seg, seg_docs, seg_mask,
-        seg_start, max_queries_per_block, _build.sm_count(q.device), stream)
+        seg_start, max_queries_per_block, sms, stream)
     _build.check(err, "maxsim kernel launch")
     with _count_lock:
         launches += 1
+        launch_shapes.setdefault(key, geom)
+    vmem.record_launch(geom, {"args": key}, *cost)
     return out

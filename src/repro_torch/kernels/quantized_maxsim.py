@@ -26,7 +26,11 @@ The CUDA wrappers read the codes (uint8, or uint16 for K > 256) and the
 bool mask as stored, so the scan never widens them in device memory; a
 slice of a per-query pool along P goes in as it is, through its batch
 stride. ``launches`` counts the kernel launches of both entries in this
-process.
+process and ``launch_shapes`` maps each distinct launch's
+``hpc_qmaxsim_geometry`` arguments to its geometry (``kernels.vmem``).
+Under a ``FakeTensorMode`` the wrappers launch nothing: they record the
+launch and return empty outputs of the declared shapes
+(``vmem.fake_launch``).
 """
 from __future__ import annotations
 
@@ -36,9 +40,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.late_interaction import NEG_INF
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, vmem
 
 launches = 0
+launch_shapes: dict = {}
 _count_lock = threading.Lock()
 
 # Range lengths of the CUDA launch: at most the kernel's shared score buffer
@@ -55,7 +60,7 @@ def launch_range_len(b: int, n: int, device) -> int:
     """The CUDA launch's range length for B queries over N positions: the
     longest power of two in [MIN_RANGE, MAX_RANGE] whose B x ranges still
     number BLOCKS_PER_SM for every SM of the card."""
-    want = BLOCKS_PER_SM * _build.sm_count(torch.device(device))
+    want = BLOCKS_PER_SM * vmem.sm_count(device)
     r = MAX_RANGE
     while r > MIN_RANGE and b * -(-n // r) < want:
         r //= 2
@@ -109,8 +114,8 @@ def quantized_maxsim_topk_plain(table: torch.Tensor, q_mask: torch.Tensor,
     out_p = torch.empty((b, n_ranges, kk), dtype=torch.int32,
                         device=table.device)
     axis = 1 if per_query else 0
-    for g in range(n_ranges):
-        start = g * r
+    for start in vmem.sweep(range(0, n, r), n):
+        g = start // r
         t = min(r, n - start)
         s = quantized_maxsim_plain(table, q_mask, codes.narrow(axis, start, t),
                                    d_mask.narrow(axis, start, t))
@@ -166,22 +171,33 @@ def _check_inputs(name: str, table: torch.Tensor, q_mask: torch.Tensor,
             d_mask.stride(0) if per_query else 0)
 
 
-def _library(codes: torch.Tensor, mq: int, k: int, md: int, r: int):
-    """The loaded library, after checking that one block fits."""
-    lib = _build.library()
-    smem = lib.hpc_qmaxsim_smem_bytes(_build.CODE_BYTES[codes.dtype], mq, k,
-                                      md, r)
-    if smem > _build.MAX_SMEM:
-        raise ValueError(f"quantized_maxsim needs {smem} B of shared memory "
-                         f"at Mq={mq}, K={k}, Md={md}; a block may use "
-                         f"{_build.MAX_SMEM}")
-    return lib
+def launch_cost(b: int, mq: int, k: int, n: int, md: int, code_bytes: int,
+                mask_bytes: int, per_query: bool, out_bytes: int):
+    """(lookups, bytes) of one launch with every patch valid: a masked
+    max-lookup per query patch and doc slot of that query's docs; every
+    input read once, the outputs written once (chip_smoke.py's
+    ``_qmaxsim_cost``). The lookups stand as its operations."""
+    slots = (b if per_query else 1) * n * md
+    lookups = mq * slots * (1 if per_query else b)
+    return float(lookups), float(b * mq * k * 4 + b * mq * 4
+                                 + slots * (code_bytes + mask_bytes)
+                                 + out_bytes)
 
 
-def _count() -> None:
+def _geometry(codes, b, mq, k, n, md, c_bs, m_bs, r, top_k, max_q):
+    """The launch's geometry and its ``hpc_qmaxsim_geometry`` arguments."""
+    per_query = c_bs != 0 or m_bs != 0
+    key = (_build.CODE_BYTES[codes.dtype], b, mq, k, n, md, int(per_query),
+           r, top_k, max_q)
+    return vmem.qmaxsim_geometry(*key[:6], per_query, *key[7:]), key
+
+
+def _count(geom, key, cost) -> None:
     global launches
     with _count_lock:
         launches += 1
+        launch_shapes.setdefault(key, geom)
+    vmem.record_launch(geom, {"args": key}, *cost)
 
 
 def quantized_maxsim_cuda(table: torch.Tensor, q_mask: torch.Tensor,
@@ -193,18 +209,24 @@ def quantized_maxsim_cuda(table: torch.Tensor, q_mask: torch.Tensor,
     (quantize never produces them). Raises on anything else."""
     b, mq, k, n, md, c_bs, m_bs = _check_inputs(
         "quantized_maxsim_cuda", table, q_mask, codes, d_mask)
+    r = launch_range_len(b, n, table.device) if b and n else MAX_RANGE
+    geom, key = _geometry(codes, b, mq, k, n, md, c_bs, m_bs, r, 0, 2)
+    cost = launch_cost(b, mq, k, n, md, key[0], d_mask.element_size(),
+                       bool(key[6]), b * n * 4)
+    if vmem.is_fake(table):
+        return vmem.fake_launch(geom, table.device, {"args": key}, *cost,
+                                outputs=(((b, n), torch.float32),))
     out = torch.empty((b, n), dtype=torch.float32, device=table.device)
-    if b == 0 or n == 0:
+    if geom is None:
         return out
-    r = launch_range_len(b, n, table.device)
-    lib = _library(codes, mq, k, md, r)
+    lib = _build.library()
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = lib.hpc_qmaxsim(
         table.data_ptr(), q_mask.data_ptr(), codes.data_ptr(),
         _build.CODE_BYTES[codes.dtype], d_mask.data_ptr(), out.data_ptr(),
         b, mq, k, n, md, c_bs, m_bs, r, stream)
     _build.check(err, "quantized_maxsim kernel launch")
-    _count()
+    _count(geom, key, cost)
     return out
 
 
@@ -247,13 +269,23 @@ def quantized_maxsim_topk_cuda(table: torch.Tensor, q_mask: torch.Tensor,
                          f"{max_queries_per_block}")
     kk = min(k, r)
     n_ranges = -(-n // r)
+    geom, key = _geometry(codes, b, mq, kc, n, md, c_bs, m_bs, r, kk,
+                          max_queries_per_block)
+    cost = launch_cost(b, mq, kc, n, md, key[0], d_mask.element_size(),
+                       bool(key[6]), b * n_ranges * kk * 8 + (
+                           0 if valid is None else valid.numel()))
+    if vmem.is_fake(table):
+        shape = (b, n_ranges, kk)
+        return vmem.fake_launch(geom, table.device, {"args": key}, *cost,
+                                outputs=((shape, torch.float32),
+                                         (shape, torch.int32)))
     out_s = torch.empty((b, n_ranges, kk), dtype=torch.float32,
                         device=table.device)
     out_p = torch.empty((b, n_ranges, kk), dtype=torch.int32,
                         device=table.device)
-    if b == 0 or n == 0:
+    if geom is None:
         return out_s, out_p
-    lib = _library(codes, mq, kc, md, r)
+    lib = _build.library()
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = lib.hpc_qmaxsim_topk(
         table.data_ptr(), q_mask.data_ptr(), codes.data_ptr(),
@@ -262,5 +294,5 @@ def quantized_maxsim_topk_cuda(table: torch.Tensor, q_mask: torch.Tensor,
         out_s.data_ptr(), out_p.data_ptr(), b, mq, kc, n, md, c_bs, m_bs, r,
         kk, max_queries_per_block, stream)
     _build.check(err, "quantized_maxsim_topk kernel launch")
-    _count()
+    _count(geom, key, cost)
     return out_s, out_p

@@ -38,8 +38,11 @@ PEAK_FLOPS_BF16 = 989e12
 HBM_BW = 3.35e12
 # the data sheet's memory; ``HBM_BYTES`` is the present card's own
 HBM_BYTES_DATASHEET = 80 * 2 ** 30
-# No link figure yet: at world size 1 no NVLink is crossed. The dry-run
-# slice, which reckons collective time, adds the NVLink rate.
+# NVLink 4 (H100 SXM data sheet): 900 GB/s per GPU bidirectional, 450 GB/s
+# each way; a ring collective's time is its bytes over the per-direction
+# figure (the dry run's collective term)
+NVLINK_BW_BIDIRECTIONAL = 900e9
+NVLINK_BW_PER_DIRECTION = 450e9
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 

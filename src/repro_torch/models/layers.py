@@ -532,7 +532,8 @@ def moe_route(p: MoE, x: Tensor, top_k: int,
     e = p.router.shape[1]
     c = moe_capacity(t, e, top_k, capacity_factor)
     probs = torch.softmax(x.float() @ p.router, dim=-1)
-    gate, idx = torch.topk(probs, top_k, dim=-1)
+    # top_k <= n_experts = probs.shape[-1] (the configs' routing)
+    gate, idx = torch.topk(probs, top_k, dim=-1)  # noqa: TORCH04
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     flat_e = idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)

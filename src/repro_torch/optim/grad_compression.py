@@ -78,7 +78,8 @@ def topk_compress(grads: Dict[str, Tensor], state: TopKState, frac: float
         acc = g.to(torch.float32) + state.residual[name]
         k = max(1, int(acc.numel() * frac))
         flat = acc.reshape(-1)
-        idx = torch.topk(flat.abs(), k).indices
+        # k = max(1, numel * frac) <= numel for frac <= 1
+        idx = torch.topk(flat.abs(), k).indices  # noqa: TORCH04
         out = torch.zeros_like(flat).index_copy_(0, idx, flat[idx])
         kept[name] = out.reshape(g.shape)
         resid[name] = acc - kept[name]

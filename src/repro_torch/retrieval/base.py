@@ -249,6 +249,33 @@ def state_map(fn: Callable, state: Any) -> Any:
     return state
 
 
+def abstract_tensor(shape, dtype: torch.dtype, device="meta") -> Tensor:
+    """A tensor without data: meta, or fake under a ``FakeTensorMode``."""
+    return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def abstract_layout(payload: Callable[[int], Any], n: int, knobs: dict,
+                    live_shape: Callable[[int], tuple], device,
+                    id_cap_of: Optional[Callable[[int], int]] = None):
+    """A backend's abstract structure: ``payload(n)`` monolithic, or, with
+    ``knobs["segments"]`` (capacities), a SegmentedState of
+    ``payload(cap)`` per segment with bool live bits of ``live_shape(cap)``
+    and an (id_cap,) int32 ``pos_of_id``. Returns (structure, rows of the
+    rerank corpus: n, or id_cap when segmented)."""
+    segments = knobs.get("segments")
+    if segments is None:
+        return payload(n), n
+    id_cap = knobs.get("id_cap")
+    if id_cap is None:
+        id_cap = (id_cap_of or index_mod.segment_capacity)(sum(segments))
+    seg = index_mod.SegmentedState(
+        tuple(payload(c) for c in segments),
+        tuple(abstract_tensor(live_shape(c), torch.bool, device)
+              for c in segments),
+        abstract_tensor((id_cap,), torch.int32, device))
+    return seg, id_cap
+
+
 def _is_int(v) -> bool:
     return isinstance(v, int) and not isinstance(v, bool)
 
@@ -588,6 +615,28 @@ class IndexBackend:
         tombstone_frac) for a segmented one."""
         seg = self._segmented(state)
         return self._segment_stats(seg) if seg is not None else {}
+
+    # -- static analysis ------------------------------------------------------
+
+    def abstract_state(self, *, n: int, md: int = 16, d: int = 16,
+                       k: int = 256, device="meta", **knobs
+                       ) -> RetrieverState:
+        """Shape-only ``RetrieverState`` at corpus size ``n``: no data.
+
+        The static-analysis registration hook (``repro_torch.analysis.
+        manifests``), the counterpart of the reference's: every leaf has
+        the reference's shape with the port's storage dtype (uint8 codes,
+        uint16 for K > 256 and for Hamming codes, bool masks), as meta
+        tensors on ``device="meta"``, or as FakeTensors when called under
+        an active ``FakeTensorMode`` with the fake tensors' device.
+        ``knobs`` carries the backend's structure (ivf: n_list/n_probe/
+        bucket_cap, hnsw: levels/m/ef_search, hamming: bits, cascade:
+        p1/p2; every backend: ``segments``, a tuple of segment capacities,
+        and ``id_cap``) so the traced program matches a real build.
+        """
+        raise NotImplementedError(
+            f"backend {self.name!r} must define abstract_state to register "
+            "with the budget analyzer (repro_torch.analysis.manifests)")
 
     # -- sharding -------------------------------------------------------------
 

@@ -33,9 +33,11 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import binary as binary_mod
 from repro_torch.core import index as index_mod
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
-                                        RetrieverState, encode_corpus,
+                                        RetrieverState, abstract_tensor,
+                                        code_dtype, encode_corpus,
                                         get_backend, register_backend)
 from repro_torch.retrieval.config import HPCConfig
 from repro_torch.retrieval.float_flat import pruned_embeddings
@@ -243,6 +245,31 @@ class CascadeBackend(IndexBackend):
             rerank_mask=("corpus", None))
 
     # -- persistence ------------------------------------------------------
+
+    def abstract_state(self, *, n: int, md: int = 16, d: int = 16,
+                       k: int = 256, device="meta", **knobs
+                       ) -> RetrieverState:
+        """The members' abstract states composed (shape-only)."""
+        bits = knobs.get("bits", binary_mod.bits_for_k(k))
+        p1, p2 = knobs.get("p1", 1024), knobs.get("p2", 64)
+        segments = knobs.get("segments")
+        extra = {}
+        rows = n
+        if segments is not None:
+            rows = knobs.get("id_cap",
+                             index_mod.segment_capacity(sum(segments)))
+            extra = {"segments": segments, "id_cap": rows}
+        members = tuple(
+            get_backend(name).abstract_state(
+                n=n, md=md, d=d, k=k, device=device,
+                **({"bits": bits} if name == "hamming" else {}),
+                **extra).backend_state
+            for name in STAGES)
+        cdt = code_dtype(k)
+        return RetrieverState(abstract_tensor((k, d), torch.float32, device),
+                              CascadeState(members, p1, p2),
+                              abstract_tensor((rows, md), cdt, device),
+                              abstract_tensor((rows, md), torch.bool, device))
 
     def _state_aux(self, state: RetrieverState):
         s = state.backend_state

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.core import index as index_mod
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
+                                        abstract_layout, abstract_tensor,
+                                        code_dtype,
                                         RetrieverState, encode_corpus,
                                         register_backend)
 from repro_torch.retrieval.config import HPCConfig
@@ -91,6 +93,23 @@ class FlatBackend(IndexBackend):
         cb = state.codebook
         return {"payload": codes.numel() * codes.element_size(),
                 "codebook": cb.numel() * cb.element_size()}
+
+    def abstract_state(self, *, n: int, md: int = 16, d: int = 16,
+                       k: int = 256, device="meta", **knobs
+                       ) -> RetrieverState:
+        cdt = code_dtype(k)
+        codebook = abstract_tensor((k, d), torch.float32, device)
+
+        def payload(cap):
+            return index_mod.FlatIndex(
+                abstract_tensor((cap, md), cdt, device),
+                abstract_tensor((cap, md), torch.bool, device), codebook,
+                abstract_tensor((cap,), torch.int32, device))
+
+        bs, rows = abstract_layout(payload, n, knobs, lambda c: (c,), device)
+        return RetrieverState(codebook, bs,
+                              abstract_tensor((rows, md), cdt, device),
+                              abstract_tensor((rows, md), torch.bool, device))
 
     def state_template(self, aux, n_segments: int = 0) -> RetrieverState:
         return RetrieverState(None, index_mod.segmented_template(

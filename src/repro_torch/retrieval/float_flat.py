@@ -14,6 +14,7 @@ import torch
 from repro_torch.core import index as index_mod
 from repro_torch.core import pruning
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
+                                        abstract_layout, abstract_tensor,
                                         RetrieverState, register_backend)
 from repro_torch.retrieval.config import HPCConfig
 
@@ -107,6 +108,21 @@ class FloatFlatBackend(IndexBackend):
             return out
         e = state.backend_state.embeddings
         return {"payload": e.numel() * e.element_size()}
+
+    def abstract_state(self, *, n: int, md: int = 16, d: int = 16,
+                       k: int = 256, device="meta", **knobs
+                       ) -> RetrieverState:
+        def payload(cap):
+            return index_mod.FloatFlatIndex(
+                abstract_tensor((cap, md, d), torch.float32, device),
+                abstract_tensor((cap, md), torch.bool, device),
+                abstract_tensor((cap,), torch.int32, device))
+
+        bs, rows = abstract_layout(payload, n, knobs, lambda c: (c,), device)
+        return RetrieverState(abstract_tensor((1, d), torch.float32, device),
+                              bs,
+                              abstract_tensor((rows, 1), torch.uint8, device),
+                              abstract_tensor((rows, 1), torch.bool, device))
 
     def state_template(self, aux, n_segments: int = 0) -> RetrieverState:
         return RetrieverState(None, index_mod.segmented_template(

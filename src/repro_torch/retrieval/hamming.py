@@ -16,6 +16,8 @@ from repro_torch.core import binary as binary_mod
 from repro_torch.core import index as index_mod
 from repro_torch.core import quantization as quant
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
+                                        abstract_layout, abstract_tensor,
+                                        code_dtype,
                                         RetrieverState, code_dtype,
                                         encode_corpus, register_backend)
 from repro_torch.retrieval.config import HPCConfig
@@ -106,6 +108,25 @@ class HammingBackend(IndexBackend):
 
     def _state_aux(self, state: RetrieverState):
         return state.backend_state.bits
+
+    def abstract_state(self, *, n: int, md: int = 16, d: int = 16,
+                       k: int = 256, device="meta", **knobs
+                       ) -> RetrieverState:
+        bits = knobs.get("bits", binary_mod.bits_for_k(k))
+        cdt = code_dtype(k)
+
+        def payload(cap):
+            # the port stores Hamming codes as uint16 whatever the bits
+            return index_mod.HammingIndex(
+                abstract_tensor((cap, md), torch.uint16, device),
+                abstract_tensor((cap, md), torch.bool, device),
+                abstract_tensor((cap,), torch.int32, device), bits)
+
+        bs, rows = abstract_layout(payload, n, knobs, lambda c: (c,), device)
+        return RetrieverState(abstract_tensor((k, d), torch.float32, device),
+                              HammingState(bs, bits),
+                              abstract_tensor((rows, md), cdt, device),
+                              abstract_tensor((rows, md), torch.bool, device))
 
     def state_template(self, aux, n_segments: int = 0) -> RetrieverState:
         # bits: a 0-d int32 leaf of HammingIndex in the reference, and

@@ -17,6 +17,8 @@ import torch
 from repro_torch.core import graph as graph_mod
 from repro_torch.core import index as index_mod
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
+                                        abstract_layout, abstract_tensor,
+                                        code_dtype,
                                         RetrieverState, encode_corpus,
                                         register_backend)
 from repro_torch.retrieval.config import HPCConfig
@@ -165,6 +167,34 @@ class HNSWBackend(IndexBackend):
 
     def _state_aux(self, state: RetrieverState):
         return state.backend_state.ef_search
+
+    def abstract_state(self, *, n: int, md: int = 16, d: int = 16,
+                       k: int = 256, device="meta", **knobs
+                       ) -> RetrieverState:
+        cfg = graph_mod.HNSWConfig()
+        levels = knobs.get("levels", cfg.levels)
+        m = knobs.get("m", cfg.m)
+        ef_search = knobs.get("ef_search", cfg.ef_search)
+        cdt = code_dtype(k)
+        codebook = abstract_tensor((k, d), torch.float32, device)
+
+        def payload(cap):
+            return graph_mod.HNSWIndex(
+                abstract_tensor((cap, d), torch.float32, device),
+                abstract_tensor((levels, cap, 2 * m), torch.int32, device),
+                0, abstract_tensor((cap,), torch.int32, device),
+                abstract_tensor((cap, md), cdt, device),
+                abstract_tensor((cap, md), torch.bool, device),
+                abstract_tensor((cap,), torch.int32, device), codebook)
+
+        knobs = dict(knobs)
+        if knobs.get("segments") is not None:
+            # one growable graph segment: only segments[0] is used
+            knobs["segments"] = tuple(knobs["segments"][:1])
+        bs, rows = abstract_layout(payload, n, knobs, lambda c: (c,), device)
+        return RetrieverState(codebook, HNSWState(bs, ef_search),
+                              abstract_tensor((rows, md), cdt, device),
+                              abstract_tensor((rows, md), torch.bool, device))
 
     def state_template(self, aux, n_segments: int = 0) -> RetrieverState:
         # entry: a 0-d int32 leaf in the reference, a Python int here

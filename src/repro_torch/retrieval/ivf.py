@@ -18,6 +18,8 @@ import torch
 
 from repro_torch.core import index as index_mod
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
+                                        abstract_layout, abstract_tensor,
+                                        code_dtype,
                                         RetrieverState, encode_corpus,
                                         register_backend)
 from repro_torch.retrieval.config import HPCConfig
@@ -162,6 +164,38 @@ class IVFBackend(IndexBackend):
 
     def _state_aux(self, state: RetrieverState):
         return state.backend_state.n_probe
+
+    def abstract_state(self, *, n: int, md: int = 16, d: int = 16,
+                       k: int = 256, device="meta", **knobs
+                       ) -> RetrieverState:
+        n_list = knobs.get("n_list", index_mod.IVFConfig.n_list)
+        n_probe = knobs.get("n_probe", index_mod.IVFConfig.n_probe)
+        # the build's padded-dense capacity rule (2x the mean load)
+        cap = knobs.get("bucket_cap", int(max(8, 2 * -(-n // n_list))))
+        cdt = code_dtype(k)
+        codebook = abstract_tensor((k, d), torch.float32, device)
+        routing = abstract_tensor((n_list, d), torch.float32, device)
+
+        def payload(bucket_cap):
+            return index_mod.IVFIndex(
+                routing,
+                abstract_tensor((n_list, bucket_cap, md), cdt, device),
+                abstract_tensor((n_list, bucket_cap, md), torch.bool, device),
+                abstract_tensor((n_list, bucket_cap), torch.bool, device),
+                abstract_tensor((n_list, bucket_cap), torch.int32, device),
+                codebook)
+
+        # segments: per-segment *bucket* capacities
+        knobs = dict(knobs)
+        if knobs.get("segments") is None:
+            bs, rows = payload(cap), n
+        else:
+            bs, rows = abstract_layout(
+                payload, n, knobs, lambda c: (n_list, c), device,
+                id_cap_of=lambda s: index_mod.segment_capacity(n_list * s))
+        return RetrieverState(codebook, IVFState(bs, n_probe),
+                              abstract_tensor((rows, md), cdt, device),
+                              abstract_tensor((rows, md), torch.bool, device))
 
     def state_template(self, aux, n_segments: int = 0) -> RetrieverState:
         return RetrieverState(None, IVFState(index_mod.segmented_template(

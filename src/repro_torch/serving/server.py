@@ -278,7 +278,8 @@ class AsyncRetrievalServer:
             deadline_ms = res.default_deadline_ms
         deadline = None if deadline_ms is None else t_enq + deadline_ms / 1e3
         fut = asyncio.get_running_loop().create_future()
-        item = _Item(np.asarray(q_emb), np.asarray(q_mask), np.asarray(q_sal),
+        # a request arrives as host arrays (client.drive, launch.serve)
+        item = _Item(np.asarray(q_emb), np.asarray(q_mask), np.asarray(q_sal),  # noqa: TORCH05
                      fut, t_enq, deadline, slo)
         with self._lock:
             if self._t_first_enqueue is None:

@@ -1500,3 +1500,138 @@ def test_sharded_build_and_search_on_the_card():
     want = r.search(st, q, k=10)
     got = r.search(r.shard(st, mesh), q, k=10)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# --- launch geometry and the dry run on the card ------------------------------
+
+_GEOMETRY_EDGES = {
+    "hpc_hamming_geometry": [(1, 1, 1), (3, 5, 8), (8, 257, 16),
+                             (65535, 3, 8), (65536, 3, 8), (0, 5, 8)],
+    "hpc_kmeans_assign_geometry": [(1, 128, 256, 132), (31, 18, 33, 132),
+                                   (8447, 100, 4096, 132),
+                                   (16_777_216, 128, 256, 132),
+                                   (256, 1024, 512, 132), (5, 16, 32, 1)],
+    "hpc_maxsim_geometry": [(0, 8, 32, 16384, 615, 128, 8, 132),
+                            (0, 64, 257, 10, 16, 128, 8, 132),
+                            (1, 3, 40, 100, 1, 130, 8, 132),
+                            (2, 8, 32, 64, 1024, 128, 8, 132),
+                            (0, 5, 5, 1, 615, 512, 1, 132)],
+    "hpc_qmaxsim_geometry": [(1, 8, 32, 256, 16384, 615, 0, 256, 32, 2),
+                             (2, 8, 32, 512, 300, 128, 0, 64, 10, 2),
+                             (1, 8, 40, 256, 1024, 1024, 1, 256, 64, 2),
+                             (1, 1, 5, 16, 1, 1, 0, 2, 1, 2),
+                             (1, 64, 32, 256, 131072, 616, 0, 256, 128, 2),
+                             (2, 8, 32, 4096, 256, 128, 0, 256, 0, 2),
+                             (1, 8, 32, 256, 300, 16, 0, 257, 0, 2)],
+}
+
+
+def _py_geometry(name, args):
+    from repro_torch.kernels import vmem
+    try:
+        if name == "hpc_qmaxsim_geometry":
+            g = vmem.qmaxsim_geometry(*args[:6], bool(args[6]), *args[7:])
+        else:
+            g = {"hpc_hamming_geometry": vmem.hamming_geometry,
+                 "hpc_kmeans_assign_geometry": vmem.kmeans_assign_geometry,
+                 "hpc_maxsim_geometry": vmem.maxsim_geometry}[name](*args)
+    except ValueError:
+        return None
+    return None if g is None else g.as_c()
+
+
+@pytest.mark.parametrize("export", sorted(_GEOMETRY_EDGES))
+def test_python_geometry_equals_the_library_at_edge_shapes(export):
+    _card()
+    from repro_torch.kernels import _build
+    for args in _GEOMETRY_EDGES[export]:
+        assert _py_geometry(export, args) == _build.c_geometry(export,
+                                                               *args), args
+
+
+def test_python_shared_bytes_equal_the_librarys_smem_exports():
+    _card()
+    from repro_torch.kernels import _build, vmem
+    lib = _build.library()
+    for cb, mq, k, md, r in [(1, 32, 256, 615, 256), (2, 40, 512, 16, 2),
+                             (1, 5, 16, 1, 64), (2, 32, 4096, 128, 256)]:
+        assert vmem.qmaxsim_smem_bytes(cb, mq, k, md, r) == \
+            lib.hpc_qmaxsim_smem_bytes(cb, mq, k, md, r)
+    for layout, b, mq, d in [(0, 8, 32, 128), (1, 8, 32, 128),
+                             (2, 64, 257, 16), (0, 3, 5, 1024)]:
+        assert vmem.maxsim_smem_bytes(layout, b, mq, d) == \
+            lib.hpc_maxsim_smem_bytes(layout, b, mq, d)
+    for d, k in [(128, 256), (16, 32), (18, 4096), (4096, 256)]:
+        assert vmem.kmeans_assign_smem_bytes(d, k) == \
+            lib.hpc_kmeans_assign_smem_bytes(d, k)
+
+
+def _sites():
+    from repro_torch.analysis import pallas_check as pc
+    return [s.name for s in pc.kernel_sites()]
+
+
+@pytest.mark.parametrize("site", _sites())
+def test_pal03_on_the_card_every_output_written(site):
+    """Each registered site launched once with its outputs filled with a
+    sentinel (NaN, INT_MIN): none is left; the geometry equals the
+    library's."""
+    dev = _card()
+    from repro_torch.analysis import pallas_check as pc
+    from repro_torch.kernels import _build, vmem
+    s = next(x for x in pc.kernel_sites() if x.name == site)
+    budget = vmem.device_budget(dev)
+    assert s.geometry(budget).as_c() == _build.c_geometry(s.c_call[0],
+                                                          *s.c_call[1])
+    r = pc.launch_site(s, dev)
+    assert r["elements"] > 0 and r["unwritten"] == 0, r
+    torch.cuda.empty_cache()
+
+
+def test_registers_table_equals_the_build():
+    _card()
+    import json
+    from repro_torch.analysis import pallas_check as pc
+    from repro_torch.kernels import _build
+    _build.library()
+    log = _build.last_build.get("log") or ""
+    if not _build.last_build.get("compiled"):
+        import tempfile
+        from pathlib import Path
+        with tempfile.TemporaryDirectory() as tmp:
+            log = _build._compile(_build._sources(),
+                                  Path(tmp) / _build.LIB_NAME)
+    from repro_torch.kernels import vmem
+    table = json.loads(pc.REGISTERS_JSON.read_text())["registers"]
+    assert _build.registers(log) == table
+    assert pc.check_all(budget=vmem.device_budget(), registers=table) == []
+
+
+def test_dry_run_peak_held_to_the_card_dcn_serve_bulk():
+    """One recsys cell: the fake trace's peak above its arguments within
+    10% or 256 MiB of the card's (max_memory_allocated above what was held
+    after reset_peak_memory_stats), and its FLOPs equal to the real run's
+    (chip_smoke.py phase 14's band)."""
+    dev = _card()
+    from repro_torch.configs import registry
+    from repro_torch.launch import cells, dryrun
+    spec = registry.get("dcn-v2")
+    cell = next(c for c in spec.shapes if c.name == "serve_bulk")
+    pred = dryrun.trace_cell(spec, cell, device=dev)
+    torch.cuda.empty_cache()
+    built = cells.build_cell(spec, cell, device=dev, fake=False, seed=2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out, flops = dryrun.real_flops(lambda: built.fn(*built.args))
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - held
+    assert tuple(out.shape) == (cell.dims["batch"],)
+    band = max(0.10 * measured, 256 * 2 ** 20)
+    assert abs(pred["peak_above_args"] - measured) <= band, \
+        (pred["peak_above_args"], measured)
+    assert pred["flops"] == flops
+    del built, out
+    torch.cuda.empty_cache()

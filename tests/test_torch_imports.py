@@ -58,9 +58,32 @@ def test_port_package_is_found():
             "configs/recsys_archs.py", "configs/gnn_archs.py",
             "data/sampler.py", "launch/mesh.py", "dist/sharding.py",
             "dist/collectives.py", "core/distributed.py",
-            "train/elastic.py"} <= names
+            "train/elastic.py", "kernels/vmem.py", "launch/cells.py",
+            "launch/dryrun.py", "analysis/astchecks.py",
+            "analysis/cost_model.py", "analysis/jaxpr_budget.py",
+            "analysis/lintcore.py", "analysis/manifests.py",
+            "analysis/pallas_check.py", "analysis/__main__.py"} <= names
     assert not _forbidden("repro_torch.core.scan")
     assert _forbidden("repro.core.scan") and _forbidden("jax.numpy")
+
+
+def test_every_reference_module_has_its_counterpart():
+    """The port's file list closes over the reference's: no module of
+    src/repro is missing from src/repro_torch."""
+    def modules(pkg):
+        base = ROOT / "src" / pkg
+        return {str(p.relative_to(base)) for p in base.rglob("*.py")}
+    assert modules("repro") - modules("repro_torch") == set()
+
+
+def test_dry_run_refuses_the_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from repro_torch.launch import dryrun
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.run_cell("dcn-v2", "serve_p99", smoke=True)
+    assert dryrun.run_cell("dcn-v2", "serve_p99", smoke=True,
+                           device="cpu")["status"] == "ok"
 
 
 def _no_card():
