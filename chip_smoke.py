@@ -188,7 +188,18 @@ any failure exits non-zero, and no phase's error is swallowed:
      >= 0.95 x phase 4's, a batch equal to the unsharded search; (c) a
      checkpoint (float32, uint16, bfloat16 leaves) restored onto the mesh
      by ``restore_elastic`` bit for bit, GPipe and the ring matmul; one
-     ``{"sharded": ...}`` line each;
+     ``{"sharded": ...}`` line each; (d), run right after phase 8 while
+     its states live, in a one-rank NCCL group of its own: the flat,
+     cascade and ivf states (16384 docs), hnsw (4096), the live cascade
+     (segments 14336 + 2048 + 8) and the cascade's hamming and float_flat
+     members as backends of their own, each placed by
+     ``Retriever.shard`` and its 64 requests searched in batches of 8
+     (the cascades through every ``search_degraded`` rung too), with the
+     launches equal to the unsharded search's and every batch held to it
+     (a sweep's answer and the floor bit for bit, a pool scored by a
+     full-score kernel within 1e-4 with ids outside near-ties); one
+     batch's host wall and device time sharded beside unsharded (one
+     ``{"sharded_backends": ...}`` line);
  14. the analysis engines and the dry run: (a) every lint rule
      (E9/F401/F811/F541, TORCH01/02/04/05) over ``src/repro_torch`` and
      this script: no finding; (b) the four kernels' launch geometry at
@@ -1115,7 +1126,8 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
     sweep (tie-aware recall@10); the latency of one search of each router
     and of the flat sweep; then both routers live (an add of N_ANN_ADD
     docs and N_ANN_DEAD deletes through LiveIndexSession, compaction).
-    Returns the launch counts by path and the routers' kernel times."""
+    Returns the launch counts by path, the routers' kernel times and
+    their monolithic states (phase 13d's)."""
     import dataclasses
 
     from repro_torch import state_to
@@ -1359,6 +1371,7 @@ def _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever, queries,
                        f"hnsw ef {ef_eq}": rec_h_eq},
                hit={"ivf": run_i.hit_rate, "hnsw": run_h.hit_rate},
                ivf_cap=cap, ivf_share=share)
+    out["states"] = {"ivf": (ret_i, state_i), "hnsw": (ret_h, state_h)}
     del run_i, run_h
     print(f"hnsw phase {time.perf_counter() - t0:.1f}s")
 
@@ -3868,6 +3881,174 @@ def _world1_paths(args, torch, np, dev, mesh):
     return out
 
 
+def _sharded_backends(args, torch, np, dev, smi, paths, queries,
+                      kernel_mods):
+    """Phase 13d, run after phase 8 while its states live, in a one-rank
+    NCCL group of its own: every backend searched from a state that
+    ``Retriever.shard`` placed on a (1, 1) mesh. ``paths`` maps a name to
+    (retriever, unsharded state, whether its answer is a sweep's alone).
+    Each path's 64 requests run in batches of 8 through
+    ``Retriever.search`` (a cascade's through every ``search_degraded``
+    rung too) with the launch counters at 0 just before, and the launches
+    are held equal to the unsharded search's. Each batch is held to the
+    unsharded search of the same state: a sweep's answer (shape (a): the
+    same kernels at the same shapes at world size 1) and the cascade's
+    floor bit for bit; where a pool is scored by the full-score kernel
+    (shape (b)), scores within 1e-4 and ids outside near-ties. The sweep
+    stage alone (a backend's own search; a cascade's stage 1) is held
+    bit for bit as well. Then one batch's host wall (median of 9) and
+    device time (a CUDA-graph replay; hnsw's walk syncs on its data, so
+    CUDA events around 3 calls), sharded beside unsharded, and the bytes
+    the placement added. Returns the launches by path and the
+    readings."""
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, open_local_group
+    from repro_torch.parity import topk_mismatches
+    from repro_torch.retrieval import Query
+
+    t0 = _phase("13d. every backend searched from a sharded state (a "
+                "one-rank NCCL group of its own)")
+    gc.collect()
+    held_at_start = torch.cuda.memory_allocated()
+    group = open_local_group(dev)
+    mesh = make_host_mesh((1, 1), ("data", "model"), device=dev)
+    qs = [Query(*(torch.from_numpy(a[lo:lo + MAX_BATCH]).to(dev)
+                  for a in queries))
+          for lo in range(0, N_REQUESTS, MAX_BATCH)]
+
+    def counted(fn):
+        for mod in kernel_mods.values():
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {n: mod.launches for n, mod in kernel_mods.items()}
+
+    def held(got, want, exact, what):
+        """-> ids differing (within near-ties) over the batches."""
+        diff = 0
+        for (gs, gi), (ws, wi) in zip(got, want):
+            if exact:
+                assert torch.equal(gs, ws) and torch.equal(gi, wi), what
+                continue
+            torch.testing.assert_close(gs, ws, atol=QMAXSIM_TOL,
+                                       rtol=QMAXSIM_TOL, msg=what)
+            g_i, g_s, w_i, w_s = (t.cpu().numpy() for t in (gi, gs, wi, ws))
+            bad = topk_mismatches(g_i, g_s, w_i, w_s, QMAXSIM_TOL)
+            assert not bad, f"{what}: ids differ outside near-ties {bad}"
+            diff += int((g_i != w_i).sum())
+        return diff
+
+    def readings(fn, graph):
+        walls = []
+        for _ in range(9):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        return {"host_wall_ms": float(np.median(walls)),
+                "device_ms": (_time_ms(torch, fn, 3) if graph
+                              else _event_ms(torch, fn, 3)),
+                "device_time_from": "cuda graph" if graph else "cuda events"}
+
+    out, launches = {}, {}
+    for name, (r, state, sweep_only) in paths.items():
+        t1 = time.perf_counter()
+        gc.collect()                # earlier phases' cycles, not this one's
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated()
+        sharded = r.shard(state, mesh)
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated() - held_before
+        rungs = r.degrade_rungs(state, k=TOP_K)
+        assert rungs == r.degrade_rungs(sharded, k=TOP_K)
+
+        def search(st):
+            return [r.search(st, qb, k=TOP_K) for qb in qs]
+
+        def degraded(st):
+            return [[r.search_degraded(st, qb, k=TOP_K, rung=rung)
+                     for qb in qs] for rung in rungs]
+
+        # the main path's run: every batch (and every rung) from the
+        # placed state
+        got, n_got = counted(lambda: search(sharded))
+        got_r, n_got_r = counted(lambda: degraded(sharded))
+        want, n_want = counted(lambda: search(state))
+        want_r, n_want_r = counted(lambda: degraded(state))
+        assert n_got == n_want and sum(n_got.values()) > 0, \
+            (name, n_got, n_want)
+        assert n_got_r == n_want_r, (name, n_got_r, n_want_r)
+        diff = held(got, want, sweep_only, f"13d {name}")
+        for rung, g, w in zip(rungs, got_r, want_r):
+            diff += held(g, w, rung is None, f"13d {name} rung {rung}")
+        # the sweep stage alone, bit for bit
+        be = r.backend
+        if be.name == "cascade":
+            (hb, hv), _, _ = be._views(sharded)
+            (_, hv_l), _, _ = be._views(state)
+            p1 = state.backend_state.p1
+            held([hb.search(hv, qb, k=p1) for qb in qs],
+                 [hb.search(hv_l, qb, k=p1) for qb in qs], True,
+                 f"13d {name} stage 1")
+        elif be.name in ("flat", "hamming", "float_flat"):
+            n_cand = max(TOP_K, r.cfg.rerank)
+            held([be.search(sharded, qb, k=n_cand) for qb in qs],
+                 [be.search(state, qb, k=n_cand) for qb in qs], True,
+                 f"13d {name} sweep")
+        per_batch = {n: v / len(qs) for n, v in n_got.items() if v}
+        per_rung = [{n: v / len(qs) for n, v in counted(
+            lambda: [r.search_degraded(sharded, qb, k=TOP_K, rung=rung)
+                     for qb in qs])[1].items() if v} for rung in rungs]
+        graph = be.name != "hnsw"
+        times = {"sharded": readings(lambda: r.search(sharded, qs[0],
+                                                      k=TOP_K), graph),
+                 "local": readings(lambda: r.search(state, qs[0], k=TOP_K),
+                                   graph)}
+        out[name] = {"launches": n_got, "launches_per_batch": per_batch,
+                     "batches": len(qs), "rung_launches": n_got_r,
+                     "rung_launches_per_batch": dict(zip(
+                         map(str, rungs), per_rung)),
+                     "ids_differing_within_near_ties": diff,
+                     "placed_bytes": placed,
+                     "max_memory_allocated_gib":
+                         torch.cuda.max_memory_allocated() / 2**30,
+                     "one_batch": times,
+                     "seconds": time.perf_counter() - t1}
+        launches[f"sharded {name}"] = {n: v + n_got_r[n]
+                                       for n, v in n_got.items()}
+        sh, lo = times["sharded"], times["local"]
+        print(f"{name}: {len(qs)} batches + {len(rungs)} rungs x "
+              f"{len(qs)} == unsharded ({'bit for bit' if sweep_only else 'within 1e-4'}; "
+              f"{diff} ids differ within near-ties) | launches per batch "
+              f"{per_batch}, per rung's batch {per_rung} | one batch: host "
+              f"wall {sh['host_wall_ms']:.3f}"
+              f" ms sharded, {lo['host_wall_ms']:.3f} local; device "
+              f"{sh['device_ms']:.3f} / {lo['device_ms']:.3f} ms "
+              f"({sh['device_time_from']}) | placement added "
+              f"{placed / 2**30:.2f} GiB")
+        del sharded, got, got_r, want, want_r
+    del qs
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    held_at_end = torch.cuda.memory_allocated()
+    print(f"allocated on the card: {held_at_start / 2**30:.3f} GiB before "
+          f"13d, {held_at_end / 2**30:.3f} GiB after (every placed copy "
+          f"freed)")
+    # a placed copy is GBs; the margin is for the group's own buffers
+    assert held_at_end <= held_at_start + 2**28, "a placed copy outlived 13d"
+    out["group"] = group
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"sharded_backends": out, "smi": smi}))
+    print(f"phase 13d {out['seconds']:.1f}s")
+    return {"launches": launches, "readings": out}
+
+
 def _sharded_phase(args, torch, np, dev, cfg, flat_codebook, flat_hit,
                    lds_per_s):
     """Phase 13: a one-rank NCCL group and a (1, 1) ("data", "model")
@@ -4151,6 +4332,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    import dataclasses
+
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -4173,7 +4356,7 @@ def main(argv=None) -> int:
     from repro_torch.launch.serve import build_and_serve
     from repro_torch.parity import topk_mismatches
     from repro_torch.retrieval import (CascadeConfig, HPCConfig, Query,
-                                       get_backend)
+                                       Retriever, get_backend)
 
     def check_first_batch(run, cpu_state, tol):
         return _check_first_batch(torch, np, run, cpu_state, tol)
@@ -4827,6 +5010,7 @@ def main(argv=None) -> int:
     flat_ms = _split(torch, flat_fns)
     print(f"served flat batch: {flat_batch_ms:.1f} ms of serving window per "
           f"batch")
+    casc_s, casc_retriever = s, run.retriever     # phase 13d's
     del run, s, casc, ham_v, flat_v, ff_v, ff, fm, idx, h_blocks, h_blk, \
         flat, f_ids, \
         pool_emb, pool_mask, pool_flat, f_blk, f_blk_m, fblk_flat, s2_codes, \
@@ -4867,13 +5051,25 @@ def main(argv=None) -> int:
                        flat_s, flat_retriever, flat_hit, casc_qps, stage_ms,
                        kernel_mods)
     files = _index_files(torch, dev, live, flat_s, flat_retriever)
-    del live["state"]
-    torch.cuda.empty_cache()
     ann = _ann_phase(args, torch, np, dev, cfg, flat_s, flat_retriever,
                      flat_queries, flat_relevance, live["delta"],
                      kernel_mods, lds_per_s)
+    casc_b = get_backend("cascade")
+    (_, ham_s), _, (_, ff_s) = casc_b._views(casc_s)
+    backends = _sharded_backends(args, torch, np, dev, smi, {
+        "flat": (flat_retriever, flat_s, False),
+        "hamming": (Retriever(dataclasses.replace(cfg, backend="hamming")),
+                    ham_s, False),
+        "float_flat": (Retriever(dataclasses.replace(
+            cfg, backend="float_flat")), ff_s, True),
+        "cascade": (casc_retriever, casc_s, False),
+        "live cascade": (live["retriever"], live["state"], False),
+        "ivf": ann["states"]["ivf"] + (False,),
+        "hnsw": ann["states"]["hnsw"] + (False,)},
+        flat_queries, kernel_mods)
     flat_codebook = flat_s.codebook.clone()
-    del flat_s, flat_retriever, live["delta"]
+    del flat_s, flat_retriever, live["delta"], live["state"], ann["states"]
+    del casc_s, casc_retriever, ham_s, ff_s
     torch.cuda.empty_cache()
     model = _model_phase(args, torch, np, dev, smi, COLPALI_HPC.config,
                          QWEN2_1_5B.config, kernel_mods)
@@ -4898,7 +5094,7 @@ def main(argv=None) -> int:
                **ann["launches"], **model["launches"],
                **train["launches"], **moe["launches"],
                **recsys_out["launches"], **pna["launches"],
-               **sharded["launches"]}
+               **sharded["launches"], **backends["launches"]}
 
     def launches(name):
         return sum(path.get(name, 0) for path in by_path.values())

@@ -20,6 +20,12 @@ two agree within float rounding. ``sharded_quantize`` assigns each rank's
 rows through ``quantization.quantize`` (the CUDA ``kmeans_assign`` kernel
 for CUDA tensors). ``Retriever.build(..., mesh=...)`` builds through both.
 
+And the per-rank search programs every backend runs over a state that
+``Retriever.shard`` placed (the last section): a sweep's top-k lists
+all-gathered and merged in shard order, or a candidate pool scored where
+its rows live and all-reduced by MAX; every rank ends with the unsharded
+answer.
+
 Sharded inputs are DTensors (their local shards are used) or tensors that
 every rank holds whole (each rank takes its own rows, in the row-major
 shard order of ``dist.sharding.shard_index``). A tensor on another device
@@ -27,17 +33,23 @@ type than the mesh's raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.core import graph as graph_mod
+from repro_torch.core import index as index_mod
 from repro_torch.core import quantization as quant
 from repro_torch.core import scan as scan_mod
 from repro_torch.dist import collectives as coll
 from repro_torch.dist.sharding import (NamedSharding, Sharder, check_device,
-                                       full_tensor, shard_index)
+                                       full_tensor, local, shard_index,
+                                       sharded_axes)
+from repro_torch.kernels import ops as kernel_ops
 
 Tensor = torch.Tensor
 
@@ -107,15 +119,27 @@ def sharded_search_fn(mesh, corpus_axes: Tuple[str, ...], *, k: int,
         top_s, top_i = scan_mod.quantized_maxsim_topk(
             q, q_mask, codes, mask, codebook, k=k,
             doc_ids=doc_ids.to(torch.int32), scan=scan)
-        all_s = coll.all_gather_axes(top_s, mesh, corpus_axes, dim=1)
-        all_i = coll.all_gather_axes(top_i, mesh, corpus_axes, dim=1)
-        if all_s.shape[1] == k:        # one shard: its list is the answer
-            return all_s, all_i
-        init = scan_mod._init_buffer(q.shape[0], k, torch.float32,
-                                     all_s.device, None)
-        return scan_mod._merge(*init, all_s, all_i, k)
+        return _gather_merge(top_s, top_i, mesh, corpus_axes, k)
 
     return search
+
+
+def _gather_merge(s: Tensor, ids: Tensor, mesh, axes: Tuple[str, ...],
+                  k: int, carry: Optional[Tuple[Tensor, Tensor]] = None
+                  ) -> Tuple[Tensor, Tensor]:
+    """Shape (a)'s collective: every rank's (B, k) list over ``axes``,
+    all-gathered in shard order and merged into ``carry`` (sentinels
+    when None). The lists are ordered by score then position and go into
+    the stable merge in shard order, so ties resolve to the lowest
+    position, as one sweep over the whole corpus would. One shard and no
+    carry: the list is the answer."""
+    s = coll.all_gather_axes(s, mesh, axes, dim=1)
+    ids = coll.all_gather_axes(ids, mesh, axes, dim=1)
+    if carry is None:
+        if s.shape[1] == k:
+            return s, ids
+        carry = scan_mod._init_buffer(s.shape[0], k, s.dtype, s.device, None)
+    return scan_mod._merge(*carry, *scan_mod._head(s, ids, k), k)
 
 
 def _farthest(min_d2: Tensor, kk: int) -> Tensor:
@@ -287,3 +311,259 @@ def corpus_shardings(mesh, corpus_axes: Tuple[str, ...]
                                   else Replicate() for a in names))
     r = NamedSharding(mesh, (Replicate(),) * len(names))
     return dict(codes=c, mask=c, doc_ids=c, codebook=r, replicated=r)
+
+
+# ---------------------------------------------------------------------------
+# Per-rank search programs over a state that ``Retriever.shard`` placed
+# ---------------------------------------------------------------------------
+#
+# Every rank runs the same program on its own rows and ends with the answer
+# of the unsharded search: the same ids in the same order, ties included.
+# Two collective shapes cover every stage:
+#
+#   (a) a full sweep over corpus-sharded rows (flat, hamming, float_flat,
+#       cascade stage 1): each rank sweeps its rows through the scan and
+#       keeps its top k, then one all-gather and one merge in shard order
+#       (``_gather_merge``), segment after segment into a carried buffer;
+#   (b) a (B, P) pool of candidates (the facade rerank, cascade stages 2
+#       and 3, the IVF pool, the HNSW survivors): each rank scores the
+#       slots whose rows it holds with the full-score kernel and writes the
+#       sentinel into the others, at the same slot positions, then one
+#       all-reduce MAX and the merge the local path makes (``_pool_topk``).
+#
+# A leaf that the divisibility fallback replicated has no sharded axes: it
+# is searched once on every rank and crosses no collective.
+
+class _Part(NamedTuple):
+    """One payload (a monolithic structure or a segment) on this rank."""
+    payload: Any                # this rank's leaves
+    live: Optional[Tensor]      # this rank's live bits (None: all live)
+    size: int                   # global rows of dim 0 (IVF: buckets)
+    axes: Tuple[str, ...]       # mesh axes dim 0 is sharded over
+    start: int                  # this rank's first global row
+    n_local: int
+
+
+def _part(payload, live, mesh, lead=None) -> _Part:
+    """``payload`` (DTensor leaves) as a ``_Part``; ``lead`` is the leaf
+    whose dim 0 defines the rows (its doc ids by default)."""
+    lead = index_mod.seg_doc_ids(payload) if lead is None else lead
+    axes = sharded_axes(lead) if isinstance(lead, DTensor) else ()
+    index, count = shard_index(mesh, axes)
+    n_local = lead.shape[0] // count
+    here = None if payload is None else type(payload)(
+        *(local(x) for x in payload))
+    return _Part(here, None if live is None else local(live),
+                 int(lead.shape[0]),
+                 axes, index * n_local, n_local)
+
+
+def _parts(index_or_seg, mesh) -> Tuple[_Part, ...]:
+    """The payloads of a monolithic structure or a SegmentedState."""
+    if isinstance(index_or_seg, index_mod.SegmentedState):
+        return tuple(_part(p, lv, mesh) for p, lv in
+                     zip(index_or_seg.segments, index_or_seg.live))
+    return (_part(index_or_seg, None, mesh),)
+
+
+def _pool_axes(mesh, parts) -> Tuple[str, ...]:
+    """The mesh axes any part is sharded over, in mesh order: a pool's
+    all-reduce spans them (ranks that hold equal rows reduce equal
+    values)."""
+    used = {a for p in parts for a in p.axes}
+    return tuple(a for a in mesh.mesh_dim_names if a in used)
+
+
+def _owned(parts, pos: Tensor) -> Tensor:
+    """Global positions (B, P), flattened across the parts as the local
+    path flattens its segments (-1 = empty slot), -> this rank's
+    flattened positions into its own rows, -1 where it holds none."""
+    pos = pos.to(torch.int64)
+    out = torch.full_like(pos, -1)
+    g = l = 0
+    for p in parts:
+        rel = pos - (g + p.start)
+        mine = (pos >= 0) & (rel >= 0) & (rel < p.n_local)
+        out = torch.where(mine, rel + l, out)
+        g += p.size
+        l += p.n_local
+    return out
+
+
+def _pool_topk(s: Tensor, ids: Tensor, own: Tensor, mesh,
+               axes: Tuple[str, ...], k: int) -> Tuple[Tensor, Tensor]:
+    """Shape (b)'s collective and merge: the slots this rank does not own
+    take the sentinel (-inf; the int32 minimum for Hamming scores) and id
+    -1, one all-reduce MAX of scores and ids together, then the local
+    path's merge, invalid slots (id -1) scoring NEG_INF (Hamming: the
+    int32 minimum). The pool keeps its order, so ties keep the local
+    order."""
+    if s.dtype.is_floating_point:     # float32 scores and ids are exact
+        fill, wide = float("-inf"), torch.float64
+        invalid = scan_mod.NEG_INF
+    else:
+        fill = invalid = torch.iinfo(s.dtype).min
+        wide = s.dtype
+    packed = torch.stack([torch.where(own, s, fill).to(wide),
+                          torch.where(own, ids, -1).to(wide)])
+    coll.all_reduce_axes(packed, mesh, axes, op=torch.distributed.ReduceOp.MAX)
+    s, ids = packed[0].to(s.dtype), packed[1].to(torch.int32)
+    valid = ids >= 0
+    init = scan_mod._init_buffer(s.shape[0], k, s.dtype, s.device, None)
+    return scan_mod._merge(*init, torch.where(valid, s, invalid),
+                           torch.where(valid, ids, -1), k)
+
+
+def _impl(scan) -> str:
+    return (scan if scan is not None else scan_mod.DEFAULT).impl
+
+
+def _score_rows(kind: str, parts, pos: Tensor, q: Tensor, q_mask: Tensor, *,
+                bits: int = 0, scan=None) -> Tuple[Tensor, Tensor]:
+    """This rank's scores (B, P) of the rows at its flattened positions
+    ``pos`` (-1: not held here) through the full-score kernel of ``kind``
+    ("adc", "binary" or "float"), and their doc ids."""
+    seg = index_mod.SegmentedState(tuple(p.payload for p in parts),
+                                   tuple(p.live for p in parts), None)
+    impl = _impl(scan)
+    if kind == "float":               # the rows layout: read in place
+        ids, = index_mod._gather_segmented(seg, pos, ("doc_ids",))
+        return kernel_ops.maxsim(
+            q, q_mask, tuple(p.payload.embeddings for p in parts),
+            tuple(p.payload.mask for p in parts), rows=pos.to(torch.int32),
+            impl=impl), ids
+    codes, mask, ids = index_mod._gather_segmented(
+        seg, pos, ("codes", "mask", "doc_ids"))
+    if kind == "binary":
+        return kernel_ops.hamming_maxsim(q, q_mask, codes, mask, bits=bits,
+                                         impl=impl), ids
+    return kernel_ops.quantized_maxsim(q, q_mask, codes, mask,
+                                       parts[0].payload.codebook,
+                                       impl=impl), ids
+
+
+def sharded_sweep(index_or_seg, q: Tensor, q_mask: Tensor, *, kind: str,
+                  k: int, mesh, bits: int = 0, scan=None
+                  ) -> Tuple[Tensor, Tensor]:
+    """Shape (a): the exhaustive search of a placed FlatIndex ("adc"),
+    HammingIndex ("binary"; ``q`` the query codes) or FloatFlatIndex
+    ("float"), monolithic or a SegmentedState of them -> (scores (B, k),
+    ids (B, k)), the unsharded search's on every rank. Each rank sweeps
+    its rows of each segment through the scan (the segment's kernel at
+    the local shapes) and keeps its top k; the lists are all-gathered
+    over the segment's axes and merged into the carried buffer, segment
+    after segment: one all-gather and merge per segment, since the ranks'
+    rows interleave across segments. Hamming scores are int32, with the
+    int32 minimum in an empty slot."""
+    check_device(mesh, q)
+
+    def topk(p: _Part):
+        pl = p.payload
+        if kind == "adc":
+            return scan_mod.quantized_maxsim_topk(
+                q, q_mask, pl.codes, pl.mask, pl.codebook, k=k,
+                doc_ids=pl.doc_ids, valid=p.live, scan=scan)
+        if kind == "binary":
+            return scan_mod.hamming_maxsim_topk(
+                q, q_mask, pl.codes, pl.mask, bits=bits, k=k,
+                doc_ids=pl.doc_ids, valid=p.live, scan=scan)
+        return scan_mod.maxsim_topk(q, q_mask, pl.embeddings, pl.mask, k=k,
+                                    doc_ids=pl.doc_ids, valid=p.live,
+                                    scan=scan)
+
+    carry = None
+    for p in _parts(index_or_seg, mesh):
+        carry = _gather_merge(*topk(p), mesh, p.axes, k, carry)
+    return carry
+
+
+def sharded_candidates(index_or_seg, q: Tensor, q_mask: Tensor,
+                       candidate_ids: Tensor, *, kind: str, k: int, mesh,
+                       bits: int = 0, scan=None) -> Tuple[Tensor, Tensor]:
+    """Shape (b): a (B, P) candidate pool scored against a placed
+    structure (the kinds of ``sharded_sweep``), the unsharded
+    ``search_*_candidates``' answer on every rank. On a monolithic
+    structure the candidates are positions (clamped into the corpus as
+    the local path clamps them); on a SegmentedState global ids, resolved
+    through the replicated ``pos_of_id``."""
+    check_device(mesh, q)
+    if isinstance(index_or_seg, index_mod.SegmentedState):
+        seg = dataclasses.replace(index_or_seg,
+                                  pos_of_id=local(index_or_seg.pos_of_id))
+        _, _, pos = index_mod._resolve_segmented(seg, candidate_ids)
+    else:
+        n = index_mod.seg_doc_ids(index_or_seg).shape[0]
+        valid, safe = index_mod._clamp_positions(candidate_ids, n)
+        pos = torch.where(valid, safe, -1)
+    parts = _parts(index_or_seg, mesh)
+    mine = _owned(parts, pos)
+    s, ids = _score_rows(kind, parts, mine, q, q_mask, bits=bits, scan=scan)
+    return _pool_topk(s, ids, mine >= 0, mesh, _pool_axes(mesh, parts), k)
+
+
+def sharded_ivf(index_or_seg, q: Tensor, q_mask: Tensor, *, n_probe: int,
+                k: int, mesh, scan=None) -> Tuple[Tensor, Tensor]:
+    """Shape (b) for a placed IVFIndex, monolithic or segmented: every
+    rank routes alike over the replicated centroids; a rank owns a probed
+    bucket when the bucket falls in its block of n_list, builds the
+    (B, n_probe x cap) pool at its own buckets (the other buckets' slots
+    invalid) and scores it; the pools of every segment go through one
+    all-reduce and one merge (the local path's carried merges give the
+    same top k)."""
+    check_device(mesh, q)
+    parts = _parts(index_or_seg, mesh)
+    probe = index_mod._probe(parts[0].payload.routing_centroids, q, q_mask,
+                             n_probe)
+    scores, ids, owns = [], [], []
+    for p in parts:
+        pl = p.payload
+        rel = probe - p.start
+        mine = (rel >= 0) & (rel < p.n_local)
+        live = p.live if p.live is not None else pl.bucket_valid
+        codes, mask, valid, pids = index_mod._probed_pool(
+            pl, live, torch.where(mine, rel, 0))
+        own = mine.repeat_interleave(pl.bucket_codes.shape[1], dim=1)
+        scores.append(kernel_ops.quantized_maxsim(
+            q, q_mask, codes, mask, pl.codebook, impl=_impl(scan)))
+        ids.append(torch.where(valid, pids, -1))
+        owns.append(own)
+    return _pool_topk(torch.cat(scores, 1), torch.cat(ids, 1),
+                      torch.cat(owns, 1), mesh, _pool_axes(mesh, parts), k)
+
+
+def sharded_hnsw(index, live: Optional[Tensor], q: Tensor, q_mask: Tensor,
+                 *, ef_search: int, k: int, mesh, scan=None
+                 ) -> Tuple[Tensor, Tensor]:
+    """Shape (b) for a placed HNSWIndex (``live``: the replicated live
+    bits of a segmented state, or None): the graph is replicated, so every
+    rank walks it alike (the walk syncs on its own data and calls no
+    collective); the survivors are scored by the ranks that hold their
+    codes."""
+    check_device(mesh, q)
+    part = _part(index, None, mesh)
+    g = part.payload
+    q_vec = index_mod.mean_pool(q.to(g.doc_vecs.dtype), q_mask)
+    _, cand = graph_mod.hnsw_candidates(g, q_vec, ef_search=ef_search)
+    valid = cand >= 0
+    if live is not None:
+        valid = valid & local(live)[torch.clamp(cand, min=0).to(torch.int64)]
+    mine = _owned((part,), torch.where(valid, cand, -1))
+    s, ids = _score_rows("adc", (part,), mine, q, q_mask, scan=scan)
+    return _pool_topk(s, ids, mine >= 0, mesh, part.axes, k)
+
+
+def sharded_rerank(rerank_codes, rerank_mask, codebook, q: Tensor,
+                   q_mask: Tensor, ids: Tensor, *, k: int, mesh, scan=None
+                   ) -> Tuple[Tensor, Tensor]:
+    """Shape (b) for the facade's rerank: the (B, P) candidates' unpruned
+    codes are rows of the placed rerank corpus (indexed by global id);
+    each rank scores the ids whose rows it holds."""
+    check_device(mesh, q)
+    part = _part(None, None, mesh, lead=rerank_codes)
+    rows = torch.arange(part.start, part.start + part.n_local,
+                        dtype=torch.int32, device=q.device)
+    part = part._replace(payload=index_mod.FlatIndex(
+        local(rerank_codes), local(rerank_mask), local(codebook), rows))
+    mine = _owned((part,), torch.where(ids >= 0, ids, -1))
+    s, got = _score_rows("adc", (part,), mine, q, q_mask, scan=scan)
+    return _pool_topk(s, got, mine >= 0, mesh, part.axes, k)

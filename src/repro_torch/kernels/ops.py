@@ -19,15 +19,20 @@ from repro_torch.kernels import maxsim as maxsim_k
 from repro_torch.kernels import quantized_maxsim as qmaxsim_k
 
 
-def maxsim(q: torch.Tensor, q_mask: torch.Tensor, docs: torch.Tensor,
-           d_mask: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+def maxsim(q: torch.Tensor, q_mask: torch.Tensor, docs, d_mask, *,
+           rows=None, impl: str = "auto") -> torch.Tensor:
     """Float MaxSim scores (B, N) f32: docs (N, Md, D) shared or
-    (B, P, Md, D) per query."""
-    mode = resolve_impl(impl, docs.device)
+    (B, P, Md, D) per query; with ``rows`` (B, P) int32 positions into a
+    shared corpus (one tensor or a tuple of segments; -1 = empty slot),
+    the rows read in place -> (B, P)."""
+    mode = resolve_impl(impl, (rows if rows is not None else docs).device)
     qf = q.to(torch.float32).contiguous()
     qm = q_mask.to(torch.float32).contiguous()
     if mode == "plain":
-        return maxsim_k.maxsim_plain(qf, qm, docs, d_mask)
+        return maxsim_k.maxsim_plain(qf, qm, docs, d_mask, rows=rows)
+    if rows is not None:
+        return maxsim_k.maxsim_cuda(qf, qm, docs, d_mask,
+                                    rows=rows.to(torch.int32).contiguous())
     return maxsim_k.maxsim_cuda(qf, qm, docs.to(torch.float32), d_mask)
 
 

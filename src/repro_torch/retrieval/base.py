@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import index as index_mod
 from repro_torch.core import pruning
@@ -247,6 +248,13 @@ def state_map(fn: Callable, state: Any) -> Any:
             f.name: state_map(fn, getattr(state, f.name))
             for f in dataclasses.fields(state)})
     return state
+
+
+def state_mesh(state: "RetrieverState"):
+    """The mesh of a state that ``Retriever.shard`` placed (every tensor a
+    DTensor), or None for a local state."""
+    cb = state.codebook
+    return cb.device_mesh if isinstance(cb, DTensor) else None
 
 
 def abstract_tensor(shape, dtype: torch.dtype, device="meta") -> Tensor:

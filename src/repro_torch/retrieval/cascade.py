@@ -135,14 +135,11 @@ class CascadeBackend(IndexBackend):
 
     def search_prefilter(self, state: RetrieverState, query: Query, *,
                          k: int, scan=None) -> Tuple[Tensor, Tensor]:
-        """Degradation floor: answer from stage 1 alone (float32 scores)."""
+        """Degradation floor: answer from stage 1 alone (float32 scores,
+        so every rung returns the same dtypes)."""
         ham_b, ham_v = self._views(state)[0]
-        sh = ham_v.backend_state
-        seg = ham_b._segmented(ham_v)
-        return index_mod.search_hamming_floor(
-            seg if seg is not None else sh.index,
-            ham_b._q_codes(ham_v, query), query.mask, bits=sh.bits, k=k,
-            scan=scan)
+        scores, ids = ham_b.search(ham_v, query, k=k, scan=scan)
+        return scores.to(torch.float32), ids
 
     def search_degraded(self, state: RetrieverState, query: Query, *,
                         k: int, rung, scan=None) -> Tuple[Tensor, Tensor]:

@@ -10,12 +10,13 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core import distributed as dist_core
 from repro_torch.core import index as index_mod
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
                                         abstract_layout, abstract_tensor,
                                         code_dtype,
                                         RetrieverState, encode_corpus,
-                                        register_backend)
+                                        register_backend, state_mesh)
 from repro_torch.retrieval.config import HPCConfig
 
 Tensor = torch.Tensor
@@ -37,6 +38,12 @@ class FlatBackend(IndexBackend):
     def search(self, state: RetrieverState, query: Query, *, k: int,
                scan=None) -> Tuple[Tensor, Tensor]:
         seg = self._segmented(state)
+        mesh = state_mesh(state)
+        if mesh is not None:
+            return dist_core.sharded_sweep(
+                seg if seg is not None else state.backend_state,
+                query.embeddings, query.mask, kind="adc", k=k, mesh=mesh,
+                scan=scan)
         if seg is not None:
             return index_mod.search_flat_segmented(
                 seg, query.embeddings, query.mask, k=k, scan=scan)
@@ -49,6 +56,12 @@ class FlatBackend(IndexBackend):
         if candidate_ids is None:
             return self.search(state, query, k=k, scan=scan)
         seg = self._segmented(state)
+        mesh = state_mesh(state)
+        if mesh is not None:
+            return dist_core.sharded_candidates(
+                seg if seg is not None else state.backend_state,
+                query.embeddings, query.mask, candidate_ids, kind="adc", k=k,
+                mesh=mesh, scan=scan)
         if seg is not None:
             return index_mod.search_flat_segmented_candidates(
                 seg, query.embeddings, query.mask, candidate_ids, k=k,

@@ -13,13 +13,16 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core import binary as binary_mod
+from repro_torch.core import distributed as dist_core
 from repro_torch.core import index as index_mod
 from repro_torch.core import quantization as quant
+from repro_torch.dist.sharding import local
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
                                         abstract_layout, abstract_tensor,
                                         code_dtype,
                                         RetrieverState, code_dtype,
-                                        encode_corpus, register_backend)
+                                        encode_corpus, register_backend,
+                                        state_mesh)
 from repro_torch.retrieval.config import HPCConfig
 
 Tensor = torch.Tensor
@@ -48,7 +51,7 @@ class HammingBackend(IndexBackend):
             rerank_mask=corpus.mask.to(torch.bool))
 
     def _q_codes(self, state: RetrieverState, query: Query) -> Tensor:
-        return quant.quantize(query.embeddings, state.codebook,
+        return quant.quantize(query.embeddings, local(state.codebook),
                               code_dtype=code_dtype(
                                   1 << state.backend_state.bits))
 
@@ -57,6 +60,11 @@ class HammingBackend(IndexBackend):
         s = state.backend_state
         q_codes = self._q_codes(state, query)
         seg = self._segmented(state)
+        mesh = state_mesh(state)
+        if mesh is not None:
+            return dist_core.sharded_sweep(
+                seg if seg is not None else s.index, q_codes, query.mask,
+                kind="binary", k=k, mesh=mesh, bits=s.bits, scan=scan)
         if seg is not None:
             return index_mod.search_hamming_segmented(
                 seg, q_codes, query.mask, bits=s.bits, k=k, scan=scan)
@@ -71,6 +79,12 @@ class HammingBackend(IndexBackend):
         s = state.backend_state
         q_codes = self._q_codes(state, query)
         seg = self._segmented(state)
+        mesh = state_mesh(state)
+        if mesh is not None:
+            return dist_core.sharded_candidates(
+                seg if seg is not None else s.index, q_codes, query.mask,
+                candidate_ids, kind="binary", k=k, mesh=mesh, bits=s.bits,
+                scan=scan)
         if seg is not None:
             return index_mod.search_hamming_segmented_candidates(
                 seg, q_codes, query.mask, candidate_ids, bits=s.bits, k=k,

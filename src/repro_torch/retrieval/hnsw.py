@@ -14,13 +14,14 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core import distributed as dist_core
 from repro_torch.core import graph as graph_mod
 from repro_torch.core import index as index_mod
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
                                         abstract_layout, abstract_tensor,
                                         code_dtype,
                                         RetrieverState, encode_corpus,
-                                        register_backend)
+                                        register_backend, state_mesh)
 from repro_torch.retrieval.config import HPCConfig
 
 Tensor = torch.Tensor
@@ -63,6 +64,13 @@ class HNSWBackend(IndexBackend):
                scan=None) -> Tuple[Tensor, Tensor]:
         s = state.backend_state
         seg = self._segmented(state)
+        mesh = state_mesh(state)
+        if mesh is not None:
+            index, live = ((seg.segments[0], seg.live[0]) if seg is not None
+                           else (s.index, None))
+            return dist_core.sharded_hnsw(
+                index, live, query.embeddings, query.mask,
+                ef_search=s.ef_search, k=k, mesh=mesh, scan=scan)
         if seg is not None:
             return graph_mod.search_hnsw_live(
                 seg.segments[0], seg.live[0], query.embeddings, query.mask,

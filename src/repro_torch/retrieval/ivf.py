@@ -16,12 +16,13 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core import distributed as dist_core
 from repro_torch.core import index as index_mod
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
                                         abstract_layout, abstract_tensor,
                                         code_dtype,
                                         RetrieverState, encode_corpus,
-                                        register_backend)
+                                        register_backend, state_mesh)
 from repro_torch.retrieval.config import HPCConfig
 
 Tensor = torch.Tensor
@@ -68,6 +69,11 @@ class IVFBackend(IndexBackend):
                scan=None) -> Tuple[Tensor, Tensor]:
         s = state.backend_state
         seg = self._segmented(state)
+        mesh = state_mesh(state)
+        if mesh is not None:
+            return dist_core.sharded_ivf(
+                seg if seg is not None else s.index, query.embeddings,
+                query.mask, n_probe=s.n_probe, k=k, mesh=mesh, scan=scan)
         if seg is not None:
             return index_mod.search_ivf_segmented(
                 seg, query.embeddings, query.mask, n_probe=s.n_probe, k=k,

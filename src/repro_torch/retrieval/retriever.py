@@ -7,10 +7,12 @@ candidate over-fetch, and the rerank over the unpruned quantized corpus
 delegates the primary structure to the backend named by ``cfg.backend``.
 
 ``shard`` places a state on a ``DeviceMesh`` (each tensor a DTensor, by
-the backend's logical-axis specs), and ``search`` takes such a state: on
-one rank every backend searches the local tensors; across ranks the flat
-backend sweeps through ``core.distributed.sharded_search_fn`` and each
-rank reranks the candidates whose rows it holds.
+the backend's logical-axis specs), and ``search``, ``search_degraded``
+and the backends' ``search_candidates`` take such a state at any world
+size, one rank included: every rank runs the per-rank programs of
+``core.distributed`` over its own rows (a sweep's top k all-gathered and
+merged in shard order; a candidate pool scored where its rows live and
+all-reduced by MAX), and every rank gets the unsharded answer.
 """
 from __future__ import annotations
 
@@ -18,20 +20,15 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
-from torch.distributed.tensor import DTensor
 
+from repro_torch.core import distributed as dist_core
 from repro_torch.core import index as index_mod
 from repro_torch.core import pruning
 from repro_torch.core import scan as scan_mod
-from repro_torch.dist import collectives as coll
-from repro_torch.dist.sharding import (Sharder, distribute, full_tensor,
-                                       local, map_specs, shard_index,
-                                       sharded_axes)
-from repro_torch.kernels import ops as kernel_ops
+from repro_torch.dist.sharding import Sharder, distribute, map_specs
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
                                         RetrieverState, get_backend,
-                                        state_map)
+                                        state_mesh)
 from repro_torch.retrieval.config import HPCConfig
 
 Tensor = torch.Tensor
@@ -67,13 +64,9 @@ class Retriever:
     def search(self, state: RetrieverState, query: Query, *, k: int
                ) -> Tuple[Tensor, Tensor]:
         """Online query (paper §III-E2 steps 2-5) -> (scores (B, k),
-        doc_ids (B, k)). A state from ``shard`` is searched on its mesh:
-        the same answer on every rank."""
-        mesh = _state_mesh(state)
-        if mesh is not None:
-            if mesh.size() > 1:
-                return self._search_sharded(state, query, k=k, mesh=mesh)
-            state = state_map(local, state)
+        doc_ids (B, k)). A state from ``shard`` is searched by every rank
+        of its mesh, each over its own rows: the unsharded answer on every
+        rank."""
         cfg, backend = self.cfg, self.backend
         pruned = self._prune_query(query)
         n_cand = k if cfg.rerank == 0 else max(k, cfg.rerank)
@@ -111,53 +104,18 @@ class Retriever:
 
     def _rerank(self, state: RetrieverState, query: Query, ids: Tensor, *,
                 k: int) -> Tuple[Tensor, Tensor]:
+        mesh = state_mesh(state)
+        if mesh is not None:
+            return dist_core.sharded_rerank(
+                state.rerank_codes, state.rerank_mask, state.codebook,
+                query.embeddings, query.mask, ids, k=k, mesh=mesh,
+                scan=self.cfg.scan)
         safe = torch.clamp(ids, min=0).to(torch.int64)
         return scan_mod.quantized_maxsim_topk(
             query.embeddings, query.mask,
             index_mod.take_rows(state.rerank_codes, safe),
             state.rerank_mask[safe], state.codebook, k=k, doc_ids=ids,
             valid=ids >= 0, scan=self.cfg.scan)
-
-    def _search_sharded(self, state: RetrieverState, query: Query, *,
-                        k: int, mesh) -> Tuple[Tensor, Tensor]:
-        """The flat backend over a state sharded across ranks: the sweep
-        through ``sharded_search_fn``, then the rerank with each rank
-        scoring the candidates whose rerank rows it holds (-inf for the
-        rest), combined by an all-reduce MAX before the top k."""
-        cfg, backend = self.cfg, self.backend
-        if backend.name != "flat" or backend._segmented(state) is not None:
-            raise NotImplementedError(
-                f"searching a {backend.name!r} state sharded over "
-                f"{mesh.size()} ranks (only the monolithic flat backend "
-                "searches across ranks yet; ROADMAP.md §A item 3)")
-        from repro_torch.core import distributed as dist_core
-        pruned = self._prune_query(query)
-        fs = state.backend_state
-        n_cand = k if cfg.rerank == 0 else max(k, cfg.rerank)
-        axes = sharded_axes(fs.codes) if isinstance(fs.codes, DTensor) else ()
-        scores, ids = dist_core.sharded_search_fn(
-            mesh, axes, k=n_cand, scan=cfg.scan)(
-                pruned.embeddings, pruned.mask, fs.codes, fs.mask,
-                fs.doc_ids, fs.codebook)
-        if not cfg.rerank:
-            return scores[:, :k], ids[:, :k]
-        rc = state.rerank_codes
-        axes = sharded_axes(rc) if isinstance(rc, DTensor) else ()
-        codes, mask = local(rc), local(state.rerank_mask)
-        index, _ = shard_index(mesh, axes)
-        rel = ids.to(torch.int64) - index * codes.shape[0]
-        own = (ids >= 0) & (rel >= 0) & (rel < codes.shape[0])
-        safe = torch.where(own, rel, 0)
-        s = kernel_ops.quantized_maxsim(
-            pruned.embeddings, pruned.mask, index_mod.take_rows(codes, safe),
-            mask[safe], full_tensor(state.codebook), impl=cfg.scan.impl)
-        s = coll.all_reduce_axes(torch.where(own, s, float("-inf")), mesh,
-                                 axes, op=dist.ReduceOp.MAX)
-        valid = ids >= 0
-        init = scan_mod._init_buffer(ids.shape[0], k, torch.float32,
-                                     ids.device, None)
-        return scan_mod._merge(*init, torch.where(valid, s, scan_mod.NEG_INF),
-                               torch.where(valid, ids, -1), k)
 
     # -- mutation (segmented LSM store) ----------------------------------------
 
@@ -225,15 +183,3 @@ class Retriever:
 
         return map_specs(place, self.backend.shard_specs(state), state)
 
-
-def _state_mesh(state):
-    """The mesh of a state's first DTensor, or None for a local state."""
-    found = []
-
-    def probe(t):
-        if not found and isinstance(t, DTensor):
-            found.append(t.device_mesh)
-        return t
-
-    state_map(probe, state)
-    return found[0] if found else None

@@ -23,12 +23,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import state_from_numpy
 from repro_torch.core import distributed as D
+from repro_torch.core import index as index_mod
 from repro_torch.data.pipeline import device_put_batch
 from repro_torch.data.synthetic import CorpusSpec, make_retrieval_corpus
 from repro_torch.dist import collectives, sharding
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.retrieval import Corpus, HPCConfig, Query, Retriever
+from repro_torch.parity import topk_mismatches
+from repro_torch.retrieval import (CascadeConfig, Corpus, HNSWConfig,
+                                   HPCConfig, IVFConfig, Query, Retriever)
 from repro_torch.train import elastic
 from repro_torch.train.loop import make_pipelined_fn
 
@@ -55,11 +59,18 @@ def cases(world: int):
     if world == 1:
         out += [(f"build_mesh_{b}", lambda z, m, b=b: check_build(z, m, b))
                 for b in ("flat", "ivf", "hamming")]
-        out += [(f"shard_search_{b}", lambda z, m, b=b: check_shard(z, m, b))
-                for b in BACKENDS]
-    else:
-        out += [("shard_search_flat", lambda z, m: check_shard(z, m, "flat")),
-                ("shard_search_hamming_raises", check_shard_raises)]
+    out += [(f"shard_search_{b}", lambda z, m, b=b: check_shard(z, m, b))
+            for b in BACKENDS]
+    out += [(f"shard_{b}_{v}", lambda z, m, b=b, v=v: check_variant(
+        m, b, v)) for v in VARIANTS for b in BACKENDS]
+    out += [(f"shard_cascade_rungs_{v}", lambda z, m, v=v: check_rungs(m, v))
+            for v in ("monolithic", "segmented")]
+    out += [(f"shard_candidates_{b}_{v}", lambda z, m, b=b, v=v:
+             check_candidates(m, b, v))
+            for b in ("flat", "float_flat", "hamming")
+            for v in ("monolithic", "segmented")]
+    out += [(f"jax_{name}", lambda z, m, name=name: check_jax(z, m, name))
+            for name in JAX_STATES]
     if world == 2:
         out += [("restore_elastic", check_elastic),
                 ("device_put_batch", check_put),
@@ -232,14 +243,215 @@ def check_shard(z, mesh, backend):
         assert sharded.rerank_codes.to_local().shape[0] == n_local
 
 
-def check_shard_raises(z, mesh):
-    r, state, q = _build("hamming")
-    try:
-        r.search(r.shard(state, mesh), q, k=5)
-    except NotImplementedError as e:
-        assert "ROADMAP.md" in str(e)
+# ---------------------------------------------------------------------------
+# every backend searched across ranks: each rank's answer against its own
+# unsharded search (ids equal, scores within 1e-6; Hamming scores equal)
+# ---------------------------------------------------------------------------
+
+# "segmented": 63 docs (dim 0 replicated at 2 and 4 ranks), then appends of
+#   16 and 9 docs (capacity 16: sharded), 3 upserts and 5 deletes;
+# "k_past_share": 64 docs searched at k = 40 (above a rank's share at 2 and
+#   4 ranks, and above the cascade's p2) and k = 80 (above N);
+# "indivisible": 66 docs (and 7 IVF lists): N does not divide 4, so dim 0
+#   shards over "data" alone at 4 ranks, and IVF's buckets replicate;
+# "ties": copies of doc 15 at positions 16, 31, 32 and 40 (across the rank
+#   boundaries at 2 and 4 ranks) and as the first doc of an appended
+#   segment (rank 0's rows): query 0 is doc 15's patches, so the six
+#   copies tie at the top (under the ADC and Hamming scans with 18 more
+#   docs of every rank), in position order only if every segment is
+#   merged on its own in shard order;
+# "k512": 64 docs under a 512-entry codebook: uint16 codes (9-bit Hamming
+#   codes, uint16 rerank rows) placed through their byte views.
+VARIANTS = ("segmented", "k_past_share", "indivisible", "ties", "k512")
+SEG_BASE, SEG_DELETE, SEG_UPSERT = 63, (5, 33, 50, 70, 82), (3, 20, 41)
+TIE_DOC, TIE_COPIES = 15, (16, 31, 32, 40)
+VARIANT_K = {"segmented": (5, 40), "k_past_share": (40, 80),
+             "indivisible": (5, 40), "ties": (30,), "k512": (5,)}
+_STATES = {}
+
+
+def _scfg(backend, n_list=8, k=16):
+    return HPCConfig(k=k, p=60.0, backend=backend, prune_side="doc",
+                     kmeans_iters=4, kmeans_restarts=2, kmeans_minibatch=0,
+                     rerank=12, cascade=CascadeConfig(32, 12),
+                     ivf=IVFConfig(n_list=n_list, n_probe=3, bucket_cap=32,
+                                   iters=4, restarts=1),
+                     hnsw=HNSWConfig(ef_search=24))
+
+
+def _rows(corpus, lo, hi):
+    return Corpus(*(a[lo:hi] for a in corpus))
+
+
+def _state(backend, variant):
+    """(retriever, unsharded state, query) of a variant, built once per
+    rank (every rank builds the same state from the same seeds)."""
+    key = (backend, variant)
+    if key in _STATES:
+        return _STATES[key]
+    r = Retriever(_scfg(backend, 7 if variant == "indivisible" else 8,
+                        512 if variant == "k512" else 16))
+    gen = torch.Generator().manual_seed(5)
+    if variant == "segmented":
+        corpus, query = _corpus(96)
+        st = r.build(gen, _rows(corpus, 0, SEG_BASE))
+        st = r.add(st, _rows(corpus, SEG_BASE, 79))
+        st = r.add(st, _rows(corpus, 79, 88))
+        st = r.add(st, _rows(corpus, 88, 91), doc_ids=list(SEG_UPSERT))
+        st = r.delete(st, list(SEG_DELETE))
+    elif variant == "ties":
+        corpus, query = _corpus(72)
+        corpus = Corpus(*(a.clone() for a in corpus))
+        corpus.salience[TIE_DOC, :4] += 10.0     # the queried patches kept
+        for a in corpus:
+            a[list(TIE_COPIES) + [64]] = a[TIE_DOC].clone()
+        st = r.add(r.build(gen, _rows(corpus, 0, 64)), _rows(corpus, 64, 72))
+        query = Query(*(a.clone() for a in query))
+        query.embeddings[0] = corpus.embeddings[TIE_DOC, :4]
+        query.mask[0] = True
     else:
-        raise AssertionError("a hamming state searched across ranks")
+        corpus, query = _corpus(66 if variant == "indivisible" else 64)
+        st = r.build(gen, corpus)
+    _STATES[key] = (r, st, query)
+    return _STATES[key]
+
+
+def _same(got, want, what):
+    (gs, gi), (ws, wi) = got, want
+    assert gs.dtype == ws.dtype and gi.dtype == wi.dtype, what
+    assert torch.equal(gi, wi), f"{what}: ids\n{gi}\n!=\n{wi}"
+    if gs.dtype.is_floating_point:
+        np.testing.assert_allclose(gs.numpy(), ws.numpy(), atol=1e-6,
+                                   err_msg=what)
+    else:
+        assert torch.equal(gs, ws), f"{what}: scores"
+
+
+def _expect_ties(got, backend):
+    """Query 0's answer holds the copies of doc 15 at one score, in
+    position order (all six where a stage budget does not cut the tied
+    group: the ADC and Hamming scans tie 24 docs of every rank there)."""
+    copies = [TIE_DOC, *TIE_COPIES, 64]
+    ids = got[1][0].tolist()
+    seen = [i for i in ids if i in copies]
+    assert seen == [c for c in copies if c in seen], seen
+    assert len({float(got[0][0, ids.index(i)]) for i in seen}) == 1
+    want = 3 if backend in ("cascade", "hnsw") else 6
+    assert len(seen) >= want, f"{len(seen)} tied copies returned: {ids}"
+
+
+def _placed(r, sharded, backend, variant):
+    """Across ranks: the rerank rows are sharded, and a segmented state
+    mixes a replicated first segment (63 rows) with sharded appends."""
+    rc = sharded.rerank_codes
+    assert rc.to_local().shape[0] < rc.shape[0], "rerank rows replicated"
+    if variant == "k512" and backend != "float_flat":
+        assert rc.dtype == rc.to_local().dtype == torch.uint16
+    if variant != "segmented" or backend in ("ivf", "hnsw"):
+        return
+    first, second = (index_mod.seg_doc_ids(p)
+                     for p in r.backend._segmented(sharded).segments[:2])
+    assert first.to_local().shape == first.shape, "segment 0 sharded"
+    assert second.to_local().shape[0] < second.shape[0], "appends replicated"
+
+
+def check_variant(mesh, backend, variant):
+    r, state, q = _state(backend, variant)
+    sharded = r.shard(state, mesh)
+    if dist.get_world_size() > 1:
+        _placed(r, sharded, backend, variant)
+    for k in VARIANT_K[variant]:
+        got = r.search(sharded, q, k=k)
+        _same(got, r.search(state, q, k=k), f"{backend} {variant} k={k}")
+        if variant == "ties":
+            _expect_ties(got, backend)
+
+
+def check_rungs(mesh, variant):
+    """Every rung of the cascade's degradation ladder and its floor."""
+    r, state, q = _state("cascade", "segmented" if variant == "segmented"
+                         else "k_past_share")
+    sharded = r.shard(state, mesh)
+    rungs = r.degrade_rungs(state, k=5)
+    assert rungs == r.degrade_rungs(sharded, k=5) and rungs[-1] is None
+    assert len(rungs) == 3, rungs
+    for rung in rungs:
+        _same(r.search_degraded(sharded, q, k=5, rung=rung),
+              r.search_degraded(state, q, k=5, rung=rung), f"rung {rung}")
+
+
+def check_candidates(mesh, backend, variant):
+    """A member backend's candidate search: (B, P) pools with -1 slots,
+    repeats, and (monolithic) positions past the corpus, which read the
+    last doc as the local path's clamp does."""
+    r, state, q = _state(backend, "segmented" if variant == "segmented"
+                         else "k_past_share")
+    sharded = r.shard(state, mesh)
+    rng = np.random.default_rng(7)
+    top = 96 if variant == "segmented" else 70
+    pool = rng.integers(-1, top, (q.embeddings.shape[0], 24))
+    pool[:, 5] = pool[:, 4]
+    pool = torch.from_numpy(pool.astype(np.int32))
+    be = r.backend
+    for k in (6, 30):
+        _same(be.search_candidates(sharded, q, pool, k=k),
+              be.search_candidates(state, q, pool, k=k),
+              f"{backend} candidates k={k}")
+
+
+# ---------------------------------------------------------------------------
+# the reference's states, searched across ranks, against the reference's
+# unsharded search (its arrays and outputs in inputs.npz under jx/ and
+# jxout/): cascade 1e-4 (every rung and the floor too; the floor's Hamming
+# scores exact), ivf and hnsw 1e-5, hamming exact
+# ---------------------------------------------------------------------------
+
+JAX_BACKENDS = ("cascade", "ivf", "hnsw", "hamming")
+JAX_STATES = tuple(f"{b}_{v}" for b in JAX_BACKENDS
+                   for v in ("monolithic", "segmented"))
+JAX_TOL = {"cascade": 1e-4, "ivf": 1e-5, "hnsw": 1e-5, "hamming": 0.0}
+JAX_RERANK = {"cascade": 0, "ivf": 16, "hnsw": 16, "hamming": 0}
+JAX_K = 10
+
+
+def jax_cfg(backend):
+    """The search-side knobs both packages use (the rest rides in the
+    state's arrays)."""
+    return dict(k=32, p=60.0, backend=backend, prune_side="doc",
+                kmeans_iters=6, kmeans_restarts=2,
+                rerank=JAX_RERANK[backend])
+
+
+def _match(got, want_s, want_i, tol, what):
+    gs, gi = got[0].numpy(), got[1].numpy()
+    assert gi.shape == want_i.shape, what
+    if tol == 0.0:
+        np.testing.assert_array_equal(gs, want_s, err_msg=what)
+        np.testing.assert_array_equal(gi, want_i, err_msg=what)
+        return
+    np.testing.assert_allclose(gs, want_s, atol=tol, rtol=tol, err_msg=what)
+    bad = topk_mismatches(gi, gs, want_i, want_s, tol)
+    assert not bad, f"{what}: ids differ outside near-ties at {bad}"
+
+
+def check_jax(z, mesh, name):
+    backend = name.rsplit("_", 1)[0]
+    prefix = f"jx/{name}/"
+    arrays = {key[len(prefix):]: z[key] for key in z
+              if key.startswith(prefix)}
+    state = state_from_numpy(arrays, device="cpu", backend=backend)
+    r = Retriever(HPCConfig(**jax_cfg(backend)))
+    q = Query(t(z["jx_q"]), t(z["jx_qm"]), t(z["jx_qs"]))
+    sharded = r.shard(state, mesh)
+    tol = JAX_TOL[backend]
+    _match(r.search(sharded, q, k=JAX_K), z[f"jxout/{name}/s"],
+           z[f"jxout/{name}/i"], tol, name)
+    if backend != "cascade":
+        return
+    for j, rung in enumerate(r.degrade_rungs(sharded, k=JAX_K)):
+        _match(r.search_degraded(sharded, q, k=JAX_K, rung=rung),
+               z[f"jxout/{name}/rung{j}_s"], z[f"jxout/{name}/rung{j}_i"],
+               0.0 if rung is None else tol, f"{name} rung {rung}")
 
 
 def check_elastic(z, mesh):

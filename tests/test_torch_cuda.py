@@ -1502,6 +1502,109 @@ def test_sharded_build_and_search_on_the_card():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _launch_counts():
+    return {"quantized_maxsim": qm.launches, "hamming_maxsim": hm.launches,
+            "maxsim": ms.launches, "kmeans_assign": km.launches}
+
+
+def _launched(fn):
+    """fn()'s result and the kernels it launched."""
+    before = _launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in _launch_counts().items()}
+
+
+def _sharded_case(backend, segmented, seed=5, k_codes=None):
+    """(retriever, card state, its placement on a one-rank NCCL mesh, card
+    query): monolithic, or after an add, an upsert and a delete."""
+    from repro_torch.retrieval import Corpus, Retriever
+    mesh = _nccl_mesh()
+    r, st, st_dev, q, q_dev = _built(backend, seed=seed)
+    if k_codes is not None:
+        r = Retriever(dataclasses.replace(_cfg(backend), k=k_codes))
+        d = _small_corpus(seed)
+        dev = q_dev.embeddings.device
+        st_dev = r.build(torch.Generator(device=dev).manual_seed(seed),
+                         Corpus(*(a.to(dev) for a in (
+                             d.doc_patches, d.doc_mask, d.doc_salience))))
+    if segmented:
+        d = _small_corpus(seed + 1, n=40)
+        dev = q_dev.embeddings.device
+        delta = Corpus(*(a.to(dev) for a in (d.doc_patches, d.doc_mask,
+                                             d.doc_salience)))
+        st_dev = r.add(st_dev, delta)
+        st_dev = r.add(st_dev, Corpus(*(a[:3] for a in delta)),
+                       doc_ids=[4, 30, 99])
+        st_dev = r.delete(st_dev, np.array([3, 50, 101]))
+    return r, st_dev, r.shard(st_dev, mesh), q_dev
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("backend", ["flat", "float_flat", "hamming", "ivf",
+                                     "hnsw", "cascade"])
+def test_sharded_search_equals_local_on_the_card(backend, segmented):
+    """Every backend's state placed on a one-rank NCCL mesh searches as the
+    unsharded state on the card, through the same kernels as often: a
+    sweep's answer (float_flat, hamming without its rerank) bit for bit;
+    where a candidate pool is scored by the full-score kernel (the
+    rerank, the cascade's stages 2-3, the routers' pools) scores within
+    1e-4 and ids outside near-ties."""
+    r, st, sharded, q = _sharded_case(backend, segmented)
+    want, n_want = _launched(lambda: r.search(st, q, k=10))
+    got, n_got = _launched(lambda: r.search(sharded, q, k=10))
+    assert n_got == n_want and sum(n_got.values()) > 0, (n_got, n_want)
+    if backend == "float_flat":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        _assert_search_match(got, (want[0].cpu(), want[1].cpu()))
+    sweep = r.backend.search(st, q, k=10)
+    if backend in ("flat", "float_flat", "hamming"):   # shape (a) alone
+        again = r.backend.search(sharded, q, k=10)
+        assert torch.equal(again[0], sweep[0])
+        assert torch.equal(again[1], sweep[1])
+
+
+def test_sharded_hamming_k512_uint16_on_the_card():
+    """A K = 512 codebook: 9-bit Hamming codes and uint16 rerank codes
+    placed through their byte views; the sweep equal bit for bit, the
+    reranked search within 1e-4, monolithic and segmented."""
+    for segmented in (False, True):
+        r, st, sharded, q = _sharded_case("hamming", segmented, seed=6,
+                                          k_codes=512)
+        assert sharded.rerank_codes.dtype == torch.uint16
+        assert sharded.rerank_codes.to_local().dtype == torch.uint16
+        got = r.backend.search(sharded, q, k=12)
+        want = r.backend.search(st, q, k=12)
+        assert got[0].dtype == torch.int32
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        want = r.search(st, q, k=10)
+        _assert_search_match(r.search(sharded, q, k=10),
+                             (want[0].cpu(), want[1].cpu()))
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+def test_sharded_cascade_rungs_on_the_card(segmented):
+    """Every rung of the cascade's ladder on the placed state: the floor
+    (the Hamming sweep alone, float32) bit for bit, the budget rungs
+    within 1e-4; the floor launches no maxsim and no quantized_maxsim."""
+    r, st, sharded, q = _sharded_case("cascade", segmented, seed=7)
+    rungs = r.degrade_rungs(st, k=5)
+    assert rungs[-1] is None
+    for rung in rungs:
+        want = r.search_degraded(st, q, k=5, rung=rung)
+        got, n = _launched(lambda: r.search_degraded(sharded, q, k=5,
+                                                     rung=rung))
+        if rung is None:
+            assert got[0].dtype == torch.float32
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            assert n["maxsim"] == n["quantized_maxsim"] == 0
+            assert n["hamming_maxsim"] > 0 and n["kmeans_assign"] == 1
+        else:
+            _assert_search_match(got, (want[0].cpu(), want[1].cpu()))
+
+
 # --- launch geometry and the dry run on the card ------------------------------
 
 _GEOMETRY_EDGES = {

@@ -27,9 +27,21 @@ JAX):
     ``ring_allgather_matmul`` against ``x @ w`` (1e-5);
   * at world 1: ``Retriever.build(mesh=)`` against the port's single-host
     build (codebook 1e-5, rerank codes and search equal) for flat, ivf and
-    hamming, and ``Retriever.shard`` + search equal to the unsharded search
-    for all six backends; at worlds 2 and 4 the same for flat, and a
-    sharded hamming state's search raising;
+    hamming;
+  * at every world: all six backends, monolithic and segmented (appends,
+    upserts and deletes; a replicated first segment beside sharded
+    appends), searched from ``Retriever.shard`` against each rank's own
+    unsharded search: ids equal, ties included (copies of a document
+    across rank boundaries and segments), scores within 1e-6 (Hamming
+    scores equal), at k above a rank's share and above N, at an N that
+    does not divide 4, under a 512-entry codebook (uint16 codes); every
+    cascade rung and its floor; the member backends' candidate searches;
+  * at every world: the reference's cascade, ivf, hnsw and hamming states
+    (monolithic, and after an append and deletes), built here and carried
+    as arrays, searched from ``Retriever.shard`` against the reference's
+    unsharded ``Retriever.search``: the cascade within 1e-4 (every rung
+    too, the floor's Hamming scores exactly), ivf and hnsw within 1e-5
+    (ids equal outside near-ties, ``topk_mismatches``), hamming exactly;
   * at world 2: ``restore_elastic`` of a reference-written checkpoint
     (float32, uint16 and bfloat16 leaves) onto a (1, 2) mesh, equal to the
     tree with the expected local shards; ``device_put_batch`` by
@@ -53,11 +65,14 @@ from repro.ckpt import checkpoint as jax_ck
 from repro.core import late_interaction as jax_li
 from repro.core import quantization as jax_quant
 from tests import _torch_dist_ranks as ranks
+from tests._torch_parity import state_arrays
 
 ROOT = Path(__file__).resolve().parents[1]
 SPAWN_TIMEOUT = 240
 WORLDS = (1, 2, 4)
 TIE_TOL = 1e-4
+JAX_SPEC = dict(n_docs=96, n_queries=8, n_patches=10, n_q_patches=4, dim=24,
+                n_topics=6, dup_per_doc=2)      # tests/test_cascade.py:25-31
 
 
 def _inputs(path: Path) -> None:
@@ -122,7 +137,57 @@ def _inputs(path: Path) -> None:
                                  "h": h})
     z.update(ck_dir=np.array(str(ck_dir)), ck_w=w, ck_codes=codes16,
              ck_h_bits=np.asarray(h).view(np.uint16))
+    z.update(_reference_states())
     np.savez(path, **z)
+
+
+def _reference_states() -> dict:
+    """cascade, ivf, hnsw and hamming states the reference builds over
+    docs 0-79 of one corpus, and each after an append of docs 80-95 and
+    three deletes (segmented), as ``state_arrays`` under ``jx/<name>/``;
+    the reference's unsharded searches under ``jxout/<name>/`` (the
+    cascade's every rung too)."""
+    from repro.core.graph import HNSWConfig as JHNSWConfig
+    from repro.core.index import IVFConfig as JIVFConfig
+    from repro.data import synthetic as jax_synthetic
+    from repro.retrieval import CascadeConfig as JCascadeConfig
+    from repro.retrieval import Corpus as JCorpus
+    from repro.retrieval import HPCConfig as JConfig
+    from repro.retrieval import Query as JQuery
+    from repro.retrieval import Retriever as JRetriever
+
+    data = jax_synthetic.make_retrieval_corpus(
+        jax.random.PRNGKey(0), jax_synthetic.CorpusSpec(**JAX_SPEC))
+    docs = [np.asarray(a) for a in (data.doc_patches, data.doc_mask,
+                                    data.doc_salience)]
+    q = [np.asarray(a) for a in (data.query_patches, data.query_mask,
+                                 data.query_salience)]
+    jq = JQuery(*map(jnp.asarray, q))
+    out = {"jx_q": q[0], "jx_qm": q[1], "jx_qs": q[2]}
+    for backend in ranks.JAX_BACKENDS:
+        r = JRetriever(JConfig(
+            cascade=JCascadeConfig(p1=32, p2=12),
+            ivf=JIVFConfig(n_list=8, n_probe=3, iters=6),
+            hnsw=JHNSWConfig(ef_search=32), **ranks.jax_cfg(backend)))
+        st = r.build(jax.random.PRNGKey(1),
+                     JCorpus(*(jnp.asarray(a[:80]) for a in docs)))
+        seg = r.delete(r.add(st, JCorpus(*(jnp.asarray(a[80:])
+                                           for a in docs))),
+                       np.array([2, 41, 85]))
+        for variant, state in (("monolithic", st), ("segmented", seg)):
+            name = f"{backend}_{variant}"
+            for key, val in state_arrays(state, backend).items():
+                out[f"jx/{name}/{key}"] = val
+            got = r.search(state, jq, k=ranks.JAX_K)
+            out[f"jxout/{name}/s"], out[f"jxout/{name}/i"] = map(
+                np.asarray, got)
+            if backend != "cascade":
+                continue
+            for j, rung in enumerate(r.degrade_rungs(state, k=ranks.JAX_K)):
+                got = r.search_degraded(state, jq, k=ranks.JAX_K, rung=rung)
+                out[f"jxout/{name}/rung{j}_s"], \
+                    out[f"jxout/{name}/rung{j}_i"] = map(np.asarray, got)
+    return out
 
 
 @pytest.fixture(scope="module")
