@@ -200,6 +200,19 @@ any failure exits non-zero, and no phase's error is swallowed:
      full-score kernel within 1e-4 with ids outside near-ties); one
      batch's host wall and device time sharded beside unsharded (one
      ``{"sharded_backends": ...}`` line);
+ 13e. model-internal sharding at world size 1, after phase 12, in a
+     one-rank NCCL group of its own: the full-width qwen2-1.5b ColPali
+     encoder over 16 pages and 8 queries with its weights and inputs
+     placed by their specs (the placed embeddings, taken whole, indexed
+     by the flat backend and searched: kmeans_assign and quantized_maxsim
+     launched on the sharded path's output), phase 11a's 1-layer
+     llama4-scout cut (prefill of 2 x 64 and 4 decode steps with placed
+     caches), and dcn-v2's train_batch and PNA's full_graph_sm steps from
+     ``launch.cells.build_cell`` with the mesh, each held to the same run
+     unsharded (forward values within 2e-5, train steps' grad norms
+     within 2e-4 and params within 5e-5, the largest difference of each
+     reported) with host wall and device time for both; one
+     ``{"model_sharding": ...}`` line;
  14. the analysis engines and the dry run: (a) every lint rule
      (E9/F401/F811/F541, TORCH01/02/04/05) over ``src/repro_torch`` and
      this script: no finding; (b) the four kernels' launch geometry at
@@ -463,6 +476,25 @@ SERVE_WALLS = 5
 SERVE_PLAIN_DOCS = 16_384   # the plain version's time is taken over these
 INERTIA_TOL = 0.05          # 13b: mean inertia at most 5% above phase 4's
 GPIPE_MICRO = 8
+
+# phase 13e, model-internal sharding at world size 1 (a one-rank NCCL group
+# and a (1, 1) mesh, as 13d's): each model run unsharded, then with its
+# weights, optimizer state, caches and batches placed by their specs and
+# the step given the sharder. The encoder is the full qwen2-1.5b ColPali
+# encoder over MS_PAGES pages (phase 9b's micro-batch), its placed output
+# indexed (flat) and searched; the scout cut is phase 11a's 1-layer
+# full-width llama4-scout in float32, prefilling MOE_CUT_PROMPT and
+# decoding MOE_CUT_DECODE steps; dcn-v2's train_batch and PNA's
+# full_graph_sm are built by launch.cells.build_cell with and without the
+# mesh from one seed. Forward values within MS_TOL (atol and rtol); a train
+# step's loss within MS_TOL and its grad norm within MS_GNORM_TOL (PNA's
+# segment sums and the tables' grads are float atomics on the card: their
+# order changes from run to run), its new params within MS_PARAM_TOL.
+MS_PAGES = 16
+MS_QUERIES = 8
+MS_TOL = 2e-5
+MS_GNORM_TOL = 5e-5 * PNA_REORDER
+MS_PARAM_TOL = 5e-5
 
 
 # phase 14: the analysis engines and the dry run. The dry run's predicted
@@ -4049,6 +4081,234 @@ def _sharded_backends(args, torch, np, dev, smi, paths, queries,
     return {"launches": launches, "readings": out}
 
 
+def _model_sharding_phase(args, torch, np, dev, smi, kernel_mods):
+    """Phase 13e: model-internal sharding at world size 1, in a one-rank
+    NCCL group of its own and a (1, 1) mesh. (a) the full-width encoder
+    over MS_PAGES pages and MS_QUERIES queries, unsharded and then with
+    its weights placed (``transformer.shard_module``) and the pages on
+    "batch"; the placed embeddings, taken whole, are indexed by the flat
+    backend and searched, so ``kmeans_assign`` and ``quantized_maxsim``
+    run on the sharded path's output (launches counted from 0). (b) phase
+    11a's 1-layer llama4-scout cut: prefill and MOE_CUT_DECODE greedy
+    steps, unsharded, then placed in place (each leaf's whole copy freed
+    as its placement is made) with placed caches. (c) dcn-v2's train_batch
+    step and (d) PNA's full_graph_sm step from ``launch.cells.build_cell``
+    without and with the mesh. Each placed result is held to the
+    unsharded one and reported with its largest difference (0 where the
+    ops are the same); each pair's host wall and device time (CUDA events
+    around the call) are printed. Nothing here is caught. Returns the
+    launches by path and the readings."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.colpali_hpc import COLPALI_HPC
+    from repro_torch.configs.lm_archs import LLAMA4_SCOUT
+    from repro_torch.dist.sharding import Sharder, full_tensor, shard_tree
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_host_mesh, open_local_group
+    from repro_torch.models import colpali
+    from repro_torch.models import transformer as T
+    from repro_torch.retrieval import Corpus, Query, Retriever
+
+    t0 = _phase("13e. model-internal sharding at world size 1 (a one-rank "
+                "NCCL group of its own)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_at_start = torch.cuda.memory_allocated()
+    group = open_local_group(dev)
+    mesh = make_host_mesh((1, 1), ("data", "model"), device=dev)
+    shd = Sharder(mesh)
+    out, launches = {}, {}
+
+    def zero():
+        for mod in kernel_mods.values():
+            mod.launches = 0
+
+    def counts():
+        return {n: mod.launches for n, mod in kernel_mods.items()}
+
+    def timed(fn):
+        """(result, host wall ms, device ms) of one call."""
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, (time.perf_counter() - t1) * 1e3, start.elapsed_time(end)
+
+    def diff(got, want):
+        got = full_tensor(got)
+        assert not isinstance(got, DTensor) and got.shape == want.shape
+        return float((got.float() - want.float()).abs().max())
+
+    def held(name, pairs, tol):
+        """{what: largest difference}, each within tol relative to the
+        unsharded value (and absolute for small ones)."""
+        res = {}
+        for what, (got, want) in pairs.items():
+            d = diff(got, want)
+            scale = max(1.0, float(want.float().abs().max()))
+            assert d <= tol * scale, f"13e {name} {what}: {d} > {tol}"
+            res[what] = d
+        return res
+
+    def record(name, walls, errs, **extra):
+        (w0, d0), (w1, d1) = walls
+        out[name] = {"unsharded": {"host_wall_ms": w0, "device_ms": d0},
+                     "sharded": {"host_wall_ms": w1, "device_ms": d1},
+                     "max_abs_diff": errs,
+                     "bit_for_bit": sorted(k for k, v in errs.items()
+                                           if v == 0.0), **extra}
+        print(f"13e {name}: sharded == unsharded (largest differences "
+              f"{errs}) | host wall {w1:.1f} ms sharded, {w0:.1f} ms "
+              f"unsharded; device {d1:.1f} / {d0:.1f} ms (cuda events) "
+              f"| {smi}")
+
+    # -- (a) the encoder, its placed output indexed and searched -----------
+    arch = COLPALI_HPC.config
+    enc_cfg = arch.encoder
+    enc = colpali.init(enc_cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 131), device=dev)
+    pg = torch.Generator(dev).manual_seed(args.seed + 132)
+    pages = torch.randn((MS_PAGES, enc_cfg.n_patches, enc_cfg.d_patch),
+                        generator=pg, device=dev)
+    mask = torch.ones((MS_PAGES, enc_cfg.n_patches), dtype=torch.bool,
+                      device=dev)
+    q_tok = torch.randint(0, enc_cfg.backbone.vocab,
+                          (MS_QUERIES, enc_cfg.query_len), generator=pg,
+                          device=dev)
+    q_mask = torch.ones_like(q_tok, dtype=torch.bool)
+    enc.encode_doc(pages[:1], mask[:1])               # cuBLAS set-up
+    (e0, s0), w0, d0 = timed(lambda: enc.encode_doc(pages, mask))
+    q0, qs0 = enc.encode_query(q_tok, q_mask)
+    T.shard_module(enc, shd, colpali.param_specs(enc_cfg))
+    d_pages = shard_tree(shd, ("batch", None, None), pages)
+    d_mask = shard_tree(shd, ("batch", None), mask)
+    enc.encode_doc(d_pages[:1], d_mask[:1], shd=shd)
+    (e1, s1), w1, d1 = timed(lambda: enc.encode_doc(d_pages, d_mask,
+                                                    shd=shd))
+    q1, qs1 = enc.encode_query(shard_tree(shd, ("batch", None), q_tok),
+                               shard_tree(shd, ("batch", None), q_mask),
+                               shd=shd)
+    errs = held("encoder", {"doc_embeddings": (e1, e0),
+                            "doc_salience": (s1, s0),
+                            "query_embeddings": (q1, q0),
+                            "query_salience": (qs1, qs0)},
+                MS_TOL)
+    del enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    emb, sal = full_tensor(e1), full_tensor(s1)   # whole: kernels read them
+    retriever = Retriever(arch.hpc)
+    zero()
+    state = retriever.build(torch.Generator(dev).manual_seed(args.seed + 133),
+                            Corpus(emb, torch.ones_like(sal, dtype=torch.bool),
+                                   sal))
+    torch.cuda.synchronize()
+    launches["13e sharded encoder build"] = counts()
+    assert launches["13e sharded encoder build"]["kmeans_assign"] >= 1, \
+        launches
+    query = Query(full_tensor(q1), q_mask, full_tensor(qs1))
+    zero()
+    got_s, got_i = retriever.search(state, query, k=TOP_K)
+    torch.cuda.synchronize()
+    launches["13e sharded encoder search"] = counts()
+    assert launches["13e sharded encoder search"]["quantized_maxsim"] == 2, \
+        launches
+    want_s, want_i = retriever.search(state, Query(q0, q_mask, qs0),
+                                      k=TOP_K)
+    torch.testing.assert_close(got_s, want_s, atol=QMAXSIM_TOL,
+                               rtol=QMAXSIM_TOL)
+    assert bool(torch.isfinite(got_s).all()) and got_i.shape == (
+        MS_QUERIES, TOP_K)
+    record("encoder", ((w0, d0), (w1, d1)), errs, pages=MS_PAGES,
+           queries=MS_QUERIES,
+           search_ids_equal_to_unsharded_queries=bool(
+               torch.equal(got_i, want_i)))
+    del e0, s0, e1, s1, q0, qs0, q1, qs1, emb, sal, state, pages, d_pages
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) the 1-layer llama4-scout cut: prefill and decode ---------------
+    cfg = dataclasses.replace(LLAMA4_SCOUT.config, n_layers=1,
+                              activation_dtype="float32")
+    model = T.init(cfg, generator=torch.Generator(dev).manual_seed(
+        args.seed + 134), device=dev)
+    b, s = MOE_CUT_PROMPT
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator(
+        dev).manual_seed(args.seed + 135), device=dev)
+    max_len = s + MOE_CUT_DECODE
+    (lg0, c0), w0, d0 = timed(lambda: T.prefill(model, prompt, max_len))
+    feeds, want = [], [lg0]
+    for i in range(MOE_CUT_DECODE):
+        feeds.append(torch.argmax(want[-1], -1).to(torch.int32))
+        lg, c0 = T.decode_step(model, feeds[-1], c0, s + i)
+        want.append(lg)
+    placed_before = torch.cuda.memory_allocated()
+    T.shard_module(model, shd, T.param_specs(cfg))
+    torch.cuda.synchronize()
+    placement_bytes = torch.cuda.memory_allocated() - placed_before
+    dp = shard_tree(shd, ("batch", None), prompt)
+    (lg1, c1), w1, d1 = timed(lambda: T.prefill(model, dp, max_len,
+                                                shd=shd))
+    pairs = {"prefill_logits": (lg1, lg0), "cache_k": (c1.k, c0.k),
+             "cache_v": (c1.v, c0.v)}
+    for i, feed in enumerate(feeds):
+        lg, c1 = T.decode_step(model, shard_tree(shd, ("batch",), feed), c1,
+                               s + i, shd=shd)
+        pairs[f"decode_{i}_logits"] = (lg, want[i + 1])
+    errs = held("llama4-scout 1-layer cut", pairs, MS_TOL)
+    record("scout_cut", ((w0, d0), (w1, d1)), errs, prompt=[b, s],
+           decode_steps=MOE_CUT_DECODE, placement_added_bytes=placement_bytes)
+    del model, c0, c1, lg0, lg1, want, pairs, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c, d) dcn-v2's and PNA's train steps through the cell builder ----
+    for name, arch_id, cell_name in (("dcn_train", "dcn-v2", "train_batch"),
+                                     ("pna_full_graph_sm", "pna",
+                                      "full_graph_sm")):
+        spec = registry.get(arch_id)
+        cell = next(c for c in spec.shapes if c.name == cell_name)
+        built = cells.build_cell(spec, cell, None, device=dev, fake=False,
+                                 seed=args.seed + 136)
+        (p0, _, m0), w0, d0 = timed(lambda: built.fn(*built.args))
+        del built
+        gc.collect()
+        torch.cuda.empty_cache()
+        built = cells.build_cell(spec, cell, mesh, device=dev, fake=False,
+                                 seed=args.seed + 136)
+        assert all(isinstance(v, DTensor) for v in built.args[0].values())
+        (p1, _, m1), w1, d1 = timed(lambda: built.fn(*built.args))
+        errs = held(name, {"loss": (m1["loss"], m0["loss"])}, MS_TOL)
+        errs.update(held(name, {"grad_norm": (m1["grad_norm"],
+                                              m0["grad_norm"])},
+                         MS_GNORM_TOL))
+        errs["params"] = max(held(name, {k: (p1[k], p0[k]) for k in p0},
+                                  MS_PARAM_TOL).values())
+        record(name, ((w0, d0), (w1, d1)), errs,
+               placements_recorded=sorted(built.placements))
+        del built, p0, p1, m0, m1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    dist.destroy_process_group()
+    held_at_end = torch.cuda.memory_allocated()
+    assert held_at_end <= held_at_start + 2**28, "a 13e model outlived it"
+    out["group"] = group
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"model_sharding": out, "smi": smi}))
+    print(f"phase 13e {out['seconds']:.1f}s")
+    return {"launches": launches, "readings": out}
+
+
 def _sharded_phase(args, torch, np, dev, cfg, flat_codebook, flat_hit,
                    lds_per_s):
     """Phase 13: a one-rank NCCL group and a (1, 1) ("data", "model")
@@ -5080,6 +5340,8 @@ def main(argv=None) -> int:
     recsys_out = _recsys_phase(args, torch, np, dev, smi, kernel_mods)
     pna = _pna_phase(args, torch, np, dev, smi, kernel_mods)
     km_abs_err = max(km_abs_err, recsys_out["kmeans_max_gap"])
+    model_sharding = _model_sharding_phase(args, torch, np, dev, smi,
+                                           kernel_mods)
     sharded = _sharded_phase(args, torch, np, dev, cfg, flat_codebook,
                              flat_hit, lds_per_s)
     serve = sharded["serve"]
@@ -5094,7 +5356,8 @@ def main(argv=None) -> int:
                **ann["launches"], **model["launches"],
                **train["launches"], **moe["launches"],
                **recsys_out["launches"], **pna["launches"],
-               **sharded["launches"], **backends["launches"]}
+               **sharded["launches"], **backends["launches"],
+               **model_sharding["launches"]}
 
     def launches(name):
         return sum(path.get(name, 0) for path in by_path.values())

@@ -31,16 +31,26 @@ it was.
 
 ``NULL`` is the no-mesh singleton: ``shd=NULL`` turns every constraint into
 a no-op, so the same code runs unsharded.
+
+The model code takes a sharder (``shd=``). Parameters, optimizer state,
+caches and batches are placed by their logical specs (``shard_tree``), and
+each of the reference's sharding constraints is ``Sharder.constraint`` at
+the same place. Where DTensor has no rule for an op, the model writes the
+per-rank program itself on the local shards: ``local_partial`` takes a
+replicated input into a program that uses it differently on each rank (its
+gradient is summed back over those ranks), and ``reduce_partial`` joins
+the ranks' partial results with one all-reduce.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
-from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
-                                      distribute_tensor)
+from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate,
+                                      Shard, distribute_tensor)
 
 # Logical dim name -> ordered mesh axes it may shard over. Order matters:
 # divisibility drops from the right, so put the "most essential" axis first.
@@ -199,6 +209,90 @@ def shard_index(mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
     return index, count
 
 
+@contextlib.contextmanager
+def replicating():
+    """DTensor's implicit replication (plain tensors beside DTensors count
+    as replicated) for the duration of the block, then the setting it
+    found: unlike ``implicit_replication`` it nests, so an entry point
+    called inside another's scope leaves the outer one on."""
+    disp = DTensor._op_dispatcher
+    saved = disp._allow_implicit_replication
+    disp._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = saved
+
+
+def local_partial(x, over: Sequence[int]) -> torch.Tensor:
+    """A DTensor's local shard, taken into a per-rank program that uses it
+    differently on the ranks of the mesh dims ``over`` (where ``x`` is
+    replicated: each rank reads another slice of it, or applies it to
+    other rows): the gradient flowing back is summed over those dims.
+    Any other value is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = [Partial() if i in over else p for i, p in enumerate(x.placements)]
+    return x.to_local(grad_placements=pl)
+
+
+def reduce_partial(part: torch.Tensor, mesh, placements, over: Sequence[int],
+                   op: str = "sum") -> DTensor:
+    """Each rank's ``part`` of a value that is the ``op`` ("sum", "max" or
+    "min") of the parts over the mesh dims ``over``: one all-reduce, and
+    the result as a DTensor replicated on those dims and placed by
+    ``placements`` on the others. Differentiable for "sum" (every part
+    gets the gradient of the whole)."""
+    pl = list(placements)
+    for i in over:
+        pl[i] = Partial(op)
+    out = DTensor.from_local(part, mesh, pl, run_check=False)
+    if not over:
+        return out
+    return out.redistribute(mesh, [Replicate() if i in over else p
+                                   for i, p in enumerate(pl)])
+
+
+def all_to_all(x: torch.Tensor, mesh, dims: Sequence[int], split_dim: int,
+               cat_dim: int) -> torch.Tensor:
+    """One all-to-all among the ranks of the mesh dims ``dims`` (their
+    shards in ``shard_index`` order): ``x`` is cut into as many equal
+    parts along ``split_dim`` as there are ranks, part j goes to rank j,
+    and the parts received are joined along ``cat_dim`` in rank order.
+    Differentiable (the gradient goes back by the inverse exchange). It
+    issues an all-to-all on every backend, where DTensor's own shard-dim
+    exchange falls back to an all-gather on gloo."""
+    from torch.distributed._functional_collectives import (
+        all_to_all_single_autograd, wait_tensor)
+    names = tuple(mesh.mesh_dim_names[i] for i in dims)
+    sub = mesh[names]
+    if len(names) > 1:
+        sub = sub._flatten()
+    n = sub.size()
+    parts = torch.stack(x.chunk(n, dim=split_dim))
+    got = wait_tensor(all_to_all_single_autograd(
+        parts.reshape(-1, *parts.shape[2:]).contiguous(), None, None, sub))
+    got = got.view(parts.shape)
+    return torch.cat(got.unbind(0), dim=cat_dim)
+
+
+def shard_tree(shd, specs, tree):
+    """``tree`` (params, optimizer state, caches, a batch) with every
+    tensor placed on ``shd``'s mesh by its logical spec in the matching
+    ``specs`` tree (``map_specs``; mesh dims of size 1 replicate); a 0-d
+    tensor is replicated. With ``NULL`` the tree is returned as it is."""
+    if shd.mesh is None:
+        return tree
+
+    def place(spec, x):
+        if not isinstance(x, torch.Tensor) or isinstance(x, DTensor):
+            return x
+        return distribute(x, shd.named(spec, tuple(x.shape),
+                                       unit_axes=False))
+
+    return map_specs(place, specs, tree)
+
+
 class Sharder:
     """Resolves logical specs against one mesh (a ``DeviceMesh`` or a
     ``MeshShape``)."""
@@ -247,12 +341,18 @@ class Sharder:
     # -- conveniences -------------------------------------------------------
 
     def placements(self, spec: Tuple[Optional[str], ...],
-                   shape: Tuple[int, ...]) -> Tuple[Placement, ...]:
-        """The resolved spec as DTensor placements, one per mesh dim."""
+                   shape: Tuple[int, ...], unit_axes: bool = True
+                   ) -> Tuple[Placement, ...]:
+        """The resolved spec as DTensor placements, one per mesh dim.
+        ``unit_axes=False`` leaves a mesh dim of size 1 replicated (a
+        shard of everything), which keeps the model code's reshapes
+        within DTensor's rules."""
         names = tuple(self.mesh.mesh_dim_names)
         out = [Replicate()] * len(names)
         for d, entry in enumerate(self.resolve(spec, shape)):
             axes = (entry,) if isinstance(entry, str) else (entry or ())
+            if not unit_axes:
+                axes = tuple(a for a in axes if self._sizes[a] > 1)
             idx = [names.index(a) for a in axes]
             if idx != sorted(idx):
                 raise ValueError(
@@ -264,16 +364,18 @@ class Sharder:
         return tuple(out)
 
     def named(self, spec: Tuple[Optional[str], ...],
-              shape: Tuple[int, ...]) -> NamedSharding:
-        return NamedSharding(self.mesh, self.placements(spec, shape))
+              shape: Tuple[int, ...], unit_axes: bool = True
+              ) -> NamedSharding:
+        return NamedSharding(self.mesh,
+                             self.placements(spec, shape, unit_axes))
 
     def constraint(self, x, *spec: Optional[str]):
-        """``x`` redistributed to the resolved spec if it is a DTensor;
-        any other value unchanged."""
+        """``x`` redistributed to the resolved spec if it is a DTensor
+        (mesh dims of size 1 replicated); any other value unchanged."""
         if not isinstance(x, DTensor):
             return x
-        return x.redistribute(self.mesh,
-                              self.placements(tuple(spec), tuple(x.shape)))
+        return x.redistribute(self.mesh, self.placements(
+            tuple(spec), tuple(x.shape), unit_axes=False))
 
     def num_shards(self, name: str, dim: int) -> int:
         """How many ways a dim of this size/logical name actually shards."""
@@ -282,6 +384,12 @@ class Sharder:
         for a in kept:
             prod *= self._sizes[a]
         return prod
+
+    def scope(self):
+        """The context the model code runs its sharded steps in: plain
+        tensors it makes (masks, positions, zeros) count as replicated
+        beside DTensors."""
+        return replicating()
 
 
 class _NullSharder:
@@ -302,6 +410,9 @@ class _NullSharder:
 
     def num_shards(self, name, dim) -> int:
         return 1
+
+    def scope(self):
+        return contextlib.nullcontext()
 
 
 NULL = _NullSharder()

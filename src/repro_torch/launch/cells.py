@@ -11,9 +11,15 @@ The counterpart of ``repro.launch.cells``. For each family it builds:
     modules are constructed but their weights not drawn, so nothing is
     allocated; outside one (``fake=False``) the same arguments as real
     tensors on ``device``, with index inputs inside their tables;
-  * the placements: at world size 1 every argument lives whole on the
-    mesh's one device (the model code takes no sharder yet: ROADMAP.md §A
-    item 3);
+  * the placements: with a mesh, ``Sharder(mesh)`` resolves every
+    argument's logical spec (the model's ``param_specs``, the optimizer's
+    ``state_specs``, ``transformer.cache_specs``, the batches' "batch",
+    "nodes", "edge" and "candidate" dims), the params, the optimizer
+    state, the caches and the batches are placed by them
+    (``dist.sharding.shard_tree``; a module's own weights by
+    ``transformer.shard_module``) and the step gets ``shd=``; without one
+    (the dry run's world-size-1 cells) everything stays whole and the
+    step runs with ``NULL``. ``placements`` records the resolved specs;
   * ``meta["model_flops"]``, the reference's MODEL_FLOPS conventions,
     carried across unchanged: 6 N D train / 2 N_active D forward for LMs
     and ColPali, the analytic PNA formula, the recsys dense-MLP formulas
@@ -30,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ArchSpec, ShapeCell
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import NULL, Sharder, map_specs, shard_tree
 from repro_torch.models import colpali as colpali_mod
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as recsys_mod
@@ -54,9 +61,20 @@ def _opt_cfg_for(arch_id: str) -> opt.AdamWConfig:
     return opt.AdamWConfig()
 
 
-def _placements(mesh, dev: torch.device) -> Dict[str, Any]:
-    shape = tuple(mesh.shape) if mesh is not None else (1,)
-    return {"mesh": shape, "device": str(dev), "every_argument": "whole"}
+def _sharder(mesh):
+    return NULL if mesh is None else Sharder(mesh)
+
+
+def _record(shd, dev: torch.device, **trees) -> Dict[str, Any]:
+    """The mesh, the device and, for each ``name=(specs, tree)``, the tree
+    of its resolved specs (one entry per dim: None, an axis or axes)."""
+    rec = {"mesh": tuple(shd.mesh.shape) if shd.mesh is not None else (1,),
+           "device": str(dev)}
+    for name, (specs, tree) in trees.items():
+        rec[name] = map_specs(lambda sp, x: shd.resolve(sp, tuple(x.shape))
+                              if isinstance(x, torch.Tensor) else x,
+                              specs, tree)
+    return rec
 
 
 def _ints(shape, high: int, dev, dtype=torch.int32, fake: bool = True,
@@ -122,9 +140,11 @@ def build_lm_cell(spec: ArchSpec, cell: ShapeCell, mesh, *, smoke: bool,
     model = T.Transformer(cfg, device=dev)
     if not fake:
         _draw(model, gen)
+    shd = _sharder(mesh)
+    specs = T.param_specs(cfg)
+    T.shard_module(model, shd, specs)
     params = T.params_of(model)
     meta = lm_meta(cfg, cell)
-    place = _placements(mesh, dev)
 
     if cell.kind == "train":
         ocfg = _opt_cfg_for(spec.arch_id)
@@ -133,17 +153,26 @@ def build_lm_cell(spec: ArchSpec, cell: ShapeCell, mesh, *, smoke: bool,
                                  gen=gen),
                  "targets": _ints((gb, seq), cfg.vocab, dev, fake=fake,
                                   gen=gen)}
+        sspecs = opt.state_specs(specs, ocfg)
+        state = shard_tree(shd, sspecs, state)
+        batch = shard_tree(shd, T.batch_specs(), batch)
+        place = _record(shd, dev, params=(specs, params),
+                        opt_state=(sspecs, state),
+                        batch=(T.batch_specs(), batch))
 
         def fn(p, o, b):
-            return T.train_step(model, p, o, b, ocfg)
+            return T.train_step(model, p, o, b, ocfg, shd=shd)
         return BuiltCell(spec.arch_id, cell, fn, (params, state, batch),
                          place, meta)
 
     if cell.kind == "prefill":
         tok = _ints((gb, seq), cfg.vocab, dev, fake=fake, gen=gen)
+        tok = shard_tree(shd, ("batch", None), tok)
+        place = _record(shd, dev, params=(specs, params),
+                        tokens=(("batch", None), tok))
 
         def fn(p, tok):
-            return T.prefill(model, tok, max_len=seq)
+            return T.prefill(model, tok, max_len=seq, shd=shd)
         return BuiltCell(spec.arch_id, cell, fn, (params, tok), place, meta)
 
     # decode: one token against a seq-length cache
@@ -151,9 +180,13 @@ def build_lm_cell(spec: ArchSpec, cell: ShapeCell, mesh, *, smoke: bool,
     shape = (cfg.n_layers, gb, seq, cfg.n_kv_heads, cfg.hd)
     cache = T.KVCache(_floats(shape, dev, cfg.adtype, fake, gen),
                       _floats(shape, dev, cfg.adtype, fake, gen))
+    tok = shard_tree(shd, ("batch",), tok)
+    cache = shard_tree(shd, T.cache_specs(), cache)
+    place = _record(shd, dev, params=(specs, params), tokens=(("batch",), tok),
+                    cache=(T.cache_specs(), cache))
 
     def fn(p, tok, cache):
-        return T.decode_step(model, tok, cache, seq - 1)
+        return T.decode_step(model, tok, cache, seq - 1, shd=shd)
     return BuiltCell(spec.arch_id, cell, fn, (params, tok, cache), place,
                      meta)
 
@@ -206,11 +239,20 @@ def build_gnn_cell(spec: ArchSpec, cell: ShapeCell, mesh, *, smoke: bool,
             "params": cfg.param_count()}
     ocfg = opt.AdamWConfig()
     state = opt.init(ocfg, params)
+    shd = _sharder(mesh)
+    specs = gnn_mod.param_specs(cfg)
+    sspecs = opt.state_specs(specs, ocfg)
+    bspecs = gnn_mod.batch_specs(batch)
+    params = shard_tree(shd, specs, params)
+    state = shard_tree(shd, sspecs, state)
+    batch = shard_tree(shd, bspecs, batch)
+    place = _record(shd, dev, params=(specs, params),
+                    opt_state=(sspecs, state), batch=(bspecs, batch))
 
     def fn(p, o, b):
-        return gnn_mod.train_step(p, o, b, cfg, ocfg)
-    return BuiltCell(spec.arch_id, cell, fn, (params, state, batch),
-                     _placements(mesh, dev), meta)
+        return gnn_mod.train_step(p, o, b, cfg, ocfg, shd=shd)
+    return BuiltCell(spec.arch_id, cell, fn, (params, state, batch), place,
+                     meta)
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +297,10 @@ def build_recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh, *, smoke: bool,
     dense_p = _recsys_dense_params(params)
     emb_p = sum(cfg.table_rows) * cfg.embed_dim
     seq_mult = cfg.seq_len if cfg.family in ("din", "dien") else 1
-    place = _placements(mesh, dev)
+    shd = _sharder(mesh)
+    specs = recsys_mod.param_specs(cfg)
+    bspecs = recsys_mod.batch_specs(cfg)
+    params = shard_tree(shd, specs, params)
 
     if cell.kind == "candidates":
         nc = dims["n_candidates"]
@@ -265,9 +310,12 @@ def build_recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh, *, smoke: bool,
         # hist per candidate: attention MLP over seq_len; dense: top MLP
         meta = {"model_flops": 2.0 * dense_p * nc * seq_mult,
                 "params": dense_p + emb_p}
+        cand = shard_tree(shd, ("candidate",), cand)
+        place = _record(shd, dev, params=(specs, params),
+                        candidates=(("candidate",), cand))
 
         def fn(p, b, c):
-            return recsys_mod.score_candidates(p, b, c, cfg)
+            return recsys_mod.score_candidates(p, b, c, cfg, shd=shd)
         return BuiltCell(spec.arch_id, cell, fn, (params, one, cand), place,
                          meta)
 
@@ -276,9 +324,12 @@ def build_recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh, *, smoke: bool,
         batch = _recsys_batch(cfg, b, dev, fake, gen, label=False)
         meta = {"model_flops": 2.0 * dense_p * b * seq_mult,
                 "params": dense_p + emb_p}
+        sb = {k: bspecs[k] for k in batch}
+        batch = shard_tree(shd, sb, batch)
+        place = _record(shd, dev, params=(specs, params), batch=(sb, batch))
 
         def fn(p, bb):
-            return recsys_mod.serve_step(p, bb, cfg)
+            return recsys_mod.serve_step(p, bb, cfg, shd=shd)
         return BuiltCell(spec.arch_id, cell, fn, (params, batch), place,
                          meta)
 
@@ -287,9 +338,14 @@ def build_recsys_cell(spec: ArchSpec, cell: ShapeCell, mesh, *, smoke: bool,
     state = opt.init(ocfg, params)
     meta = {"model_flops": 6.0 * dense_p * b * seq_mult,
             "params": dense_p + emb_p}
+    sspecs = opt.state_specs(specs, ocfg)
+    state = shard_tree(shd, sspecs, state)
+    batch = shard_tree(shd, bspecs, batch)
+    place = _record(shd, dev, params=(specs, params),
+                    opt_state=(sspecs, state), batch=(bspecs, batch))
 
     def fn(p, o, bb):
-        return recsys_mod.train_step(p, o, bb, cfg, ocfg)
+        return recsys_mod.train_step(p, o, bb, cfg, ocfg, shd=shd)
     return BuiltCell(spec.arch_id, cell, fn, (params, state, batch), place,
                      meta)
 
@@ -304,12 +360,14 @@ def build_colpali_cell(spec: ArchSpec, cell: ShapeCell, mesh, *,
     arch = spec.smoke_config if smoke else spec.config
     enc = arch.encoder
     dims = cell.dims
-    place = _placements(mesh, dev)
 
     if cell.kind in ("train", "encode"):
         model = colpali_mod.ColPaliEncoder(enc, device=dev)
         if not fake:
             _draw(model, gen)
+        shd = _sharder(mesh)
+        specs = colpali_mod.param_specs(enc)
+        T.shard_module(model, shd, specs)
         params = T.params_of(model)
         n_active = enc.param_count()
         gb = dims["global_batch"]
@@ -327,9 +385,16 @@ def build_colpali_cell(spec: ArchSpec, cell: ShapeCell, mesh, *,
             tokens = gb * (enc.query_len + enc.n_patches)
             meta = {"model_flops": 6.0 * n_active * tokens,
                     "params": n_active}
+            sspecs = opt.state_specs(specs, ocfg)
+            bspecs = colpali_mod.batch_specs()
+            state = shard_tree(shd, sspecs, state)
+            batch = shard_tree(shd, bspecs, batch)
+            place = _record(shd, dev, params=(specs, params),
+                            opt_state=(sspecs, state), batch=(bspecs, batch))
 
             def fn(p, o, bb):
-                return colpali_mod.train_step(model, p, o, bb, ocfg)
+                return colpali_mod.train_step(model, p, o, bb, ocfg,
+                                              shd=shd)
             return BuiltCell(spec.arch_id, cell, fn, (params, state, batch),
                              place, meta)
 
@@ -338,9 +403,14 @@ def build_colpali_cell(spec: ArchSpec, cell: ShapeCell, mesh, *,
         msk = _bools((gb, enc.n_patches), dev, fake)
         meta = {"model_flops": 2.0 * n_active * gb * enc.n_patches,
                 "params": n_active}
+        pat = shard_tree(shd, ("batch", None, None), pat)
+        msk = shard_tree(shd, ("batch", None), msk)
+        place = _record(shd, dev, params=(specs, params),
+                        patches=(("batch", None, None), pat),
+                        mask=(("batch", None), msk))
 
         def fn(p, pat, m):
-            return model.encode_doc(pat, m)
+            return model.encode_doc(pat, m, shd=shd)
         return BuiltCell(spec.arch_id, cell, fn, (params, pat, msk), place,
                          meta)
 
@@ -364,6 +434,9 @@ def build_colpali_cell(spec: ArchSpec, cell: ShapeCell, mesh, *,
     meta = {"model_flops": 2.0 * q_n * mq * k * enc.proj_dim
             + 1.0 * q_n * mq * n_docs * md,
             "params": k * enc.proj_dim}
+    place = {"mesh": tuple(mesh.shape) if mesh is not None else (1,),
+             "device": str(dev), "corpus": ("corpus", None),
+             "placed_by": "core.distributed.sharded_search_fn"}
     return BuiltCell(spec.arch_id, cell, search, (q, qm, codes, dm, ids, cb),
                      place, meta)
 
@@ -382,7 +455,8 @@ def build_cell(spec: ArchSpec, cell: ShapeCell, mesh=None, *,
     """The cell's step and arguments on ``device`` (default the card). With
     ``fake`` (the default) call it under a ``FakeTensorMode``: nothing is
     allocated. ``fake=False`` allocates and draws real arguments from
-    ``seed``. ``mesh``: a world-size-1 DeviceMesh (the search cell's)."""
+    ``seed``. ``mesh``: a DeviceMesh whose axes the placements resolve
+    against (any world size; None keeps every argument whole)."""
     dev = resolve_device(device)
     gen = None if fake else torch.Generator(dev).manual_seed(seed)
     return FAMILY_BUILDERS[spec.family](spec, cell, mesh, smoke=smoke,

@@ -31,8 +31,8 @@ traced depth on (``cost_source`` says which cells were extrapolated).
 
 Meshes: the dry run runs at world size 1 (the one card, or a one-rank
 gloo group on the CPU). The reference's 256- and 512-chip meshes
-(``--mesh single|multi``) wait for model-internal sharding (ROADMAP.md
-§A item 3) and raise NotImplementedError.
+(``--mesh single|multi``) are ROADMAP.md §A item 4, the dry run at the
+production meshes, and raise NotImplementedError.
 
 Entry points run on the card unless given ``--device cpu`` (fake CUDA
 tensors need a CUDA build).
@@ -71,7 +71,8 @@ _C10D_OPS = {"all_gather_into_tensor": "all-gather",
 # the H100 host's CPU, kimi-k2 has 61 of 384)
 EXTRAPOLATED = frozenset({"kimi-k2-1t-a32b", "llama4-scout-17b-a16e"})
 
-MULTI_MESH_ITEM = "ROADMAP.md §A item 3 (model-internal sharding)"
+MULTI_MESH_ITEM = ("ROADMAP.md §A item 4 (the dry run at the production "
+                   "meshes)")
 
 
 def collective_bytes(ops) -> Dict[str, int]:
@@ -242,8 +243,8 @@ def run_cell(arch_id: str, shape_name: str, *, smoke: bool = False,
     """One cell's record (see the module docstring)."""
     if mesh != "one":
         raise NotImplementedError(
-            f"the dry run on the production {mesh!r} mesh waits for "
-            f"{MULTI_MESH_ITEM}: the model code takes no sharder yet")
+            f"the dry run on the production {mesh!r} mesh is "
+            f"{MULTI_MESH_ITEM}")
     spec = registry.get(arch_id)
     cell = next(c for c in spec.shapes if c.name == shape_name)
     if cell.skip:
@@ -383,7 +384,7 @@ def main(argv=None) -> int:
         return 0
     if args.mesh != "one":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the production meshes wait for "
+            f"--mesh {args.mesh}: the production meshes are "
             f"{MULTI_MESH_ITEM}")
 
     if args.all:

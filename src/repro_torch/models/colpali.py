@@ -33,6 +33,7 @@ from torch import nn
 
 from repro_torch.core import late_interaction as li
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import NULL
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim import optimizer as opt
@@ -82,7 +83,8 @@ class ColPaliEncoder(nn.Module):
 
     def _encode(self, x: Tensor, mask: Tensor,
                 params: Optional[Dict[str, Tensor]], want_salience: bool,
-                remat: bool = False) -> Tuple[Tensor, Optional[Tensor]]:
+                remat: bool = False, shd=NULL
+                ) -> Tuple[Tensor, Optional[Tensor]]:
         """Embedded inputs (B, S, D) -> (embeddings (B, S, proj_dim) f32,
         L2-normalised (the norm in float32, the division in the activation
         dtype), and the salience or None; both zero where ``mask`` is
@@ -90,7 +92,7 @@ class ColPaliEncoder(nn.Module):
         bp = None if params is None else _backbone_params(params)
         h, _, sal = self.backbone.run_blocks(x, bp,
                                              want_salience=want_salience,
-                                             remat=remat)
+                                             remat=remat, shd=shd)
         w = self.out_proj if params is None else params["out_proj"]
         e = h @ w.to(h.dtype)
         norm = torch.linalg.vector_norm(e.float(), dim=-1, keepdim=True)
@@ -100,21 +102,27 @@ class ColPaliEncoder(nn.Module):
 
     @torch.no_grad()
     @L.float32_accumulation()
-    def encode_doc(self, patches: Tensor, patch_mask: Tensor
+    def encode_doc(self, patches: Tensor, patch_mask: Tensor, shd=NULL
                    ) -> Tuple[Tensor, Tensor]:
         """patches (B, M, d_patch) -> (embeddings (B, M, proj_dim) f32,
-        salience (B, M) f32), both zero on padded patches."""
-        return self._encode(self._patch_inputs(patches), patch_mask, None,
-                            True)
+        salience (B, M) f32), both zero on padded patches. With ``shd``
+        the projected patches are put on ("batch", None, None), as in the
+        reference; a placed result is for the caller to take whole
+        (``dist.sharding.full_tensor``) before a kernel reads it."""
+        with shd.scope():
+            x = shd.constraint(self._patch_inputs(patches), "batch", None,
+                               None)
+            return self._encode(x, patch_mask, None, True, shd=shd)
 
     @torch.no_grad()
     @L.float32_accumulation()
-    def encode_query(self, tokens: Tensor, token_mask: Tensor
+    def encode_query(self, tokens: Tensor, token_mask: Tensor, shd=NULL
                      ) -> Tuple[Tensor, Tensor]:
         """tokens (B, Lq) -> (embeddings (B, Lq, proj_dim) f32, salience
         (B, Lq) f32), both zero on padded tokens."""
-        return self._encode(self.backbone.embed_tokens(tokens), token_mask,
-                            None, True)
+        with shd.scope():
+            return self._encode(self.backbone.embed_tokens(tokens),
+                                token_mask, None, True, shd=shd)
 
 
 def _backbone_params(params: Dict[str, Tensor]) -> Dict[str, Tensor]:
@@ -124,25 +132,40 @@ def _backbone_params(params: Dict[str, Tensor]) -> Dict[str, Tensor]:
 
 def encode_doc_train(enc: ColPaliEncoder, params: Dict[str, Tensor],
                      patches: Tensor, patch_mask: Tensor, *,
-                     remat: bool = True) -> Tensor:
+                     remat: bool = True, shd=NULL) -> Tensor:
     """``encode_doc``'s embeddings over ``params``, differentiable in
     them; no salience."""
-    return enc._encode(enc._patch_inputs(patches, params), patch_mask,
-                       params, False, remat)[0]
+    x = shd.constraint(enc._patch_inputs(patches, params), "batch", None,
+                       None)
+    return enc._encode(x, patch_mask, params, False, remat, shd)[0]
 
 
 def encode_query_train(enc: ColPaliEncoder, params: Dict[str, Tensor],
                        tokens: Tensor, token_mask: Tensor, *,
-                       remat: bool = True) -> Tensor:
+                       remat: bool = True, shd=NULL) -> Tensor:
     """``encode_query``'s embeddings over ``params``, differentiable in
     them; no salience."""
     x = enc.backbone.embed_tokens(tokens, _backbone_params(params))
-    return enc._encode(x, token_mask, params, False, remat)[0]
+    return enc._encode(x, token_mask, params, False, remat, shd)[0]
+
+
+def param_specs(cfg: ColPaliConfig) -> Dict[str, tuple]:
+    """Logical specs of every parameter, keyed as ``params_of``."""
+    s = {f"backbone.{k}": v for k, v in T.param_specs(cfg.backbone).items()}
+    s.update(patch_proj=(None, "embed"), out_proj=("embed", None))
+    return s
+
+
+def batch_specs() -> Dict[str, tuple]:
+    """Logical specs of a contrastive batch."""
+    return {"query_tokens": ("batch", None), "query_mask": ("batch", None),
+            "doc_patches": ("batch", None, None),
+            "doc_mask": ("batch", None)}
 
 
 def contrastive_loss(enc: ColPaliEncoder, params: Dict[str, Tensor],
-                     batch: Dict[str, Tensor], *, remat: bool = True
-                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
+                     batch: Dict[str, Tensor], *, remat: bool = True,
+                     shd=NULL) -> Tuple[Tensor, Dict[str, Tensor]]:
     """In-batch late-interaction contrastive loss over ``params``.
 
     batch: query_tokens (B, Lq), query_mask, doc_patches (B, M, d_patch),
@@ -150,9 +173,9 @@ def contrastive_loss(enc: ColPaliEncoder, params: Dict[str, Tensor],
     is the share of queries whose best doc (the first maximum) is their
     own."""
     q = encode_query_train(enc, params, batch["query_tokens"],
-                           batch["query_mask"], remat=remat)
+                           batch["query_mask"], remat=remat, shd=shd)
     d = encode_doc_train(enc, params, batch["doc_patches"],
-                         batch["doc_mask"], remat=remat)
+                         batch["doc_mask"], remat=remat, shd=shd)
     scores = li.maxsim(q, batch["query_mask"], d, batch["doc_mask"])
     scores = scores / enc.cfg.temperature
     b = scores.shape[0]
@@ -166,12 +189,15 @@ def contrastive_loss(enc: ColPaliEncoder, params: Dict[str, Tensor],
 
 def train_step(enc: ColPaliEncoder, params: Dict[str, Tensor],
                opt_state: opt.AdamWState, batch: Dict[str, Tensor],
-               opt_cfg: opt.AdamWConfig, *, remat: bool = True):
+               opt_cfg: opt.AdamWConfig, *, remat: bool = True, shd=NULL):
     """(params, opt_state, batch) -> (params, opt_state, metrics {loss,
     acc, lr, grad_norm}); the inputs are left as they were."""
-    loss, parts, grads = T.value_and_grad(
-        lambda p: contrastive_loss(enc, p, batch, remat=remat), params)
-    params, opt_state, om = opt.update(opt_cfg, grads, opt_state, params)
+    with shd.scope():
+        loss, parts, grads = T.value_and_grad(
+            lambda p: contrastive_loss(enc, p, batch, remat=remat, shd=shd),
+            params)
+        params, opt_state, om = opt.update(opt_cfg, grads, opt_state,
+                                           params)
     return params, opt_state, {"loss": loss, **parts, **om}
 
 

@@ -28,8 +28,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import NULL, local_partial
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import segment_reduce, take_rows
@@ -106,51 +108,103 @@ def _pna_aggregate(msgs: Tensor, dst: Tensor, n_nodes: int, deg: Tensor,
     return torch.cat([agg, agg * amp, agg * att], dim=-1)  # (N, 12d)
 
 
+def param_specs(cfg: PNAConfig) -> Dict[str, tuple]:
+    """Logical specs of every parameter, keyed as ``params_of``: every
+    weight replicated, as the reference's."""
+    s = {}
+    for name in (["encoder", "head"]
+                 + [f"layers.{i}.{m}" for i in range(cfg.n_layers)
+                    for m in ("pre", "post")]):
+        s.update({f"{name}.0.w": (None, None), f"{name}.0.b": (None,)})
+    return s
+
+
+def batch_specs(batch: Dict[str, Tensor]) -> Dict[str, tuple]:
+    """Logical specs of a PNA batch: node rows on "nodes", the edge list's
+    edges on "edge"; a graph batch's graph labels replicated."""
+    specs = {"feats": ("nodes", None), "edge_index": (None, "edge"),
+             "labels": ("nodes",), "graph_ids": ("nodes",),
+             "graph_labels": (None,)}
+    return {k: specs[k] for k in batch}
+
+
+def _node_rows(h: Tensor, idx: Tensor) -> Tensor:
+    """``take_rows(h, idx)``; with node-sharded h and edge-sharded idx the
+    per-rank program: h gathered whole (its gradient summed back to each
+    node's rank), each rank reading the rows of its own edges."""
+    if not isinstance(h, DTensor):
+        return take_rows(h, idx)
+    mesh = h.device_mesh
+    whole = h.redistribute(mesh, [Replicate()] * mesh.ndim)
+    spread = [i for i, p in enumerate(idx.placements)
+              if isinstance(p, Shard)]
+    rows = take_rows(local_partial(whole, spread), idx.to_local())
+    return L.from_local_rows(rows, mesh, idx.placements, idx.shape[0])
+
+
 @L.float32_accumulation()
 def forward(params: Dict[str, Tensor], feats: Tensor, edge_index: Tensor,
             cfg: PNAConfig, graph_ids: Optional[Tensor] = None,
-            n_graphs: int = 0) -> Tensor:
+            n_graphs: int = 0, shd=NULL) -> Tensor:
     """feats (N, d_feat), edge_index (2, E) -> float32 logits: (N,
     n_classes) for the node task, (n_graphs, n_classes) for the graph
-    task (mean readout over ``graph_ids``)."""
+    task (mean readout over ``graph_ids``). ``shd`` puts node tensors on
+    "nodes" and gathered edge tensors on "edge", as the reference does;
+    on a mesh each aggregation is partial on every rank and all-reduced
+    (``layers.segment_reduce``)."""
+    with shd.scope():
+        return _forward(params, feats, edge_index, cfg, graph_ids, n_graphs,
+                        shd)
+
+
+def _forward(params, feats, edge_index, cfg, graph_ids, n_graphs, shd):
+    """``forward``'s body, inside the sharder's scope."""
     n = feats.shape[0]
     src, dst = edge_index[0], edge_index[1]
     h = L.mlp_apply(params, "encoder", feats.to(cfg.pdtype))
-    deg = segment_reduce(torch.ones(src.shape, dtype=h.dtype,
-                                    device=h.device), dst, n)
+    h = shd.constraint(h, "nodes", None)
+    ones = (torch.ones_like(dst, dtype=h.dtype)
+            if isinstance(dst, DTensor) else
+            torch.ones(src.shape, dtype=h.dtype, device=h.device))
+    deg = segment_reduce(ones, dst, n)
     for i in range(cfg.n_layers):
-        pair = torch.cat([take_rows(h, src), take_rows(h, dst)], dim=-1)
-        msgs = L.mlp_apply(params, f"layers.{i}.pre", pair)
-        agg = _pna_aggregate(msgs, dst, n, deg, cfg.delta)
+        h_src = shd.constraint(_node_rows(h, src), "edge", None)
+        h_dst = shd.constraint(_node_rows(h, dst), "edge", None)
+        pair = torch.cat([h_src, h_dst], dim=-1)
+        msgs = shd.constraint(L.mlp_apply(params, f"layers.{i}.pre", pair),
+                              "edge", None)
+        agg = shd.constraint(_pna_aggregate(msgs, dst, n, deg, cfg.delta),
+                             "nodes", None)
         upd = L.mlp_apply(params, f"layers.{i}.post",
                           torch.cat([h, agg], dim=-1))
-        h = h + torch.relu(upd)
+        h = shd.constraint(h + torch.relu(upd), "nodes", None)
 
     if cfg.task == "graph":
         if graph_ids is None or n_graphs <= 0:
             raise ValueError("the graph task needs graph_ids and n_graphs")
         pooled = segment_reduce(h, graph_ids, n_graphs)
-        cnt = torch.clamp(segment_reduce(
-            torch.ones((n,), dtype=h.dtype, device=h.device), graph_ids,
-            n_graphs), min=1.0)
+        ones = (torch.ones_like(graph_ids, dtype=h.dtype)
+                if isinstance(graph_ids, DTensor) else
+                torch.ones((n,), dtype=h.dtype, device=h.device))
+        cnt = torch.clamp(segment_reduce(ones, graph_ids, n_graphs), min=1.0)
         h = pooled / cnt[:, None]
     return L.mlp_apply(params, "head", h).to(torch.float32)
 
 
-def _batch_forward(params, batch: Dict[str, Tensor], cfg: PNAConfig
-                   ) -> Tensor:
+def _batch_forward(params, batch: Dict[str, Tensor], cfg: PNAConfig,
+                   shd=NULL) -> Tensor:
     graph = "graph_labels" in batch
     return forward(params, batch["feats"], batch["edge_index"], cfg,
                    graph_ids=batch.get("graph_ids"),
                    n_graphs=int(batch["graph_labels"].shape[0]) if graph
-                   else 0)
+                   else 0, shd=shd)
 
 
-def loss_fn(params, batch: Dict[str, Tensor], cfg: PNAConfig
+def loss_fn(params, batch: Dict[str, Tensor], cfg: PNAConfig, shd=NULL
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Cross-entropy on the labelled nodes (label -1 = unlabelled or
     padding) or graphs, and the accuracy over them."""
-    logits = _batch_forward(params, batch, cfg)
+    logits = _batch_forward(params, batch, cfg, shd)
     labels = (batch["graph_labels"] if "graph_labels" in batch
               else batch["labels"]).to(torch.int64)
     valid = labels >= 0
@@ -166,16 +220,19 @@ def loss_fn(params, batch: Dict[str, Tensor], cfg: PNAConfig
 
 def train_step(params: Dict[str, Tensor], opt_state: opt.AdamWState,
                batch: Dict[str, Tensor], cfg: PNAConfig,
-               opt_cfg: opt.AdamWConfig):
+               opt_cfg: opt.AdamWConfig, shd=NULL):
     """(params, opt_state, batch) -> (params, opt_state, metrics {loss,
     acc, lr, grad_norm})."""
-    loss, parts, grads = T.value_and_grad(
-        lambda p: loss_fn(p, batch, cfg), params)
-    params, opt_state, om = opt.update(opt_cfg, grads, opt_state, params)
+    with shd.scope():
+        loss, parts, grads = T.value_and_grad(
+            lambda p: loss_fn(p, batch, cfg, shd), params)
+        params, opt_state, om = opt.update(opt_cfg, grads, opt_state,
+                                           params)
     return params, opt_state, {"loss": loss, **parts, **om}
 
 
 @torch.no_grad()
-def serve_step(params, batch: Dict[str, Tensor], cfg: PNAConfig) -> Tensor:
+def serve_step(params, batch: Dict[str, Tensor], cfg: PNAConfig,
+               shd=NULL) -> Tensor:
     """Inference forward (full-batch scoring): the logits."""
-    return _batch_forward(params, batch, cfg)
+    return _batch_forward(params, batch, cfg, shd)

@@ -41,10 +41,13 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import pruning as core_pruning
 from repro_torch.core import quantization as quant
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import NULL
 from repro_torch.models import layers as L
 from repro_torch.models.layers import segment_reduce, take_rows
 from repro_torch.models import transformer as T
@@ -236,6 +239,34 @@ def tables_of(params: Dict[str, Tensor], cfg: RecsysConfig) -> List[Tensor]:
     return [params[f"tables.{i}"] for i in range(cfg.n_sparse)]
 
 
+def param_specs(cfg: RecsysConfig) -> Dict[str, tuple]:
+    """Logical specs of every parameter, keyed as ``params_of``: the
+    tables' rows on "table_rows", every MLP and GRU weight replicated (the
+    reference's ``dlrm_specs``, ``dcn_specs``, ``din_specs``,
+    ``dien_specs``)."""
+    s = {f"tables.{i}": ("table_rows", None) for i in range(cfg.n_sparse)}
+    if cfg.family == "dcn":
+        for i in range(cfg.n_cross_layers):
+            s.update({f"cross.{i}.w": (None, None), f"cross.{i}.b": (None,)})
+    if cfg.family == "dien":
+        for cell in ("gru1", "augru"):
+            s.update({f"{cell}.wx": (None, None), f"{cell}.wh": (None, None),
+                      f"{cell}.b": (None,)})
+    for name, dims in _mlp_dims(cfg).items():
+        for i in range(len(dims) - 1):
+            s.update({f"{name}.{i}.w": (None, None), f"{name}.{i}.b": (None,)})
+    return s
+
+
+def batch_specs(cfg: RecsysConfig) -> Dict[str, tuple]:
+    """Logical specs of a batch of the family (its rows on "batch")."""
+    if cfg.family in ("din", "dien"):
+        return {"hist_ids": ("batch", None), "hist_mask": ("batch", None),
+                "target_ids": ("batch",), "label": ("batch",)}
+    return {"dense": ("batch", None), "sparse_ids": ("batch", None),
+            "label": ("batch",)}
+
+
 # ---------------------------------------------------------------------------
 # DLRM
 # ---------------------------------------------------------------------------
@@ -248,20 +279,29 @@ def _dot_interact(x: Tensor, emb: Tensor) -> Tensor:
     gathered."""
     b, f, d = emb.shape[0], emb.shape[1] + 1, emb.shape[2]
     dev = emb.device
-    vecs = torch.empty((b, f, d), dtype=torch.float32, device=dev)
-    vecs[:, 0] = x
-    vecs[:, 1:] = emb
+    if isinstance(emb, DTensor):
+        vecs = torch.cat([x[:, None].float(), emb.float()], dim=1)
+    else:
+        vecs = torch.empty((b, f, d), dtype=torch.float32, device=dev)
+        vecs[:, 0] = x
+        vecs[:, 1:] = emb
     del emb
     g = torch.bmm(vecs, vecs.transpose(1, 2))
     iu, ju = torch.triu_indices(f, f, 1, device=dev)
+    if isinstance(g, DTensor):      # rows placed, (F, F) whole: a local gather
+        return DTensor.from_local(g.to_local()[:, iu, ju], g.device_mesh,
+                                  g.placements, run_check=False,
+                                  shape=torch.Size((b, iu.shape[0])),
+                                  stride=(iu.shape[0], 1))
     return g[:, iu, ju]
 
 
 def dlrm_forward(params, dense: Tensor, sparse_ids: Tensor,
-                 cfg: RecsysConfig) -> Tensor:
+                 cfg: RecsysConfig, shd=NULL) -> Tensor:
     x = L.mlp_apply(params, "bot", dense.to(cfg.pdtype), final_act=True)
-    inter = _dot_interact(x, lookup(tables_of(params, cfg),
-                                    sparse_ids)).to(cfg.pdtype)
+    emb = shd.constraint(lookup(tables_of(params, cfg), sparse_ids),
+                         "batch", None, None)
+    inter = _dot_interact(x, emb).to(cfg.pdtype)
     top_in = torch.cat([x, inter], dim=-1)
     return L.mlp_apply(params, "top", top_in)[:, 0].to(torch.float32)
 
@@ -271,10 +311,11 @@ def dlrm_forward(params, dense: Tensor, sparse_ids: Tensor,
 # ---------------------------------------------------------------------------
 
 def dcn_forward(params, dense: Tensor, sparse_ids: Tensor,
-                cfg: RecsysConfig) -> Tensor:
+                cfg: RecsysConfig, shd=NULL) -> Tensor:
     emb = lookup(tables_of(params, cfg), sparse_ids)       # (B, F, d)
     x0 = torch.cat([emb.reshape(emb.shape[0], -1), dense.to(cfg.pdtype)],
                    dim=-1)
+    x0 = shd.constraint(x0, "batch", None)
     x = x0
     for i in range(cfg.n_cross_layers):
         x = x0 * (x @ params[f"cross.{i}.w"] + params[f"cross.{i}.b"]) + x
@@ -312,11 +353,12 @@ def din_attention(params, hist_e: Tensor, target_e: Tensor,
 
 
 def din_forward(params, hist_ids: Tensor, hist_mask: Tensor,
-                target_ids: Tensor, cfg: RecsysConfig) -> Tensor:
+                target_ids: Tensor, cfg: RecsysConfig, shd=NULL) -> Tensor:
     """hist_ids (B, S), target_ids (B,) -> logits (B,)."""
     table = params["tables.0"]
     hist_e = take_rows(table, hist_ids)                   # (B, S, d)
     target_e = take_rows(table, target_ids)               # (B, d)
+    hist_e = shd.constraint(hist_e, "batch", None, None)
     user, _ = din_attention(params, hist_e, target_e, hist_mask, cfg)
     feat = torch.cat([user, target_e, user * target_e], dim=-1)
     return L.mlp_apply(params, "mlp", feat)[:, 0].to(torch.float32)
@@ -343,7 +385,10 @@ def gru_cell(params, prefix: str, h: Tensor, x: Tensor, att=None) -> Tensor:
 
 
 def dien_forward(params, hist_ids: Tensor, hist_mask: Tensor,
-                 target_ids: Tensor, cfg: RecsysConfig) -> Tensor:
+                 target_ids: Tensor, cfg: RecsysConfig, shd=NULL) -> Tensor:
+    """hist_ids (B, S), target_ids (B,) -> logits (B,). The reference's
+    DIEN adds no sharding constraint; ``shd`` reaches nothing here but the
+    lookups' placements."""
     table = params["tables.0"]
     hist_e = take_rows(table, hist_ids)                   # (B, S, d)
     target_e = take_rows(table, target_ids)               # (B, d)
@@ -385,24 +430,29 @@ def dien_forward(params, hist_ids: Tensor, hist_mask: Tensor,
 
 @L.float32_accumulation()
 def forward(params: Dict[str, Tensor], batch: Dict[str, Tensor],
-            cfg: RecsysConfig) -> Tensor:
+            cfg: RecsysConfig, shd=NULL) -> Tensor:
     """Logits (B,) float32 of the family's batch: ``dense`` and
     ``sparse_ids`` (dlrm, dcn) or ``hist_ids``, ``hist_mask`` and
-    ``target_ids`` (din, dien)."""
-    if cfg.family == "dlrm":
-        return dlrm_forward(params, batch["dense"], batch["sparse_ids"], cfg)
-    if cfg.family == "dcn":
-        return dcn_forward(params, batch["dense"], batch["sparse_ids"], cfg)
-    fwd = din_forward if cfg.family == "din" else dien_forward
-    return fwd(params, batch["hist_ids"], batch["hist_mask"],
-               batch["target_ids"], cfg)
+    ``target_ids`` (din, dien). With ``shd`` the reference's constraints
+    apply and row-sharded tables are read by ``layers.take_rows``' masked
+    lookup."""
+    with shd.scope():
+        if cfg.family == "dlrm":
+            return dlrm_forward(params, batch["dense"], batch["sparse_ids"],
+                                cfg, shd)
+        if cfg.family == "dcn":
+            return dcn_forward(params, batch["dense"], batch["sparse_ids"],
+                               cfg, shd)
+        fwd = din_forward if cfg.family == "din" else dien_forward
+        return fwd(params, batch["hist_ids"], batch["hist_mask"],
+                   batch["target_ids"], cfg, shd)
 
 
-def loss_fn(params, batch, cfg: RecsysConfig
+def loss_fn(params, batch, cfg: RecsysConfig, shd=NULL
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Mean binary cross-entropy with logits (the stable form) and the
     accuracy of ``logits > 0``."""
-    logits = forward(params, batch, cfg)
+    logits = forward(params, batch, cfg, shd)
     y = batch["label"].to(torch.float32)
     loss = torch.mean(torch.clamp(logits, min=0) - logits * y
                       + torch.log1p(torch.exp(-torch.abs(logits))))
@@ -412,36 +462,52 @@ def loss_fn(params, batch, cfg: RecsysConfig
 
 def train_step(params: Dict[str, Tensor], opt_state: opt.AdamWState,
                batch: Dict[str, Tensor], cfg: RecsysConfig,
-               opt_cfg: opt.AdamWConfig):
+               opt_cfg: opt.AdamWConfig, shd=NULL):
     """(params, opt_state, batch) -> (params, opt_state, metrics {loss,
     acc, lr, grad_norm}): dense grads of every table, then AdamW."""
-    loss, parts, grads = T.value_and_grad(
-        lambda p: loss_fn(p, batch, cfg), params)
-    params, opt_state, om = opt.update(opt_cfg, grads, opt_state, params)
+    with shd.scope():
+        loss, parts, grads = T.value_and_grad(
+            lambda p: loss_fn(p, batch, cfg, shd), params)
+        params, opt_state, om = opt.update(opt_cfg, grads, opt_state,
+                                           params)
     return params, opt_state, {"loss": loss, **parts, **om}
 
 
 @torch.no_grad()
-def serve_step(params, batch, cfg: RecsysConfig) -> Tensor:
+def serve_step(params, batch, cfg: RecsysConfig, shd=NULL) -> Tensor:
     """Click probabilities (B,)."""
-    return torch.sigmoid(forward(params, batch, cfg))
+    with shd.scope():
+        return torch.sigmoid(forward(params, batch, cfg, shd))
 
 
 @torch.no_grad()
 def score_candidates(params, batch: Dict[str, Tensor],
-                     candidate_ids: Tensor, cfg: RecsysConfig) -> Tensor:
+                     candidate_ids: Tensor, cfg: RecsysConfig,
+                     shd=NULL) -> Tensor:
     """The retrieval_cand shape: one user (``batch`` of batch 1) against N
     candidates in one batched pass -> logits (N,). DIN and DIEN take the
     candidates as targets of the user's broadcast history; DLRM and DCN
-    write each candidate id into the last sparse field (the item slot)."""
-    n = candidate_ids.shape[0]
+    write each candidate id into the last sparse field (the item slot).
+    Candidates placed on the "candidate" rule keep their placement: each
+    rank broadcasts the (whole) user against its own candidates, and the
+    batch is placed as they are."""
+    placed = isinstance(candidate_ids, DTensor)
+    ids = candidate_ids.to_local() if placed else candidate_ids
+    user = {k: sharding.full_tensor(v) for k, v in batch.items()}
+    n = ids.shape[0]
     if cfg.family in ("din", "dien"):
-        cb = {"hist_ids": batch["hist_ids"].expand(n, cfg.seq_len),
-              "hist_mask": batch["hist_mask"].expand(n, cfg.seq_len),
-              "target_ids": candidate_ids}
+        cb = {"hist_ids": user["hist_ids"].expand(n, cfg.seq_len),
+              "hist_mask": user["hist_mask"].expand(n, cfg.seq_len),
+              "target_ids": ids}
     else:
-        sparse = batch["sparse_ids"].expand(n, cfg.n_sparse).clone()
-        sparse[:, -1] = candidate_ids
-        cb = {"dense": batch["dense"].expand(n, cfg.n_dense),
+        sparse = user["sparse_ids"].expand(n, cfg.n_sparse).clone()
+        sparse[:, -1] = ids
+        cb = {"dense": user["dense"].expand(n, cfg.n_dense),
               "sparse_ids": sparse}
-    return forward(params, cb, cfg)
+    if placed:
+        cb = {k: L.from_local_rows(v.contiguous(), candidate_ids.device_mesh,
+                                   candidate_ids.placements,
+                                   candidate_ids.shape[0])
+              for k, v in cb.items()}
+    with shd.scope():
+        return forward(params, cb, cfg, shd)

@@ -40,9 +40,14 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor import zeros as dtensor_zeros
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (NULL, reduce_partial, shard_index,
+                                       shard_tree)
 from repro_torch.models import layers as L
 from repro_torch.optim import optimizer as opt
 
@@ -171,34 +176,40 @@ class Block(nn.Module):
         return c if self.chunked and 0 < c < n_keys else 0
 
     def feed_forward(self, h: Tensor, capacity_factor: float,
-                     expert_chunks: int, remat: bool = False
+                     expert_chunks: int, remat: bool = False, shd=NULL
                      ) -> Tuple[Tensor, Optional[Tensor]]:
         """The FFN or the MoE over normed h (B, S, D) -> (out, the MoE's
         aux loss or None)."""
         if not self.cfg.is_moe:
             return self.ffn(h), None
+        # the MoE's groups live on the token axes alone (its first
+        # constraint): the sequence is gathered before it is flattened
+        h = shd.constraint(h, "batch", None, None)
         b, s, d = h.shape
         out, aux = self.moe(h.reshape(b * s, d), capacity_factor,
-                            expert_chunks, remat)
+                            expert_chunks, remat, shd)
         return out.view(b, s, d), aux
 
     def forward(self, x: Tensor, positions: Tensor,
-                want_salience: bool = False, remat: bool = False
+                want_salience: bool = False, remat: bool = False, shd=NULL
                 ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor],
                            Tensor, Tensor]:
         """-> (x, aux or None, salience or None, post-RoPE keys, values);
         ``remat`` checkpoints the attention's query blocks and the MoE's
-        expert blocks."""
+        expert blocks. The residual stream is constrained to ("batch",
+        "seq_sp", None) after the attention and after the FFN, as the
+        reference's block is."""
         cfg = self.cfg
         a, sal, k, v = L.attention_kv(
             self.attn, self.ln1(x), positions, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
             chunk=self.attn_chunk(x.shape[1]), q_chunk=cfg.q_chunk,
-            want_salience=want_salience, remat=remat)
-        x = x + a
+            want_salience=want_salience, remat=remat, shd=shd)
+        x = shd.constraint(x + a, "batch", "seq_sp", None)
         ff, aux = self.feed_forward(self.ln2(x), cfg.capacity_factor,
-                                    cfg.moe_expert_chunks, remat)
-        return x + ff, aux, sal, k, v
+                                    cfg.moe_expert_chunks, remat, shd)
+        x = shd.constraint(x + ff, "batch", "seq_sp", None)
+        return x, aux, sal, k, v
 
 
 class Transformer(nn.Module):
@@ -224,14 +235,17 @@ class Transformer(nn.Module):
     def embed_tokens(self, tokens: Tensor,
                      params: Optional[Dict[str, Tensor]] = None) -> Tensor:
         """tokens (B, S) -> (B, S, D) in the activation dtype, from the
-        module's table or ``params["embed"]``."""
+        module's table or ``params["embed"]`` (a vocab-sharded table
+        through ``layers.take_rows``' masked lookup)."""
         table = self.embed if params is None else params["embed"]
+        if isinstance(table, DTensor):
+            return L.take_rows(table, tokens).to(self.cfg.adtype)
         return table[tokens.long()].to(self.cfg.adtype)
 
     def run_blocks(self, x: Tensor,
                    params: Optional[Dict[str, Tensor]] = None, *,
-                   want_salience: bool = False, remat: bool = False
-                   ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+                   want_salience: bool = False, remat: bool = False,
+                   shd=NULL) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
         """Every block and ``ln_f`` over embedded inputs (B, S, D) ->
         (hidden, aux () f32 summed over the MoE layers (zero without
         them), salience (B, S) of the last layer or None). Only the last
@@ -243,7 +257,8 @@ class Transformer(nn.Module):
         checkpoints every block and, inside it, every attention query
         block and MoE expert block, as the reference does. A block's
         tensors are passed into its checkpoint, so the recompute in the
-        backward reads the same weights as the forward."""
+        backward reads the same weights as the forward. ``shd`` runs
+        through every block."""
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         sal, auxes = None, []
@@ -251,12 +266,12 @@ class Transformer(nn.Module):
         for i, blk in enumerate(self.blocks):
             want = want_salience and i == last
             if params is None:
-                x, aux, sal_i, _, _ = blk(x, positions, want)
+                x, aux, sal_i, _, _ = blk(x, positions, want, shd=shd)
             else:
                 pre = f"blocks.{i}."
                 bp = {n[len(pre):]: t for n, t in params.items()
                       if n.startswith(pre)}
-                args = (blk, bp, x, positions, want, remat)
+                args = (blk, bp, x, positions, want, remat, shd)
                 x, aux, sal_i = (checkpoint(_block_call, *args,
                                             use_reentrant=False)
                                  if remat else _block_call(*args))
@@ -270,13 +285,15 @@ class Transformer(nn.Module):
         return L.rms_norm(x, w, self.cfg.norm_eps), aux, sal
 
     @L.float32_accumulation()
-    def forward(self, tokens: Tensor, want_salience: bool = False
+    def forward(self, tokens: Tensor, want_salience: bool = False, shd=NULL
                 ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
         """tokens (B, S) -> (hidden (B, S, D), aux_loss () f32 (the MoE
         layers' summed load-balance loss; zero without them), salience
         (B, S) or None)."""
-        return self.run_blocks(self.embed_tokens(tokens),
-                               want_salience=want_salience)
+        with shd.scope():
+            x = shd.constraint(self.embed_tokens(tokens), "batch", "seq_sp",
+                               None)
+            return self.run_blocks(x, want_salience=want_salience, shd=shd)
 
     @L.float32_accumulation()
     def logits(self, h: Tensor) -> Tensor:
@@ -287,12 +304,13 @@ class Transformer(nn.Module):
 
 
 def _block_call(blk: Block, bp: Dict[str, Tensor], x: Tensor,
-                positions: Tensor, want_salience: bool, remat: bool
+                positions: Tensor, want_salience: bool, remat: bool,
+                shd=NULL
                 ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
     """One block on the tensors ``bp`` (named as the block's own) -> (x,
     aux or None, salience or None)."""
     x, aux, sal, _, _ = torch.func.functional_call(
-        blk, bp, (x, positions, want_salience, remat))
+        blk, bp, (x, positions, want_salience, remat, shd))
     return x, aux, sal
 
 
@@ -326,6 +344,56 @@ def draw_weights(model: Transformer, generator: torch.Generator
     return model
 
 
+def block_specs(cfg: LMConfig) -> Dict[str, tuple]:
+    """Logical specs of one ``Block``'s parameters, by name."""
+    s = {"ln1.weight": ("embed",), "ln2.weight": ("embed",)}
+    s.update({f"attn.{k}": v for k, v in L.attn_specs(cfg.qkv_bias).items()})
+    if cfg.is_moe:
+        s.update({f"moe.{k}": v for k, v in
+                  L.moe_specs(cfg.n_shared_experts).items()})
+    else:
+        s.update({f"ffn.{k}": v for k, v in L.ffn_specs().items()})
+    return s
+
+
+def param_specs(cfg: LMConfig) -> Dict[str, tuple]:
+    """Logical specs of every parameter, keyed as ``params_of``. The
+    reference stacks its blocks under a leading layer dim whose spec is
+    None; ``blocks.<l>.…`` takes that spec without the layer entry
+    (``convert._reference_path`` maps one name to the other)."""
+    s = {"embed": ("vocab", "embed")}
+    for i in range(cfg.n_layers):
+        s.update({f"blocks.{i}.{k}": v for k, v in block_specs(cfg).items()})
+    s["ln_f.weight"] = ("embed",)
+    if not cfg.tie_embeddings:
+        s["unembed"] = ("embed", "vocab")
+    return s
+
+
+def batch_specs() -> Dict[str, tuple]:
+    """Logical specs of an LM batch (``tokens``, ``targets``)."""
+    return {"tokens": ("batch", None), "targets": ("batch", None)}
+
+
+@torch.no_grad()
+def shard_module(model: nn.Module, shd, specs: Dict[str, tuple]
+                 ) -> nn.Module:
+    """Place every parameter of ``model`` by its spec (keyed as
+    ``params_of``) in place: each becomes a DTensor parameter holding its
+    shard, and the whole tensor it replaces is freed unless the caller
+    holds it. ``NULL`` leaves the model as it is. Returns the model."""
+    if shd.mesh is None:
+        return model
+    for name, p in list(model.named_parameters()):
+        owner, _, attr = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        placed = shard_tree(shd, specs[name], p.detach())
+        mod.register_parameter(attr, nn.Parameter(
+            placed, requires_grad=p.requires_grad))
+        del p, placed
+    return model
+
+
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
@@ -350,20 +418,64 @@ def load_params(model: nn.Module, params: Dict[str, Tensor]) -> nn.Module:
     return model
 
 
-def _chunk_ce(h: Tensor, t: Tensor, w: Tensor) -> Tuple[Tensor, Tensor]:
+def _chunk_ce(h: Tensor, t: Tensor, w: Tensor, shd=NULL
+              ) -> Tuple[Tensor, Tensor]:
     """Summed next-token CE of one sequence chunk and its count of valid
-    targets (t >= 0): float32 logits from h and w in h's dtype."""
+    targets (t >= 0): float32 logits from h and w in h's dtype, put on
+    ("batch", None, "vocab") as the reference puts them (a vocab-sharded
+    chunk goes through ``_vocab_ce``)."""
     valid = t >= 0
     safe = torch.clamp(t, min=0).long()
     logits = torch.matmul(h.float(), w.to(h.dtype).float())
+    logits = shd.constraint(logits, "batch", None, "vocab")
+    if isinstance(logits, DTensor):
+        return _vocab_ce(logits, t)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     ce = torch.where(valid, logz - gold, 0.0)
     return ce.sum(), valid.sum()
 
 
+def _vocab_ce(logits: DTensor, t: Tensor) -> Tuple[DTensor, DTensor]:
+    """``_chunk_ce``'s sums from logits (B, ck, V) whose vocab dim is
+    sharded: the per-rank program of a logsumexp and a gold-logit gather
+    across the vocab shards. Each rank takes its slice's max (all-reduce
+    MAX, no gradient: the shift cancels), its sum of exp (all-reduce SUM)
+    and the gold logits that fall in its slice (all-reduce SUM: zero
+    elsewhere, so each target's logit is read once). The sums over the
+    batch rows come back as partial sums over the batch's mesh dims,
+    reduced to replicated scalars."""
+    mesh = logits.device_mesh
+    vocab = [i for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim == 2]
+    rows = [i for i, p in enumerate(logits.placements)
+            if isinstance(p, Shard) and p.dim < 2]
+    row_pl = [p if i in rows else Replicate()
+              for i, p in enumerate(logits.placements)]
+    t_l = (t.redistribute(mesh, row_pl) if isinstance(t, DTensor)
+           else distribute_tensor(t, mesh, row_pl)).to_local()
+    lg = logits.to_local()
+    v0 = shard_index(mesh, tuple(mesh.mesh_dim_names[i]
+                                 for i in vocab))[0] * lg.shape[-1]
+    m = reduce_partial(lg.detach().amax(-1), mesh, row_pl, vocab,
+                       "max").to_local()
+    se = reduce_partial(torch.exp(lg - m[..., None]).sum(-1), mesh, row_pl,
+                        vocab).to_local()
+    logz = m + torch.log(se)
+    at = t_l.long() - v0
+    mine = (at >= 0) & (at < lg.shape[-1])
+    gold = torch.gather(lg, -1, torch.where(mine, at, 0)[..., None])[..., 0]
+    gold = reduce_partial(torch.where(mine, gold, 0.0), mesh, row_pl,
+                          vocab).to_local()
+    valid = t_l >= 0
+    ce = torch.where(valid, logz - gold, 0.0)
+    rep_pl = [Replicate()] * mesh.ndim
+    return (reduce_partial(ce.sum(), mesh, rep_pl, rows),
+            reduce_partial(valid.sum(), mesh, rep_pl, rows))
+
+
 def loss_fn(model: Transformer, params: Dict[str, Tensor], tokens: Tensor,
-            targets: Tensor, *, remat: bool = True
+            targets: Tensor, *, remat: bool = True, shd=NULL
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Next-token CE over ``params``, in sequence chunks of
     ``cfg.loss_chunk`` (halved until they divide S), each chunk
@@ -371,10 +483,16 @@ def loss_fn(model: Transformer, params: Dict[str, Tensor], tokens: Tensor,
     recomputed in the backward. Targets < 0 are masked; the mean is over
     max(valid, 1) targets. Returns (ce + aux_loss_weight x aux, {ce, aux})
     with aux the MoE layers' summed load-balance loss (zero without
-    them)."""
+    them).
+
+    ``shd`` runs through the blocks; the hidden stream leaves sequence
+    parallelism, ("batch", None, None), before the chunks are cut, and
+    each chunk's logits are vocab-sharded, as in the reference."""
     cfg = model.cfg
-    h, aux, _ = model.run_blocks(model.embed_tokens(tokens, params), params,
-                                 remat=remat)
+    x = shd.constraint(model.embed_tokens(tokens, params), "batch", "seq_sp",
+                       None)
+    h, aux, _ = model.run_blocks(x, params, remat=remat, shd=shd)
+    h = shd.constraint(h, "batch", None, None)
     w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
     s = h.shape[1]
     ck = min(cfg.loss_chunk, s)
@@ -382,7 +500,7 @@ def loss_fn(model: Transformer, params: Dict[str, Tensor], tokens: Tensor,
         ck //= 2
     sums, counts = [], []
     for c0 in range(0, s, ck):
-        args = (h[:, c0:c0 + ck], targets[:, c0:c0 + ck], w)
+        args = (h[:, c0:c0 + ck], targets[:, c0:c0 + ck], w, shd)
         ce_sum, n = (checkpoint(_chunk_ce, *args, use_reentrant=False)
                      if remat else _chunk_ce(*args))
         sums.append(ce_sum)
@@ -410,14 +528,17 @@ def value_and_grad(loss: Callable, params: Dict[str, Tensor], *args,
 
 def train_step(model: Transformer, params: Dict[str, Tensor],
                opt_state: opt.AdamWState, batch: Dict[str, Tensor],
-               opt_cfg: opt.AdamWConfig, *, remat: bool = True):
+               opt_cfg: opt.AdamWConfig, *, remat: bool = True, shd=NULL):
     """(params, opt_state, {tokens, targets}) -> (params, opt_state,
     metrics {loss, ce, aux, lr, grad_norm}); the inputs are left as they
-    were."""
-    loss, parts, grads = value_and_grad(
-        lambda p: loss_fn(model, p, batch["tokens"], batch["targets"],
-                          remat=remat), params)
-    params, opt_state, om = opt.update(opt_cfg, grads, opt_state, params)
+    were. With ``shd`` the params, state and batch are placed by their
+    specs (``param_specs``, ``opt.state_specs``, ``batch_specs``)."""
+    with shd.scope():
+        loss, parts, grads = value_and_grad(
+            lambda p: loss_fn(model, p, batch["tokens"], batch["targets"],
+                              remat=remat, shd=shd), params)
+        params, opt_state, om = opt.update(opt_cfg, grads, opt_state,
+                                           params)
     return params, opt_state, {"loss": loss, **parts, **om}
 
 
@@ -430,55 +551,99 @@ class KVCache(NamedTuple):
     v: Tensor
 
 
-def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device="cuda"
-               ) -> KVCache:
-    dev = resolve_device(device)
+def cache_specs() -> KVCache:
+    """Logical specs of the caches: layer, batch, slot, kv head, dim."""
+    spec = (None, "batch", "kv_seq", "kv_heads", None)
+    return KVCache(spec, spec)
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, *, device="cuda",
+               shd=NULL) -> KVCache:
+    """Zero caches (L, B, max_len, n_kv, hd) in the activation dtype; with
+    ``shd`` placed by ``cache_specs`` (each rank allocates its shard)."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    if shd.mesh is not None:
+        pl = shd.placements(cache_specs().k, shape, unit_axes=False)
+        return KVCache(*(dtensor_zeros(shape, dtype=cfg.adtype,
+                                       device_mesh=shd.mesh, placements=pl)
+                         for _ in range(2)))
+    dev = resolve_device(device)
     return KVCache(torch.zeros(shape, dtype=cfg.adtype, device=dev),
                    torch.zeros(shape, dtype=cfg.adtype, device=dev))
 
 
+def _cache_write(cache: Tensor, layer: int, val: Tensor, s0: int,
+                 s1: int) -> None:
+    """cache[layer, :, s0:s1] = val (B, s1 - s0, n_kv, hd); a placed
+    cache takes ``val`` in its layout and writes its own shard."""
+    if not isinstance(cache, DTensor):
+        cache[layer, :, s0:s1] = val
+        return
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else Replicate()
+          for p in cache.placements]
+    val = (val.redistribute(cache.device_mesh, pl) if isinstance(val, DTensor)
+           else distribute_tensor(val, cache.device_mesh, pl))
+    cache.to_local()[layer, :, s0:s1] = val.to_local()
+
+
+def _cache_layer(cache: Tensor, layer: int) -> Tensor:
+    """Layer ``layer`` of a cache, a view that writes go through."""
+    if not isinstance(cache, DTensor):
+        return cache[layer]
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else Replicate()
+          for p in cache.placements]
+    return DTensor.from_local(cache.to_local()[layer], cache.device_mesh, pl,
+                              run_check=False, shape=cache.shape[1:],
+                              stride=cache[layer].stride())
+
+
 @torch.no_grad()
 @L.float32_accumulation()
-def prefill(model: Transformer, tokens: Tensor, max_len: int
+def prefill(model: Transformer, tokens: Tensor, max_len: int, shd=NULL
             ) -> Tuple[Tensor, KVCache]:
     """Run the prompt (B, S) -> (last position's logits (B, V) f32, the
     caches filled at positions [0, S) and zero up to ``max_len``). The
     blocks run as in ``forward``: chunked layers attend within windows
     when S exceeds one, and the MoE routes at the config's capacity
-    factor and expert chunks."""
+    factor and expert chunks. With ``shd`` the caches are placed by
+    ``cache_specs`` and each block's constraints apply."""
     cfg = model.cfg
     b, s = tokens.shape
-    cache = init_cache(cfg, b, max_len, device=tokens.device)
-    x = model.embed_tokens(tokens)
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    for i, blk in enumerate(model.blocks):
-        x, _, _, k, v = blk(x, positions)
-        cache.k[i, :, :s] = k
-        cache.v[i, :, :s] = v
-    x = model.ln_f(x)
-    return model.logits(x[:, -1:])[:, 0], cache
+    with shd.scope():
+        cache = init_cache(cfg, b, max_len, device=tokens.device, shd=shd)
+        x = model.embed_tokens(tokens)
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        for i, blk in enumerate(model.blocks):
+            x, _, _, k, v = blk(x, positions, shd=shd)
+            _cache_write(cache.k, i, k, 0, s)
+            _cache_write(cache.v, i, v, 0, s)
+        x = model.ln_f(x)
+        return model.logits(x[:, -1:])[:, 0], cache
 
 
 @torch.no_grad()
 @L.float32_accumulation()
-def decode_step(model: Transformer, token: Tensor, cache: KVCache, pos: int
-                ) -> Tuple[Tensor, KVCache]:
+def decode_step(model: Transformer, token: Tensor, cache: KVCache, pos: int,
+                shd=NULL) -> Tuple[Tensor, KVCache]:
     """One decode step: token (B,) at position ``pos`` (the same for every
     row). Updates the caches in place; returns (logits (B, V) f32,
     cache). A chunked layer attends within ``pos``'s window when the
     cache is longer than one; MoE layers route the B tokens at
     ``DECODE_CAPACITY_FACTOR`` in one expert block, whatever the
-    config's."""
+    config's. ``shd`` reaches the attention and the MoE, as in the
+    reference (its decode adds no residual constraint)."""
     cfg = model.cfg
-    x = model.embed_tokens(token[:, None])
-    for i, blk in enumerate(model.blocks):
-        a, _, _ = L.attention_decode(
-            blk.attn, blk.ln1(x), pos, cache.k[i], cache.v[i],
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-            theta=cfg.rope_theta, chunk=blk.attn_chunk(cache.k.shape[2]))
-        x = x + a
-        ff, _ = blk.feed_forward(blk.ln2(x), DECODE_CAPACITY_FACTOR, 1)
-        x = x + ff
-    x = model.ln_f(x)
-    return model.logits(x)[:, 0], cache
+    with shd.scope():
+        x = model.embed_tokens(token[:, None])
+        for i, blk in enumerate(model.blocks):
+            a, _, _ = L.attention_decode(
+                blk.attn, blk.ln1(x), pos, _cache_layer(cache.k, i),
+                _cache_layer(cache.v, i), n_heads=cfg.n_heads,
+                n_kv=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
+                chunk=blk.attn_chunk(cache.k.shape[2]), shd=shd)
+            x = x + a
+            ff, _ = blk.feed_forward(blk.ln2(x), DECODE_CAPACITY_FACTOR, 1,
+                                     shd=shd)
+            x = x + ff
+        x = model.ln_f(x)
+        return model.logits(x)[:, 0], cache

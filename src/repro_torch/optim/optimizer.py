@@ -151,3 +151,18 @@ def update(cfg: AdamWConfig, grads: Dict[str, Tensor], state: AdamWState,
             new_m[name], new_v[name] = m_f, v_f
     metrics = {"lr": lr, "grad_norm": gnorm}
     return new_p, AdamWState(step, new_m, new_v), metrics
+
+
+def state_specs(param_specs: Dict[str, tuple], cfg: AdamWConfig
+                ) -> AdamWState:
+    """Logical specs of the optimizer state, keyed as the params: each
+    moment shards like its param; an int8 moment's ``q`` does too, and its
+    per-row scale drops the last dim's sharding (its last dim is 1). The
+    step is replicated."""
+    def moment(spec):
+        spec = tuple(spec)
+        if cfg.moment_dtype == "int8":
+            return QMoment(spec, spec[:-1] + (None,))
+        return spec
+    m = {k: moment(v) for k, v in param_specs.items()}
+    return AdamWState((), m, dict(m))

@@ -22,6 +22,8 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor.debug import CommDebugMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import state_from_numpy
 from repro_torch.core import distributed as D
@@ -29,7 +31,9 @@ from repro_torch.core import index as index_mod
 from repro_torch.data.pipeline import device_put_batch
 from repro_torch.data.synthetic import CorpusSpec, make_retrieval_corpus
 from repro_torch.dist import collectives, sharding
+from repro_torch.configs import registry
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.optim import optimizer as opt
 from repro_torch.parity import topk_mismatches
 from repro_torch.retrieval import (CascadeConfig, Corpus, HNSWConfig,
                                    HPCConfig, IVFConfig, Query, Retriever)
@@ -75,6 +79,10 @@ def cases(world: int):
         out += [("restore_elastic", check_elastic),
                 ("device_put_batch", check_put),
                 ("constraint_redistributes", check_constraint)]
+    out += [(f"model_d{d}m{m}_{arch}",
+             lambda z, _, arch=arch, shape=(d, m): check_model(z, arch,
+                                                               shape))
+            for d, m in MODEL_MESHES.get(world, ()) for arch in MODEL_ARCHS]
     return out
 
 
@@ -496,6 +504,307 @@ def check_constraint(z, mesh):
     assert full.to_local().shape == (8, 4) and torch.equal(full.to_local(), x)
     assert shd.constraint(x, "batch", None) is x
     assert sharding.NULL.constraint(dt, "batch") is dt
+
+
+# ---------------------------------------------------------------------------
+# model-internal sharding: every family's smoke model on a placed mesh
+# ---------------------------------------------------------------------------
+
+# ("data", "model") meshes of each world, and the archs run on each
+MODEL_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2),)}
+MODEL_ARCHS = {"qwen2": ("qwen2-1.5b", "lm"),
+               "scout": ("llama4-scout-17b-a16e", "lm"),
+               "kimi": ("kimi-k2-1t-a32b", "lm"),
+               "colpali": ("colpali-hpc", "colpali"),
+               "dlrm": ("dlrm-mlperf", "recsys"),
+               "dcn": ("dcn-v2", "recsys"), "din": ("din", "recsys"),
+               "dien": ("dien", "recsys"), "pna": ("pna", "gnn")}
+MODEL_GROUPS = (1, 2)        # the token groups of a data axis of 1 and 2
+LM_BATCH, LM_SEQ, LM_PROMPT = 4, 16, 12
+N_CAND = 16
+FWD_TOL, GRAD_TOL = 2e-5, 5e-5
+_MESHES = {}
+
+
+def recsys_batch(rng, cfg):
+    """A numpy batch of a recsys family (8 rows, every id inside its
+    table) and ``cand``: N_CAND candidate ids."""
+    b = 8
+    if cfg.family in ("din", "dien"):
+        mask = np.arange(cfg.seq_len)[None] < rng.integers(
+            cfg.seq_len // 2, cfg.seq_len + 1, (b, 1))
+        out = {"hist_ids": rng.integers(0, cfg.table_rows[0],
+                                        (b, cfg.seq_len), np.int32),
+               "hist_mask": mask,
+               "target_ids": rng.integers(0, cfg.table_rows[0], (b,),
+                                          np.int32)}
+    else:
+        out = {"dense": rng.standard_normal((b, cfg.n_dense)).astype(
+                   np.float32),
+               "sparse_ids": np.stack([rng.integers(0, r, b, np.int32)
+                                       for r in cfg.table_rows], 1)}
+    out["label"] = (rng.random(b) < 0.5).astype(np.float32)
+    rows = cfg.table_rows[0 if cfg.family in ("din", "dien") else -1]
+    out["cand"] = rng.integers(0, rows, (N_CAND,), np.int32)
+    return out
+
+
+class _Groups:
+    """The port without a mesh, routing its MoE in g token groups as a
+    mesh whose token axes shard g ways does."""
+    mesh = None
+
+    def __init__(self, g):
+        self.g = g
+
+    def num_shards(self, name, dim):
+        return self.g if name == "tokens" and dim % self.g == 0 else 1
+
+    def constraint(self, x, *spec):
+        return x
+
+    def scope(self):
+        import contextlib
+        return contextlib.nullcontext()
+
+
+class _Gathers(TorchDispatchMode):
+    """The input shapes of every all-gather issued inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if "all_gather" in str(func):
+            self.shapes.append(tuple(args[0].shape))
+        return func(*args, **(kwargs or {}))
+
+
+def _full(x):
+    return sharding.full_tensor(x).detach()
+
+
+def _agree(got, port, ref, tol, what):
+    """A sharded result against the port's unsharded one and the
+    reference's (numpy)."""
+    got = _full(got).float().numpy()
+    np.testing.assert_allclose(got, _full(port).float().numpy(), atol=tol,
+                               rtol=tol, err_msg=f"{what} vs the port")
+    np.testing.assert_allclose(got, ref, atol=tol, rtol=tol,
+                               err_msg=f"{what} vs the reference")
+
+
+def _tree(z, prefix):
+    from repro_torch.convert import _nest
+    return _nest({k[len(prefix):]: z[k] for k in z if k.startswith(prefix)})
+
+
+def _same_params(got, port, z, prefix, tol, what, scale=False):
+    """Named tensors (grads or params) in the reference's layout against
+    the port's and the reference's ``prefix`` arrays; ``scale`` takes the
+    tolerance relative to each leaf's largest value."""
+    from repro_torch.convert import _flatten, params_to_numpy
+    g = _flatten(params_to_numpy({k: _full(v) for k, v in got.items()}))
+    p = _flatten(params_to_numpy({k: _full(v) for k, v in port.items()}))
+    assert set(g) == {k[len(prefix):] for k in z if k.startswith(prefix)}
+    for key, val in g.items():
+        want = z[prefix + key]
+        t_ = tol * max(1.0, float(np.abs(want).max())) if scale else tol
+        np.testing.assert_allclose(val, p[key], atol=t_, rtol=tol,
+                                   err_msg=f"{what} {key} vs the port")
+        np.testing.assert_allclose(val, want, atol=t_, rtol=tol,
+                                   err_msg=f"{what} {key} vs the reference")
+
+
+def _check_local_numel(shd, specs, params):
+    """Each placed param's local shard holds the numel its resolved spec
+    gives (e.g. half of ``wq`` at model = 2)."""
+    sizes = dict(zip(shd.mesh.mesh_dim_names, shd.mesh.shape))
+    for name, spec in specs.items():
+        x = params[name]
+        cut = 1
+        for entry in shd.resolve(spec, tuple(x.shape)):
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                cut *= sizes[a]
+        assert x.to_local().numel() * cut == x.numel(), (name, cut)
+
+
+def check_model(z, arch, shape):
+    from repro_torch.models import transformer as T
+    if shape not in _MESHES:
+        _MESHES[shape] = mesh_mod.make_host_mesh(shape, device="cpu")
+    shd = sharding.Sharder(_MESHES[shape])
+    name, kind = MODEL_ARCHS[arch]
+    check = {"lm": _check_lm, "colpali": _check_colpali,
+             "recsys": _check_recsys, "gnn": _check_pna}[kind]
+    torch.manual_seed(0)
+    check(z, shd, arch, registry.get(name), f"ms/{arch}/", shape[0], T)
+
+
+def _train(z, shd, specs, params, batch, bspecs, step, ocfg, pre, g, what,
+           scale=False):
+    """One train step placed and unplaced from the same state: the loss
+    and the new params against the port and the reference."""
+    st = opt.init(ocfg, params)
+    new0, _, m0 = step(params, st, batch, _Groups(g))
+    placed = sharding.shard_tree(shd, specs, params)
+    new, st1, m = step(placed, sharding.shard_tree(
+        shd, opt.state_specs(specs, ocfg), st),
+        sharding.shard_tree(shd, bspecs, batch), shd)
+    _check_local_numel(shd, specs, placed)
+    _agree(m["loss"], m0["loss"], z[f"{pre}g{g}/loss"], FWD_TOL * 5,
+          f"{what} loss")
+    _same_params(new, new0, z, f"{pre}g{g}/step/", GRAD_TOL, what, scale)
+    return placed
+
+
+def _check_lm(z, shd, arch, spec, pre, g, T):
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import layers as L
+    cfg = spec.smoke_config
+    g = g if cfg.is_moe else 1
+    tree = _tree(z, pre + "p/")
+    model = lm_params_from_numpy(tree, cfg, device="cpu")
+    params = T.params_of(model)
+    specs = T.param_specs(cfg)
+    tok, tgt = t(z[pre + "in/tokens"]), t(z[pre + "in/targets"])
+    batch = {"tokens": tok, "targets": tgt}
+    ref = lambda k: z[f"{pre}g{g}/{k}"]
+    grp = _Groups(g)
+    ocfg = opt.AdamWConfig(moment_dtype="int8" if arch == "kimi" else "fp32")
+    placed = _train(z, shd, specs, params, batch, T.batch_specs(),
+                    lambda p, o, b, s: T.train_step(model, p, o, b, ocfg,
+                                                    shd=s),
+                    ocfg, pre, g, arch)
+    db = sharding.shard_tree(shd, T.batch_specs(), batch)
+    _, _, gr = T.value_and_grad(lambda p: T.loss_fn(
+        model, p, tok, tgt, remat=False, shd=grp), params)
+    with shd.scope():
+        _, _, gr1 = T.value_and_grad(lambda p: T.loss_fn(
+            model, p, db["tokens"], db["targets"], remat=False, shd=shd),
+            placed)
+    _same_params(gr1, gr, z, f"{pre}g{g}/grad/", GRAD_TOL, f"{arch} grad")
+    # the serving entry points on the module's own placed weights
+    served = T.shard_module(lm_params_from_numpy(tree, cfg, device="cpu"),
+                            shd, specs)
+    with torch.no_grad():
+        h, aux, _ = served(db["tokens"], shd=shd)
+        h0, aux0, _ = model(tok, shd=grp)
+        _agree(h, h0, ref("hidden"), FWD_TOL, f"{arch} forward")
+        _agree(aux, aux0, ref("aux"), FWD_TOL, f"{arch} aux")
+        prompt = db["tokens"][:, :LM_PROMPT]
+        lg, cache = T.prefill(served, prompt, LM_SEQ, shd=shd)
+        lg0, cache0 = T.prefill(model, tok[:, :LM_PROMPT], LM_SEQ, shd=grp)
+        _agree(lg, lg0, ref("prefill"), FWD_TOL, f"{arch} prefill")
+        _agree(cache.k, cache0.k, ref("cache_k"), FWD_TOL, f"{arch} cache k")
+        _agree(cache.v, cache0.v, ref("cache_v"), FWD_TOL, f"{arch} cache v")
+        for i in range(2):
+            feed = t(ref(f"feed{i}"))
+            lg, cache = T.decode_step(served, sharding.shard_tree(
+                shd, ("batch",), feed), cache, LM_PROMPT + i, shd=shd)
+            lg0, cache0 = T.decode_step(model, feed, cache0, LM_PROMPT + i,
+                                        shd=grp)
+            _agree(lg, lg0, ref(f"decode{i}"), FWD_TOL, f"{arch} decode {i}")
+    if not cfg.is_moe or shd.mesh.size(0) == 1:
+        return
+    # one MoE block's dispatch: all-to-alls, no all-gather
+    moe = served.blocks[0].moe
+    x = sharding.shard_tree(shd, ("tokens", None), torch.randn(
+        LM_BATCH * LM_SEQ, cfg.d_model))
+    comm, gathers = CommDebugMode(), _Gathers()
+    with torch.no_grad(), shd.scope(), comm, gathers:
+        L.moe_apply(moe, x, top_k=cfg.moe_top_k, shd=shd)
+    counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+    assert counts.get("c10d_functional.all_to_all_single") == 2, counts
+    assert not gathers.shapes, gathers.shapes
+
+
+def _check_colpali(z, shd, arch, spec, pre, g, T):
+    from repro_torch.convert import colpali_params_from_numpy
+    from repro_torch.models import colpali
+    cfg = spec.smoke_config.encoder
+    tree = _tree(z, pre + "p/")
+    enc = colpali_params_from_numpy(tree, cfg, device="cpu")
+    params = T.params_of(enc)
+    specs = colpali.param_specs(cfg)
+    batch = {k: t(z[f"{pre}in/{k}"]) for k in colpali.batch_specs()}
+    ocfg = opt.AdamWConfig()
+    _train(z, shd, specs, params, batch, colpali.batch_specs(),
+           lambda p, o, b, s: colpali.train_step(enc, p, o, b, ocfg, shd=s),
+           ocfg, pre, 1, arch)
+    served = T.shard_module(colpali_params_from_numpy(tree, cfg,
+                                                      device="cpu"),
+                            shd, specs)
+    db = sharding.shard_tree(shd, colpali.batch_specs(), batch)
+    e, _ = served.encode_doc(db["doc_patches"], db["doc_mask"], shd=shd)
+    q, _ = served.encode_query(db["query_tokens"], db["query_mask"],
+                               shd=shd)
+    e0, _ = enc.encode_doc(batch["doc_patches"], batch["doc_mask"])
+    q0, _ = enc.encode_query(batch["query_tokens"], batch["query_mask"])
+    _agree(e, e0, z[pre + "g1/doc"], FWD_TOL, "encode_doc")
+    _agree(q, q0, z[pre + "g1/query"], FWD_TOL, "encode_query")
+
+
+def _check_recsys(z, shd, arch, spec, pre, g, T):
+    from repro_torch.convert import recsys_params_from_numpy
+    from repro_torch.models import recsys
+    cfg = spec.smoke_config
+    model = recsys_params_from_numpy(_tree(z, pre + "p/"), cfg,
+                                     device="cpu")
+    params = T.params_of(model)
+    specs = recsys.param_specs(cfg)
+    bspecs = recsys.batch_specs(cfg)
+    batch = {k: t(z[f"{pre}in/{k}"]) for k in bspecs}
+    ocfg = opt.AdamWConfig()
+    placed = _train(z, shd, specs, params, batch, bspecs,
+                    lambda p, o, b, s: recsys.train_step(p, o, b, cfg, ocfg,
+                                                         shd=s),
+                    ocfg, pre, 1, arch)
+    db = sharding.shard_tree(shd, bspecs, batch)
+    with torch.no_grad():
+        _agree(recsys.forward(placed, db, cfg, shd),
+              recsys.forward(params, batch, cfg), z[pre + "g1/forward"],
+              FWD_TOL, f"{arch} forward")
+    user = {k: v[:1] for k, v in batch.items() if k != "label"}
+    cand = t(z[pre + "in/cand"])
+    got = recsys.score_candidates(placed, user, sharding.shard_tree(
+        shd, ("candidate",), cand), cfg, shd)
+    _agree(got, recsys.score_candidates(params, user, cand, cfg),
+          z[pre + "g1/cand"], FWD_TOL, f"{arch} candidates")
+    # a row-sharded table lookup gathers no table (only ids, and the
+    # candidates' activations onto "batch")
+    gathers = _Gathers()
+    with torch.no_grad(), shd.scope(), gathers:
+        recsys.forward(placed, db, cfg, shd)
+        recsys.score_candidates(placed, user, sharding.shard_tree(
+            shd, ("candidate",), cand), cfg, shd)
+    tables = {tuple(placed[f"tables.{i}"].to_local().shape)
+              for i in range(cfg.n_sparse)}
+    assert not tables & set(gathers.shapes), (gathers.shapes, tables)
+
+
+def _check_pna(z, shd, arch, spec, pre, g, T):
+    from repro_torch.convert import pna_params_from_numpy
+    from repro_torch.models import gnn
+    cfg = spec.smoke_config
+    model = pna_params_from_numpy(_tree(z, pre + "p/"), cfg, device="cpu")
+    params = T.params_of(model)
+    batch = {k[len(pre + "in/"):]: t(z[k]) for k in z
+             if k.startswith(pre + "in/")}
+    ocfg = opt.AdamWConfig()
+    placed = _train(z, shd, gnn.param_specs(cfg), params, batch,
+                    gnn.batch_specs(batch),
+                    lambda p, o, b, s: gnn.train_step(p, o, b, cfg, ocfg,
+                                                      shd=s),
+                    ocfg, pre, 1, arch, scale=True)
+    db = sharding.shard_tree(shd, gnn.batch_specs(batch), batch)
+    _, _, gr = T.value_and_grad(lambda p: gnn.loss_fn(p, batch, cfg), params)
+    with shd.scope():
+        _, _, gr1 = T.value_and_grad(lambda p: gnn.loss_fn(p, db, cfg, shd),
+                                     placed)
+    _same_params(gr1, gr, z, pre + "g1/grad/", GRAD_TOL, "pna grad",
+                 scale=True)
 
 
 # ---------------------------------------------------------------------------

@@ -1738,3 +1738,139 @@ def test_dry_run_peak_held_to_the_card_dcn_serve_bulk():
     assert pred["flops"] == flops
     del built, out
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# model-internal sharding at world size 1: each family's smoke model placed
+# on a one-rank NCCL mesh against the same model unsharded
+# ---------------------------------------------------------------------------
+
+def _same_on_card(got, want, tol, what):
+    from repro_torch.dist.sharding import full_tensor
+    got = full_tensor(got)
+    assert got.device.type == "cuda" and got.shape == want.shape, what
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol,
+                               msg=what)
+
+
+@pytest.mark.parametrize("arch_id", ["qwen2-1.5b", "llama4-scout-17b-a16e",
+                                     "kimi-k2-1t-a32b"])
+def test_lm_smoke_sharded_on_one_rank_equals_unsharded(arch_id):
+    """A train step (kimi-k2 with int8 moments), the forward, prefill and
+    two decode steps with params, optimizer state, caches and tokens
+    placed by their specs: within 2e-5 (forward) and 5e-5 (params)."""
+    mesh = _nccl_mesh()
+    from repro_torch.configs import registry
+    from repro_torch.dist.sharding import Sharder, shard_tree
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+    shd = Sharder(mesh)
+    cfg = registry.get(arch_id).smoke_config
+    gen = torch.Generator("cuda").manual_seed(5)
+    model = T.init(cfg, generator=gen, device="cuda")
+    params = T.params_of(model)
+    specs = T.param_specs(cfg)
+    tok = torch.randint(0, cfg.vocab, (4, 16), generator=gen, device="cuda")
+    batch = {"tokens": tok, "targets": torch.roll(tok, -1, 1)}
+    ocfg = opt.AdamWConfig(moment_dtype="int8" if "kimi" in arch_id
+                           else "fp32")
+    st = opt.init(ocfg, params)
+    p0, _, m0 = T.train_step(model, params, st, batch, ocfg)
+    p1, _, m1 = T.train_step(
+        model, shard_tree(shd, specs, params),
+        shard_tree(shd, opt.state_specs(specs, ocfg), st),
+        shard_tree(shd, T.batch_specs(), batch), ocfg, shd=shd)
+    _same_on_card(m1["loss"], m0["loss"], 2e-5, "loss")
+    for name in p0:
+        _same_on_card(p1[name], p0[name], 5e-5, name)
+    h0, _, _ = model(tok)
+    lg0, c0 = T.prefill(model, tok[:, :12], 16)
+    placed = T.shard_module(T.init(cfg, generator=torch.Generator(
+        "cuda").manual_seed(5), device="cuda"), shd, specs)
+    dtok = shard_tree(shd, ("batch", None), tok)
+    h1, _, _ = placed(dtok, shd=shd)
+    _same_on_card(h1, h0, 2e-5, "forward")
+    lg1, c1 = T.prefill(placed, dtok[:, :12], 16, shd=shd)
+    _same_on_card(lg1, lg0, 2e-5, "prefill")
+    for i in range(2):
+        feed = torch.argmax(lg0, -1).to(torch.int32)
+        lg0, c0 = T.decode_step(model, feed, c0, 12 + i)
+        lg1, c1 = T.decode_step(placed, shard_tree(shd, ("batch",), feed),
+                                c1, 12 + i, shd=shd)
+        _same_on_card(lg1, lg0, 2e-5, f"decode {i}")
+    _same_on_card(c1.k, c0.k, 2e-5, "cache k")
+
+
+def test_colpali_smoke_sharded_on_one_rank_equals_unsharded():
+    """Both encoders and a contrastive train step, placed."""
+    mesh = _nccl_mesh()
+    from repro_torch.configs.colpali_hpc import COLPALI_HPC
+    from repro_torch.dist.sharding import Sharder, shard_tree
+    from repro_torch.models import colpali
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizer as opt
+    shd = Sharder(mesh)
+    cfg = COLPALI_HPC.smoke_config.encoder
+    gen = torch.Generator("cuda").manual_seed(6)
+    enc = colpali.init(cfg, generator=gen, device="cuda")
+    b = 4
+    batch = {"query_tokens": torch.randint(0, cfg.backbone.vocab,
+                                           (b, cfg.query_len), generator=gen,
+                                           device="cuda"),
+             "query_mask": torch.ones((b, cfg.query_len), dtype=torch.bool,
+                                      device="cuda"),
+             "doc_patches": torch.randn((b, cfg.n_patches, cfg.d_patch),
+                                        generator=gen, device="cuda"),
+             "doc_mask": torch.ones((b, cfg.n_patches), dtype=torch.bool,
+                                    device="cuda")}
+    specs = colpali.param_specs(cfg)
+    params = T.params_of(enc)
+    ocfg = opt.AdamWConfig()
+    st = opt.init(ocfg, params)
+    p0, _, m0 = colpali.train_step(enc, params, st, batch, ocfg)
+    db = shard_tree(shd, colpali.batch_specs(), batch)
+    p1, _, m1 = colpali.train_step(
+        enc, shard_tree(shd, specs, params),
+        shard_tree(shd, opt.state_specs(specs, ocfg), st), db, ocfg, shd=shd)
+    _same_on_card(m1["loss"], m0["loss"], 2e-5, "loss")
+    for name in p0:
+        _same_on_card(p1[name], p0[name], 5e-5, name)
+    e0, s0 = enc.encode_doc(batch["doc_patches"], batch["doc_mask"])
+    q0, _ = enc.encode_query(batch["query_tokens"], batch["query_mask"])
+    T.shard_module(enc, shd, specs)
+    e1, s1 = enc.encode_doc(db["doc_patches"], db["doc_mask"], shd=shd)
+    q1, _ = enc.encode_query(db["query_tokens"], db["query_mask"], shd=shd)
+    _same_on_card(e1, e0, 2e-5, "encode_doc")
+    _same_on_card(s1, s0, 2e-5, "salience")
+    _same_on_card(q1, q0, 2e-5, "encode_query")
+
+
+@pytest.mark.parametrize("arch_id,cell_name", [
+    ("dlrm-mlperf", "train_batch"), ("dcn-v2", "train_batch"),
+    ("din", "train_batch"), ("dien", "serve_p99"),
+    ("dcn-v2", "retrieval_cand"), ("pna", "full_graph_sm")])
+def test_cell_smoke_sharded_on_one_rank_equals_unsharded(arch_id,
+                                                         cell_name):
+    """``launch.cells.build_cell`` of a recsys or PNA cell at the smoke
+    config, without and with the mesh from one seed: the placed step
+    (train: loss and new params; serve and candidates: the scores) equal
+    to the unplaced one within 2e-5 (PNA's params 5e-5: its segment sums
+    are float atomics)."""
+    mesh = _nccl_mesh()
+    from repro_torch.configs import registry
+    from repro_torch.launch import cells
+    spec = registry.get(arch_id)
+    cell = next(c for c in spec.shapes if c.name == cell_name)
+    outs = []
+    for m in (None, mesh):
+        built = cells.build_cell(spec, cell, m, smoke=True, device="cuda",
+                                 fake=False, seed=7)
+        outs.append(built.fn(*built.args))
+        assert set(built.placements) >= {"mesh", "device", "params"}
+    if cell.kind != "train":
+        _same_on_card(outs[1], outs[0], 2e-5, cell_name)
+        return
+    (p0, _, m0), (p1, _, m1) = outs
+    _same_on_card(m1["loss"], m0["loss"], 2e-5, "loss")
+    for name in p0:
+        _same_on_card(p1[name], p0[name], 5e-5, name)

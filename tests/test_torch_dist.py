@@ -45,10 +45,25 @@ JAX):
   * at world 2: ``restore_elastic`` of a reference-written checkpoint
     (float32, uint16 and bfloat16 leaves) onto a (1, 2) mesh, equal to the
     tree with the expected local shards; ``device_put_batch`` by
-    placements.
+    placements;
+  * model-internal sharding, at world 2 on ("data", "model") meshes
+    (2, 1) and (1, 2) and at world 4 on (2, 2): every family's smoke model
+    (qwen2-1.5b, llama4-scout and kimi-k2 with int8 moments, ColPali,
+    DLRM, DCN-v2, DIN, DIEN, PNA) with params, optimizer state and batch
+    placed by their specs, against the port's unsharded run and the
+    reference's single-device one (``ms/<arch>/`` in ``inputs.npz``; the
+    MoE archs at g token groups, g the data axis, through stand-in
+    sharders): the loss and one train step's params, the grads (5e-5;
+    PNA's relative to each leaf's largest), the LMs' forward, aux,
+    prefill logits and caches and two decode steps, the encoders, the
+    recsys forward and candidates (2e-5); each placed param's local numel
+    as its resolved spec gives; under ``CommDebugMode`` one MoE block's
+    dispatch issues two all-to-alls and no all-gather, and a row-sharded
+    table lookup all-gathers no table.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -68,7 +83,7 @@ from tests import _torch_dist_ranks as ranks
 from tests._torch_parity import state_arrays
 
 ROOT = Path(__file__).resolve().parents[1]
-SPAWN_TIMEOUT = 240
+SPAWN_TIMEOUT = 420
 WORLDS = (1, 2, 4)
 TIE_TOL = 1e-4
 JAX_SPEC = dict(n_docs=96, n_queries=8, n_patches=10, n_q_patches=4, dim=24,
@@ -138,7 +153,147 @@ def _inputs(path: Path) -> None:
     z.update(ck_dir=np.array(str(ck_dir)), ck_w=w, ck_codes=codes16,
              ck_h_bits=np.asarray(h).view(np.uint16))
     z.update(_reference_states())
+    z.update(_model_references())
     np.savez(path, **z)
+
+
+def _model_references() -> dict:
+    """Each family's smoke model, inputs and the reference's single-device
+    results for the model-sharding cases, under ``ms/<arch>/``: params
+    (the reference's init, biases and norm weights drawn, ``p/<key>``),
+    inputs (``in/``), and per token-group count g (the data axis of the
+    ranks' meshes; a stand-in sharder gives the reference's MoE g groups)
+    the outputs under ``g<g>/``: the forward, the loss and its grads
+    (``grad/<key>``), the params after one train step (``step/<key>``), and
+    for the LMs the prefill's logits and caches and two decode steps fed
+    the prefill's greedy tokens; for recsys the candidates' scores; for
+    ColPali both encoders' embeddings."""
+    from repro.configs import registry as jax_registry
+    from repro.models import colpali as jcol
+    from repro.models import gnn as jgnn
+    from repro.models import recsys as jrec
+    from repro.models import transformer as jtr
+    from repro.optim import optimizer as jopt
+    from repro_torch.convert import _flatten
+    from tests.test_torch_gnn import _graph
+    from tests.test_torch_model_sharding import _JaxGroups
+
+    out = {}
+    rng = np.random.default_rng(7)
+
+    def put(prefix, tree):
+        for k, v in _flatten(jax.tree.map(np.asarray, tree)).items():
+            out[f"{prefix}{k}"] = v
+
+    for arch, (name, kind) in ranks.MODEL_ARCHS.items():
+        spec = jax_registry.get(name)
+        cfg = spec.smoke_config
+        cfg = cfg.encoder if kind == "colpali" else cfg
+        init = {"lm": jtr.init, "colpali": jcol.init, "recsys": jrec.init,
+                "gnn": jgnn.init}[kind]
+        params = _draw(rng, jax.eval_shape(functools.partial(init, cfg=cfg),
+                                           jax.random.PRNGKey(3)))
+        pre = f"ms/{arch}/"
+        put(pre + "p/", params)
+        ocfg = jopt.AdamWConfig(
+            moment_dtype="int8" if arch == "kimi" else "fp32")
+        if kind == "lm":
+            b, s = ranks.LM_BATCH, ranks.LM_SEQ
+            batch = {"tokens": rng.integers(0, cfg.vocab, (b, s), np.int32),
+                     "targets": rng.integers(0, cfg.vocab, (b, s), np.int32)}
+        elif kind == "colpali":
+            b = ranks.LM_BATCH
+            batch = {"query_tokens": rng.integers(
+                         0, cfg.backbone.vocab, (b, cfg.query_len), np.int32),
+                     "query_mask": rng.random((b, cfg.query_len)) < 0.8,
+                     "doc_patches": rng.standard_normal(
+                         (b, cfg.n_patches, cfg.d_patch)).astype(np.float32),
+                     "doc_mask": rng.random((b, cfg.n_patches)) < 0.8}
+            batch["query_mask"][:, 0] = batch["doc_mask"][:, 0] = True
+        elif kind == "recsys":
+            batch = ranks.recsys_batch(rng, cfg)
+        else:
+            batch = _graph("node", 5, padded=True)
+        put(pre + "in/", batch)
+        jb = jax.tree.map(jnp.asarray, batch)
+        for g in ranks.MODEL_GROUPS:
+            if g > 1 and not (kind == "lm" and cfg.is_moe):
+                continue      # only the MoE routes by token groups
+            res = jax.jit(functools.partial(
+                _reference_run, kind=kind, cfg=cfg, ocfg=ocfg,
+                shd=_JaxGroups(g)))(params, jb)
+            put(f"{pre}g{g}/", res)
+    return out
+
+
+def _draw(rng, shapes):
+    """Params of the reference's shapes: weights normal / sqrt(fan-in),
+    norm weights 1 + 0.1 normal, biases 0.1 normal."""
+    def leaf(path, sd):
+        name = str(getattr(path[-1], "key", ""))
+        z = rng.standard_normal(sd.shape)
+        if name.startswith("ln"):
+            z = 1.0 + 0.1 * z
+        elif name in ("b", "bq", "bk", "bv") or len(sd.shape) < 2:
+            z = 0.1 * z
+        else:
+            z = z / np.sqrt(sd.shape[-2])
+        return z.astype(sd.dtype)
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def _reference_run(params, batch, *, kind, cfg, ocfg, shd):
+    """Everything the model cases read of one family, in one jitted call:
+    the loss, its grads and the params after one AdamW step from a fresh
+    state; the LMs' forward, prefill and two greedy decode steps; the
+    recsys forward and candidates; the ColPali encoders."""
+    from repro.models import colpali as jcol
+    from repro.models import gnn as jgnn
+    from repro.models import recsys as jrec
+    from repro.models import transformer as jtr
+    from repro.optim import optimizer as jopt
+    out = {}
+    if kind == "lm":
+        loss = functools.partial(jtr.loss_fn, cfg=cfg, shd=shd)
+        args = (batch["tokens"], batch["targets"])
+        out["hidden"], out["aux"], _ = jtr.forward(params, batch["tokens"],
+                                                   cfg, shd)
+        s0 = ranks.LM_PROMPT
+        logits, cache = jtr.prefill(params, batch["tokens"][:, :s0], cfg,
+                                    ranks.LM_SEQ, shd)
+        out["prefill"], out["cache_k"], out["cache_v"] = (logits, cache.k,
+                                                          cache.v)
+        for i in range(2):
+            nxt = jnp.argmax(logits, -1).astype(jnp.int32)
+            out[f"feed{i}"] = nxt
+            logits, cache = jtr.decode_step(params, nxt, cache,
+                                            jnp.int32(s0 + i), cfg, shd)
+            out[f"decode{i}"] = logits
+    elif kind == "colpali":
+        out["doc"], _ = jcol.encode_doc(params, batch["doc_patches"],
+                                        batch["doc_mask"], cfg)
+        out["query"], _ = jcol.encode_query(params, batch["query_tokens"],
+                                            batch["query_mask"], cfg)
+        loss = functools.partial(jcol.contrastive_loss, cfg=cfg)
+        args = (batch,)
+    elif kind == "recsys":
+        cand = batch["cand"]
+        batch = {k: v for k, v in batch.items() if k != "cand"}
+        out["forward"] = jrec.forward(params, batch, cfg)
+        user = {k: v[:1] for k, v in batch.items() if k != "label"}
+        out["cand"] = jrec.score_candidates(params, user, cand, cfg)
+        loss = functools.partial(jrec.loss_fn, cfg=cfg)
+        args = (batch,)
+    else:
+        loss = functools.partial(jgnn.loss_fn, cfg=cfg)
+        args = (batch,)
+    (out["loss"], _), grads = jax.value_and_grad(loss, has_aux=True)(
+        params, *args)
+    out["grad"] = grads
+    out["step"], _, _ = jopt.update(ocfg, grads, jopt.init(ocfg, params),
+                                    params)
+    return out
+
 
 
 def _reference_states() -> dict:

@@ -9,7 +9,7 @@
   * the two-depth extrapolation equals the full trace at a small depth;
   * a record at world size 1 (no collective, ``fits``, roofline terms);
   * ``registry.ASSIGNED`` equals the reference's; the production meshes
-    raise NotImplementedError naming ROADMAP.md §A item 3.
+    raise NotImplementedError naming ROADMAP.md §A item 4.
 
 Tolerance: exact (FLOP and byte counts are integers).
 """
@@ -151,10 +151,10 @@ def test_run_cell_record_at_world_size_one():
 
 def test_production_meshes_wait_for_model_sharding():
     for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="§A item 3"):
+        with pytest.raises(NotImplementedError, match="§A item 4"):
             dryrun.run_cell("qwen2-1.5b", "train_4k", mesh=mesh,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="§A item 3"):
+    with pytest.raises(NotImplementedError, match="§A item 4"):
         dryrun.main(["--all", "--mesh", "multi", "--device", "cpu"])
 
 
