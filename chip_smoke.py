@@ -230,7 +230,22 @@ any failure exits non-zero, and no phase's error is swallowed:
      accounted for as ``_HELD`` says) and its FLOPs equal to the real
      run's (``{"dryrun_vs_card": [...]}``); (d) the cost model of every
      manifest on the h100 roofline, held to ``COST_baseline_torch.json``
-     (one ``{"cost": ...}`` line).
+     (one ``{"cost": ...}`` line);
+ 14e. the dry run at the production meshes: (a) qwen2-1.5b train_4k,
+     llama4-scout decode_32k, dlrm-mlperf train_batch, pna ogb_products,
+     dien retrieval_cand and colpali-hpc serve_query traced as rank 0 of
+     a fake 256-rank process group on the (16, 16) mesh, serve_query also
+     of a 512-rank one on (2, 16, 16), on fake CUDA tensors in worker
+     processes: every record ok, its per-device peak, ``fits``, FLOPs,
+     collective bytes by kind and link, dominant term and trace seconds
+     (one ``{"dryrun_meshes": [...]}`` line); (b) in a worker process of
+     its own fake 256-rank group over a "cuda" mesh, rank 0's programs run
+     for real: serve_query over its 16,384 docs (drawn as 13a draws the
+     corpus; one real quantized_maxsim launch, the all-gathers the fake
+     group's no-ops) and dcn-v2's train_batch step on its shards, each
+     peak above what was held within 10% or 256 MiB of the dry run's, its
+     FLOPs and launches equal (``{"dryrun_meshes_vs_card": [...]}``); the
+     fake group writes no collective's output, so no result is compared.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout, the script exits non-zero and prints no result.
@@ -506,6 +521,22 @@ DRYRUN_WORKERS = 6
 PEAK_BAND = 0.10
 PEAK_FLOOR = 256 * 2 ** 20
 PREFETCH_BATCHES = 3    # launch.train's pipeline: 2 queued + 1 in hand
+
+# phase 14e: the dry run at the production meshes, rank 0 of a fake
+# process group of 256 ("single", (16, 16)) or 512 ranks ("multi", (2, 16,
+# 16)). (a) these cells traced on fake CUDA tensors in worker processes;
+# (b) rank 0's program of MESH_HELD run for real on the card in a worker
+# process of its own fake 256-rank group, its peak above what it held and
+# its FLOPs held to (a)'s trace of the same cell as phase 14c holds them
+MESH_CELLS = (("qwen2-1.5b", "train_4k", "single"),
+              ("llama4-scout-17b-a16e", "decode_32k", "single"),
+              ("dlrm-mlperf", "train_batch", "single"),
+              ("pna", "ogb_products", "single"),
+              ("dien", "retrieval_cand", "single"),
+              ("colpali-hpc", "serve_query", "single"),
+              ("colpali-hpc", "serve_query", "multi"))
+MESH_HELD = (("colpali-hpc", "serve_query"), ("dcn-v2", "train_batch"))
+MESH_RANKS = 256
 
 
 def _phase(name: str) -> float:
@@ -4554,6 +4585,198 @@ def _cost_checks():
     return {"manifests": len(reports)}
 
 
+def _rank0_on_card(seed: int) -> dict:
+    """14e(b), in a process of its own: rank 0 of a fake MESH_RANKS-rank
+    group over a "cuda" (16, 16) mesh runs its programs of MESH_HELD for
+    real. Returns, per cell, its peak above what was held, its FLOPs as
+    the dry run counts them and its quantized_maxsim launches. The fake
+    group's collectives write no output, so no result is compared."""
+    import gc
+
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import registry
+    from repro_torch.core import distributed as dist_core
+    from repro_torch.core import pruning
+    from repro_torch.dist.sharding import Sharder
+    from repro_torch.kernels import quantized_maxsim as qm
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.launch import mesh as mesh_mod
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh_mod.open_fake_group(MESH_RANKS)
+    mesh = mesh_mod.make_production_mesh(device="cuda")
+    shd = Sharder(mesh)
+
+    def measure(fn):
+        gc.collect()          # what earlier work left in reference cycles
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        qm.launches = 0
+        t0 = time.perf_counter()
+        out, flops = dryrun.real_flops(fn)
+        torch.cuda.synchronize()
+        return out, {"measured_bytes": torch.cuda.max_memory_allocated()
+                     - held, "held_bytes": held, "flops": flops,
+                     "quantized_maxsim_launches": qm.launches,
+                     "seconds": time.perf_counter() - t0}
+
+    # serve_query: rank 0's share of the corpus, drawn as phase 13a draws
+    # the whole of it, placed as DTensors of its local rows
+    gen = torch.Generator(device=dev).manual_seed(seed + 1400)
+    n_loc = SERVE_DOCS // MESH_RANKS
+    base = torch.randint(0, K, (n_loc, 1), generator=gen, device=dev)
+    off = torch.randint(0, SERVE_WINDOW, (n_loc, SERVE_MD), generator=gen,
+                        device=dev)
+    codes = ((base + off) % K).to(torch.uint8)
+    del base, off
+    n_valid = pruning.keep_count(N_PATCHES, P)
+    mask = (torch.arange(SERVE_MD, device=dev) < n_valid).expand(
+        n_loc, SERVE_MD).contiguous()
+    ids = torch.arange(n_loc, dtype=torch.int32, device=dev)
+
+    def placed(t, spec, shape):
+        return DTensor.from_local(
+            t, mesh, shd.placements(spec, shape, unit_axes=False),
+            run_check=False, shape=torch.Size(shape),
+            stride=tuple(math.prod(shape[i + 1:])
+                         for i in range(len(shape))))
+
+    corpus = (placed(codes, ("corpus", None), (SERVE_DOCS, SERVE_MD)),
+              placed(mask, ("corpus", None), (SERVE_DOCS, SERVE_MD)),
+              placed(ids, ("corpus",), (SERVE_DOCS,)))
+    q = torch.randn((SERVE_QUERIES, N_Q_PATCHES, DIM), generator=gen,
+                    device=dev)
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    q_mask = torch.ones((SERVE_QUERIES, N_Q_PATCHES), dtype=torch.bool,
+                        device=dev)
+    cb = torch.randn((K, DIM), generator=gen, device=dev)
+    cb = cb / torch.linalg.vector_norm(cb, dim=-1, keepdim=True)
+    search = dist_core.sharded_search_fn(
+        mesh, dist_core.corpus_data_axes(mesh, SERVE_DOCS), k=SERVE_TOP_K)
+    (top_s, _), got = measure(lambda: search(q, q_mask, *corpus, cb))
+    got["docs_a_rank"] = n_loc
+    got["answer_shape"] = list(top_s.shape)
+    out = {"colpali-hpc/serve_query": got}
+    del corpus, codes, mask, ids, q, q_mask, cb, top_s
+    torch.cuda.empty_cache()
+
+    # dcn-v2 train_batch: the cell's arguments drawn whole and each
+    # rank's shard kept (build_cell), the step run on rank 0's shards
+    spec = registry.get("dcn-v2")
+    cell = next(c for c in spec.shapes if c.name == "train_batch")
+    built = cells.build_cell(spec, cell, mesh, device=dev, fake=False,
+                             seed=seed + 1401)
+    _, got = measure(lambda: built.fn(*built.args))
+    out["dcn-v2/train_batch"] = got
+    del built
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def _mesh_dryrun_phase(args, torch, smi):
+    """Phase 14e: (a) MESH_CELLS traced as rank 0 of the production
+    meshes on fake CUDA tensors; (b) ``_rank0_on_card`` held to them.
+    Returns the launches of (b)'s run and the readings."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    from repro_torch.launch import dryrun
+    t0 = _phase("14e. the dry run at the production meshes: rank 0 of a "
+                "fake 256- or 512-rank group")
+    held = [(a, s, "single") for a, s in MESH_HELD
+            if (a, s, "single") not in MESH_CELLS]
+    with cf.ProcessPoolExecutor(max_workers=1,
+                                mp_context=mp.get_context("spawn")) as ex:
+        on_card = ex.submit(_rank0_on_card, args.seed)
+        t1 = time.perf_counter()
+        recs = dryrun.run_cells(list(MESH_CELLS) + held,
+                                workers=DRYRUN_WORKERS, device="cuda")
+        wall = time.perf_counter() - t1
+        real = on_card.result()
+    bad = [(r["arch"], r["shape"], r["mesh"], r.get("error"))
+           for r in recs if r["status"] != "ok"]
+    assert not bad, f"production-mesh dry run failed: {bad}"
+    rows = []
+    for r in recs:
+        ro, mem = r["roofline"], r["mem"]
+        rows.append({
+            "arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+            "chips": r["chips"], "rank": r["rank"],
+            "trace_s": r["trace_s"], "cost_source": r["cost_source"],
+            "peak_bytes": mem["peak_bytes"], "fits": mem["fits"],
+            "argument_bytes": mem["argument_bytes"],
+            "temp_bytes": mem["temp_bytes"],
+            "flops_per_dev": r["flops_per_dev"],
+            "model_flops_per_dev": ro["model_flops_per_dev"],
+            "collective_bytes": r["collective_bytes_per_dev"],
+            "collective_bytes_by_link": r["collective_bytes_by_link"],
+            "compute_s": ro["compute_s"], "memory_s": ro["memory_s"],
+            "collective_s": ro["collective_s"],
+            "collective_s_all_nvlink": ro["collective_s_all_nvlink"],
+            "collective_s_all_ib": ro["collective_s_all_ib"],
+            "dominant": ro["dominant"],
+            "kernels": {k: v["launches"] for k, v in r["kernels"].items()}})
+    print(json.dumps({"dryrun_meshes": rows, "workers": DRYRUN_WORKERS,
+                      "wall_s": wall, "smi": smi}))
+    for r in rows:
+        coll = {k: v for k, v in r["collective_bytes"].items() if v}
+        print(f"{r['arch']} {r['shape']} on {r['mesh']} ({r['chips']} "
+              f"chips, rank {r['rank']}): peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB a device (fits "
+              f"{r['fits']}), {r['flops_per_dev']:.6g} FLOPs, collectives "
+              f"{coll}, {r['dominant']}-bound, trace {r['trace_s']:.1f}s "
+              f"({r['cost_source']})")
+    by_cell = {(r["arch"], r["shape"], r["mesh"]): r for r in rows}
+    checks = []
+    for arch, shape in MESH_HELD:
+        want = by_cell[(arch, shape, "single")]
+        got = real[f"{arch}/{shape}"]
+        predicted = _HELD["serve"](want)
+        measured = got["measured_bytes"]
+        band = max(PEAK_BAND * measured, PEAK_FLOOR)
+        checks.append({"arch": arch, "shape": shape, "mesh": "single",
+                       "held": "serve", "predicted_bytes": predicted,
+                       "measured_bytes": measured,
+                       "ratio": predicted / measured if measured else None,
+                       "band_bytes": band,
+                       "ok": abs(predicted - measured) <= band,
+                       "flops_fake": want["flops_per_dev"],
+                       "flops_real": got["flops"],
+                       "launches_fake": sum(
+                           n for k, n in want["kernels"].items()
+                           if k.startswith("quantized_maxsim")),
+                       "launches_real": got["quantized_maxsim_launches"],
+                       "seconds_real": got["seconds"]})
+    print(json.dumps({"dryrun_meshes_vs_card": checks, "smi": smi}))
+    print("the fake group's collectives write no output: rank 0's results "
+          "are not compared, only its peak memory, FLOPs and launches")
+    for c in checks:
+        print(f"{c['arch']} {c['shape']} rank 0 of {MESH_RANKS} on the "
+              f"card: predicted {c['predicted_bytes'] / 2**20:.2f} MiB, "
+              f"measured {c['measured_bytes'] / 2**20:.2f} MiB above what "
+              f"was held (x{c['ratio']:.4f}); FLOPs fake "
+              f"{c['flops_fake']:.6g} real {c['flops_real']:.6g}; "
+              f"quantized_maxsim launches {c['launches_real']} | {smi}")
+    off = [c for c in checks if not c["ok"]]
+    assert not off, f"production-mesh peaks outside the band: {off}"
+    flop_off = [c for c in checks if c["flops_fake"] != c["flops_real"]]
+    assert not flop_off, f"fake FLOPs != real FLOPs: {flop_off}"
+    launch_off = [c for c in checks
+                  if c["launches_fake"] != c["launches_real"]]
+    assert not launch_off, f"launches differ: {launch_off}"
+    serve = real["colpali-hpc/serve_query"]
+    assert serve["quantized_maxsim_launches"] >= 1, \
+        "the serve cell's rank 0 launched no quantized_maxsim"
+    seconds = time.perf_counter() - t0
+    print(f"phase 14e {seconds:.1f}s (traces {wall:.1f}s)")
+    return {"launches": {f"serve_query (rank 0 of {MESH_RANKS})": {
+        "quantized_maxsim": serve["quantized_maxsim_launches"]}},
+        "records": rows, "vs_card": checks, "seconds": seconds}
+
+
 def _analysis_phase(args, torch, np, dev, smi, kernel_mods, recsys_out, pna,
                     sharded):
     """Phase 14: (a) lint, (b) launch geometry, (c) the dry run held to
@@ -5347,6 +5570,7 @@ def main(argv=None) -> int:
     serve = sharded["serve"]
     _analysis_phase(args, torch, np, dev, smi, kernel_mods, recsys_out, pna,
                     sharded)
+    meshes = _mesh_dryrun_phase(args, torch, smi)
     qm_abs_err = max(qm_abs_err, serve["max_abs_err"])
 
     by_path = {"flat": {"quantized_maxsim": qm_launches,
@@ -5357,7 +5581,7 @@ def main(argv=None) -> int:
                **train["launches"], **moe["launches"],
                **recsys_out["launches"], **pna["launches"],
                **sharded["launches"], **backends["launches"],
-               **model_sharding["launches"]}
+               **model_sharding["launches"], **meshes["launches"]}
 
     def launches(name):
         return sum(path.get(name, 0) for path in by_path.values())

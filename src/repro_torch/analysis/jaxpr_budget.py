@@ -37,6 +37,15 @@ always run in full.
 An entry point that syncs on data (the HNSW descent) cannot run on fake
 tensors; its manifest traces on real CPU tensors drawn from a seed, with
 the same recorder and no loop compression (``BudgetManifest.real``).
+
+Ranks: on a mesh, the recorder and ``LocalFlopCounter`` count what this
+rank runs. They pass DTensor ops on to DTensor's own dispatch and record
+the local ops it issues, the collectives of its redistributions among
+them (each with the global ranks of its group, ``OpRecord.group``).
+DTensor's metadata computations (each new op run once more on fake
+tensors of the global shapes to learn its output's shape, a shard's
+offsets reckoned on tensors) are no part of any rank's program and go
+unrecorded (``rank_program``).
 """
 from __future__ import annotations
 
@@ -47,7 +56,10 @@ import weakref
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor
+from torch.utils import flop_counter
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -55,12 +67,14 @@ from repro_torch.kernels import vmem
 
 __all__ = [
     "BudgetViolation",
+    "LocalFlopCounter",
     "OpRecord",
     "Recorder",
     "Trace",
     "analyze_manifest",
     "intermediate_avals",
     "max_intermediate_bytes",
+    "rank_program",
     "report",
     "trace_manifest",
 ]
@@ -100,6 +114,7 @@ class OpRecord:
     flops: Optional[float] = None
     nbytes: Optional[float] = None
     in_numel: int = 0
+    group: Optional[Tuple[int, ...]] = None
 
     @property
     def new_bytes(self) -> int:
@@ -109,6 +124,139 @@ class OpRecord:
 
 def _leaves(x) -> List[torch.Tensor]:
     return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
+def local_leaves(x) -> List[torch.Tensor]:
+    """The tensors under ``x``, a DTensor as its local shard."""
+    return [t.to_local() if isinstance(t, DTensor) else t for t in _leaves(x)]
+
+
+# collectives' namespaces: the in-place c10d ops (torch.distributed's
+# calls) and the functional ones (DTensor's redistributions)
+COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional",
+                         "_c10d_functional_autograd")
+
+
+def _group_ranks(args) -> Optional[Tuple[int, ...]]:
+    """The global ranks of the process group among a collective's
+    arguments: a ``ProcessGroup`` (the c10d ops) or its name (the
+    functional ones)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    for a in args:
+        if isinstance(a, str):
+            try:
+                pg = _resolve_process_group(a)
+            except (KeyError, RuntimeError, ValueError):
+                continue
+        elif isinstance(a, torch.ScriptObject):
+            pg = dist.ProcessGroup.unbox(a)
+        elif isinstance(a, dist.ProcessGroup):
+            pg = a
+        else:
+            continue
+        return tuple(dist.get_process_group_ranks(pg))
+    return None
+
+
+# depth of DTensor's metadata computations now running (ops on tensors
+# of the global shapes, or index arithmetic, which no rank runs)
+_SHADOW = [0]
+
+
+def _shadow(fn, host: bool = False):
+    """``fn`` run as a metadata computation: its ops unrecorded and, with
+    ``host``, on real tensors even under a ``FakeTensorMode``."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    def run(*args, **kwargs):
+        _SHADOW[0] += 1
+        try:
+            if host:
+                with unset_fake_temporarily():
+                    return fn(*args, **kwargs)
+            return fn(*args, **kwargs)
+        finally:
+            _SHADOW[0] -= 1
+
+    return run
+
+
+@contextlib.contextmanager
+def rank_program():
+    """For the duration of the block, leave DTensor's metadata
+    computations out of what the recorder and ``LocalFlopCounter`` count:
+    its sharding propagation runs each new op once on fake tensors of
+    the global shapes to learn its output's shape (once per op
+    signature, so whether it runs depends on DTensor's cache), and a
+    shard's local shape and global offset (a strided shard's local size
+    too) are index arithmetic on tensors (run on the host: under a
+    ``FakeTensorMode`` their ``int``/``tolist`` have no data). None of it
+    is part of a rank's program."""
+    from torch.distributed.tensor import _utils, placement_types
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    patches = []
+    name = next(n for n in ("_propagate_tensor_meta_non_cached",
+                            "_propagate_tensor_meta")
+                if n in ShardingPropagator.__dict__)
+    patches.append((ShardingPropagator, name, False))
+    strided = getattr(placement_types, "_StridedShard", None)
+    if strided is not None and \
+            "local_shard_size_and_offset" in strided.__dict__:
+        patches.append((strided, "local_shard_size_and_offset", True))
+    if "_compute_local_shape_and_global_offset" in _utils.__dict__:
+        patches.append((_utils, "_compute_local_shape_and_global_offset",
+                        True))
+    saved = [(cls, n, cls.__dict__[n]) for cls, n, _ in patches]
+    for cls, n, host in patches:
+        setattr(cls, n, _shadow(cls.__dict__[n], host))
+    try:
+        yield
+    finally:
+        for cls, n, orig in saved:
+            setattr(cls, n, orig)
+
+
+def _is_dtensor_op(types) -> bool:
+    return any(issubclass(t, DTensor) for t in types)
+
+
+class _LocalFlops(flop_counter._FlopCounterMode):
+    """FlopCounterMode's dispatch mode, left to DTensor's dispatch for a
+    DTensor op (it then sees the local ops) and blind to the shadow ops
+    of ``rank_program``."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _is_dtensor_op(types):
+            return NotImplemented
+        if _SHADOW[0]:
+            return func(*args, **(kwargs or {}))
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+class LocalFlopCounter(flop_counter.FlopCounterMode):
+    """``FlopCounterMode`` counting what this rank runs: a DTensor op at
+    its local shards' shapes (the plain counter counts it once at the
+    global shapes). Without DTensors the two count alike. It keeps the
+    total only: the plain counter's per-module tally hooks every module,
+    and its hooks' closures hold the step's tensors in reference cycles
+    that only the garbage collector frees, so a recorded peak would
+    depend on when the collector runs."""
+
+    def __enter__(self):
+        self._program = rank_program()
+        self._program.__enter__()
+        self.flop_counts.clear()
+        self.mode = _LocalFlops(self)
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            out = self.mode.__exit__(*exc)
+            self.mode = None
+            return out
+        finally:
+            self._program.__exit__(*exc)
 
 
 def _op_name(func) -> str:
@@ -157,7 +305,7 @@ class Recorder(TorchDispatchMode):
         self._inputs.discard(key)
 
     def track(self, tree) -> None:
-        for t in _leaves(tree):
+        for t in local_leaves(tree):
             self._add(t)
 
     def mark(self) -> None:
@@ -178,9 +326,11 @@ class Recorder(TorchDispatchMode):
     # -- recording ----------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _is_dtensor_op(types):  # its local ops come back here
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
         tensors = _leaves(out)
-        if not tensors:            # metadata queries (prim.device, sizes)
+        if not tensors or _SHADOW[0]:   # metadata queries, shadow ops
             return out
         ins = _leaves((args, kwargs))
         outs = []
@@ -188,9 +338,11 @@ class Recorder(TorchDispatchMode):
             alias, in_view = self._add(t)
             outs.append((tuple(t.shape), t.dtype,
                          t.numel() * t.element_size(), alias, in_view))
+        group = (_group_ranks(args) if getattr(func, "namespace", None)
+                 in COLLECTIVE_NAMESPACES else None)
         rec = OpRecord(_op_name(func), tuple(outs),
                        tuple(tuple(t.shape) for t in ins), self._weight[-1],
-                       in_numel=ins[0].numel() if ins else 0)
+                       in_numel=ins[0].numel() if ins else 0, group=group)
         self.ops.append(rec)
         if self.live > self.peak:
             self.peak = self.live
@@ -228,12 +380,17 @@ class Recorder(TorchDispatchMode):
     def __enter__(self):
         vmem._recorders.append(self._launch)
         vmem._sweeps.append(self.sweep)
+        self._program = rank_program()
+        self._program.__enter__()
         return super().__enter__()
 
     def __exit__(self, *exc):
         vmem._recorders.remove(self._launch)
         vmem._sweeps.remove(self.sweep)
-        return super().__exit__(*exc)
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._program.__exit__(*exc)
 
 
 @dataclasses.dataclass

@@ -49,6 +49,7 @@ import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate,
                                       Shard, distribute_tensor)
 
@@ -153,6 +154,20 @@ def _bytes_view(x: torch.Tensor) -> torch.Tensor:
     return x.unsqueeze(-1).view(torch.uint8)
 
 
+def _distribute(x: torch.Tensor, mesh, placements) -> DTensor:
+    """``distribute_tensor`` from rank 0; on a fake process group (which
+    sends nothing and writes no output) each rank takes its own shard of
+    the ``x`` it holds, a copy, so ``x`` can go."""
+    if dist.get_backend() != "fake":
+        return distribute_tensor(x, mesh, placements)
+    own = distribute_tensor(x, mesh, placements, src_data_rank=None)
+    if not any(isinstance(p, Shard) for p in placements):
+        return own
+    return DTensor.from_local(own.to_local().clone(), mesh, placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
 def distribute(x: torch.Tensor, sharding: NamedSharding) -> DTensor:
     """Place ``x`` (the same values on every rank) on the mesh as a DTensor
     of ``sharding``'s placements; rank 0's values are the ones kept."""
@@ -160,8 +175,8 @@ def distribute(x: torch.Tensor, sharding: NamedSharding) -> DTensor:
     check_device(mesh, x)
     x = x.contiguous()
     if x.dtype not in SIXTEEN_BIT_INTS:
-        return distribute_tensor(x, mesh, placements)
-    wide = distribute_tensor(_bytes_view(x), mesh, placements)
+        return _distribute(x, mesh, placements)
+    wide = _distribute(_bytes_view(x), mesh, placements)
     local = wide.to_local().view(x.dtype).squeeze(-1)
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=x.shape, stride=x.stride())

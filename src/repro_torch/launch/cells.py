@@ -415,12 +415,15 @@ def build_colpali_cell(spec: ArchSpec, cell: ShapeCell, mesh, *,
                          meta)
 
     # search: the corpus-sharded ADC scan over the quantized corpus, at
-    # the port's storage (uint8 codes, bool masks)
+    # the port's storage (uint8 codes, bool masks); codes, masks and ids
+    # placed by the "corpus" rule, so each rank holds its own documents
     from repro_torch.core import distributed as dist_core
     from repro_torch.retrieval.base import code_dtype
     q_n, n_docs = dims["queries"], dims["corpus"]
     md, mq, k = arch.kept_patches, enc.query_len, arch.hpc.k
-    axes = tuple(mesh.mesh_dim_names) if mesh is not None else ()
+    shd = _sharder(mesh)
+    axes = dist_core.corpus_data_axes(mesh, n_docs) \
+        if mesh is not None else ()
     search = dist_core.sharded_search_fn(mesh, axes, k=arch.top_k)
     q = _floats((q_n, mq, enc.proj_dim), dev, fake=fake, gen=gen)
     qm = _bools((q_n, mq), dev, fake)
@@ -434,9 +437,10 @@ def build_colpali_cell(spec: ArchSpec, cell: ShapeCell, mesh, *,
     meta = {"model_flops": 2.0 * q_n * mq * k * enc.proj_dim
             + 1.0 * q_n * mq * n_docs * md,
             "params": k * enc.proj_dim}
-    place = {"mesh": tuple(mesh.shape) if mesh is not None else (1,),
-             "device": str(dev), "corpus": ("corpus", None),
-             "placed_by": "core.distributed.sharded_search_fn"}
+    cspecs = (("corpus", None), ("corpus", None), ("corpus",))
+    codes, dm, ids = shard_tree(shd, cspecs, (codes, dm, ids))
+    place = _record(shd, dev, corpus=(cspecs, (codes, dm, ids)))
+    place["placed_by"] = "core.distributed.sharded_search_fn"
     return BuiltCell(spec.arch_id, cell, search, (q, qm, codes, dm, ids, cb),
                      place, meta)
 

@@ -94,6 +94,9 @@ class ColPaliEncoder(nn.Module):
                                              want_salience=want_salience,
                                              remat=remat, shd=shd)
         w = self.out_proj if params is None else params["out_proj"]
+        # the sequence gathered before the product flattens it, as the
+        # blocks' inputs are (``transformer.Block.forward``)
+        h = shd.constraint(h, "batch", None, None)
         e = h @ w.to(h.dtype)
         norm = torch.linalg.vector_norm(e.float(), dim=-1, keepdim=True)
         e = e / norm.clamp_min(1e-6).to(e.dtype)

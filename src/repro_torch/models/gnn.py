@@ -93,7 +93,10 @@ def init(cfg: PNAConfig, *, generator: torch.Generator, device="cuda"
 def _pna_aggregate(msgs: Tensor, dst: Tensor, n_nodes: int, deg: Tensor,
                    delta: float) -> Tensor:
     """msgs (E, d), dst (E,) -> (N, 12*d) [4 aggregators x 3 scalers]."""
-    ones = torch.ones((msgs.shape[0],), dtype=msgs.dtype, device=msgs.device)
+    ones = (torch.ones_like(dst, dtype=msgs.dtype)
+            if isinstance(dst, DTensor) else
+            torch.ones((msgs.shape[0],), dtype=msgs.dtype,
+                       device=msgs.device))
     cnt = torch.clamp(segment_reduce(ones, dst, n_nodes), min=1.0)[:, None]
     mean = segment_reduce(msgs, dst, n_nodes) / cnt
     sq = segment_reduce(msgs * msgs, dst, n_nodes)

@@ -180,11 +180,12 @@ class Block(nn.Module):
                      ) -> Tuple[Tensor, Optional[Tensor]]:
         """The FFN or the MoE over normed h (B, S, D) -> (out, the MoE's
         aux loss or None)."""
+        # the sequence is gathered before the products flatten it (DTensor
+        # flattens two sharded dims on no version; the MoE's groups live on
+        # the token axes alone, its first constraint)
+        h = shd.constraint(h, "batch", None, None)
         if not self.cfg.is_moe:
             return self.ffn(h), None
-        # the MoE's groups live on the token axes alone (its first
-        # constraint): the sequence is gathered before it is flattened
-        h = shd.constraint(h, "batch", None, None)
         b, s, d = h.shape
         out, aux = self.moe(h.reshape(b * s, d), capacity_factor,
                             expert_chunks, remat, shd)
@@ -198,18 +199,31 @@ class Block(nn.Module):
         ``remat`` checkpoints the attention's query blocks and the MoE's
         expert blocks. The residual stream is constrained to ("batch",
         "seq_sp", None) after the attention and after the FFN, as the
-        reference's block is."""
+        reference's block is; the attention's input is gathered over the
+        sequence first (Megatron-SP's all-gather), as the FFN's is."""
         cfg = self.cfg
         a, sal, k, v = L.attention_kv(
-            self.attn, self.ln1(x), positions, n_heads=cfg.n_heads,
+            self.attn, shd.constraint(self.ln1(x), "batch", None, None),
+            positions, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
             chunk=self.attn_chunk(x.shape[1]), q_chunk=cfg.q_chunk,
             want_salience=want_salience, remat=remat, shd=shd)
-        x = shd.constraint(x + a, "batch", "seq_sp", None)
+        x = shd.constraint(x + self._to_stream(a, shd), "batch", "seq_sp",
+                           None)
         ff, aux = self.feed_forward(self.ln2(x), cfg.capacity_factor,
                                     cfg.moe_expert_chunks, remat, shd)
-        x = shd.constraint(x + ff, "batch", "seq_sp", None)
+        x = shd.constraint(x + self._to_stream(ff, shd), "batch", "seq_sp",
+                           None)
         return x, aux, sal, k, v
+
+    @staticmethod
+    def _to_stream(y: Tensor, shd) -> Tensor:
+        """A branch's output in the residual stream's layout, by an
+        explicit redistribute: its gradient then goes back to the branch
+        in the branch's own layout. (Left to the add, DTensor would hand
+        the branch the stream's sequence-sharded gradient, and its
+        products' backward would flatten two sharded dims.)"""
+        return shd.constraint(y, "batch", "seq_sp", None)
 
 
 class Transformer(nn.Module):

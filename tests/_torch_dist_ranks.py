@@ -83,6 +83,10 @@ def cases(world: int):
              lambda z, _, arch=arch, shape=(d, m): check_model(z, arch,
                                                                shape))
             for d, m in MODEL_MESHES.get(world, ()) for arch in MODEL_ARCHS]
+    if world == DRYRUN_WORLD:
+        out += [(f"dryrun_{arch}_{shape}",
+                 lambda z, m, arch=arch, shape=shape: check_dryrun(
+                     m, arch, shape)) for arch, shape, _ in DRYRUN_CELLS]
     return out
 
 
@@ -809,7 +813,79 @@ def _check_pna(z, shd, arch, spec, pre, g, T):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the dry run's fake trace against the real program
+# ---------------------------------------------------------------------------
+
+# one cell per family at smoke widths, its dims cut for a real CPU run
+DRYRUN_WORLD = 4
+DRYRUN_CELLS = (
+    ("qwen2-1.5b", "train_4k", {"seq_len": 32, "global_batch": 4}),
+    ("llama4-scout-17b-a16e", "decode_32k",
+     {"seq_len": 64, "global_batch": 4}),
+    ("pna", "molecule", {}),
+    ("dlrm-mlperf", "serve_p99", {"batch": 64}),
+    ("dien", "retrieval_cand", {"n_candidates": 64}),
+    ("colpali-hpc", "serve_query", {"queries": 8, "corpus": 2048}),
+)
+FAKE_TRACES = "fake_traces.json"
+_WORKDIR = []
+
+
+def _dryrun_cell(arch, shape):
+    import dataclasses
+    dims = next(d for a, s, d in DRYRUN_CELLS if (a, s) == (arch, shape))
+    spec = registry.get(arch)
+    cell = next(c for c in spec.shapes if c.name == shape)
+    return spec, dataclasses.replace(cell, dims={**cell.dims, **dims})
+
+
+def _dryrun_counts(m) -> dict:
+    return {"flops": m["flops"], "collectives": m["coll_each"],
+            "argument_bytes_each": m["argument_bytes_each"],
+            "peak": m["argument_bytes"] + m["peak_above_args"]}
+
+
+def fake_traces(path: Path) -> None:
+    """Each DRYRUN_CELLS cell traced on fake tensors as rank 0 of a fake
+    group of DRYRUN_WORLD ranks on the (2, 2) mesh, as the dry run traces
+    a production mesh; its counts written to ``path``. Run in a process
+    of its own (it opens the default group)."""
+    from repro_torch.launch import dryrun
+    mesh_mod.open_fake_group(DRYRUN_WORLD)
+    mesh = mesh_mod.make_host_mesh(MESH[DRYRUN_WORLD], device="cpu")
+    out = {}
+    for arch, shape, _ in DRYRUN_CELLS:
+        spec, cell = _dryrun_cell(arch, shape)
+        out[f"{arch}/{shape}"] = _dryrun_counts(dryrun.trace_cell(
+            spec, cell, mesh, smoke=True, device="cpu"))
+    path.write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def check_dryrun(mesh, arch, shape):
+    """The cell's step run for real on every rank (arguments drawn from
+    one seed, placed by their specs): rank 0's recorded FLOPs,
+    collectives (kind, bytes and calls) and argument bytes equal the fake
+    trace's, and rank 0's peak is the largest of the ranks' peaks."""
+    from repro_torch.launch import dryrun
+    spec, cell = _dryrun_cell(arch, shape)
+    got = _dryrun_counts(dryrun.trace_cell(spec, cell, mesh, smoke=True,
+                                           device="cpu", fake=False,
+                                           seed=5))
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, got["peak"])
+    if dist.get_rank() != 0:
+        return
+    want = json.loads((_WORKDIR[0].parent / FAKE_TRACES).read_text())[
+        f"{arch}/{shape}"]
+    for key in ("flops", "collectives", "argument_bytes_each"):
+        assert got[key] == want[key], (key, got[key], want[key])
+    assert got["peak"] == max(peaks), peaks
+
+
 def main(rank: int, world: int, workdir: Path) -> int:
+    _WORKDIR.append(workdir)
     if world == 1:
         mesh_mod.open_local_group("cpu")
     else:

@@ -59,7 +59,14 @@ JAX):
     recsys forward and candidates (2e-5); each placed param's local numel
     as its resolved spec gives; under ``CommDebugMode`` one MoE block's
     dispatch issues two all-to-alls and no all-gather, and a row-sharded
-    table lookup all-gathers no table.
+    table lookup all-gathers no table;
+  * the dry run at world 4 on (2, 2): one cell per family (qwen2-1.5b
+    train_4k, llama4-scout decode_32k, pna molecule, dlrm-mlperf
+    serve_p99, dien retrieval_cand, colpali-hpc serve_query) at smoke
+    widths, run for real on every rank: rank 0's recorded FLOPs,
+    collectives (kind, bytes, calls) and argument bytes equal the trace
+    of rank 0 of a fake 4-rank group (made in a process of its own), and
+    rank 0's peak is the largest of the four ranks'. Exact.
 """
 from __future__ import annotations
 
@@ -359,6 +366,20 @@ def _spawn(world: int, inputs: Path) -> dict:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
+    if world == ranks.DRYRUN_WORLD:
+        # the fake-group traces the ranks' real runs are held to, made in
+        # a process of their own (each opens its default group)
+        out = inputs.parent / ranks.FAKE_TRACES
+        code = ("import sys; from pathlib import Path; "
+                f"sys.path.insert(0, {str(Path(ranks.__file__).parent)!r}); "
+                "import _torch_dist_ranks as r; "
+                f"r.fake_traces(Path({str(out)!r}))")
+        got = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True,
+                             timeout=SPAWN_TIMEOUT)
+        if got.returncode:
+            return {c: f"the fake traces failed:\n{got.stderr[-4000:]}"
+                    for c, _ in ranks.cases(world)}
     procs = [subprocess.Popen(
         [sys.executable, str(Path(ranks.__file__)), str(r), str(world),
          str(workdir)], env=env, stdout=subprocess.PIPE,
