@@ -199,7 +199,26 @@ any failure exits non-zero, and no phase's error is swallowed:
      (a sweep's answer and the floor bit for bit, a pool scored by a
      full-score kernel within 1e-4 with ids outside near-ties); one
      batch's host wall and device time sharded beside unsharded (one
-     ``{"sharded_backends": ...}`` line);
+     ``{"sharded_backends": ...}`` line); (g), right after (d) in its
+     one-rank NCCL group: phase 7's base cascade (kept from phase 7)
+     placed by ``Retriever.shard`` and served through
+     ``LiveIndexSession`` with phase 7's schedule (64 requests in 8
+     rounds; the add of docs 14336-16383, 5 upserts and 512 deletes
+     between rounds; then ``compact``): every response held to phase 7's
+     (scores within 1e-4, ids outside near-ties), the launches equal to
+     what the batches imply and one batch's to the unplaced state's, every
+     tensor still placed; phase 4's flat state placed, 2048 docs added and
+     512 deleted, then compacted, each batch held to the same mutations
+     unplaced (the sweep bit for bit) with equal launches; phase 5's
+     cascade served as phase 5 serves it, unplaced, placed, placed,
+     unplaced: QPS and p50/p99 of each (one ``{"placed_live": ...}``
+     line); (f), started in the background after (g) and read after 13e:
+     fault F5, attention with kv heads sharded at model = 2 (qwen2-1.5b's
+     12/2 heads and llama4-scout's 40/8 at smoke widths on a (1, 2)
+     mesh), two gloo ranks on the host's CPU running
+     ``tests/_torch_dist_ranks.py``'s ``f5`` suite against the port's own
+     unplaced run (2e-5 forward, 5e-5 grads): the host's PyTorch is under
+     test, not the card (one ``{"f5": ...}`` line);
  13e. model-internal sharding at world size 1, after phase 12, in a
      one-rank NCCL group of its own: the full-width qwen2-1.5b ColPali
      encoder over 16 pages and 8 queries with its weights and inputs
@@ -311,6 +330,9 @@ N_BASE = 14336
 UPSERT_IDS = (128, 132, 136, 140, 144)
 UPSERT_QUERY = 32
 N_DEAD = 512
+LIVE_RESILIENCE = dict(max_queue=64, shed_batch_frac=0.5,
+                       degrade_high_frac=0.25, degrade_low_frac=0.05,
+                       degrade_hold=2, watchdog_interval_s=0.05)
 DRILL_REQUESTS = 256
 DRILL_LOAD = 4.0
 
@@ -491,6 +513,9 @@ SERVE_WALLS = 5
 SERVE_PLAIN_DOCS = 16_384   # the plain version's time is taken over these
 INERTIA_TOL = 0.05          # 13b: mean inertia at most 5% above phase 4's
 GPIPE_MICRO = 8
+
+# phase 13f: the F5 ranks' wait (they take about 20-45 s on a card's host)
+F5_TIMEOUT = 600.0
 
 # phase 13e, model-internal sharding at world size 1 (a one-rank NCCL group
 # and a (1, 1) mesh, as 13d's): each model run unsharded, then with its
@@ -707,6 +732,74 @@ def _check_first_batch(torch, np, run, cpu_state, tol) -> int:
     return int((srv_i != cpu_i).sum())
 
 
+def _casc_per_batch(r, state):
+    """Kernel launches of one cascade search of a batch on ``state``."""
+    seg = r.backend._segmented(state)
+    return {"hamming_maxsim": sum(math.ceil(lv.shape[0] / BLOCK_DOCS)
+                                  for lv in seg.live),
+            "quantized_maxsim": 1, "maxsim": math.ceil(P2 / BLOCK_DOCS),
+            "kmeans_assign": 1}
+
+
+def _live_rounds(torch, np, r, sess, queries, delta, upsert, dead,
+                 kernel_mods):
+    """Phase 7's schedule on a cascade's LiveIndexSession: N_REQUESTS
+    requests in rounds of one batch, with the add of docs N_BASE-N_DOCS
+    (ids = corpus positions) after round 1, the upserts after round 3 and
+    the deletes after round 5, the launch counters at 0 just before.
+    Returns the responses (round, query, Served), the launches and those
+    the batches served imply, each mutation's and round's seconds, the
+    window's stats, the state after the add and the batches served."""
+    def submit_round(lo, hi):
+        reqs = [(qi, sess.submit(*(a[qi] for a in queries)))
+                for qi in range(lo, hi)]
+        out = []
+        for qi, req in reqs:
+            assert req.event.wait(300.0), "a request hung"
+            if req.error is not None:
+                raise req.error
+            out.append((qi, req.result))
+        return out
+
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    sess.server.reset_stats()
+    responses, round_s, mut_s, expect = [], [], {}, {}
+    state_a = None
+    n_batches_seen = 0
+    for rnd in range(N_REQUESTS // MAX_BATCH):
+        per_batch = _casc_per_batch(r, sess.state)
+        t1 = time.perf_counter()
+        responses += [(rnd, qi, out) for qi, out in submit_round(
+            rnd * MAX_BATCH, (rnd + 1) * MAX_BATCH)]
+        round_s.append(time.perf_counter() - t1)
+        n_now = sum(v["batches"] for v in sess.stats()["rungs"].values())
+        for name, n in per_batch.items():
+            expect[name] = expect.get(name, 0) + n * (n_now - n_batches_seen)
+        n_batches_seen = n_now
+        t1 = time.perf_counter()
+        if rnd == 1:        # (a) the remaining docs, ids = corpus positions
+            sess.add(delta, doc_ids=np.arange(N_BASE, N_DOCS))
+            state_a = sess.state
+        elif rnd == 3:      # (b) upserts: the newest segment wins
+            sess.add(upsert, doc_ids=np.array(UPSERT_IDS))
+        elif rnd == 5:      # (c) deletes
+            sess.delete(dead)
+        else:
+            continue
+        torch.cuda.synchronize()
+        mut_s[{1: "add", 3: "upsert", 5: "delete"}[rnd]] = \
+            time.perf_counter() - t1
+    # the adds' query-independent launches: each add encodes its delta
+    # for the Hamming and the ADC member
+    expect["kmeans_assign"] += 2 * 2
+    return {"responses": responses, "expect": expect, "mut_s": mut_s,
+            "launches": {name: mod.launches
+                         for name, mod in kernel_mods.items()},
+            "round_s": round_s, "stats": sess.stats(), "state_a": state_a,
+            "batches": n_batches_seen}
+
+
 def _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c, flat_s,
                 flat_retriever, flat_hit, casc_qps, mono_split, kernel_mods):
     """Phase 7: the cascade served live at full width through
@@ -763,13 +856,10 @@ def _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c, flat_s,
     dead = np.sort(np.concatenate([targets, rng.choice(
         pool, N_DEAD - targets.size, replace=False)]))
 
-    res = ResilienceConfig(max_queue=64, shed_batch_frac=0.5,
-                           degrade_high_frac=0.25, degrade_low_frac=0.05,
-                           degrade_hold=2, watchdog_interval_s=0.05)
+    res = ResilienceConfig(**LIVE_RESILIENCE)
     sess = LiveIndexSession(r, base, ServeConfig(
         max_batch=MAX_BATCH, top_k=TOP_K, guard_recompiles=True,
         resilience=res), device=dev)
-    del base
     n_levels = 1 + len(sess.degrade_rungs)
     t1 = time.perf_counter()
     sess.warm_shapes(*(a[0] for a in queries))
@@ -778,60 +868,13 @@ def _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c, flat_s,
           f"{sess.server.ladder} x {n_levels} levels (rungs "
           f"{sess.degrade_rungs}) warmed in {warm_s:.3f}s")
 
-    def casc_per_batch(state):
-        """Kernel launches of one search of a batch on ``state``."""
-        seg = r.backend._segmented(state)
-        return {"hamming_maxsim": sum(math.ceil(lv.shape[0] / BLOCK_DOCS)
-                                      for lv in seg.live),
-                "quantized_maxsim": 1, "maxsim": math.ceil(P2 / BLOCK_DOCS),
-                "kmeans_assign": 1}
-
-    # -- serve 64 requests in rounds of one batch; publish between them
-    def submit_round(lo, hi):
-        reqs = [(qi, sess.submit(*(a[qi] for a in queries)))
-                for qi in range(lo, hi)]
-        out = []
-        for qi, req in reqs:
-            assert req.event.wait(300.0), "a request hung"
-            if req.error is not None:
-                raise req.error
-            out.append((qi, req.result))
-        return out
-
-    for mod in kernel_mods.values():
-        mod.launches = 0
-    sess.server.reset_stats()
-    responses, round_s, mut_s, expect = [], [], {}, {}
-    states = {}
-    n_batches_seen = 0
-    for rnd in range(N_REQUESTS // MAX_BATCH):
-        per_batch = casc_per_batch(sess.state)
-        t1 = time.perf_counter()
-        responses += [(rnd, qi, out) for qi, out in submit_round(
-            rnd * MAX_BATCH, (rnd + 1) * MAX_BATCH)]
-        round_s.append(time.perf_counter() - t1)
-        n_now = sum(v["batches"] for v in sess.stats()["rungs"].values())
-        for name, n in per_batch.items():
-            expect[name] = expect.get(name, 0) + n * (n_now - n_batches_seen)
-        n_batches_seen = n_now
-        t1 = time.perf_counter()
-        if rnd == 1:        # (a) the remaining docs, ids = corpus positions
-            sess.add(delta, doc_ids=np.arange(N_BASE, N_DOCS))
-            states["a"] = sess.state
-        elif rnd == 3:      # (b) upserts: the newest segment wins
-            sess.add(upsert, doc_ids=np.array(UPSERT_IDS))
-        elif rnd == 5:      # (c) deletes
-            sess.delete(dead)
-        else:
-            continue
-        torch.cuda.synchronize()
-        mut_s[{1: "add", 3: "upsert", 5: "delete"}[rnd]] = \
-            time.perf_counter() - t1
-    # the adds' query-independent launches: each add encodes its delta
-    # for the Hamming and the ADC member
-    expect["kmeans_assign"] += 2 * 2
-    launches = {name: mod.launches for name, mod in kernel_mods.items()}
-    st = sess.stats()
+    rounds = _live_rounds(torch, np, r, sess, queries, delta, upsert, dead,
+                          kernel_mods)
+    responses, launches, expect, mut_s, round_s = (rounds[k] for k in (
+        "responses", "launches", "expect", "mut_s", "round_s"))
+    states = {"a": rounds["state_a"]}
+    n_batches_seen = rounds["batches"]
+    st = window = rounds["stats"]
     serve_qps = N_REQUESTS / sum(round_s)
     print(f"live window: {st['n']} requests in {n_batches_seen} batches, "
           f"window QPS {st['qps']:.1f} (mutations included), serving QPS "
@@ -889,7 +932,7 @@ def _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c, flat_s,
         mod.launches = 0
     got_s, got_i = r.search(cur, qg, k=TOP_K)
     one = {name: mod.launches for name, mod in kernel_mods.items()}
-    per_batch = casc_per_batch(cur)
+    per_batch = _casc_per_batch(r, cur)
     caps = [lv.shape[0] for lv in r.backend._segmented(cur).live]
     print(f"one batch on segments {caps}: launches {one}, expected "
           f"{per_batch} (hamming: sum of ceil(cap / {BLOCK_DOCS}))")
@@ -1090,7 +1133,10 @@ def _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c, flat_s,
           f"{peak:.2f} GiB | {smi} | phase {time.perf_counter() - t0:.1f}s")
     return {"launches": launches, "rows_ms": rows_ms,
             "state": pre_compact, "retriever": r, "queries": queries,
-            "delta": delta,
+            "delta": delta, "base": base, "upsert": upsert, "dead": dead,
+            "responses": responses, "expect": expect, "mut_s": mut_s,
+            "window": {"qps": serve_qps, "p50_ms": window["p50_ms"],
+                       "p99_ms": window["p99_ms"]},
             "rows_plain_ms": rows_plain_ms, "rows_bound_ms": rows_bound[0],
             "rows_shape": f"stage-3 rows through a {len(caps)}-segment "
                           f"table {caps}: B={MAX_BATCH} Mq={N_Q_PATCHES} "
@@ -3606,7 +3652,7 @@ def _pna_phase(args, torch, np, dev, smi, kernel_mods):
     del model, params, state, csr, sub, b
     torch.cuda.empty_cache()
     print("pna ogb_products: left out (one layer's edge tensors exceed the "
-          "card's 80 GB: ROADMAP.md item 6)")
+          "card's 80 GB: ROADMAP.md queue B (iii))")
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps({"pna": out, "smi": smi}))
     launches = {"pna": {n: mod.launches for n, mod in kernel_mods.items()}}
@@ -3944,7 +3990,36 @@ def _world1_paths(args, torch, np, dev, mesh):
     return out
 
 
-def _sharded_backends(args, torch, np, dev, smi, paths, queries,
+def _counted(torch, kernel_mods, fn):
+    """(fn(), the kernels' launches in it), the counters at 0 just
+    before."""
+    for mod in kernel_mods.values():
+        mod.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: mod.launches for n, mod in kernel_mods.items()}
+
+
+def _held(torch, got, want, exact, what):
+    """Batches of (scores, ids) held to others: bit for bit when
+    ``exact``, else scores within QMAXSIM_TOL and ids outside near-ties;
+    -> ids differing (within near-ties) over the batches."""
+    from repro_torch.parity import topk_mismatches
+    diff = 0
+    for (gs, gi), (ws, wi) in zip(got, want):
+        if exact:
+            assert torch.equal(gs, ws) and torch.equal(gi, wi), what
+            continue
+        torch.testing.assert_close(gs, ws, atol=QMAXSIM_TOL,
+                                   rtol=QMAXSIM_TOL, msg=what)
+        g_i, g_s, w_i, w_s = (t.cpu().numpy() for t in (gi, gs, wi, ws))
+        bad = topk_mismatches(g_i, g_s, w_i, w_s, QMAXSIM_TOL)
+        assert not bad, f"{what}: ids differ outside near-ties {bad}"
+        diff += int((g_i != w_i).sum())
+    return diff
+
+
+def _sharded_backends(args, torch, np, dev, smi, mesh, paths, queries,
                       kernel_mods):
     """Phase 13d, run after phase 8 while its states live, in a one-rank
     NCCL group of its own: every backend searched from a state that
@@ -3967,41 +4042,21 @@ def _sharded_backends(args, torch, np, dev, smi, paths, queries,
     import gc
 
     import torch.distributed as dist
-    from repro_torch.launch.mesh import make_host_mesh, open_local_group
-    from repro_torch.parity import topk_mismatches
     from repro_torch.retrieval import Query
 
     t0 = _phase("13d. every backend searched from a sharded state (a "
                 "one-rank NCCL group of its own)")
     gc.collect()
     held_at_start = torch.cuda.memory_allocated()
-    group = open_local_group(dev)
-    mesh = make_host_mesh((1, 1), ("data", "model"), device=dev)
     qs = [Query(*(torch.from_numpy(a[lo:lo + MAX_BATCH]).to(dev)
                   for a in queries))
           for lo in range(0, N_REQUESTS, MAX_BATCH)]
 
     def counted(fn):
-        for mod in kernel_mods.values():
-            mod.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {n: mod.launches for n, mod in kernel_mods.items()}
+        return _counted(torch, kernel_mods, fn)
 
     def held(got, want, exact, what):
-        """-> ids differing (within near-ties) over the batches."""
-        diff = 0
-        for (gs, gi), (ws, wi) in zip(got, want):
-            if exact:
-                assert torch.equal(gs, ws) and torch.equal(gi, wi), what
-                continue
-            torch.testing.assert_close(gs, ws, atol=QMAXSIM_TOL,
-                                       rtol=QMAXSIM_TOL, msg=what)
-            g_i, g_s, w_i, w_s = (t.cpu().numpy() for t in (gi, gs, wi, ws))
-            bad = topk_mismatches(g_i, g_s, w_i, w_s, QMAXSIM_TOL)
-            assert not bad, f"{what}: ids differ outside near-ties {bad}"
-            diff += int((g_i != w_i).sum())
-        return diff
+        return _held(torch, got, want, exact, what)
 
     def readings(fn, graph):
         walls = []
@@ -4098,18 +4153,267 @@ def _sharded_backends(args, torch, np, dev, smi, paths, queries,
     del qs
     gc.collect()
     torch.cuda.empty_cache()
-    dist.destroy_process_group()
     held_at_end = torch.cuda.memory_allocated()
     print(f"allocated on the card: {held_at_start / 2**30:.3f} GiB before "
           f"13d, {held_at_end / 2**30:.3f} GiB after (every placed copy "
           f"freed)")
     # a placed copy is GBs; the margin is for the group's own buffers
     assert held_at_end <= held_at_start + 2**28, "a placed copy outlived 13d"
-    out["group"] = group
+    out["group"] = dist.get_backend()
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps({"sharded_backends": out, "smi": smi}))
     print(f"phase 13d {out['seconds']:.1f}s")
     return {"launches": launches, "readings": out}
+
+
+def _all_placed(state, mesh, what):
+    """Every tensor of ``state`` a DTensor on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.retrieval.base import state_map
+    leaves = []
+    state_map(leaves.append, state)
+    bad = [tuple(x.shape) for x in leaves
+           if not isinstance(x, DTensor) or x.device_mesh != mesh]
+    assert not bad, f"{what}: tensors not placed on the mesh: {bad}"
+
+
+def _placed_live_phase(args, torch, np, dev, smi, mesh, live, flat, casc,
+                       queries, relevance, kernel_mods):
+    """Phase 13g, right after 13d in its one-rank NCCL group: phase 7's
+    live cascade and phase 7's mutation of phase 4's flat state run from
+    states that ``Retriever.shard`` placed on the (1, 1) mesh, and phase
+    5's serving readings placed beside unplaced.
+
+    (a) phase 7's base cascade (docs 0-14335, kept from phase 7) placed
+    and served through ``LiveIndexSession`` with phase 7's schedule
+    (``_live_rounds``): every response held to phase 7's (scores within
+    MAXSIM_TOL, ids outside near-ties: stage 3 scores a pool, 13d's rule),
+    the launches equal to what the batches served imply, one batch's equal
+    to the unplaced state's, every tensor still placed after each
+    mutation; then ``compact``, one batch held to phase 7's state before
+    its compaction. (b) phase 4's flat state placed, phase 7's 2048 docs
+    added under fresh ids and its 512 ids deleted, then compacted: every
+    batch held to the same mutations of the unplaced state (the sweep bit
+    for bit, the rerank's pool within QMAXSIM_TOL with ids outside
+    near-ties), launches equal. (c) phase 5's cascade state served as
+    phase 5 serves it (``serve_state``: every rung warmed, then
+    N_REQUESTS requests), unplaced, placed, placed, unplaced. Returns the
+    launches by path and the readings."""
+    from repro_torch.launch.serve import serve_state
+    from repro_torch.parity import topk_mismatches
+    from repro_torch.retrieval import Query
+    from repro_torch.serving import (LiveIndexSession, ResilienceConfig,
+                                     ServeConfig)
+
+    t0 = _phase("13g. phase 7's live cascade and mutated flat path from "
+                "placed states; phase 5's serving placed beside unplaced")
+    out, launches = {}, {}
+    qs = [Query(*(torch.from_numpy(a[lo:lo + MAX_BATCH]).to(dev)
+                  for a in queries))
+          for lo in range(0, N_REQUESTS, MAX_BATCH)]
+
+    # (a) the live cascade from a placed state
+    t1 = time.perf_counter()
+    r = live["retriever"]
+    sess = LiveIndexSession(r, r.shard(live["base"], mesh), ServeConfig(
+        max_batch=MAX_BATCH, top_k=TOP_K, guard_recompiles=True,
+        resilience=ResilienceConfig(**LIVE_RESILIENCE)), device=dev)
+    sess.warm_shapes(*(a[0] for a in queries))
+    rounds = _live_rounds(torch, np, r, sess, queries, live["delta"],
+                          live["upsert"], live["dead"], kernel_mods)
+    assert rounds["launches"] == rounds["expect"], \
+        ("placed live cascade launches off", rounds["launches"],
+         rounds["expect"])
+    _all_placed(sess.state, mesh, "13g live cascade")
+    want = {qi: res for _, qi, res in live["responses"]}
+    n_diff = 0
+    for _, qi, res in rounds["responses"]:
+        (gs, gi), (ws, wi) = res, want[qi]
+        assert res.level == 0
+        np.testing.assert_allclose(gs, ws, atol=MAXSIM_TOL, rtol=MAXSIM_TOL)
+        bad = topk_mismatches(gi[None], gs[None], wi[None], ws[None],
+                              MAXSIM_TOL)
+        assert not bad, f"13g: query {qi} differs from phase 7 at {bad}"
+        n_diff += int((gi != wi).sum())
+    got, n_got = _counted(torch, kernel_mods,
+                          lambda: r.search(sess.state, qs[0], k=TOP_K))
+    ref, n_ref = _counted(torch, kernel_mods,
+                          lambda: r.search(live["state"], qs[0], k=TOP_K))
+    assert n_got == n_ref, ("13g one batch's launches", n_got, n_ref)
+    n_diff += _held(torch, [got], [ref], False, "13g before compaction")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sess.compact()
+    torch.cuda.synchronize()
+    rounds["mut_s"]["compact"] = time.perf_counter() - t2
+    _all_placed(sess.state, mesh, "13g compacted live cascade")
+    n_diff += _held(torch, [r.search(sess.state, qs[0], k=TOP_K)], [ref],
+                    False, "13g after compaction")
+    sess.close()
+    st = rounds["stats"]
+    out["live_cascade"] = {
+        "launches": rounds["launches"], "batches": rounds["batches"],
+        "phase7_launches": live["launches"],
+        "ids_differing_within_near_ties": n_diff,
+        "window_qps": st["qps"], "serving_qps":
+            N_REQUESTS / sum(rounds["round_s"]),
+        "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+        "phase7_window": live["window"],
+        "mutation_s": rounds["mut_s"], "phase7_mutation_s": live["mut_s"],
+        "seconds": time.perf_counter() - t1}
+    launches["placed live cascade"] = rounds["launches"]
+    print(f"live cascade placed: {N_REQUESTS} requests in "
+          f"{rounds['batches']} batches == phase 7's responses (scores "
+          f"within {MAXSIM_TOL}; {n_diff} ids differ within near-ties) | "
+          f"launches {rounds['launches']} (phase 7 {live['launches']}) | "
+          f"serving QPS {out['live_cascade']['serving_qps']:.1f} (phase 7 "
+          f"{live['window']['qps']:.1f}), p50 {st['p50_ms']:.2f} ms, p99 "
+          f"{st['p99_ms']:.2f} (phase 7 {live['window']['p50_ms']:.2f}, "
+          f"{live['window']['p99_ms']:.2f}) | mutations {rounds['mut_s']} s "
+          f"(phase 7 {live['mut_s']})")
+    del sess, rounds, got, ref
+
+    # (b) phase 7's mutation of phase 4's flat state, placed
+    t1 = time.perf_counter()
+    fr, fs = flat
+    mut_s = {}
+
+    def mutate(st, key):
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        st = fr.add(st, live["delta"])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        st = fr.delete(st, live["dead"])
+        torch.cuda.synchronize()
+        mut_s[key] = {"add": t3 - t2, "delete": time.perf_counter() - t3}
+        return st
+
+    local, n_local = _counted(torch, kernel_mods,
+                              lambda: mutate(fs, "unplaced"))
+    placed, n_mut = _counted(torch, kernel_mods, lambda: mutate(
+        fr.shard(fs, mesh), "placed"))
+    assert n_mut == n_local, ("13g flat mutation launches", n_mut, n_local)
+    launches["placed flat mutations"] = n_mut
+    n_diff, n_flat = 0, {}
+    for step in ("mutated", "compacted"):
+        if step == "compacted":
+            local, placed = fr.compact(local), fr.compact(placed)
+        _all_placed(placed, mesh, f"13g flat {step}")
+        got, n_got = _counted(torch, kernel_mods, lambda: [
+            fr.search(placed, qb, k=TOP_K) for qb in qs])
+        want_, n_want = _counted(torch, kernel_mods, lambda: [
+            fr.search(local, qb, k=TOP_K) for qb in qs])
+        n_seg = len(fr.backend._segmented(placed).live)
+        assert n_got == n_want and n_got["quantized_maxsim"] == \
+            len(qs) * (n_seg + 1), (step, n_got, n_want)
+        n_diff += _held(torch, got, want_, False, f"13g flat {step}")
+        n_cand = max(TOP_K, fr.cfg.rerank)
+        _held(torch, [fr.backend.search(placed, qb, k=n_cand) for qb in qs],
+              [fr.backend.search(local, qb, k=n_cand) for qb in qs], True,
+              f"13g flat {step} sweep")
+        n_flat[step] = n_got
+        launches[f"placed flat {step}"] = n_got
+    out["flat"] = {"launches": n_flat, "mutation_s": mut_s,
+                   "ids_differing_within_near_ties": n_diff,
+                   "seconds": time.perf_counter() - t1}
+    print(f"flat placed: {N_DOCS - N_BASE} added, {N_DEAD} deleted, then "
+          f"compacted: {len(qs)} batches each == unplaced (sweep bit for "
+          f"bit; {n_diff} ids differ within near-ties), launches {n_flat} "
+          f"| mutation seconds {mut_s}")
+    del local, placed, got, want_
+
+    # (c) phase 5's serving, placed beside unplaced
+    t1 = time.perf_counter()
+    cr, cs = casc
+    placed = cr.shard(cs, mesh)
+    serving = {"unplaced": [], "placed": []}
+    hits = set()
+    for name in ("unplaced", "placed", "placed", "unplaced"):
+        run = serve_state(cr, placed if name == "placed" else cs, queries,
+                          relevance, n_requests=N_REQUESTS,
+                          max_batch=MAX_BATCH, top_k=TOP_K, device=dev)
+        serving[name].append({k: run.stats[k] for k in (
+            "qps", "p50_ms", "p99_ms", "mean_batch")})
+        hits.add(run.hit_rate)
+    assert len(hits) == 1, f"placed and unplaced serving differ: {hits}"
+    del placed, run
+    torch.cuda.empty_cache()
+    out["serving"] = {**serving, "hit_rate": hits.pop(),
+                      "seconds": time.perf_counter() - t1}
+    for name, runs in serving.items():
+        print(f"phase 5's cascade served {name} (two runs, unplaced and "
+              f"placed in turns): QPS {[r['qps'] for r in runs]}, p50 "
+              f"{[r['p50_ms'] for r in runs]} ms, p99 "
+              f"{[r['p99_ms'] for r in runs]} ms | {smi}")
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"placed_live": out, "smi": smi}))
+    print(f"phase 13g {out['seconds']:.1f}s")
+    return {"launches": launches, "readings": out}
+
+
+def _f5_start():
+    """Phase 13f, started in the background: two gloo ranks on the
+    host's CPU (``tests/_torch_dist_ranks.py``'s ``f5`` suite) holding
+    attention with kv heads sharded at model = 2 to the port's own
+    unplaced run under this host's PyTorch. Returns (processes, their
+    directory, start time, a list that gets the time both ended)."""
+    import os
+    import threading
+    work = ROOT / "build" / "f5_ranks"
+    work.mkdir(parents=True, exist_ok=True)
+    for old in work.iterdir():
+        old.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "_torch_dist_ranks.py"),
+         str(rank), "2", str(work), "f5"], env=env,
+        stdout=open(work / f"log{rank}.txt", "w"), stderr=subprocess.STDOUT)
+        for rank in range(2)]
+    ended = []
+
+    def watch():
+        while any(p.poll() is None for p in procs):
+            time.sleep(0.5)
+        ended.append(time.perf_counter())
+
+    threading.Thread(target=watch, daemon=True).start()
+    return procs, work, time.perf_counter(), ended
+
+
+def _f5_finish(started, smi) -> dict:
+    """Phase 13f's result: both ranks exited 0 and wrote "ok" for every
+    case, within F5_TIMEOUT of their start; every process stopped."""
+    procs, work, t0, ended = started
+    _phase("13f. F5: attention with kv heads sharded at model = 2, two "
+           "gloo ranks on the host's CPU under its PyTorch (the host's "
+           "PyTorch is under test here, not the card)")
+    import torch
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, F5_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = [json.loads((work / f"rank{r}.json").read_text())
+           if (work / f"rank{r}.json").exists() else {} for r in range(2)]
+    if not (all(p.returncode == 0 for p in procs) and all(
+            r and all(v == "ok" for v in r.values()) for r in res)):
+        for r in range(2):
+            print((work / f"log{r}.txt").read_text()[-3000:])
+        raise AssertionError(f"13f failed: {res}")
+    while not ended:                  # the watcher's last poll
+        time.sleep(0.1)
+    out = {"torch": torch.__version__, "cases": sorted(res[0]),
+           "seconds": ended[0] - t0}
+    print(json.dumps({"f5": out, "smi": smi}))
+    print(f"phase 13f: {out['cases']} ok on 2 gloo ranks under torch "
+          f"{torch.__version__} in {out['seconds']:.1f}s, in the "
+          f"background of phases 9-13e")
+    return out
 
 
 def _model_sharding_phase(args, torch, np, dev, smi, kernel_mods):
@@ -5539,7 +5843,12 @@ def main(argv=None) -> int:
                      kernel_mods, lds_per_s)
     casc_b = get_backend("cascade")
     (_, ham_s), _, (_, ff_s) = casc_b._views(casc_s)
-    backends = _sharded_backends(args, torch, np, dev, smi, {
+    # 13d and 13g: a one-rank NCCL group of their own and a (1, 1) mesh
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, open_local_group
+    open_local_group(dev)
+    mesh = make_host_mesh((1, 1), ("data", "model"), device=dev)
+    backends = _sharded_backends(args, torch, np, dev, smi, mesh, {
         "flat": (flat_retriever, flat_s, False),
         "hamming": (Retriever(dataclasses.replace(cfg, backend="hamming")),
                     ham_s, False),
@@ -5550,10 +5859,17 @@ def main(argv=None) -> int:
         "ivf": ann["states"]["ivf"] + (False,),
         "hnsw": ann["states"]["hnsw"] + (False,)},
         flat_queries, kernel_mods)
+    placed_live = _placed_live_phase(
+        args, torch, np, dev, smi, mesh, live, (flat_retriever, flat_s),
+        (casc_retriever, casc_s), flat_queries, flat_relevance, kernel_mods)
+    dist.destroy_process_group()
     flat_codebook = flat_s.codebook.clone()
-    del flat_s, flat_retriever, live["delta"], live["state"], ann["states"]
+    for key in ("delta", "state", "base", "responses", "retriever"):
+        del live[key]
+    del flat_s, flat_retriever, ann["states"]
     del casc_s, casc_retriever, ham_s, ff_s
     torch.cuda.empty_cache()
+    f5 = _f5_start()
     model = _model_phase(args, torch, np, dev, smi, COLPALI_HPC.config,
                          QWEN2_1_5B.config, kernel_mods)
     train = _train_phase(args, torch, np, dev, smi, COLPALI_HPC.config,
@@ -5565,6 +5881,7 @@ def main(argv=None) -> int:
     km_abs_err = max(km_abs_err, recsys_out["kmeans_max_gap"])
     model_sharding = _model_sharding_phase(args, torch, np, dev, smi,
                                            kernel_mods)
+    _f5_finish(f5, smi)
     sharded = _sharded_phase(args, torch, np, dev, cfg, flat_codebook,
                              flat_hit, lds_per_s)
     serve = sharded["serve"]
@@ -5581,6 +5898,7 @@ def main(argv=None) -> int:
                **train["launches"], **moe["launches"],
                **recsys_out["launches"], **pna["launches"],
                **sharded["launches"], **backends["launches"],
+               **placed_live["launches"],
                **model_sharding["launches"], **meshes["launches"]}
 
     def launches(name):

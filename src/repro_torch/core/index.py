@@ -19,12 +19,19 @@ The second half of the module is the segmented LSM store
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.core import quantization as quant
 from repro_torch.core import scan as scan_mod
+from repro_torch.dist import collectives as coll
+from repro_torch.dist.sharding import (full_tensor, local, shard_index,
+                                       sharded_axes)
 from repro_torch.kernels import ops as kernel_ops
 
 Tensor = torch.Tensor
@@ -399,18 +406,17 @@ class SegmentedState:
         return len(self.segments)
 
     def max_doc_id(self) -> int:
-        """The largest doc id any slot ever held, -1 if none — syncs."""
-        return max((int(seg_doc_ids(p).max()) for p in self.segments
-                    if seg_doc_ids(p).numel()), default=-1)
+        """The largest doc id any slot ever held, -1 if none — syncs (a
+        placed state's ranks all-reduce their maxima)."""
+        return max_doc_id(self.segments)
 
     def counts(self) -> Tuple[int, int]:
         """(live_docs, tombstoned_docs) — syncs with the device."""
         live = tomb = 0
         for payload, lv in zip(self.segments, self.live):
-            filled = seg_doc_ids(payload).reshape(-1) >= 0
-            lvf = lv.reshape(-1)
-            live += int((filled & lvf).sum())
-            tomb += int((filled & ~lvf).sum())
+            n_live, n_tomb = segment_counts(payload, lv)
+            live += n_live
+            tomb += n_tomb
         return live, tomb
 
 
@@ -431,19 +437,147 @@ def seg_doc_ids(payload) -> Tensor:
     return payload.doc_ids
 
 
+# -- placed segments ---------------------------------------------------------
+#
+# ``Retriever.shard`` places a segmented state with each segment's leaves
+# and live bits over the corpus axes (replicated where the segment's size
+# does not divide the shards; HNSW's live bits always) and ``pos_of_id``
+# replicated. The primitives below read and write each rank's own rows at
+# their global offset; a plain tensor is one block at offset 0, so one
+# code path serves a local state too.
+
+def _block(t) -> Tuple[Tensor, int]:
+    """(this rank's rows of ``t`` along dim 0, the global index of the
+    first): a DTensor's local shard, a plain tensor whole at 0."""
+    if not isinstance(t, DTensor):
+        return t, 0
+    index, count = shard_index(t.device_mesh, sharded_axes(t))
+    return t.to_local(), index * (t.shape[0] // count)
+
+
+def placed_like(t, rows: Tensor):
+    """This rank's ``rows`` placed as ``t`` is (every shard even): a new
+    DTensor without a collective, or ``rows`` itself when ``t`` is
+    plain."""
+    if not isinstance(t, DTensor):
+        return rows
+    return DTensor.from_local(rows, t.device_mesh, t.placements,
+                              run_check=False)
+
+
+def _slots(payload, lv) -> Tuple[Tensor, Tensor, int]:
+    """This rank's doc ids and live bits of one segment, flattened, and
+    the flattened global position of the first. Live bits replicated
+    beside sharded ids (HNSW) are cut to the ids' rows."""
+    ids_t = seg_doc_ids(payload)
+    ids, start = _block(ids_t)
+    lvb, lstart = _block(lv)
+    lvb = lvb.narrow(0, start - lstart, ids.shape[0])
+    slot = math.prod(ids_t.shape[1:])
+    return ids.reshape(-1), lvb.reshape(-1), start * slot
+
+
+def _reduce(t: Tensor, leaves, op) -> Tensor:
+    """``t``, a per-rank partial over the rows of ``leaves``, all-reduced
+    in place over the mesh axes any of them is sharded over."""
+    placed = [x for x in leaves if isinstance(x, DTensor)]
+    if placed:
+        mesh = placed[0].device_mesh
+        used = {a for x in placed for a in sharded_axes(x)}
+        coll.all_reduce_axes(t, mesh, [a for a in mesh.mesh_dim_names
+                                       if a in used], op=op)
+    return t
+
+
+def max_doc_id(segments) -> int:
+    """The largest doc id any slot of ``segments`` ever held, -1 if none
+    (one sync; placed segments' ranks all-reduce their maxima)."""
+    leaves = [seg_doc_ids(p) for p in segments]
+    tops = [ids.max().to(torch.int64) for ids in map(local, leaves)
+            if ids.numel()]
+    if not leaves:
+        return -1
+    top = (torch.stack(tops).max() if tops else torch.tensor(
+        -1, dtype=torch.int64, device=local(leaves[0]).device))
+    return int(_reduce(top, leaves, dist.ReduceOp.MAX))
+
+
+def segment_counts(payload, lv) -> Tuple[int, int]:
+    """(live, tombstoned) docs of one segment — syncs; a placed
+    segment's ranks sum their rows."""
+    ids, live, _ = _slots(payload, lv)
+    filled = ids >= 0
+    both = torch.stack([(filled & live).sum(), (filled & ~live).sum()])
+    n_live, n_tomb = _reduce(both, [seg_doc_ids(payload)],
+                             dist.ReduceOp.SUM).tolist()
+    return int(n_live), int(n_tomb)
+
+
 def rebuild_pos_of_id(segments: Tuple, live: Tuple, id_cap: int) -> Tensor:
     """Recompute the id->flattened-position map from the segment list, on
     the segments' device (a mutation: it syncs). Correct because each id
-    has at most one live slot."""
-    dev = seg_doc_ids(segments[0]).device if segments else None
+    has at most one live slot. Over placed segments each rank maps the
+    ids of its own rows and one all-reduce MAX joins them: the map comes
+    back replicated."""
+    leaves = [seg_doc_ids(p) for p in segments]
+    dev = local(leaves[0]).device if leaves else None
     pos = torch.full((int(id_cap),), -1, dtype=torch.int32, device=dev)
     off = 0
-    for payload, lv in zip(segments, live):
-        ids = seg_doc_ids(payload).reshape(-1).to(torch.int64)
-        occ = torch.nonzero(lv.reshape(-1) & (ids >= 0)).squeeze(1)
-        pos[ids[occ]] = (off + occ).to(torch.int32)
-        off += ids.numel()
-    return pos
+    for payload, lv, leaf in zip(segments, live, leaves):
+        ids, lvf, start = _slots(payload, lv)
+        ids = ids.to(torch.int64)
+        occ = torch.nonzero(lvf & (ids >= 0)).squeeze(1)
+        pos[ids[occ]] = (off + start + occ).to(torch.int32)
+        off += leaf.numel()
+    placed = [x for x in leaves if isinstance(x, DTensor)]
+    if not placed:
+        return pos
+    mesh = placed[0].device_mesh
+    return DTensor.from_local(_reduce(pos, leaves, dist.ReduceOp.MAX), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
+
+
+def kill_slots(segments: Tuple, live: Tuple, positions: np.ndarray
+               ) -> Tuple[Tensor, ...]:
+    """``live`` with the slots at the flattened global ``positions``
+    (host int64) False: each rank flips the bits of its own rows (every
+    rank alike where a segment replicates), no collective. A segment
+    touched gets a new tensor; the others are returned as they were."""
+    out, off = list(live), 0
+    for i, (payload, lv) in enumerate(zip(segments, live)):
+        size = seg_doc_ids(payload).numel()
+        blk, start = _block(lv)
+        lo = off + start * math.prod(lv.shape[1:])
+        mine = positions[(positions >= lo) & (positions < lo + blk.numel())]
+        if mine.size:
+            flat = blk.reshape(-1).clone()
+            flat[torch.from_numpy(mine - lo).to(flat.device)] = False
+            out[i] = placed_like(lv, flat.reshape(blk.shape))
+        off += size
+    return tuple(out)
+
+
+def live_slots(payload, lv, offset: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(doc ids, flattened positions from ``offset``) of one plain
+    segment's live slots, on the host."""
+    ids = seg_doc_ids(payload).reshape(-1).cpu().numpy()
+    occ = np.nonzero(lv.reshape(-1).cpu().numpy() & (ids >= 0))[0]
+    return ids[occ].astype(np.int64), offset + occ
+
+
+def write_rows(t, ids: np.ndarray, rows: Tensor):
+    """``t`` with its rows ``ids`` (host) set to ``rows``: each rank
+    writes the rows it holds, into a new tensor (``t`` is not
+    written)."""
+    blk, start = _block(t)
+    sel = np.nonzero((ids >= start) & (ids < start + blk.shape[0]))[0]
+    if not sel.size:
+        return t
+    idx = torch.from_numpy(ids[sel] - start).to(blk.device)
+    if sel.size < ids.size:
+        rows = rows[torch.from_numpy(sel).to(rows.device)]
+    out = indexable(blk).index_put((idx,), indexable(rows.to(blk.dtype)))
+    return placed_like(t, out.view(blk.dtype))
 
 
 # -- segment construction ---------------------------------------------------
@@ -690,32 +824,36 @@ def gather_live_rows(seg: SegmentedState, leaf_names: Tuple[str, ...]
     and filled in place, so the compacted copy is the only one made (5 GB
     for the cascade's float member at ColPali width). A layout with 2-D
     slots (IVF's (n_list, cap) buckets) is read as (n_list * cap) rows,
-    bucket after bucket."""
+    bucket after bucket. A placed segment is taken whole onto every rank,
+    one leaf at a time (compaction's one gather)."""
     keeps = []
     for payload, lv in zip(seg.segments, seg.live):
-        ids = seg_doc_ids(payload).reshape(-1)
-        keeps.append(torch.nonzero(lv.reshape(-1) & (ids >= 0)).squeeze(1))
+        ids = full_tensor(seg_doc_ids(payload)).reshape(-1)
+        keeps.append(torch.nonzero(full_tensor(lv).reshape(-1)
+                                   & (ids >= 0)).squeeze(1))
     n_live = sum(int(k.numel()) for k in keeps)
     rows = segment_capacity(n_live)
     first = seg.segments[0]
     slot_dims = seg_doc_ids(first).dim()
+    dev = local(seg_doc_ids(first)).device
     leaves = []
     for nm in leaf_names:
         ref = getattr(first, nm)
         out = torch.empty((rows,) + tuple(ref.shape[slot_dims:]),
-                          dtype=ref.dtype, device=ref.device)
+                          dtype=ref.dtype, device=dev)
         out[n_live:] = 0
         leaves.append(out)
-    ids_out = torch.full((rows,), -1, dtype=torch.int32,
-                         device=seg_doc_ids(first).device)
+    ids_out = torch.full((rows,), -1, dtype=torch.int32, device=dev)
     off = 0
     for payload, keep in zip(seg.segments, keeps):
         n = int(keep.numel())
         for out, nm in zip(leaves, leaf_names):
-            leaf = getattr(payload, nm)
+            leaf = full_tensor(getattr(payload, nm))
             leaf = leaf.reshape((-1,) + tuple(leaf.shape[slot_dims:]))
             torch.index_select(leaf, 0, keep, out=out[off:off + n])
-        torch.index_select(seg_doc_ids(payload).reshape(-1).to(torch.int32),
-                           0, keep, out=ids_out[off:off + n])
+            del leaf
+        torch.index_select(
+            full_tensor(seg_doc_ids(payload)).reshape(-1).to(torch.int32),
+            0, keep, out=ids_out[off:off + n])
         off += n
     return tuple(leaves), ids_out

@@ -10,11 +10,19 @@ the whole weight.
 ``all_gather_axes``, ``all_reduce_axes`` and ``broadcast_axes`` run one
 collective over several mesh axes, one axis' group after another; 16-bit
 integers cross as uint8 views (``dist.sharding.SIXTEEN_BIT_INTS``).
+
+``broadcast_op`` sends one operation from the mesh's first rank to every
+other: a header (the operation, its JSON arguments, each tensor's dtype and
+shape) and then the tensors' bytes. A session that every rank must enter
+in the same order (``serving.live.LiveIndexSession`` over a placed state)
+is driven by it.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import json
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -61,6 +69,64 @@ def broadcast_axes(t: torch.Tensor, mesh, axes: Sequence[str]
             dist.broadcast(t, src=dist.get_global_rank(group, 0),
                            group=group)
     return t
+
+
+def encode_header(op: str, meta: Optional[dict] = None,
+                  tensors: Sequence[torch.Tensor] = ()) -> np.ndarray:
+    """An operation's header as uint8 bytes: its name, its JSON-able
+    arguments and each tensor's dtype and shape."""
+    head = {"op": op, "meta": meta or {},
+            "tensors": [[str(t.dtype).removeprefix("torch."),
+                         list(t.shape)] for t in tensors]}
+    return np.frombuffer(json.dumps(head).encode(), np.uint8)
+
+
+def decode_header(buf) -> Tuple[str, dict, list]:
+    """(op, meta, [(dtype, shape), ...]) of ``encode_header``'s bytes."""
+    head = json.loads(np.asarray(buf, np.uint8).tobytes().decode())
+    return head["op"], head["meta"], [(getattr(torch, dt), tuple(shape))
+                                      for dt, shape in head["tensors"]]
+
+
+def _nbytes(dtype: torch.dtype, shape) -> int:
+    return int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+
+
+def broadcast_op(mesh, op: Optional[str] = None, meta: Optional[dict] = None,
+                 tensors: Sequence[torch.Tensor] = ()
+                 ) -> Tuple[str, dict, Tuple[torch.Tensor, ...]]:
+    """One operation from the rank at coordinate 0 of every mesh axis to
+    every rank of ``mesh``, which all call this: that rank passes ``op``,
+    ``meta`` (JSON-able) and ``tensors``, the others nothing. Three
+    broadcasts over the mesh's axes: the header's length, the header, and
+    the tensors' bytes packed in one buffer (any dtype, as uint8). Returns
+    (op, meta, tensors on the mesh's device) on every rank. The group's
+    collective timeout bounds the wait for a rank that is gone."""
+    dev = sharding.mesh_device(mesh)
+    axes = tuple(mesh.mesh_dim_names)
+    if all(c == 0 for c in mesh.get_coordinate()):
+        tensors = tuple(t.to(dev) for t in tensors)
+        head = encode_header(op, meta, tensors)
+        broadcast_axes(torch.tensor([head.size], dtype=torch.int64,
+                                    device=dev), mesh, axes)
+        broadcast_axes(torch.from_numpy(head.copy()).to(dev), mesh, axes)
+        if any(t.numel() for t in tensors):
+            broadcast_axes(torch.cat([t.contiguous().reshape(-1).view(
+                torch.uint8) for t in tensors]), mesh, axes)
+        return op, meta or {}, tensors
+    size = broadcast_axes(torch.zeros((1,), dtype=torch.int64, device=dev),
+                          mesh, axes)
+    head = broadcast_axes(torch.empty((int(size[0]),), dtype=torch.uint8,
+                                      device=dev), mesh, axes)
+    op, meta, specs = decode_header(head.cpu().numpy())
+    sizes = [_nbytes(dt, shape) for dt, shape in specs]
+    buf = torch.empty((sum(sizes),), dtype=torch.uint8, device=dev)
+    if sum(sizes):
+        broadcast_axes(buf, mesh, axes)
+    # each part copied out, so its dtype view starts aligned
+    return op, meta, tuple(
+        part.clone().view(dt).reshape(shape)
+        for part, (dt, shape) in zip(torch.split(buf, sizes), specs))
 
 
 def _block(t, mesh, axis: str, dim: int) -> torch.Tensor:

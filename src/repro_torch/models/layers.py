@@ -250,6 +250,8 @@ def _sdpa_chunk(q_blk: Tensor, k: Tensor, v: Tensor, mask_blk: Tensor,
     None): the mass is the attention each key receives, summed over heads
     and queries, for salience.
     """
+    if isinstance(q_blk, DTensor) and _rank_local(q_blk.placements):
+        return _sdpa_placed(q_blk, k, v, mask_blk, want_mass)
     b, qc, n_kv, g, hd = q_blk.shape
     t = k.shape[1]
     qf = q_blk.permute(0, 2, 3, 1, 4).reshape(b, n_kv, g * qc, hd).float()
@@ -267,6 +269,59 @@ def _sdpa_chunk(q_blk: Tensor, k: Tensor, v: Tensor, mask_blk: Tensor,
                        v.permute(0, 2, 1, 3))
     out = out.view(b, n_kv, g, qc, hd).permute(0, 3, 1, 2, 4)
     mass = probs.sum(dim=(1, 2, 3)) if want_mass else None
+    return out, mass
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: a DTensor's
+    ``to_local`` hands the gradient back in the DTensor's contiguous
+    strides, whatever the local gradient's layout."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _rank_local(placements) -> bool:
+    """Placements under which each rank's attention is its own: the batch
+    (dim 0) and the kv heads (dim 2) sharded, nothing else."""
+    return all(isinstance(p, Replicate)
+               or (isinstance(p, Shard) and p.dim in (0, 2))
+               for p in placements)
+
+
+def _sdpa_placed(q_blk: DTensor, k: Tensor, v: Tensor, mask_blk: Tensor,
+                 want_mass: bool) -> Tuple[Tensor, Optional[Tensor]]:
+    """``_sdpa_chunk`` of a placed q block on each rank's own batch rows
+    and kv heads (k and v placed as q is first): the 4-D products never
+    fold a sharded dim into another, which DTensor in PyTorch 2.11 does
+    not do, and on a mesh of one rank the arithmetic is the unplaced
+    path's, bit for bit. The per-key mass, each rank's sum over its own
+    heads, is all-reduced over the mesh dims the heads shard on."""
+    mesh, pl = q_blk.device_mesh, tuple(q_blk.placements)
+
+    def mine(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return _ContiguousGrad.apply(
+            t.redistribute(mesh, pl).contiguous().to_local())
+
+    mask = (mask_blk.to_local() if isinstance(mask_blk, DTensor)
+            else mask_blk)
+    out, mass = _sdpa_chunk(mine(q_blk), mine(k), mine(v), mask, want_mass)
+    out = DTensor.from_local(out.contiguous(), mesh, pl, run_check=False,
+                             shape=q_blk.shape,
+                             stride=_contiguous_stride(q_blk.shape))
+    if mass is not None:
+        heads = [i for i, p in enumerate(pl) if p == Shard(2)]
+        mass = reduce_partial(mass, mesh, [Shard(0) if p == Shard(0)
+                                           else Replicate() for p in pl],
+                              heads)
     return out, mass
 
 

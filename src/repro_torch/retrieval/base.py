@@ -38,6 +38,8 @@ from torch.distributed.tensor import DTensor
 from repro_torch.core import index as index_mod
 from repro_torch.core import pruning
 from repro_torch.core import quantization as quant
+from repro_torch.dist.sharding import (Sharder, distribute, full_tensor,
+                                       local, map_specs)
 from repro_torch.retrieval.config import HPCConfig
 
 Tensor = torch.Tensor
@@ -257,6 +259,26 @@ def state_mesh(state: "RetrieverState"):
     return cb.device_mesh if isinstance(cb, DTensor) else None
 
 
+def place_state(specs, state, mesh, sharder: Optional[Sharder] = None):
+    """``state`` on ``mesh`` by its logical-axis ``specs`` tree: each plain
+    tensor (the same values on every rank; rank 0's are kept) distributed
+    by its resolved spec, a DTensor already so placed kept as it is, and
+    one placed otherwise taken whole and placed again."""
+    shd = sharder if sharder is not None else Sharder(mesh)
+
+    def place(spec, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        want = shd.named(tuple(spec), tuple(leaf.shape))
+        if isinstance(leaf, DTensor):
+            if tuple(leaf.placements) == tuple(want.placements):
+                return leaf
+            leaf = full_tensor(leaf)
+        return distribute(leaf, want)
+
+    return map_specs(place, specs, state)
+
+
 def abstract_tensor(shape, dtype: torch.dtype, device="meta") -> Tensor:
     """A tensor without data: meta, or fake under a ``FakeTensorMode``."""
     return torch.empty(tuple(shape), dtype=dtype, device=device)
@@ -307,7 +329,7 @@ def walk_state(node, leaf: Callable, int_leaf: Callable):
     raise TypeError(f"not a state node: {type(node).__name__}")
 
 
-def _host_ids(doc_ids) -> np.ndarray:
+def host_ids(doc_ids) -> np.ndarray:
     """Doc ids from a tensor, an array or a sequence, as host int64."""
     if isinstance(doc_ids, torch.Tensor):
         doc_ids = doc_ids.cpu().numpy()
@@ -400,13 +422,27 @@ class IndexBackend:
         payload = s.index if self._is_wrapper(s) else s
         return payload, index_mod.seg_doc_ids(payload) >= 0
 
+    def _placed(self, state: RetrieverState) -> RetrieverState:
+        """A mutated placed state with its new tensors (a segment, grown
+        rerank rows, a regrown HNSW graph) placed by ``shard_specs``, the
+        divisibility fallback per tensor, as ``Retriever.shard`` would
+        place the same state; a local state as it is."""
+        mesh = state_mesh(state)
+        if mesh is None:
+            return state
+        return place_state(self.shard_specs(state), state, mesh)
+
     def _grow_rerank(self, state: RetrieverState, id_cap: int
                      ) -> RetrieverState:
+        """The id-indexed rerank rows padded to ``id_cap`` (placed rows are
+        taken whole first; ``_placed`` places them again)."""
         if state.rerank_codes.shape[0] >= id_cap:
             return state
         return state._replace(
-            rerank_codes=index_mod.pad_dim0(state.rerank_codes, id_cap, 0),
-            rerank_mask=index_mod.pad_dim0(state.rerank_mask, id_cap, False))
+            rerank_codes=index_mod.pad_dim0(
+                full_tensor(state.rerank_codes), id_cap, 0),
+            rerank_mask=index_mod.pad_dim0(
+                full_tensor(state.rerank_mask), id_cap, False))
 
     def to_segmented(self, state: RetrieverState, *,
                      id_cap: Optional[int] = None) -> RetrieverState:
@@ -417,20 +453,20 @@ class IndexBackend:
             return state
         payload, live = self._wrap_segment(state)
         if id_cap is None:
-            ids = index_mod.seg_doc_ids(payload)
-            top = int(ids.max()) if ids.numel() else -1
-            id_cap = index_mod.segment_capacity(top + 1)
+            id_cap = index_mod.segment_capacity(
+                index_mod.max_doc_id((payload,)) + 1)
         seg = index_mod.SegmentedState(
             (payload,), (live,),
             index_mod.rebuild_pos_of_id((payload,), (live,), id_cap))
-        return self._grow_rerank(self._set_segmented(state, seg), id_cap)
+        return self._placed(self._grow_rerank(self._set_segmented(state, seg),
+                                              id_cap))
 
     # per-backend append hooks ---------------------------------------------
 
     def _encode_delta(self, state: RetrieverState, delta: Corpus,
                       cfg: HPCConfig) -> Tuple[Tensor, Tensor, Tensor]:
         """(full_repr, payload_repr, payload_mask) for a delta."""
-        return encode_delta(state.codebook, delta, cfg)
+        return encode_delta(local(state.codebook), delta, cfg)
 
     def _delta_segment(self, state: RetrieverState,
                        seg: index_mod.SegmentedState, enc, delta: Corpus,
@@ -444,7 +480,8 @@ class IndexBackend:
                         cfg: HPCConfig, doc_ids: Tensor
                         ) -> index_mod.SegmentedState:
         """Default: one more immutable segment. ``hnsw`` overrides it to
-        grow its one graph segment in place (incremental insert)."""
+        grow its one graph segment in place (incremental insert). What it
+        builds is local (``add`` places it)."""
         payload, live = self._delta_segment(state, seg, enc, delta, cfg,
                                             doc_ids)
         return index_mod.SegmentedState(
@@ -455,6 +492,14 @@ class IndexBackend:
         return enc[0], delta.mask
 
     # public mutation API ---------------------------------------------------
+    #
+    # Ids and positions resolve on the host from the replicated
+    # ``pos_of_id``, which is updated there from the delta's ids, the new
+    # segment's slots and the killed positions. So on a placed state every
+    # rank computes the same map without a collective, flips the live bits
+    # of its own rows and writes the rerank rows it holds; ``add`` gathers
+    # no existing segment (HNSW's one graph excepted: it grows in place)
+    # and places the new one by ``shard_specs``.
 
     def add(self, state: RetrieverState, delta: Corpus, cfg: HPCConfig, *,
             doc_ids=None) -> RetrieverState:
@@ -466,6 +511,8 @@ class IndexBackend:
         tombstoned (upsert — the newest segment wins), a dead one stays
         dead. Duplicate ids within one delta are rejected. The delta must
         have the patch count (Md) and embedding dim of the build's corpus.
+        A placed state stays placed on its mesh; every rank makes the same
+        call with the same delta.
         """
         n_new = int(delta.embeddings.shape[0])
         if n_new == 0:
@@ -474,12 +521,12 @@ class IndexBackend:
         seg = self._segmented(state)
 
         # resolve ids on the host
-        max_assigned = seg.max_doc_id()
         if doc_ids is None:
+            max_assigned = seg.max_doc_id()
             ids_np = np.arange(max_assigned + 1, max_assigned + 1 + n_new,
                                dtype=np.int64)
         else:
-            ids_np = _host_ids(doc_ids)
+            ids_np = host_ids(doc_ids)
             if ids_np.shape[0] != n_new:
                 raise ValueError(
                     f"doc_ids has {ids_np.shape[0]} entries for a "
@@ -491,70 +538,70 @@ class IndexBackend:
                     "duplicate doc_ids within one add() delta; split the "
                     "delta so each id appears once (newest-wins upserts "
                     "need a segment boundary between occurrences)")
-        dev = seg.pos_of_id.device
+        pos_old = local(seg.pos_of_id)
+        dev = pos_old.device
         ids_t = torch.from_numpy(ids_np).to(device=dev, dtype=torch.int32)
 
         # prior live occurrences of reused ids -> flattened positions now
         # (positions of existing rows are stable under append)
-        pos_np = seg.pos_of_id.cpu().numpy()
+        pos_np = pos_old.cpu().numpy()
         in_cap = ids_np < pos_np.shape[0]
         old_pos = np.where(in_cap, pos_np[np.minimum(
             ids_np, pos_np.shape[0] - 1)], -1)
-        kill_pos = old_pos[old_pos >= 0]
 
         enc = self._encode_delta(state, delta, cfg)
         grown = self._append_segment(state, seg, enc, delta, cfg, ids_t)
-        segments, lives = grown.segments, list(grown.live)
-        if kill_pos.size:  # upsert: tombstone the prior occurrence
-            off = 0
-            for i, p in enumerate(segments):
-                size = int(index_mod.seg_doc_ids(p).numel())
-                sel = kill_pos[(kill_pos >= off) & (kill_pos < off + size)]
-                if sel.size:
-                    lv = lives[i].reshape(-1).clone()
-                    lv[torch.from_numpy(sel - off).to(dev)] = False
-                    lives[i] = lv.reshape(lives[i].shape)
-                off += size
+        lives = index_mod.kill_slots(grown.segments, grown.live,
+                                     old_pos[old_pos >= 0])
 
+        # the map: the old one, and the slots of the new segment (hnsw:
+        # of its regrown graph) over every reused id's prior occurrence
         id_cap = index_mod.segment_capacity(
             max(pos_np.shape[0], int(ids_np.max()) + 1))
-        seg2 = index_mod.SegmentedState(
-            segments, tuple(lives),
-            index_mod.rebuild_pos_of_id(segments, tuple(lives), id_cap))
+        pos = np.full((id_cap,), -1, np.int32)
+        pos[:pos_np.shape[0]] = pos_np
+        first = min(len(seg.segments), len(grown.segments) - 1)
+        off = sum(index_mod.seg_doc_ids(p).numel()
+                  for p in grown.segments[:first])
+        for payload, lv in zip(grown.segments[first:], lives[first:]):
+            ids, slots = index_mod.live_slots(payload, lv, off)
+            pos[ids] = slots
+            off += index_mod.seg_doc_ids(payload).numel()
+        seg2 = index_mod.SegmentedState(grown.segments, lives,
+                                        index_mod.placed_like(
+                                            seg.pos_of_id,
+                                            torch.from_numpy(pos).to(dev)))
         state = self._grow_rerank(self._set_segmented(state, seg2), id_cap)
         rc_rows, rm_rows = self._rerank_delta_rows(enc, delta)
-        idx = (ids_t.to(torch.int64),)
-        rc = state.rerank_codes
-        return state._replace(
-            rerank_codes=index_mod.indexable(rc).index_put(
-                idx, index_mod.indexable(rc_rows.to(rc.dtype))).view(
-                    rc.dtype),
-            rerank_mask=state.rerank_mask.index_put(
-                idx, rm_rows.to(state.rerank_mask.dtype)))
+        return self._placed(state._replace(
+            rerank_codes=index_mod.write_rows(state.rerank_codes, ids_np,
+                                              rc_rows),
+            rerank_mask=index_mod.write_rows(state.rerank_mask, ids_np,
+                                             rm_rows)))
 
     def delete(self, state: RetrieverState, doc_ids) -> RetrieverState:
         """Tombstone documents by global id: O(total slots) work, no
         change to the stored payload; searches mask the docs out through
         the valid-mask contract (scores NEG_INF, ids -1). Unknown or
-        already-dead ids are a no-op."""
+        already-dead ids are a no-op. On a placed state each rank flips
+        the bits of its own rows: no collective."""
         state = self.to_segmented(state)
         seg = self._segmented(state)
-        kill = np.unique(_host_ids(doc_ids))
-        kill = torch.from_numpy(kill[kill >= 0]).to(seg.pos_of_id.device)
-        new_live, changed = [], False
-        for payload, lv in zip(seg.segments, seg.live):
-            hit = torch.isin(index_mod.seg_doc_ids(payload), kill) & lv
-            if bool(hit.any()):
-                changed = True
-                new_live.append(lv & ~hit)
-            else:
-                new_live.append(lv)
-        if not changed:
+        pos_old = local(seg.pos_of_id)
+        pos = pos_old.cpu().numpy()
+        kill = np.unique(host_ids(doc_ids))
+        kill = kill[(kill >= 0) & (kill < pos.shape[0])]
+        kill = kill[pos[kill] >= 0]
+        if not kill.size:
             return state
+        lives = index_mod.kill_slots(seg.segments, seg.live,
+                                     pos[kill].astype(np.int64))
+        pos = pos.copy()
+        pos[kill] = -1
         seg2 = index_mod.SegmentedState(
-            seg.segments, tuple(new_live),
-            index_mod.rebuild_pos_of_id(seg.segments, tuple(new_live),
-                                        seg.pos_of_id.shape[0]))
+            seg.segments, lives,
+            index_mod.placed_like(seg.pos_of_id,
+                            torch.from_numpy(pos).to(pos_old.device)))
         return self._set_segmented(state, seg2)
 
     def _compact_payload(self, state: RetrieverState,
@@ -569,15 +616,16 @@ class IndexBackend:
         """Physically drop tombstones: gather the live docs into a single
         fresh segment, in slot order. Doc ids and the id-indexed rerank
         rows are kept, so search results over the live corpus are
-        unchanged."""
+        unchanged. A placed state's live docs are taken whole on every
+        rank and the new segment placed by ``shard_specs``."""
         state = self.to_segmented(state)
         seg = self._segmented(state)
         payload, live = self._compact_payload(state, seg, cfg)
+        pos = index_mod.rebuild_pos_of_id((payload,), (live,),
+                                          seg.pos_of_id.shape[0])
         seg2 = index_mod.SegmentedState(
-            (payload,), (live,),
-            index_mod.rebuild_pos_of_id((payload,), (live,),
-                                        seg.pos_of_id.shape[0]))
-        return self._set_segmented(state, seg2)
+            (payload,), (live,), index_mod.placed_like(seg.pos_of_id, pos))
+        return self._placed(self._set_segmented(state, seg2))
 
     def storage_bytes(self, state: RetrieverState) -> Dict[str, int]:
         """Measured storage of the built index (paper Table III)."""
@@ -598,8 +646,7 @@ class IndexBackend:
         out: Dict[str, int] = {}
         total = 0
         for i, (payload, lv) in enumerate(zip(seg.segments, seg.live)):
-            ids = index_mod.seg_doc_ids(payload).reshape(-1)
-            n_live = int((lv.reshape(-1) & (ids >= 0)).sum())
+            n_live = index_mod.segment_counts(payload, lv)[0]
             b = self._seg_payload_bytes(payload, n_live)
             out[f"segment_{i}_payload"] = b
             total += b

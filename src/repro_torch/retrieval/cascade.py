@@ -178,9 +178,8 @@ class CascadeBackend(IndexBackend):
         if self._segmented(state) is not None:
             return state
         if id_cap is None:
-            ids = state.backend_state.members[1].doc_ids
-            top = int(ids.max()) if ids.numel() else -1
-            id_cap = index_mod.segment_capacity(top + 1)
+            id_cap = index_mod.segment_capacity(index_mod.max_doc_id(
+                (state.backend_state.members[1],)) + 1)
         return self._recompose(state, [
             backend.to_segmented(view, id_cap=id_cap)
             for backend, view in self._views(state)])

@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import distributed as dist_core
 from repro_torch.core import graph as graph_mod
 from repro_torch.core import index as index_mod
+from repro_torch.dist.sharding import full_tensor
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
                                         abstract_layout, abstract_tensor,
                                         code_dtype,
@@ -42,6 +43,11 @@ def _mean_degree_l0(ix: graph_mod.HNSWIndex) -> float:
     degree = (ix.neighbors[0] >= 0).sum(dim=-1).to(torch.float32)
     n = torch.clamp(filled.sum().to(torch.float32), min=1.0)
     return float((degree * filled).sum() / n)
+
+
+def _whole(ix: graph_mod.HNSWIndex) -> graph_mod.HNSWIndex:
+    """A placed graph with every leaf taken whole on this rank."""
+    return type(ix)(*(full_tensor(x) for x in ix))
 
 
 @register_backend("hnsw")
@@ -92,18 +98,21 @@ class HNSWBackend(IndexBackend):
 
     # -- mutation hooks ------------------------------------------------------
     # one growable graph segment: appends insert into the graph rather than
-    # stacking segments a walk could not cross
+    # stacking segments a walk could not cross. A placed graph is taken
+    # whole (its codes are sharded), grown on the host as the build does,
+    # and placed again by ``add``
 
     def _append_segment(self, state: RetrieverState, seg, enc, delta,
                         cfg: HPCConfig, doc_ids: Tensor):
         _, codes, mask = enc
         ix, live = graph_mod.hnsw_insert(
-            seg.segments[0], seg.live[0], codes, mask, doc_ids, cfg.hnsw)
+            _whole(seg.segments[0]), full_tensor(seg.live[0]), codes, mask,
+            doc_ids, cfg.hnsw)
         return index_mod.SegmentedState((ix,), (live,), seg.pos_of_id)
 
     def _compact_payload(self, state: RetrieverState, seg, cfg: HPCConfig):
-        return graph_mod.hnsw_compact(seg.segments[0], seg.live[0],
-                                      cfg.hnsw)
+        return graph_mod.hnsw_compact(_whole(seg.segments[0]),
+                                      full_tensor(seg.live[0]), cfg.hnsw)
 
     def _seg_payload_bytes(self, payload, n_live: int) -> int:
         codes = payload.codes

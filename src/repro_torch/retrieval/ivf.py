@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core import distributed as dist_core
 from repro_torch.core import index as index_mod
+from repro_torch.dist.sharding import local
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
                                         abstract_layout, abstract_tensor,
                                         code_dtype,
@@ -98,8 +99,8 @@ class IVFBackend(IndexBackend):
     def _delta_segment(self, state, seg, enc, delta, cfg, doc_ids):
         _, codes, mask = enc
         return index_mod.make_ivf_segment(
-            codes, mask, state.codebook, seg.segments[0].routing_centroids,
-            doc_ids)
+            codes, mask, local(state.codebook),
+            local(seg.segments[0].routing_centroids), doc_ids)
 
     def _compact_payload(self, state, seg, cfg):
         # the live docs, bucket after bucket and segment after segment,
@@ -108,8 +109,8 @@ class IVFBackend(IndexBackend):
             seg, ("bucket_codes", "bucket_mask"))
         n_live = int((ids >= 0).sum())
         return index_mod.make_ivf_segment(
-            codes[:n_live], mask[:n_live], state.codebook,
-            seg.segments[0].routing_centroids, ids[:n_live])
+            codes[:n_live], mask[:n_live], local(state.codebook),
+            local(seg.segments[0].routing_centroids), ids[:n_live])
 
     def _seg_payload_bytes(self, payload, n_live: int) -> int:
         codes = payload.bucket_codes

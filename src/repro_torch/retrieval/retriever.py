@@ -25,10 +25,10 @@ from repro_torch.core import distributed as dist_core
 from repro_torch.core import index as index_mod
 from repro_torch.core import pruning
 from repro_torch.core import scan as scan_mod
-from repro_torch.dist.sharding import Sharder, distribute, map_specs
+from repro_torch.dist.sharding import Sharder
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
                                         RetrieverState, get_backend,
-                                        state_mesh)
+                                        place_state, state_mesh)
 from repro_torch.retrieval.config import HPCConfig
 
 Tensor = torch.Tensor
@@ -125,7 +125,14 @@ class Retriever:
         mutation normalizes a monolithic build into segmented form (the
         same results either way). With explicit ``doc_ids``, ids already
         live are upserted: the prior occurrence is tombstoned and the
-        newest segment wins."""
+        newest segment wins.
+
+        ``add``, ``delete`` and ``compact`` take a state from ``shard`` as
+        well, called by every rank of its mesh alike, and return it placed
+        on the same mesh: the new segment placed by the backend's specs,
+        live bits flipped on the rank that holds them, the id map kept
+        replicated. Only ``compact`` (and HNSW's ``add``, which regrows
+        its one graph) takes existing segments whole."""
         return self.backend.add(state, delta, self.cfg, doc_ids=doc_ids)
 
     def delete(self, state: RetrieverState, doc_ids) -> RetrieverState:
@@ -174,12 +181,6 @@ class Retriever:
         fallback (``dist.sharding``), so the same index shards on any mesh
         that divides its document count and replicates otherwise.
         """
-        shd = sharder if sharder is not None else Sharder(mesh)
-
-        def place(spec, leaf):
-            if not isinstance(leaf, torch.Tensor):
-                return leaf
-            return distribute(leaf, shd.named(tuple(spec), tuple(leaf.shape)))
-
-        return map_specs(place, self.backend.shard_specs(state), state)
+        return place_state(self.backend.shard_specs(state), state, mesh,
+                           sharder)
 

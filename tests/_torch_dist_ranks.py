@@ -412,6 +412,256 @@ def check_candidates(mesh, backend, variant):
 
 
 # ---------------------------------------------------------------------------
+# a placed state mutated and served (tests/test_torch_dist_live.py): every
+# backend, monolithic (64 docs) and segmented (the "segmented" variant),
+# placed by ``Retriever.shard`` and then mutated on every rank alike, each
+# step searched at VARIANT_K against the same mutation of the unplaced
+# state (``_same``: ids equal, ties included; scores within 1e-6, Hamming
+# scores equal); every tensor stays a DTensor on the mesh, each segment
+# placed by its spec (sharded where its rows divide the shards)
+# ---------------------------------------------------------------------------
+
+MUT_VARIANTS = {"monolithic": "k_past_share", "segmented": "segmented"}
+MUT_UPSERT, MUT_DELETE = (3, 20, 70), (5, 22, 66, 81, 500)
+
+
+def _mut_steps(r):
+    """(name, op) of the mutations: 16 docs under fresh ids (pages of
+    docs 40-55), 3 upserts (pages of docs 10-12), 5 deletes (one unknown
+    id), compact."""
+    corpus, _ = _corpus(96)
+    return (("add", lambda st: r.add(st, _rows(corpus, 40, 56))),
+            ("upsert", lambda st: r.add(st, _rows(corpus, 10, 13),
+                                        doc_ids=list(MUT_UPSERT))),
+            ("delete", lambda st: r.delete(st, list(MUT_DELETE))),
+            ("compact", lambda st: r.compact(st)))
+
+
+def _members(r, state):
+    """(backend, view) of each member of a cascade, else of the state."""
+    be = r.backend
+    return be._views(state) if be.name == "cascade" else [(be, state)]
+
+
+def _still_placed(r, state, mesh, what):
+    """Every tensor a DTensor on ``mesh``; each segment's rows placed as
+    its spec resolves (the divisibility fallback per segment)."""
+    from repro_torch.retrieval.base import state_map
+    from torch.distributed.tensor import DTensor
+    leaves = []
+    state_map(leaves.append, state)
+    bad = [tuple(x.shape) for x in leaves if not isinstance(x, DTensor)
+           or x.device_mesh != mesh]
+    assert not bad, f"{what}: not placed on the mesh: {bad}"
+    shd = sharding.Sharder(mesh)
+    for be, view in _members(r, state):
+        seg = be._segmented(view)
+        for payload, lv in zip(seg.segments, seg.live):
+            ids = index_mod.seg_doc_ids(payload)
+            cut = shd.num_shards("corpus", ids.shape[0])
+            assert ids.to_local().shape[0] * cut == ids.shape[0], (
+                what, tuple(ids.shape), cut)
+        assert seg.pos_of_id.to_local().shape == seg.pos_of_id.shape
+
+
+def check_mutate(mesh, backend, variant):
+    r, state, q = _state(backend, MUT_VARIANTS[variant])
+    placed = r.shard(state, mesh)
+    for name, op in _mut_steps(r):
+        state, placed = op(state), op(placed)
+        _still_placed(r, placed, mesh, f"{backend} {variant} {name}")
+        for k in VARIANT_K[MUT_VARIANTS[variant]]:
+            _same(r.search(placed, q, k=k), r.search(state, q, k=k),
+                  f"{backend} {variant} {name} k={k}")
+
+
+def check_no_gather(mesh, backend):
+    """``add`` (fresh ids within the id map's capacity, and upserts) and
+    ``delete`` on a placed segmented state issue no all-gather: no
+    existing segment is taken whole."""
+    r, state, q = _state(backend, "segmented")
+    placed = r.shard(state, mesh)
+    corpus, _ = _corpus(96)
+    comm = CommDebugMode()
+    with comm:
+        placed = r.add(placed, _rows(corpus, 40, 56))
+        placed = r.add(placed, _rows(corpus, 10, 13),
+                       doc_ids=list(MUT_UPSERT))
+        placed = r.delete(placed, list(MUT_DELETE))
+    counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+    assert not [k for k in counts if "gather" in k], counts
+    state = r.delete(r.add(r.add(state, _rows(corpus, 40, 56)),
+                           _rows(corpus, 10, 13), doc_ids=list(MUT_UPSERT)),
+                     list(MUT_DELETE))
+    _same(r.search(placed, q, k=5), r.search(state, q, k=5),
+          f"{backend} after the counted mutations")
+
+
+def check_jax_mutation(z, mesh, backend):
+    """The reference's monolithic state placed and mutated by the port as
+    the reference mutated it (docs 80-95 added, ids 2, 41 and 85
+    deleted), against the reference's search of its own mutation (and
+    for the cascade every rung), and against the port's unplaced
+    mutation."""
+    name = f"{backend}_monolithic"
+    prefix = f"jx/{name}/"
+    state = state_from_numpy({key[len(prefix):]: z[key] for key in z
+                              if key.startswith(prefix)}, device="cpu",
+                             backend=backend)
+    r = Retriever(HPCConfig(
+        cascade=CascadeConfig(p1=32, p2=12),
+        ivf=IVFConfig(n_list=8, n_probe=3, iters=6),
+        hnsw=HNSWConfig(ef_search=32), **jax_cfg(backend)))
+    q = Query(t(z["jx_q"]), t(z["jx_qm"]), t(z["jx_qs"]))
+    delta = Corpus(t(z["jx_add_p"]), t(z["jx_add_m"]), t(z["jx_add_s"]))
+
+    def mutate(st):
+        return r.delete(r.add(st, delta), np.array(JAX_DELETED))
+
+    placed, state = mutate(r.shard(state, mesh)), mutate(state)
+    _still_placed(r, placed, mesh, name)
+    seg_name = f"{backend}_segmented"
+    tol = JAX_TOL[backend]
+    _same(r.search(placed, q, k=JAX_K), r.search(state, q, k=JAX_K), name)
+    _match(r.search(placed, q, k=JAX_K), z[f"jxout/{seg_name}/s"],
+           z[f"jxout/{seg_name}/i"], tol, name)
+    if backend != "cascade":
+        return
+    for j, rung in enumerate(r.degrade_rungs(placed, k=JAX_K)):
+        _match(r.search_degraded(placed, q, k=JAX_K, rung=rung),
+               z[f"jxout/{seg_name}/rung{j}_s"],
+               z[f"jxout/{seg_name}/rung{j}_i"],
+               0.0 if rung is None else tol, f"{name} rung {rung}")
+
+
+# LiveIndexSession over a placed state: the first rank serves, the others
+# follow; answers held to the unplaced state under the same mutations
+SESSION_K, SESSION_BATCH = 5, 4
+
+
+def _session(r, placed):
+    from repro_torch.serving import (LiveIndexSession, ResilienceConfig,
+                                     ServeConfig)
+    return LiveIndexSession(r, placed, ServeConfig(
+        max_batch=SESSION_BATCH, top_k=SESSION_K,
+        resilience=ResilienceConfig(max_queue=64)), device="cpu")
+
+
+def _rows_of(q, lo, hi):
+    return Query(*(a[lo:hi] for a in q))
+
+
+def check_session(mesh, backend):
+    """Rounds of requests (one at a time, bit for bit against the
+    unplaced search; a burst of concurrent ones within 1e-5 with ids
+    outside near-ties), an add, upserts and deletes between rounds,
+    every degradation level, warm_shapes at every rung and level, a
+    compaction; the followers leave ``follow`` at ``close`` and every
+    rank then searches the state its session ended with."""
+    r, state, q = _state(backend, "k_past_share")
+    sess = _session(r, r.shard(state, mesh))
+    steps = _mut_steps(r)
+    n_q = q.embeddings.shape[0]
+    if not sess.leader:
+        assert sess.server is None
+        assert sess.follow() > 0
+    else:
+        host = tuple(a.numpy() for a in q)
+        corpus, _ = _corpus(96)
+
+        def one_at_a_time(st):
+            for i in range(n_q):
+                out = sess.query(*(a[i] for a in host), timeout=120.0)
+                got = tuple(torch.from_numpy(np.asarray(a))[None]
+                            for a in out)
+                _same(got, r.search(st, _rows_of(q, i, i + 1),
+                                    k=SESSION_K), f"{backend} query {i}")
+
+        def burst(st):
+            reqs = [sess.submit(*(a[i] for a in host)) for i in range(n_q)]
+            want = r.search(st, q, k=SESSION_K)
+            for i, req in enumerate(reqs):
+                assert req.event.wait(120.0), "a request hung"
+                if req.error is not None:
+                    raise req.error
+                gs, gi = (np.asarray(a)[None] for a in req.result)
+                ws, wi = (a[i:i + 1].numpy() for a in want)
+                np.testing.assert_allclose(gs, ws, atol=1e-5, rtol=1e-5)
+                assert not topk_mismatches(gi, gs, wi, ws, 1e-5), (gi, wi)
+
+        sess.warm_shapes(*(a[0] for a in host))
+        one_at_a_time(state)
+        for name, op in steps:
+            if name == "compact":
+                for level, fn in enumerate(sess.search_fns):
+                    want = (r.search(state, q, k=SESSION_K) if level == 0
+                            else r.search_degraded(
+                                state, q, k=SESSION_K,
+                                rung=sess.degrade_rungs[level - 1]))
+                    _same(fn(*q), want, f"{backend} level {level}")
+            state = op(state)
+            {"add": lambda: sess.add(_rows(corpus, 40, 56)),
+             "upsert": lambda: sess.add(_rows(corpus, 10, 13),
+                                        doc_ids=list(MUT_UPSERT)),
+             "delete": lambda: sess.delete(list(MUT_DELETE)),
+             "compact": sess.compact}[name]()
+            (burst if name == "upsert" else one_at_a_time)(state)
+        sess.close()
+    if not sess.leader:
+        for _, op in steps:
+            state = op(state)
+    _same(r.search(sess.state, q, k=SESSION_K),
+          r.search(state, q, k=SESSION_K), f"{backend} after close")
+
+
+def check_follower_gone(mesh):
+    """A follower that dies: the first rank's next request fails within
+    the group's collective timeout (60 s), never hangs, and ``close``
+    raises. Runs alone (the group is broken after it)."""
+    import os
+    import time
+    r, state, q = _state("flat", "k_past_share")
+    sess = _session(r, r.shard(state, mesh))
+    host = tuple(a.numpy() for a in q)
+    if not sess.leader:
+        sess._run(*collectives.broadcast_op(mesh))     # the first request
+        _WORKDIR[0].joinpath(f"rank{dist.get_rank()}.json").write_text(
+            json.dumps({"follower_gone": "ok"}))
+        os._exit(0)
+    sess.query(*(a[0] for a in host), timeout=120.0)
+    time.sleep(1.0)
+    t0 = time.monotonic()
+    try:
+        sess.query(*(a[1] for a in host), timeout=120.0)
+    except TimeoutError:
+        raise AssertionError("the request hung past its own timeout")
+    except RuntimeError as e:
+        waited = time.monotonic() - t0
+        assert waited < 75.0, waited
+        print(f"follower gone: {type(e).__name__} after {waited:.1f} s")
+    else:
+        raise AssertionError("a request was served with a follower gone")
+    try:
+        sess.close()
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("close() reached a follower that is gone")
+
+
+def live_cases(world: int):
+    out = [(f"mutate_{b}_{v}", lambda z, m, b=b, v=v: check_mutate(m, b, v))
+           for v in MUT_VARIANTS for b in BACKENDS]
+    out += [(f"no_gather_{b}", lambda z, m, b=b: check_no_gather(m, b))
+            for b in BACKENDS if b != "hnsw"]
+    out += [(f"jax_mutation_{b}", lambda z, m, b=b: check_jax_mutation(
+        z, m, b)) for b in JAX_BACKENDS]
+    out += [(f"session_{b}", lambda z, m, b=b: check_session(m, b))
+            for b in (BACKENDS if world == 1 else ("flat", "cascade"))]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the reference's states, searched across ranks, against the reference's
 # unsharded search (its arrays and outputs in inputs.npz under jx/ and
 # jxout/): cascade 1e-4 (every rung and the floor too; the floor's Hamming
@@ -424,6 +674,7 @@ JAX_STATES = tuple(f"{b}_{v}" for b in JAX_BACKENDS
 JAX_TOL = {"cascade": 1e-4, "ivf": 1e-5, "hnsw": 1e-5, "hamming": 0.0}
 JAX_RERANK = {"cascade": 0, "ivf": 16, "hnsw": 16, "hamming": 0}
 JAX_K = 10
+JAX_DELETED = (2, 41, 85)   # the reference's segmented states' deletes
 
 
 def jax_cfg(backend):
@@ -591,12 +842,13 @@ def _full(x):
 
 def _agree(got, port, ref, tol, what):
     """A sharded result against the port's unsharded one and the
-    reference's (numpy)."""
+    reference's (numpy; None: the port's alone)."""
     got = _full(got).float().numpy()
     np.testing.assert_allclose(got, _full(port).float().numpy(), atol=tol,
                                rtol=tol, err_msg=f"{what} vs the port")
-    np.testing.assert_allclose(got, ref, atol=tol, rtol=tol,
-                               err_msg=f"{what} vs the reference")
+    if ref is not None:
+        np.testing.assert_allclose(got, ref, atol=tol, rtol=tol,
+                                   err_msg=f"{what} vs the reference")
 
 
 def _tree(z, prefix):
@@ -606,19 +858,25 @@ def _tree(z, prefix):
 
 def _same_params(got, port, z, prefix, tol, what, scale=False):
     """Named tensors (grads or params) in the reference's layout against
-    the port's and the reference's ``prefix`` arrays; ``scale`` takes the
-    tolerance relative to each leaf's largest value."""
+    the port's and the reference's ``prefix`` arrays (``z`` None: the
+    port's alone); ``scale`` takes the tolerance relative to each leaf's
+    largest value."""
     from repro_torch.convert import _flatten, params_to_numpy
     g = _flatten(params_to_numpy({k: _full(v) for k, v in got.items()}))
     p = _flatten(params_to_numpy({k: _full(v) for k, v in port.items()}))
-    assert set(g) == {k[len(prefix):] for k in z if k.startswith(prefix)}
+    if z is not None:
+        assert set(g) == {k[len(prefix):] for k in z if k.startswith(prefix)}
+    else:
+        assert set(g) == set(p)
     for key, val in g.items():
-        want = z[prefix + key]
+        want = p[key] if z is None else z[prefix + key]
         t_ = tol * max(1.0, float(np.abs(want).max())) if scale else tol
         np.testing.assert_allclose(val, p[key], atol=t_, rtol=tol,
                                    err_msg=f"{what} {key} vs the port")
-        np.testing.assert_allclose(val, want, atol=t_, rtol=tol,
-                                   err_msg=f"{what} {key} vs the reference")
+        if z is not None:
+            np.testing.assert_allclose(
+                val, want, atol=t_, rtol=tol,
+                err_msg=f"{what} {key} vs the reference")
 
 
 def _check_local_numel(shd, specs, params):
@@ -657,24 +915,35 @@ def _train(z, shd, specs, params, batch, bspecs, step, ocfg, pre, g, what,
         shd, opt.state_specs(specs, ocfg), st),
         sharding.shard_tree(shd, bspecs, batch), shd)
     _check_local_numel(shd, specs, placed)
-    _agree(m["loss"], m0["loss"], z[f"{pre}g{g}/loss"], FWD_TOL * 5,
-          f"{what} loss")
+    _agree(m["loss"], m0["loss"], None if z is None else
+           z[f"{pre}g{g}/loss"], FWD_TOL * 5, f"{what} loss")
     _same_params(new, new0, z, f"{pre}g{g}/step/", GRAD_TOL, what, scale)
     return placed
 
 
 def _check_lm(z, shd, arch, spec, pre, g, T):
     from repro_torch.convert import lm_params_from_numpy
-    from repro_torch.models import layers as L
     cfg = spec.smoke_config
-    g = g if cfg.is_moe else 1
     tree = _tree(z, pre + "p/")
-    model = lm_params_from_numpy(tree, cfg, device="cpu")
+    _lm_case(z, shd, arch, cfg,
+             lambda: lm_params_from_numpy(tree, cfg, device="cpu"),
+             t(z[pre + "in/tokens"]), t(z[pre + "in/targets"]), pre,
+             g if cfg.is_moe else 1, T)
+
+
+def _lm_case(z, shd, arch, cfg, make, tok, tgt, pre, g, T):
+    """An LM (``make()`` builds the same model each call) placed by
+    ``shd`` against the port's unplaced run and, with ``z``, the
+    reference's (``pre``): one train step, the grads, the forward,
+    prefill and its caches, and two decode steps (fed the reference's
+    greedy tokens, or the unplaced run's without ``z``)."""
+    from repro_torch.models import layers as L
+    model = make()
     params = T.params_of(model)
     specs = T.param_specs(cfg)
-    tok, tgt = t(z[pre + "in/tokens"]), t(z[pre + "in/targets"])
     batch = {"tokens": tok, "targets": tgt}
-    ref = lambda k: z[f"{pre}g{g}/{k}"]
+    ref = ((lambda k: z[f"{pre}g{g}/{k}"]) if z is not None
+           else (lambda k: None))
     grp = _Groups(g)
     ocfg = opt.AdamWConfig(moment_dtype="int8" if arch == "kimi" else "fp32")
     placed = _train(z, shd, specs, params, batch, T.batch_specs(),
@@ -690,8 +959,7 @@ def _check_lm(z, shd, arch, spec, pre, g, T):
             placed)
     _same_params(gr1, gr, z, f"{pre}g{g}/grad/", GRAD_TOL, f"{arch} grad")
     # the serving entry points on the module's own placed weights
-    served = T.shard_module(lm_params_from_numpy(tree, cfg, device="cpu"),
-                            shd, specs)
+    served = T.shard_module(make(), shd, specs)
     with torch.no_grad():
         h, aux, _ = served(db["tokens"], shd=shd)
         h0, aux0, _ = model(tok, shd=grp)
@@ -704,7 +972,8 @@ def _check_lm(z, shd, arch, spec, pre, g, T):
         _agree(cache.k, cache0.k, ref("cache_k"), FWD_TOL, f"{arch} cache k")
         _agree(cache.v, cache0.v, ref("cache_v"), FWD_TOL, f"{arch} cache v")
         for i in range(2):
-            feed = t(ref(f"feed{i}"))
+            feed = (t(ref(f"feed{i}")) if z is not None
+                    else lg0.argmax(-1).to(torch.int32))
             lg, cache = T.decode_step(served, sharding.shard_tree(
                 shd, ("batch",), feed), cache, LM_PROMPT + i, shd=shd)
             lg0, cache0 = T.decode_step(model, feed, cache0, LM_PROMPT + i,
@@ -722,6 +991,45 @@ def _check_lm(z, shd, arch, spec, pre, g, T):
     counts = {str(k): v for k, v in comm.get_comm_counts().items()}
     assert counts.get("c10d_functional.all_to_all_single") == 2, counts
     assert not gathers.shapes, gathers.shapes
+
+
+# F5: attention whose kv heads shard at model = 2, run under this host's
+# PyTorch with no reference: each smoke model takes its arch's head
+# layout (qwen2-1.5b 12/2, llama4-scout 40/8) at smoke widths, its weights
+# and biases drawn from a seed, placed on a (1, 2) mesh against the port's
+# own unplaced run (2e-5 forward, 5e-5 grads and the step's params)
+F5_ARCHS = {"qwen2": ("qwen2-1.5b", {"n_heads": 12, "n_kv_heads": 2,
+                                     "head_dim": 4}),
+            "scout": ("llama4-scout-17b-a16e", {"n_heads": 40,
+                                                "n_kv_heads": 8,
+                                                "head_dim": 4})}
+F5_MESH = (1, 2)
+
+
+def check_f5(arch):
+    import dataclasses
+    from repro_torch.models import transformer as T
+    name, heads = F5_ARCHS[arch]
+    cfg = dataclasses.replace(registry.get(name).smoke_config, **heads)
+
+    def make():
+        model = T.init(cfg, generator=torch.Generator().manual_seed(11),
+                       device="cpu")
+        gen = torch.Generator().manual_seed(12)
+        with torch.no_grad():       # norms and biases off their 1s and 0s
+            for prm in model.parameters():
+                if prm.dim() == 1:
+                    prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
+        return model
+
+    if F5_MESH not in _MESHES:
+        _MESHES[F5_MESH] = mesh_mod.make_host_mesh(F5_MESH, device="cpu")
+    shd = sharding.Sharder(_MESHES[F5_MESH])
+    rng = np.random.default_rng(13)
+    tok, tgt = (t(rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ), np.int32))
+                for _ in range(2))
+    torch.manual_seed(0)
+    _lm_case(None, shd, f"f5 {arch}", cfg, make, tok, tgt, None, 1, T)
 
 
 def _check_colpali(z, shd, arch, spec, pre, g, T):
@@ -884,7 +1192,15 @@ def check_dryrun(mesh, arch, shape):
     assert got["peak"] == max(peaks), peaks
 
 
-def main(rank: int, world: int, workdir: Path) -> int:
+SUITES = {"dist": cases, "live": live_cases,
+          "follower_gone": lambda world: [
+              ("follower_gone", lambda z, m: check_follower_gone(m))],
+          "f5": lambda world: [(f"f5_{a}", lambda z, m, a=a: check_f5(a))
+                               for a in F5_ARCHS]}
+NO_INPUTS = ("f5", "follower_gone")
+
+
+def main(rank: int, world: int, workdir: Path, suite: str = "dist") -> int:
     _WORKDIR.append(workdir)
     if world == 1:
         mesh_mod.open_local_group("cpu")
@@ -895,10 +1211,12 @@ def main(rank: int, world: int, workdir: Path) -> int:
             timeout=datetime.timedelta(seconds=60))
     mesh = mesh_mod.make_host_mesh(MESH[world], device="cpu")
     results = {}
-    with np.load(workdir.parent / "inputs.npz") as npz:
-        z = {k: npz[k] for k in npz.files}
+    z = {}
+    if suite not in NO_INPUTS:
+        with np.load(workdir.parent / "inputs.npz") as npz:
+            z = {k: npz[k] for k in npz.files}
     code = 0
-    for name, check in cases(world):
+    for name, check in SUITES[suite](world):
         try:
             check(z, mesh)
             results[name] = "ok"
@@ -907,10 +1225,11 @@ def main(rank: int, world: int, workdir: Path) -> int:
             code = 1
             break
     (workdir / f"rank{rank}.json").write_text(json.dumps(results))
-    if code == 0:
+    if code == 0 and suite != "follower_gone":
         dist.destroy_process_group()
     return code
 
 
 if __name__ == "__main__":
-    sys.exit(main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3])))
+    sys.exit(main(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]),
+                  *sys.argv[4:5]))

@@ -1565,6 +1565,45 @@ def test_sharded_search_equals_local_on_the_card(backend, segmented):
         assert torch.equal(again[1], sweep[1])
 
 
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("backend", ["flat", "float_flat", "hamming", "ivf",
+                                     "hnsw", "cascade"])
+def test_placed_mutation_equals_local_on_the_card(backend, segmented):
+    """A state placed on a one-rank NCCL mesh given an add under fresh
+    ids, upserts, deletes and a compaction: after each, still placed, and
+    every mutation and search launches what the unplaced state's does;
+    a sweep's answer (float_flat) bit for bit, the rest within 1e-4 with
+    ids outside near-ties."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.retrieval import Corpus
+    from repro_torch.retrieval.base import state_map
+    r, st, placed, q = _sharded_case(backend, segmented, seed=8)
+    d = _small_corpus(9, n=24)
+    dev = q.embeddings.device
+    delta = Corpus(*(a.to(dev) for a in (d.doc_patches, d.doc_mask,
+                                         d.doc_salience)))
+    steps = (lambda s: r.add(s, delta),
+             lambda s: r.add(s, Corpus(*(a[:2] for a in delta)),
+                             doc_ids=[7, 40]),
+             lambda s: r.delete(s, np.array([2, 44, 97, 500])),
+             lambda s: r.compact(s))
+    for op in steps:
+        st, n_want = _launched(lambda: op(st))
+        placed, n_got = _launched(lambda: op(placed))
+        assert n_got == n_want, (n_got, n_want)
+        leaves = []
+        state_map(leaves.append, placed)
+        assert all(isinstance(x, DTensor) for x in leaves)
+        want, n_want = _launched(lambda: r.search(st, q, k=10))
+        got, n_got = _launched(lambda: r.search(placed, q, k=10))
+        assert n_got == n_want and sum(n_got.values()) > 0, (n_got, n_want)
+        if backend == "float_flat":
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        else:
+            _assert_search_match(got, (want[0].cpu(), want[1].cpu()))
+
+
 def test_sharded_hamming_k512_uint16_on_the_card():
     """A K = 512 codebook: 9-bit Hamming codes and uint16 rerank codes
     placed through their byte views; the sweep equal bit for bit, the

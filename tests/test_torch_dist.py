@@ -359,14 +359,17 @@ def inputs(tmp_path_factory) -> Path:
     return path
 
 
-def _spawn(world: int, inputs: Path) -> dict:
-    """Run one world; -> {case: "ok" or what went wrong}."""
-    workdir = inputs.parent / f"world{world}"
+def _spawn(world: int, inputs: Path, suite: str = "dist") -> dict:
+    """Run one world of the rank script's ``suite``; -> {case: "ok" or
+    what went wrong}."""
+    cases = [c for c, _ in ranks.SUITES[suite](world)]
+    workdir = inputs.parent / (f"world{world}" if suite == "dist"
+                               else f"{suite}{world}")
     workdir.mkdir()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
-    if world == ranks.DRYRUN_WORLD:
+    if suite == "dist" and world == ranks.DRYRUN_WORLD:
         # the fake-group traces the ranks' real runs are held to, made in
         # a process of their own (each opens its default group)
         out = inputs.parent / ranks.FAKE_TRACES
@@ -379,10 +382,10 @@ def _spawn(world: int, inputs: Path) -> dict:
                              timeout=SPAWN_TIMEOUT)
         if got.returncode:
             return {c: f"the fake traces failed:\n{got.stderr[-4000:]}"
-                    for c, _ in ranks.cases(world)}
+                    for c in cases}
     procs = [subprocess.Popen(
         [sys.executable, str(Path(ranks.__file__)), str(r), str(world),
-         str(workdir)], env=env, stdout=subprocess.PIPE,
+         str(workdir), suite], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     deadline = time.monotonic() + SPAWN_TIMEOUT
     outs = {}
@@ -393,7 +396,7 @@ def _spawn(world: int, inputs: Path) -> dict:
                 outs[r] = p.communicate(timeout=left)[0]
             except subprocess.TimeoutExpired:
                 return {c: f"rank {r} of {world} hung past "
-                           f"{SPAWN_TIMEOUT} s" for c, _ in ranks.cases(world)}
+                           f"{SPAWN_TIMEOUT} s" for c in cases}
     finally:
         for p in procs:
             if p.poll() is None:
@@ -404,11 +407,10 @@ def _spawn(world: int, inputs: Path) -> dict:
         got = workdir / f"rank{r}.json"
         if not got.exists():
             return {c: f"rank {r} of {world} exited {p.returncode} without "
-                       f"results:\n{outs[r][-4000:]}"
-                    for c, _ in ranks.cases(world)}
+                       f"results:\n{outs[r][-4000:]}" for c in cases}
         per_rank.append(json.loads(got.read_text()))
     results = {}
-    for case, _ in ranks.cases(world):   # ok only if every rank says so
+    for case in cases:   # ok only if every rank says so
         bad = [f"rank {r}: {res.get(case, 'not run')}"
                for r, res in enumerate(per_rank) if res.get(case) != "ok"]
         results[case] = bad[0] if bad else "ok"
