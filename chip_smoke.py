@@ -22,7 +22,11 @@ any failure exits non-zero, and no phase's error is swallowed:
      all-masked docs, an id past the corpus scoring NaN; and through a
      segment table of 1, 2 and 5 segments with capacity-8 ones) and with one
      query per block on the shared corpus; kmeans_assign also at a cascade
-     batch's query codes (256 x 128);
+     batch's query codes (256 x 128); hamming_maxsim's per-range top-k
+     lists (stage 1's one launch) bit for bit at the stage-1 sweep of
+     16384 pages (k = p1 and 32), a live state's segments, tied codes,
+     strided per-query pools with valid, all-masked pages, at bits 8 and
+     9 (the table body) and 12 (the popcount body);
   4. flat path at full ColPali width: build a flat index over 16384
      synthetic pages (1024 patches of D=128, pruned to 615, K=256), warm
      every ladder rung and serve 64 requests through
@@ -40,7 +44,11 @@ any failure exits non-zero, and no phase's error is swallowed:
      launches, so host overhead is not counted), beside each kernel's
      bound, printed as one ``{"kernels": [...]}`` JSON line
      (quantized_maxsim: the flat sweep, the rerank and stage 2, beside the
-     shared-memory load bound as well; maxsim: stage 3's pools read
+     shared-memory load bound as well; hamming_maxsim: stage 1's one
+     launch over 16384 pages and one 256-page block, the same sweep as
+     the per-block loop of launches and merges stage 1 ran before, the
+     launch at half, once and twice its range length and at bits 9-12
+     (both bodies); maxsim: stage 3's pools read
      through their ids and pre-gathered, and a float_flat block with all
      queries per block and with one; kmeans_assign at the build's shape
      and at 256 x 128; for maxsim and kmeans_assign the f32 FMA and
@@ -318,8 +326,12 @@ PEAK_TF32_FLOPS = 495e12
 LDS_PER_CLK_PER_SM = 32
 # 32-bit population counts per clock per SM at compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic-instruction throughput table):
-# the rate that bounds hamming_maxsim. Times the SM count and max SM clock.
+# the rate that bounded hamming_maxsim's earlier design, a popcount per
+# pair. Times the SM count and max SM clock.
 POPC_PER_CLK_PER_SM = 16
+# 32-bit integer add, compare and min results per clock per SM at compute
+# capability 9.0 (the same table): hamming_maxsim's operations bound
+INT_OPS_PER_CLK_PER_SM = 64
 
 # phase 7, the live cascade: a base build of the first N_BASE docs, the
 # rest added as one capacity-2048 segment, 5 upserts of existing ids, 512
@@ -732,10 +744,21 @@ def _check_first_batch(torch, np, run, cpu_state, tol) -> int:
     return int((srv_i != cpu_i).sum())
 
 
+def _stage1_launches(cap: int, b: int = MAX_BATCH) -> int:
+    """hamming_maxsim launches of stage 1 over a segment of ``cap`` slots:
+    one per chunk of whole ranges whose lists stay within the scan's
+    MAX_CANDIDATES entries (one for every segment of these runs)."""
+    from repro_torch.core import scan as scan_mod
+    from repro_torch.kernels import hamming as hm
+    r = hm.launch_range_len(b, N_Q_PATCHES, cap, BITS, "cuda")
+    chunk = r * max(1, scan_mod.MAX_CANDIDATES // (b * min(P1, r)))
+    return math.ceil(cap / chunk)
+
+
 def _casc_per_batch(r, state):
     """Kernel launches of one cascade search of a batch on ``state``."""
     seg = r.backend._segmented(state)
-    return {"hamming_maxsim": sum(math.ceil(lv.shape[0] / BLOCK_DOCS)
+    return {"hamming_maxsim": sum(_stage1_launches(lv.shape[0])
                                   for lv in seg.live),
             "quantized_maxsim": 1, "maxsim": math.ceil(P2 / BLOCK_DOCS),
             "kmeans_assign": 1}
@@ -935,7 +958,7 @@ def _live_phase(args, torch, np, dev, smi, spec, cfg, cfg_c, flat_s,
     per_batch = _casc_per_batch(r, cur)
     caps = [lv.shape[0] for lv in r.backend._segmented(cur).live]
     print(f"one batch on segments {caps}: launches {one}, expected "
-          f"{per_batch} (hamming: sum of ceil(cap / {BLOCK_DOCS}))")
+          f"{per_batch} (hamming: one launch per segment chunk)")
     assert one == per_batch, "segmented launches off"
     t1 = time.perf_counter()
     cpu_state = state_to(cur, "cpu")
@@ -4749,6 +4772,7 @@ def _launch_checks(torch, dev, kernel_mods):
     dtypes = {"quantized_maxsim": (torch.float32,),
               "quantized_maxsim_topk": (torch.float32, torch.int32),
               "maxsim": (torch.float32,), "hamming_maxsim": (torch.int32,),
+              "hamming_maxsim_topk": (torch.int32, torch.int32),
               "kmeans_assign": (torch.int32,)}
     budget = vmem.device_budget(dev)
     regs, regs_from = _fresh_registers(torch)
@@ -5168,6 +5192,7 @@ def main(argv=None) -> int:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     lds_per_s = LDS_PER_CLK_PER_SM * n_sm * max_sm_mhz * 1e6
     popc_per_s = POPC_PER_CLK_PER_SM * n_sm * max_sm_mhz * 1e6
+    int_ops_per_s = INT_OPS_PER_CLK_PER_SM * n_sm * max_sm_mhz * 1e6
     print(f"device: {kind} | count {count} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {n_sm} SMs, max SM clock "
           f"{max_sm_mhz:.0f} MHz -> {lds_per_s:.3e} shared-memory loads/s, "
@@ -5298,11 +5323,25 @@ def main(argv=None) -> int:
               f"{err:.3e} over live docs, positions equal outside near-ties")
     del topk_cases
 
-    # hamming_maxsim, bit for bit: stage 1's block (uint16 codes, as the
-    # HammingIndex stores them), ragged, all-masked, strided per-query
-    # pools, and 9-bit codes of a K=512 codebook
+    # hamming_maxsim, bit for bit: the scores entry at stage 1's 256-page
+    # block (uint16 codes, as the HammingIndex stores them), ragged,
+    # all-masked, strided per-query pools; the per-range top-k entry (stage
+    # 1's one launch) at the stage-1 sweep of N_DOCS pages (k = p1 and
+    # 32), a live state's segments, codes tied by windows of 4 entries,
+    # strided per-query pools with valid, all-masked pages. Bits 8 and 9
+    # (a K=512 codebook) run the table body, bits 12 the popcount body
     q_w = q_mask.to(torch.int32)
-    for bits, k_codes in ((BITS, K), (9, 512)):
+
+    def tied(*shape, k_codes, window=4):
+        """Codes from a window of ``window`` entries per leading row: the
+        rows share codes, and so scores."""
+        base = torch.randint(0, k_codes - window + 1, shape[:-1] + (1,),
+                             generator=gen, device=dev)
+        return (base + torch.randint(0, window, shape, generator=gen,
+                                     device=dev)).to(torch.uint16)
+
+    n_topk_checks = 0
+    for bits, k_codes in ((BITS, K), (9, 512), (12, 4096)):
         q_codes = torch.randint(0, k_codes, (MAX_BATCH, N_Q_PATCHES),
                                 generator=gen, device=dev, dtype=torch.int32)
         h_pool = codes_mask(MAX_BATCH, 3 * P2, md_kept, k=k_codes,
@@ -5327,6 +5366,41 @@ def main(argv=None) -> int:
         want = (-(2 ** 20) * q_w.sum(1)).to(torch.int32)[:, None]
         assert torch.equal(dead, want.expand_as(dead)), \
             "all-masked docs != sum qm * -(2**20)"
+        sw_c, sw_m = codes_mask(N_DOCS, md_kept, k=k_codes, dtype=torch.uint16)
+        sw_m[::97] = False
+        sw_v = torch.rand(N_DOCS, generator=gen, device=dev) < 0.95
+        tie_c = tied(N_DOCS, md_kept, k_codes=k_codes)
+        tie_q = tied(MAX_BATCH, N_Q_PATCHES, k_codes=k_codes).to(torch.int32)
+        pool_v = torch.rand((MAX_BATCH, P2), generator=gen, device=dev) < 0.9
+        topk_cases = [
+            ("stage-1 sweep", q_codes, sw_c, sw_m, None, P1),
+            ("stage-1 sweep", q_codes, sw_c, sw_m, sw_v, 32),
+            ("tied sweep", tie_q, tie_c, sw_m, sw_v, P1),
+            ("tied sweep", tie_q, tie_c, sw_m, None, 32),
+            *((f"live segment {a}-{e}", q_codes, sw_c[a:e], sw_m[a:e],
+               sw_v[a:e], P1)
+              for a, e in ((0, N_BASE), (N_BASE, N_DOCS),
+                           (N_DOCS - 8, N_DOCS))),
+            ("per-query, strided", q_codes,
+             *(a[:, P2:2 * P2] for a in h_pool), pool_v, 16),
+            ("all-masked docs", q_codes, *h_dead, None, P1)]
+        for name, qc_, c, m, v, k_top in topk_cases:
+            r = hm.launch_range_len(MAX_BATCH, N_Q_PATCHES, c.shape[-2], bits,
+                                    dev, c.dim() == 3)
+            got = hm.hamming_maxsim_topk_cuda(qc_, q_w, c, m, v, bits=bits,
+                                              k=k_top)
+            want = hm.hamming_maxsim_topk_plain(qc_, q_w, c, m, v, bits=bits,
+                                                k=k_top, range_len=r)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and \
+                torch.equal(got[1], want[1]), \
+                f"hamming_maxsim_topk {name} bits {bits} k {k_top}"
+            n_topk_checks += 1
+            ties = int((got[0][:, :, 1:] == got[0][:, :, :-1]).sum())
+            print(f"hamming_maxsim_topk {name}: {tuple(c.shape)} bits {bits} "
+                  f"k={k_top} R={r} -> lists {tuple(got[0].shape)} "
+                  f"({ties} tied neighbours): equal to the plain version")
+        del sw_c, sw_m, sw_v, tie_c, h_pool, h_dead
     # phase 9c's hamming retriever: 64 queries of 4 patches, 9-bit codes
     rag_qc = torch.randint(0, 512, (RAG_QUERIES, RAG_Q_PATCHES),
                            generator=gen, device=dev, dtype=torch.int32)
@@ -5539,10 +5613,10 @@ def main(argv=None) -> int:
     st = run.stats
     n_batches_c = sum(v["batches"] for v in st["rungs"].values())
     n_warm_c = len(run.ladder)
-    # per searched batch: stage 1 sweeps N in blocks, stage 2 the p1 pool
-    # in one launch, stage 3 the p2 pool; stage 1 quantizes the queries
-    # once; the build quantizes the corpus once
-    casc_per_batch = {"hamming_maxsim": math.ceil(N_DOCS / BLOCK_DOCS),
+    # per searched batch: stage 1 sweeps N in one launch, stage 2 the p1
+    # pool in one launch, stage 3 the p2 pool; stage 1 quantizes the
+    # queries once; the build quantizes the corpus once
+    casc_per_batch = {"hamming_maxsim": _stage1_launches(N_DOCS),
                       "quantized_maxsim": 1,
                       "maxsim": math.ceil(P2 / BLOCK_DOCS),
                       "kmeans_assign": 1}
@@ -5680,41 +5754,89 @@ def main(argv=None) -> int:
     rr_lds_bound = rr_ops / lds_per_s * 1e3
     del codes, mask, rr_codes, rr_mask
 
-    # hamming_maxsim on the cascade's stage 1 (the first batch's codes)
+    # hamming_maxsim on the cascade's stage 1 (the first batch's codes):
+    # its one launch over the N_DOCS pages (k = p1, every slot valid, as
+    # the scan calls it) and over one 256-page block, the plain version,
+    # the sweep as the per-block loop of scores launches and merges stage 1
+    # ran before (scan._streaming_topk), the launch at half, once and
+    # twice its range length, and at bits 9-12 (the table body up to 10,
+    # the popcount body above)
     qc32 = q_codes.to(torch.int32).contiguous()
     qw32 = q_m.to(dev).to(torch.int32).contiguous()
-    h_blocks = [(idx.codes[i:i + BLOCK_DOCS], idx.mask[i:i + BLOCK_DOCS])
-                for i in range(0, N_DOCS, BLOCK_DOCS)]
-    h_blk = h_blocks[0]
+    h_valid = torch.ones(N_DOCS, dtype=torch.bool, device=dev)
+    h_blk = (idx.codes[:BLOCK_DOCS], idx.mask[:BLOCK_DOCS])
+    s1_r = hm.launch_range_len(MAX_BATCH, N_Q_PATCHES, N_DOCS, BITS, dev)
 
-    def scan(score, blks):
-        """One sweep's kernel launches, without the merges."""
-        def run_blocks():
-            for c, m in blks:
-                score(c, m)
-        return run_blocks
+    def h_topk(c, m, v, fn=hm.hamming_maxsim_topk_cuda, r=None, bits=BITS,
+               qc=qc32):
+        r = r or hm.launch_range_len(MAX_BATCH, N_Q_PATCHES, c.shape[-2],
+                                     bits, dev)
+        return lambda: fn(qc, qw32, c, m, v, bits=bits, k=P1, range_len=r)
 
-    ham_ms = _time_ms(torch, lambda: hm.hamming_maxsim_cuda(
-        qc32, qw32, *h_blk, BITS), 200)
-    ham_plain_ms = _time_ms(torch, lambda: hm.hamming_maxsim_plain(
-        qc32, qw32, *h_blk, BITS), 10)
-    ham_stage1_ms = _time_ms(torch, scan(
+    def h_cost(c, m, v, bits=BITS):
+        """(bytes, integer operations) of one top-k launch: every input
+        read once, the lists written once; a flag per valid slot, the
+        distance transform of each page's 2^bits codes (bits passes) and
+        a lookup per query patch and page."""
+        n_ = c.shape[-2]
+        r = hm.launch_range_len(MAX_BATCH, N_Q_PATCHES, n_, bits, dev)
+        lists = MAX_BATCH * -(-n_ // r) * min(P1, r) * 8
+        n_bytes, _ = _hamming_cost(qc32, c, m)
+        n_bytes += v.numel() * v.element_size() + lists - MAX_BATCH * n_ * 4
+        ops = (int(m.sum()) + n_ * (1 << bits) * bits
+               + MAX_BATCH * N_Q_PATCHES * n_)
+        return n_bytes, ops
+
+    ham_ms = _time_ms(torch, h_topk(idx.codes, idx.mask, h_valid), 50)
+    ham_plain_ms = _time_ms(torch, h_topk(
+        idx.codes, idx.mask, h_valid, hm.hamming_maxsim_topk_plain), 2)
+    ham_blk_ms = _time_ms(torch, h_topk(*h_blk, h_valid[:BLOCK_DOCS]), 200)
+    ham_blk_plain_ms = _time_ms(torch, h_topk(
+        *h_blk, h_valid[:BLOCK_DOCS], hm.hamming_maxsim_topk_plain), 10)
+    ham_by_range = {rr: _time_ms(torch, h_topk(idx.codes, idx.mask, h_valid,
+                                               r=rr), 50)
+                    for rr in (s1_r // 2, s1_r, 2 * s1_r)
+                    if hm.MIN_RANGE <= rr <= hm.MAX_RANGE}
+    ham_by_bits = {}
+    for bits in (9, 10, 11, 12):
+        qcb = torch.randint(0, 1 << bits, qc32.shape, generator=gen,
+                            device=dev, dtype=torch.int32)
+        cb_, mb_ = codes_mask(N_DOCS, md_kept, k=1 << bits,
+                              dtype=torch.uint16)
+        ham_by_bits[bits] = _time_ms(torch, h_topk(cb_, mb_, h_valid,
+                                                   bits=bits, qc=qcb), 10)
+        del cb_, mb_
+    s1_ids = torch.arange(N_DOCS, dtype=torch.int32, device=dev)
+    ham_loop_ms = _time_ms(torch, lambda: scan_mod._streaming_topk(
         lambda c, m: hm.hamming_maxsim_cuda(qc32, qw32, c, m, BITS),
-        h_blocks), 10)
-    ham_stage1_plain_ms = _time_ms(torch, scan(
-        lambda c, m: hm.hamming_maxsim_plain(qc32, qw32, c, m, BITS),
-        h_blocks), 2)
+        (idx.codes, idx.mask), s1_ids, h_valid, b=MAX_BATCH, n=N_DOCS, k=P1,
+        block_docs=BLOCK_DOCS, per_query=False, score_dtype=torch.int32), 10)
+    ham_loop_launches = math.ceil(N_DOCS / BLOCK_DOCS)
+    ham_merge_ms = _time_ms(torch, lambda: scan_mod.hamming_maxsim_topk(
+        qc32, qw32, idx.codes, idx.mask, bits=BITS, k=P1), 20)
     # matmul-only yardstick: bits - popc(a ^ b) = (bits + <sa, sb>) / 2 for
     # the codes' +-1 bit vectors sa, sb; one (B*Mq, b) x (b, T*Md) product
+    # over one 256-page block
     bit = torch.arange(BITS, device=dev)
     q_pm = (((qc32[..., None] >> bit) & 1) * 2 - 1).float().reshape(-1, BITS)
     d_pm = (((h_blk[0].to(torch.int32)[..., None] >> bit) & 1) * 2 - 1) \
         .float().reshape(-1, BITS).t().contiguous()
     ham_mm_ms = _time_ms(torch, lambda: torch.matmul(q_pm, d_pm), 50)
-    ham_bytes, ham_ops = _hamming_cost(qc32, *h_blk)
-    ham_bound, ham_by = _bound(ham_bytes, ham_ops, popc_per_s)
-    s1_bytes, s1_ops = _hamming_cost(qc32, idx.codes, idx.mask)
-    s1_bound, s1_by = _bound(s1_bytes, s1_ops, popc_per_s)
+    ham_bytes, ham_ops = h_cost(idx.codes, idx.mask, h_valid)
+    ham_bound, ham_by = _bound(ham_bytes, ham_ops, int_ops_per_s)
+    blk_bytes, blk_ops = h_cost(*h_blk, h_valid[:BLOCK_DOCS])
+    ham_blk_bound, ham_blk_by = _bound(blk_bytes, blk_ops, int_ops_per_s)
+    # the design before this one spent a popcount per (query patch, valid
+    # page patch) pair: its operations bound, for the record
+    _, pairs = _hamming_cost(qc32, idx.codes, idx.mask)
+    ham_popc_bound = pairs / popc_per_s * 1e3
+    print(f"hamming_maxsim_topk stage-1 sweep: {ham_ms * 1e3:.2f} us (one "
+          f"launch, R={s1_r}; bound {ham_bound * 1e3:.2f} us by {ham_by}); "
+          f"one 256-page block {ham_blk_ms * 1e3:.2f} us (bound "
+          f"{ham_blk_bound * 1e3:.3f} us); by range {ham_by_range}; by bits "
+          f"{ham_by_bits}; the per-block loop ({ham_loop_launches} scores "
+          f"launches + merges) {ham_loop_ms:.3f} ms; scan (launch + merge) "
+          f"{ham_merge_ms:.3f} ms")
 
     # maxsim on the cascade's stage 3: the first batch's p2 pool, read
     # through its ids as search_float_flat_candidates hands it over, and
@@ -5798,7 +5920,7 @@ def main(argv=None) -> int:
     print(f"served flat batch: {flat_batch_ms:.1f} ms of serving window per "
           f"batch")
     casc_s, casc_retriever = s, run.retriever     # phase 13d's
-    del run, s, casc, ham_v, flat_v, ff_v, ff, fm, idx, h_blocks, h_blk, \
+    del run, s, casc, ham_v, flat_v, ff_v, ff, fm, idx, h_blk, h_valid, \
         flat, f_ids, \
         pool_emb, pool_mask, pool_flat, f_blk, f_blk_m, fblk_flat, s2_codes, \
         s2_mask, s2_valid, rows2
@@ -5993,13 +6115,22 @@ def main(argv=None) -> int:
          "bound_by": ham_by, "library_ms": None,
          "f32_fma_bound_ms": None, "tf32x3_bound_ms": None,
          "ms_over_bound": ham_ms / ham_bound,
+         "int_ops_per_s": int_ops_per_s,
+         "shape": f"stage 1's launch: B={MAX_BATCH} Mq={N_Q_PATCHES} "
+                  f"bits={BITS} {N_DOCS} docs x Md={md_kept} uint16, "
+                  f"per-range top-{P1}, ranges of {s1_r}",
+         "range_len": s1_r, "ms_by_range_len": ham_by_range,
+         "ms_by_bits": ham_by_bits,
+         "topk_checks_equal": n_topk_checks,
+         "block_ms": ham_blk_ms, "block_plain_ms": ham_blk_plain_ms,
+         "block_bound_ms": ham_blk_bound, "block_bound_by": ham_blk_by,
+         "block_shape": f"one {BLOCK_DOCS}-page block, the same launch",
+         "per_block_loop_ms": ham_loop_ms,
+         "per_block_loop_launches": ham_loop_launches,
+         "scan_launch_and_merge_ms": ham_merge_ms,
+         "popcount_design_bound_ms": ham_popc_bound,
          "popcounts_per_s": popc_per_s,
-         "shape": f"one stage-1 block: B={MAX_BATCH} Mq={N_Q_PATCHES} "
-                  f"bits={BITS} {BLOCK_DOCS} docs x Md={md_kept} uint16",
-         "stage1_ms_per_batch": ham_stage1_ms,
-         "stage1_plain_ms_per_batch": ham_stage1_plain_ms,
-         "stage1_bound_ms": s1_bound, "stage1_bound_by": s1_by,
-         "pm1_matmul_only_yardstick_ms": ham_mm_ms},
+         "pm1_matmul_only_yardstick_ms_one_block": ham_mm_ms},
         {"name": "maxsim", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/maxsim.cu",
          "replaces": "src/repro/kernels/maxsim.py:80",

@@ -137,25 +137,84 @@ COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional",
                          "_c10d_functional_autograd")
 
 
-def _group_ranks(args) -> Optional[Tuple[int, ...]]:
-    """The global ranks of the process group among a collective's
-    arguments: a ``ProcessGroup`` (the c10d ops) or its name (the
-    functional ones)."""
+def _group_of(args):
+    """The process group among a collective's arguments: a
+    ``ProcessGroup`` (the c10d ops) or its name (the functional ones)."""
     from torch.distributed.distributed_c10d import _resolve_process_group
     for a in args:
         if isinstance(a, str):
             try:
-                pg = _resolve_process_group(a)
+                return _resolve_process_group(a)
             except (KeyError, RuntimeError, ValueError):
                 continue
         elif isinstance(a, torch.ScriptObject):
-            pg = dist.ProcessGroup.unbox(a)
+            return dist.ProcessGroup.unbox(a)
         elif isinstance(a, dist.ProcessGroup):
-            pg = a
-        else:
-            continue
-        return tuple(dist.get_process_group_ranks(pg))
+            return a
     return None
+
+
+def _group_ranks(args) -> Optional[Tuple[int, ...]]:
+    """The global ranks of a collective's process group."""
+    pg = _group_of(args)
+    return None if pg is None else tuple(dist.get_process_group_ranks(pg))
+
+
+def _settled_collective(func, args, kwargs):
+    """Run a collective on gloo so that no buffer the recorder tracks
+    outlives it on gloo's side. Gloo's worker thread keeps a collective's
+    tensors until it comes back for its next work, after the collective
+    has completed; a tracked storage it held was then freed whenever that
+    thread ran, and a rank's recorded peak moved with the load on the
+    host (ROADMAP F6). Here the collective gets untracked copies of its
+    tensor arguments and is waited for at once; what it wrote goes back
+    into the caller's mutated arguments, and a fresh output is copied
+    into a tensor of the caller's own. The values, and the ops recorded,
+    are those of the plain call."""
+    from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+    flat, spec = tree_flatten((args, kwargs))
+    copies = {}
+    given = []
+    for a in flat:
+        if isinstance(a, torch.Tensor):
+            c = a.clone()
+            copies[id(c)] = a
+            a = c
+        given.append(a)
+    c_args, c_kwargs = tree_unflatten(given, spec)
+    out = func(*c_args, **c_kwargs)
+    for o in tree_leaves(out):
+        if isinstance(o, torch.ScriptObject):     # the c10d ops' Work
+            dist.Work.unbox(o).wait()
+    if func.namespace != "c10d":
+        for o in tree_leaves(out):
+            if isinstance(o, torch.Tensor):
+                torch.ops._c10d_functional.wait_tensor(o)
+    # the c10d ops write into their tensor arguments with no mark in their
+    # schemas; the functional ones mark what they write
+    written = {id(t) for i, arg in enumerate(func._schema.arguments)
+               if func.namespace == "c10d" or (
+                   arg.alias_info is not None and arg.alias_info.is_write)
+               for t in tree_leaves(args[i] if i < len(args)
+                                    else kwargs.get(arg.name))
+               if isinstance(t, torch.Tensor)}
+    for c, a in zip(given, flat):
+        if id(a) in written:
+            a.copy_(c)
+
+    def back(o):
+        if not isinstance(o, torch.Tensor):
+            return o
+        if id(o) in copies:
+            return copies[id(o)]
+        return o.clone()
+
+    return tree_map(back, out)
+
+
+def _on_gloo(args) -> bool:
+    pg = _group_of(args)
+    return pg is not None and dist.get_backend(pg) == "gloo"
 
 
 # depth of DTensor's metadata computations now running (ops on tensors
@@ -328,7 +387,11 @@ class Recorder(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if _is_dtensor_op(types):  # its local ops come back here
             return NotImplemented
-        out = func(*args, **(kwargs or {}))
+        if (getattr(func, "namespace", None) in COLLECTIVE_NAMESPACES
+                and not _SHADOW[0] and _on_gloo(args)):
+            out = _settled_collective(func, args, kwargs or {})
+        else:
+            out = func(*args, **(kwargs or {}))
         tensors = _leaves(out)
         if not tensors or _SHADOW[0]:   # metadata queries, shadow ops
             return out

@@ -18,15 +18,16 @@ registered site (``kernel_sites``) — no card, no build:
          build (``chip_smoke.py`` phase 14).
   PAL02  divisibility: an axis a launcher needs to tile exactly does not.
          None of the four needs one — each masks its own ragged edge:
-         ``hamming_maxsim`` skips docs >= N, ``kmeans_assign`` rows >= N
-         (and pads D to 16 with zeros), ``maxsim`` walks docs < n_out and
-         masks patches >= Md, ``quantized_maxsim`` takes a last range of
-         N - r0 positions and pads a list shorter than k.
+         ``kmeans_assign`` rows >= N (and pads D to 16 with zeros),
+         ``maxsim`` walks docs < n_out and masks patches >= Md,
+         ``quantized_maxsim`` and ``hamming_maxsim`` take a last range of
+         N - r0 positions and pad a list shorter than k.
   PAL03  coverage: enumerating the grid, an output element written by no
          block or by more than one (for the per-range top-k: each
          (query, range) list written once, the lists one merge combines).
   PAL04  dtype: an output dtype differs from the site's contract (f32
-         scores, int32 Hamming scores, int32 codes, f32 + int32 lists).
+         scores, int32 Hamming scores, int32 codes, f32 + int32 lists,
+         int32 + int32 Hamming lists).
 
 Findings anchor at the launcher's line in its ``csrc`` source.
 ``python -m repro_torch.analysis --pallas`` runs every registered site.
@@ -66,11 +67,12 @@ _SOURCES = {
     "quantized_maxsim_topk": "quantized_maxsim",
     "maxsim": "maxsim",
     "hamming_maxsim": "hamming_maxsim",
+    "hamming_maxsim_topk": "hamming_maxsim",
     "kmeans_assign": "kmeans_assign",
 }
 _LAUNCHERS = {"quantized_maxsim": "int launch(const Params& p",
               "maxsim": "cudaError_t launch(const Params& prm",
-              "hamming_maxsim": "int launch(const int32_t* q_codes",
+              "hamming_maxsim": "int launch(const Params& p, size_t smem",
               "kmeans_assign": "cudaError_t launch(const float* x"}
 
 
@@ -311,11 +313,26 @@ def maxsim_site(name: str, *, layout: int, b: int, mq: int, n_out: int,
 
 
 def hamming_site(name: str, *, b: int, n: int, mq: int, md: int,
-                 bits: int = 8, notes: str = "") -> KernelSite:
-    return KernelSite(name, lambda budget: vmem.hamming_geometry(b, n, bits),
-                      ("hpc_hamming_geometry", (b, n, bits)), (_I32,), notes,
-                      (("kernel", "hamming_maxsim"), ("b", b), ("n", n),
-                       ("mq", mq), ("md", md), ("bits", bits)))
+                 bits: int = 8, top_k: int = 0, per_query: bool = False,
+                 notes: str = "") -> KernelSite:
+    """A Hamming launch: the per-range top-k of a sweep (``top_k`` > 0,
+    range length as ``launch_range_len`` picks it) or the scores entry."""
+    from repro_torch.kernels.hamming import BLOCKS_PER_SM, MAX_RANGE, MIN_RANGE
+
+    def args(budget):
+        qpb = max(1, vmem.hamming_queries_per_block(b, mq, bits, per_query))
+        r = MAX_RANGE
+        while r > MIN_RANGE and -(-b // qpb) * -(-n // r) < \
+                BLOCKS_PER_SM * budget.sm_count:
+            r //= 2
+        return (b, mq, n, md, bits, int(per_query), r, min(top_k, r))
+
+    return KernelSite(name, lambda budget: vmem.hamming_geometry(
+        *args(budget)), ("hpc_hamming_geometry", args(vmem.Budget())),
+        (_I32, _I32) if top_k else (_I32,), notes,
+        (("kernel", "hamming_maxsim"), ("b", b), ("n", n), ("mq", mq),
+         ("md", md), ("bits", bits), ("top_k", top_k),
+         ("per_query", int(per_query))))
 
 
 def kmeans_site(name: str, *, n: int, k: int, d: int,
@@ -360,8 +377,9 @@ _SITES: Tuple[KernelSite, ...] = (
                 md=1024, d=128, notes="cascade stage 3 by id"),
     maxsim_site("maxsim_float_flat_block", layout=0, b=8, mq=32, n_out=256,
                 md=1024, d=128, notes="one float_flat block"),
-    hamming_site("hamming_stage1_block", b=8, n=256, mq=32, md=615,
-                 notes="one 256-doc block of the cascade's stage 1"),
+    hamming_site("hamming_stage1_sweep", b=8, n=16384, mq=32, md=615,
+                 top_k=1024, notes="the cascade's stage 1: one launch for "
+                 "the sweep of 16384 docs, k = p1"),
     kmeans_site("kmeans_assign_build", n=16_777_216, k=256, d=128,
                 notes="quantizing the main path's corpus"),
     kmeans_site("kmeans_assign_query_rows", n=256, k=256, d=128,
@@ -454,10 +472,13 @@ def launch_site(site: KernelSite, device="cuda", seed: int = 0) -> dict:
     elif kernel == "hamming_maxsim":
         b, n, mq, md, bits = (dims[x] for x in ("b", "n", "mq", "md",
                                                 "bits"))
+        shape = (b, n, md) if dims["per_query"] else (n, md)
         qc = ints(1 << bits, b, mq, dtype=torch.int32)
         args = (qc, torch.ones(b, mq, dtype=torch.int32, device=dev),
-                ints(1 << bits, n, md).to(torch.uint16), valid(n, md))
-        call = (lambda: hamming.hamming_maxsim_cuda(*args, bits))
+                ints(1 << bits, *shape).to(torch.uint16), valid(*shape))
+        call = (lambda: hamming.hamming_maxsim_topk_cuda(
+            *args, None, bits=bits, k=dims["top_k"])) if dims["top_k"] \
+            else (lambda: hamming.hamming_maxsim_cuda(*args, bits))
     else:
         x, c = rand(dims["n"], dims["d"]), rand(dims["k"], dims["d"])
         call = (lambda: kmeans_assign.kmeans_assign_cuda(x, c))

@@ -6,16 +6,17 @@ CUDA tensors, its plain version for CPU tensors (see ``resolve_impl``).
 Neither the (B, Mq, N, Md) similarity tensor nor the (B, N) score matrix
 ever exists:
 
-  * the float and Hamming sweeps score fixed-size doc blocks, one launch
-    each, and fold each block into a running (B, k) top-k merge buffer;
-  * the ADC sweep (``quantized_maxsim_topk``) scores contiguous ranges of
-    positions and keeps each range's top min(k, R) (score, position)
-    pairs; on a CUDA tensor one launch does every range of the sweep, and
-    the ranges' lists are merged once. Its candidate buffer is
+  * the float sweep scores fixed-size doc blocks, one launch each, and
+    folds each block into a running (B, k) top-k merge buffer;
+  * the ADC and Hamming sweeps (``quantized_maxsim_topk``,
+    ``hamming_maxsim_topk``) score contiguous ranges of positions and
+    keep each range's top min(k, R) (score, position) pairs; on a CUDA
+    tensor one launch does every range of the sweep, and the ranges'
+    lists are merged once. Their candidate buffer is
     (B, ranges x min(k, R)), at most MAX_CANDIDATES entries per merge.
 
-Peak scan memory is O(B * block_docs) on the float and Hamming kernel
-paths, O(MAX_CANDIDATES) on the ADC kernel path, and
+Peak scan memory is O(B * block_docs) on the float kernel path,
+O(MAX_CANDIDATES) on the ADC and Hamming kernel paths, and
 O(B * Mq * block_docs * Md) on the plain paths.
 
 Numerical contract, as in the reference: positions are visited in doc
@@ -23,8 +24,8 @@ order and the carried buffer sits before the new candidates in every
 merge, and the merge is a *stable* descending sort, so equal scores
 resolve to the lowest doc position exactly as one global ``lax.top_k``
 would (``torch.topk`` promises no order among equal values, so it is not
-used). The ADC ranges' lists are ordered by score, then position, and go
-into the merge in range order, which keeps that tie order.
+used). The range lists are ordered by score, then position, and go into
+the merge in range order, which keeps that tie order.
 
 The two layouts:
 
@@ -59,9 +60,10 @@ from repro_torch.kernels import vmem
 NEG_INF = li.NEG_INF
 Tensor = torch.Tensor
 
-# Candidate entries (B x ranges x per-range k) the ADC sweep merges at
-# once: 2^22, 16 MiB of scores and 16 MiB of positions. At the serve cell
-# (B=8, N=4,194,304, k=32, 256-doc ranges) one sweep is one chunk.
+# Candidate entries (B x ranges x per-range k) the ADC and Hamming sweeps
+# merge at once: 2^22, 16 MiB of scores and 16 MiB of positions. At the
+# serve cell (B=8, N=4,194,304, k=32, 256-doc ranges) one sweep is one
+# chunk.
 MAX_CANDIDATES = 1 << 22
 
 
@@ -69,12 +71,13 @@ MAX_CANDIDATES = 1 << 22
 class ScanConfig:
     """Knobs of the streaming scan.
 
-    block_docs: documents scored per sweep step. The float and Hamming
-        sweeps launch their kernel once per block on either path; the
-        plain ADC sweep scores one block per step and keeps its top k. The
-        CUDA ADC sweep does not read it: its kernel scores the whole sweep
-        in one launch, over ranges whose length it picks from the shape
-        (``kernels.quantized_maxsim.launch_range_len``).
+    block_docs: documents scored per sweep step. The float sweep
+        launches its kernel once per block on either path; the plain ADC
+        and Hamming sweeps score one block per step and keep its top k.
+        The CUDA ADC and Hamming sweeps do not read it: each kernel scores
+        the whole sweep in one launch, over ranges whose length it picks
+        from the shape (``launch_range_len`` of ``kernels.quantized_maxsim``
+        and ``kernels.hamming``).
     impl: "auto" (the CUDA kernel for CUDA tensors, the plain version for
         CPU tensors) or "plain".
     """
@@ -189,6 +192,45 @@ def _prep(n: int, doc_ids: Optional[Tensor], valid: Optional[Tensor],
     return doc_ids, valid
 
 
+def _sweep_lists(range_lists: Callable[..., Tuple[Tensor, Tensor]],
+                 codes: Tensor, d_mask: Tensor, doc_ids: Tensor,
+                 valid: Tensor, top_s: Tensor, top_i: Tensor, *, b: int,
+                 n: int, k: int, range_len: int, per_query: bool
+                 ) -> Tuple[Tensor, Tensor]:
+    """Merge a sweep's per-range top-k lists into the (B, k) buffer.
+
+    ``range_lists(codes, d_mask, valid)`` -> (scores, positions) (B,
+    ranges, min(k, R)) of the positions it is given, as the kernels'
+    top-k entries return them. Each chunk of whole ranges, its lists
+    within MAX_CANDIDATES entries, takes one call and one merge (on a CUDA
+    tensor one launch); positions become ids and the lists go into the
+    merge in range order.
+    """
+    r = range_len
+    chunk = r * max(1, MAX_CANDIDATES // max(1, b * min(k, r)))
+    axis = 1 if per_query else 0
+    doc_ids = doc_ids.to(torch.int32)
+    for start in vmem.sweep(range(0, n, chunk), n):
+        t = min(chunk, n - start)
+        s, pos = range_lists(codes.narrow(axis, start, t),
+                             d_mask.narrow(axis, start, t),
+                             valid.narrow(valid.dim() - 1, start, t))
+        # positions -> ids, each list-sized temporary dropped once used
+        pos = pos.reshape(b, -1)
+        ok = pos >= 0
+        safe = torch.clamp(pos, min=0).to(torch.int64)
+        del pos
+        ids = doc_ids.narrow(doc_ids.dim() - 1, start, t)
+        ids = ids[safe] if ids.dim() == 1 else torch.gather(ids, 1, safe)
+        del safe
+        ids = torch.where(ok, ids, -1)
+        del ok
+        top_s, top_i = _merge(top_s, top_i, *_head(s.reshape(b, -1), ids, k),
+                              k)
+        del s, ids          # not alive while the next chunk is scored
+    return top_s, top_i
+
+
 def quantized_maxsim_topk(q: Tensor, q_mask: Tensor, codes: Tensor,
                           d_mask: Tensor, codebook: Tensor, *, k: int,
                           doc_ids: Optional[Tensor] = None,
@@ -223,35 +265,19 @@ def quantized_maxsim_topk(q: Tensor, q_mask: Tensor, codes: Tensor,
     table = li.adc_table(q, codebook).contiguous()            # (B, Mq, K)
     q_mask_f = q_mask.to(torch.float32).contiguous()
     doc_ids, valid = _prep(n, doc_ids, valid, per_query, b, codes.device)
-    doc_ids = doc_ids.to(torch.int32)
     if mode == "cuda":
         r = qmaxsim_k.launch_range_len(b, n, codes.device)
         lists = qmaxsim_k.quantized_maxsim_topk_cuda
     else:
         r = max(1, min(scan.block_docs, n))
         lists = qmaxsim_k.quantized_maxsim_topk_plain
-    # positions per launch and merge: whole ranges, the lists within bound
-    chunk = r * max(1, MAX_CANDIDATES // max(1, b * min(k, r)))
-    axis = 1 if per_query else 0
-    for start in vmem.sweep(range(0, n, chunk), n):
-        t = min(chunk, n - start)
-        s, pos = lists(table, q_mask_f, codes.narrow(axis, start, t),
-                       d_mask.narrow(axis, start, t),
-                       valid.narrow(valid.dim() - 1, start, t), k=k,
-                       range_len=r)
-        # positions -> ids, each list-sized temporary dropped once used
-        pos = pos.reshape(b, -1)
-        ok = pos >= 0
-        safe = torch.clamp(pos, min=0).to(torch.int64)
-        del pos
-        ids = doc_ids.narrow(doc_ids.dim() - 1, start, t)
-        ids = ids[safe] if ids.dim() == 1 else torch.gather(ids, 1, safe)
-        del safe
-        ids = torch.where(ok, ids, -1)
-        del ok
-        top_s, top_i = _merge(top_s, top_i, *_head(s.reshape(b, -1), ids, k),
-                              k)
-    return top_s, top_i
+
+    def range_lists(c, m, v):
+        return lists(table, q_mask_f, c, m, v, k=k, range_len=r)
+
+    return _sweep_lists(range_lists, codes, d_mask, doc_ids, valid, top_s,
+                        top_i, b=b, n=n, k=k, range_len=r,
+                        per_query=per_query)
 
 
 def maxsim_topk(q: Tensor, q_mask: Tensor, docs: Tensor, d_mask: Tensor, *,
@@ -320,22 +346,35 @@ def hamming_maxsim_topk(q_codes: Tensor, q_mask: Tensor, d_codes: Tensor,
     does; the reference's Pallas path clamps its f32 ``-1e30`` sums to the
     int32 minimum instead (ROADMAP caveat C4).
     -> (scores (B, k) int32, doc_ids (B, k) int32).
+
+    The sweep of ``quantized_maxsim_topk``: ranges of ``block_docs`` on the
+    plain path and ``launch_range_len`` on the CUDA path each keep their
+    top min(k, R), and the ranges' lists are merged in range order; on a
+    CUDA tensor one launch and one merge per sweep (per chunk of
+    MAX_CANDIDATES list entries).
     """
     scan = scan if scan is not None else DEFAULT
     mode = resolve_impl(scan.impl, d_codes.device)
     per_query = d_codes.dim() == 3
-    b = q_codes.shape[0]
+    b, mq = q_codes.shape
     n = d_codes.shape[1] if per_query else d_codes.shape[0]
+    top_s, top_i = _init_buffer(b, k, torch.int32, d_codes.device, carry)
+    if n == 0:
+        return top_s, top_i
     qc = q_codes.to(torch.int32).contiguous()
     qm = q_mask.to(torch.int32).contiguous()
     doc_ids, valid = _prep(n, doc_ids, valid, per_query, b, d_codes.device)
-    kernel = (hamming_k.hamming_maxsim_cuda if mode == "cuda"
-              else hamming_k.hamming_maxsim_plain)
+    if mode == "cuda":
+        r = hamming_k.launch_range_len(b, mq, n, bits, d_codes.device,
+                                       per_query)
+        lists = hamming_k.hamming_maxsim_topk_cuda
+    else:
+        r = max(1, min(scan.block_docs, n))
+        lists = hamming_k.hamming_maxsim_topk_plain
 
-    def score_block(c, m):
-        return kernel(qc, qm, c, m, bits)
+    def range_lists(c, m, v):
+        return lists(qc, qm, c, m, v, bits=bits, k=k, range_len=r)
 
-    return _streaming_topk(score_block, (d_codes, d_mask), doc_ids, valid,
-                           b=b, n=n, k=k, block_docs=scan.block_docs,
-                           per_query=per_query, score_dtype=torch.int32,
-                           carry=carry)
+    return _sweep_lists(range_lists, d_codes, d_mask, doc_ids, valid, top_s,
+                        top_i, b=b, n=n, k=k, range_len=r,
+                        per_query=per_query)

@@ -61,11 +61,13 @@ _SIGNATURES = {
     "hpc_kmeans_assign": ([_P, _P, _P, _LL, _I, _I, _I, _P], _I),
     "hpc_kmeans_assign_smem_bytes": ([_I, _I], _LL),
     "hpc_hamming_maxsim": ([_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL,
-                            _LL, _P], _I),
+                            _LL, _I, _P], _I),
+    "hpc_hamming_maxsim_topk": ([_P, _P, _P, _I, _P, _P, _LL, _P, _P, _I, _I,
+                                 _I, _I, _I, _LL, _LL, _I, _I, _P], _I),
     "hpc_maxsim": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL,
                     _LL, _LL, _I, _P, _P, _P, _I, _I, _P], _I),
     "hpc_maxsim_smem_bytes": ([_I, _I, _I, _I], _LL),
-    "hpc_hamming_geometry": ([_I, _I, _I, _P], _I),
+    "hpc_hamming_geometry": ([_I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "hpc_kmeans_assign_geometry": ([_LL, _I, _I, _I, _P], _I),
     "hpc_maxsim_geometry": ([_I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "hpc_qmaxsim_geometry": ([_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -91,6 +91,43 @@ def quantized_maxsim_plain(table: torch.Tensor, q_mask: torch.Tensor,
     return per_q.sum(dim=1)
 
 
+def range_topk_plain(score, codes: torch.Tensor, d_mask: torch.Tensor,
+                     valid: Optional[torch.Tensor], *, b: int, k: int,
+                     range_len: int, dtype: torch.dtype, invalid,
+                     pad) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-range top-k lists of a plain scorer, one range at a time:
+    ``score(codes_range, d_mask_range)`` -> (B, T) scores; slots with
+    ``valid`` False score ``invalid`` with position -1, a short range is
+    padded with (``pad``, -1), each list ordered by score descending, then
+    position ascending (a stable sort). -> (scores (B, ranges, min(k, R))
+    ``dtype``, positions int32)."""
+    per_query = codes.dim() == 3
+    n = codes.shape[-2]
+    r, kk = range_len, min(k, range_len)
+    n_ranges = -(-n // r)
+    out_s = torch.empty((b, n_ranges, kk), dtype=dtype, device=codes.device)
+    out_p = torch.empty((b, n_ranges, kk), dtype=torch.int32,
+                        device=codes.device)
+    axis = 1 if per_query else 0
+    for start in vmem.sweep(range(0, n, r), n):
+        g = start // r
+        t = min(r, n - start)
+        s = score(codes.narrow(axis, start, t), d_mask.narrow(axis, start, t))
+        pos = torch.arange(start, start + t, dtype=torch.int32,
+                           device=codes.device).expand(b, t)
+        if valid is not None:
+            v = valid.narrow(valid.dim() - 1, start, t).expand(b, t)
+            s = torch.where(v, s, invalid)
+            pos = torch.where(v, pos, -1)
+        if t < kk:                                 # pad a short range
+            s = torch.cat([s, s.new_full((b, kk - t), pad)], 1)
+            pos = torch.cat([pos, pos.new_full((b, kk - t), -1)], 1)
+        srt, sel = torch.sort(s, dim=1, descending=True, stable=True)
+        out_s[:, g] = srt[:, :kk]
+        out_p[:, g] = torch.gather(pos, 1, sel[:, :kk])
+    return out_s, out_p
+
+
 def quantized_maxsim_topk_plain(table: torch.Tensor, q_mask: torch.Tensor,
                                 codes: torch.Tensor, d_mask: torch.Tensor,
                                 valid: Optional[torch.Tensor], *, k: int,
@@ -104,34 +141,10 @@ def quantized_maxsim_topk_plain(table: torch.Tensor, q_mask: torch.Tensor,
     -> (scores (B, ranges, min(k, R)) f32, positions of the same shape
     int32).
     """
-    b = table.shape[0]
-    per_query = codes.dim() == 3
-    n = codes.shape[-2]
-    r, kk = range_len, min(k, range_len)
-    n_ranges = -(-n // r)
-    out_s = torch.empty((b, n_ranges, kk), dtype=torch.float32,
-                        device=table.device)
-    out_p = torch.empty((b, n_ranges, kk), dtype=torch.int32,
-                        device=table.device)
-    axis = 1 if per_query else 0
-    for start in vmem.sweep(range(0, n, r), n):
-        g = start // r
-        t = min(r, n - start)
-        s = quantized_maxsim_plain(table, q_mask, codes.narrow(axis, start, t),
-                                   d_mask.narrow(axis, start, t))
-        pos = torch.arange(start, start + t, dtype=torch.int32,
-                           device=table.device).expand(b, t)
-        if valid is not None:
-            v = valid.narrow(valid.dim() - 1, start, t).expand(b, t)
-            s = torch.where(v, s, NEG_INF)
-            pos = torch.where(v, pos, -1)
-        if t < kk:                                 # pad a short range
-            s = torch.cat([s, s.new_full((b, kk - t), float("-inf"))], 1)
-            pos = torch.cat([pos, pos.new_full((b, kk - t), -1)], 1)
-        srt, sel = torch.sort(s, dim=1, descending=True, stable=True)
-        out_s[:, g] = srt[:, :kk]
-        out_p[:, g] = torch.gather(pos, 1, sel[:, :kk])
-    return out_s, out_p
+    return range_topk_plain(
+        lambda c, m: quantized_maxsim_plain(table, q_mask, c, m), codes,
+        d_mask, valid, b=table.shape[0], k=k, range_len=range_len,
+        dtype=torch.float32, invalid=NEG_INF, pad=float("-inf"))
 
 
 def _check_inputs(name: str, table: torch.Tensor, q_mask: torch.Tensor,

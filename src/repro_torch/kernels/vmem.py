@@ -51,7 +51,9 @@ SM_COUNT_DATASHEET = 132     # H100 SXM
 
 __all__ = ["Budget", "LaunchGeometry", "MAX_SMEM", "MiB", "REGS_PER_SM",
            "check_divisible", "check_smem", "device_budget", "fake_launch",
-           "fits", "hamming_geometry", "is_fake", "kmeans_assign_geometry",
+           "fits", "hamming_geometry", "hamming_queries_per_block",
+           "hamming_smem_bytes", "hamming_table_regs", "is_fake",
+           "kmeans_assign_geometry",
            "kmeans_assign_smem_bytes", "maxsim_geometry",
            "maxsim_smem_bytes", "qmaxsim_geometry", "qmaxsim_smem_bytes",
            "record_launch", "sm_count", "sweep"]
@@ -178,21 +180,82 @@ def _pad16(d: int) -> int:          # tf32x3::padded_width
     return (d + 15) & ~15
 
 
-def hamming_geometry(b: int, n: int, bits: int) -> Optional[LaunchGeometry]:
-    """``hpc_hamming_maxsim``'s launch (csrc/hamming_maxsim.cu, ``launch``):
-    grid (ceil(N / 4), B), one warp per document, no shared memory. Each
-    block masks docs >= N. None when the launcher launches nothing (B or
-    N = 0); ValueError for shapes it refuses."""
+# csrc/hamming_maxsim.cu: warps a block, the longest range, the queries of
+# the shared corpus a block takes, the largest bits of the table body
+_HAMMING_WARPS = 8
+HAMMING_MAX_RANGE = 256
+_HAMMING_MAX_QUERIES = 32
+HAMMING_TABLE_MAX_BITS = 10
+
+
+def hamming_table_regs(bits: int) -> int:
+    """``table_regs``: the distance table's registers a lane (2^bits codes
+    over 32 lanes), 0 for the popcount body (bits above 10)."""
+    if bits > HAMMING_TABLE_MAX_BITS:
+        return 0
+    return 1 if bits <= 5 else 1 << (bits - 5)
+
+
+def hamming_smem_bytes(mq: int, bits: int, range_len: int, qpb: int,
+                       top_k: bool) -> int:
+    """``smem_bytes``: staged query codes and weights, the range's scores
+    (top-k), two byte tables a warp (the table body)."""
+    return (qpb * mq * 8 + (qpb * range_len * 4 if top_k else 0)
+            + _HAMMING_WARPS * 2 * 32 * hamming_table_regs(bits))
+
+
+def hamming_queries_per_block(b: int, mq: int, bits: int,
+                              per_query: bool) -> int:
+    """``queries_per_block``: 1 for per-query pools, else up to 32 queries
+    whose codes, weights and scores fit at the longest range (0: none)."""
+    if per_query:
+        return int(hamming_smem_bytes(mq, bits, HAMMING_MAX_RANGE, 1, True)
+                   <= MAX_SMEM)
+    q = min(b, _HAMMING_MAX_QUERIES)
+    while q > 0 and hamming_smem_bytes(mq, bits, HAMMING_MAX_RANGE, q,
+                                       True) > MAX_SMEM:
+        q -= 1
+    return q
+
+
+def hamming_geometry(b: int, mq: int, n: int, md: int, bits: int,
+                     per_query: int, range_len: int, top_k: int
+                     ) -> Optional[LaunchGeometry]:
+    """``hpc_hamming_maxsim`` (``top_k`` = 0: scores) and
+    ``hpc_hamming_maxsim_topk``'s launch (csrc/hamming_maxsim.cu, ``plan``
+    and ``launch``): grid (ceil(N / R), ceil(B / q)), q queries a block (1
+    for per-query pools), 8 warps; block (x, y) scores positions [x R,
+    (x + 1) R) masked to N for its queries and writes their scores, or
+    each query's one top-k list of range x. None when nothing is launched;
+    ValueError for shapes the launcher refuses."""
     if b <= 0 or n <= 0:
         return None
-    if not 1 <= bits <= 16 or b > 65535:
-        raise ValueError(f"hamming_maxsim: bits={bits}, B={b} outside the "
-                         "launcher's range (bits 1-16, B <= 65535)")
-    warps = 4
+    qpb = 0
+    if (b <= 65535 and mq > 0 and md >= 0 and 1 <= bits <= 16
+            and 0 < range_len <= HAMMING_MAX_RANGE
+            and 0 <= top_k <= range_len):
+        qpb = hamming_queries_per_block(b, mq, bits, bool(per_query))
+    if qpb <= 0:
+        raise ValueError(
+            f"hamming_maxsim: B={b}, Mq={mq}, Md={md}, bits={bits}, "
+            f"R={range_len}, k={top_k} outside the launcher's range")
+    s = hamming_smem_bytes(mq, bits, range_len, qpb, top_k > 0)
+    check_smem(s, kernel="hamming_maxsim",
+               detail=f"Mq={mq}, bits={bits}, R={range_len}, {qpb} "
+                      f"quer{'ies' if qpb > 1 else 'y'} a block")
+    ranges = _cdiv(n, range_len)
+    if top_k:
+        outs = (((b, ranges, top_k), torch.int32),
+                ((b, ranges, top_k), torch.int32))
+        unit, extent = 1, ranges
+    else:
+        outs = (((b, n), torch.int32),)
+        unit, extent = range_len, n
     return LaunchGeometry(
-        "hamming_maxsim", (_cdiv(n, warps), b), warps * 32, 0,
-        (warps, 0, 0, 0), (((b, n), torch.int32),), b, 1, warps,
-        _cdiv(n, warps), n)
+        "hamming_maxsim_topk" if top_k else "hamming_maxsim",
+        (ranges, _cdiv(b, qpb)), _HAMMING_WARPS * 32, s,
+        (qpb, hamming_table_regs(bits), 0, 0), outs, b, qpb, unit, ranges,
+        extent)
 
 
 # csrc/kmeans_assign.cu: (n tiles per warp, warps along the rows, ring

@@ -318,6 +318,108 @@ def test_hamming_maxsim_kernel_masks_codes_and_takes_strided_pools():
         hm.hamming_maxsim_cuda(q_codes, q_mask, codes, d_mask, 17)
 
 
+def _tied_codes(g, lead, md, bits, window, dtype):
+    """Codes from a window of ``window`` entries per document (and per
+    query): documents share codes and so scores."""
+    top = 2 ** bits - window
+    base = torch.randint(0, top + 1, lead + (1,), generator=g)
+    return (base + torch.randint(0, window, lead + (md,), generator=g)).to(
+        dtype)
+
+
+@pytest.mark.parametrize("b,mq,n,md,bits,k,r", [
+    (8, 32, 16384, 615, 8, 1024, None),   # the stage-1 sweep, k = p1
+    (8, 32, 16384, 615, 8, 32, None),
+    (3, 5, 37, 17, 8, 4, 8), (3, 5, 37, 17, 8, 8, 8), (3, 40, 61, 9, 9, 20, 16),
+    (8, 32, 300, 615, 12, 10, 32),        # the popcount body
+    (2, 6, 50, 20, 3, 5, 4), (40, 4, 100, 7, 10, 6, 16)])
+@pytest.mark.parametrize("per_query", [False, True])
+@pytest.mark.parametrize("window", [4, 64])
+def test_hamming_topk_kernel_equals_plain(b, mq, n, md, bits, k, r,
+                                          per_query, window):
+    """The per-range lists bit for bit (scores and positions, ties
+    included), both bodies, valid masks, all-masked pages; one launch."""
+    dev = _card()
+    if per_query and n > 1000:
+        n = 1024                                       # stage-2-sized pools
+    g = torch.Generator().manual_seed(b + n + bits + window)
+    lead = (b, n) if per_query else (n,)
+    dtype = torch.uint8 if bits <= 8 else torch.uint16
+    window = min(window, 2 ** bits)
+    codes = _tied_codes(g, lead, md, bits, window, dtype)
+    q_codes = _tied_codes(g, (b,), mq, bits, window, torch.int32)
+    q_mask = (torch.rand((b, mq), generator=g) < 0.9).to(torch.int32)
+    d_mask = torch.rand(lead + (md,), generator=g) < 0.7
+    d_mask[..., ::7, :] = False                        # all-masked pages
+    valid = torch.rand((b, n) if per_query else (n,), generator=g) < 0.9
+    r = r or hm.launch_range_len(b, mq, n, bits, dev, per_query)
+    args = (q_codes, q_mask, codes, d_mask, valid)
+    want = hm.hamming_maxsim_topk_plain(*args, bits=bits, k=k, range_len=r)
+    before = hm.launches
+    got = hm.hamming_maxsim_topk_cuda(*(a.to(dev) for a in args), bits=bits,
+                                      k=k, range_len=r)
+    assert hm.launches == before + 1
+    assert got[0].dtype == got[1].dtype == torch.int32
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_hamming_topk_kernel_takes_strided_pools_and_refuses_bad_input():
+    dev = _card()
+    g = torch.Generator().manual_seed(3)
+    codes = _tied_codes(g, (4, 30), 20, 9, 4, torch.uint16).to(dev)
+    q_codes = _tied_codes(g, (4,), 6, 9, 4, torch.int32).to(dev)
+    q_mask = torch.ones(4, 6, dtype=torch.int32, device=dev)
+    d_mask = (torch.rand((4, 30, 20), generator=g) < 0.8).to(dev)
+    valid = (torch.rand((4, 30), generator=g) < 0.8).to(dev)
+    sl = (slice(None), slice(7, 23))
+    got = hm.hamming_maxsim_topk_cuda(q_codes, q_mask, codes[sl], d_mask[sl],
+                                      valid[sl], bits=9, k=5, range_len=4)
+    want = hm.hamming_maxsim_topk_plain(q_codes, q_mask, codes[sl],
+                                        d_mask[sl], valid[sl], bits=9, k=5,
+                                        range_len=4)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        hm.hamming_maxsim_topk_cuda(q_codes, q_mask, codes, d_mask, None,
+                                    bits=17, k=5)
+    with pytest.raises(ValueError):
+        hm.hamming_maxsim_topk_cuda(q_codes, q_mask, codes, d_mask, None,
+                                    bits=9, k=5, range_len=512)
+    with pytest.raises(ValueError):
+        hm.hamming_maxsim_topk_cuda(q_codes.cpu(), q_mask.cpu(), codes.cpu(),
+                                    d_mask.cpu(), None, bits=9, k=5)
+
+
+@pytest.mark.parametrize("per_query", [False, True])
+def test_hamming_scan_is_one_launch_and_equals_the_cpu(per_query):
+    """scan.hamming_maxsim_topk on the card: one launch and the CPU's
+    plain answer, ties included, with ids, valid and carry."""
+    dev = _card()
+    g = torch.Generator().manual_seed(11)
+    n = 2000
+    lead = (8, n) if per_query else (n,)
+    codes = _tied_codes(g, lead, 615, 8, 4, torch.uint16)
+    q_codes = _tied_codes(g, (8,), 32, 8, 4, torch.int32)
+    q_mask = torch.rand((8, 32), generator=g) < 0.9
+    d_mask = torch.rand(lead + (615,), generator=g) < 0.6
+    valid = torch.rand((8, n) if per_query else (n,), generator=g) < 0.9
+    ids = torch.randperm(10 * n, generator=g)[:n].to(torch.int32)
+    if per_query:
+        ids = ids.expand(8, n).contiguous()
+    carry = (torch.full((8, 40), 50, dtype=torch.int32),
+             torch.arange(8 * 40, dtype=torch.int32).reshape(8, 40))
+    kw = dict(bits=8, k=40, doc_ids=ids, valid=valid, carry=carry)
+    want = scan.hamming_maxsim_topk(q_codes, q_mask, codes, d_mask, **kw)
+    before = hm.launches
+    got = scan.hamming_maxsim_topk(
+        *(a.to(dev) for a in (q_codes, q_mask, codes, d_mask)), bits=8, k=40,
+        doc_ids=ids.to(dev), valid=valid.to(dev),
+        carry=tuple(c.to(dev) for c in carry))
+    assert hm.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
 def _flt(seed, b, mq, d, lead, md, p_valid=0.8):
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((b, mq, d), generator=g)
@@ -629,7 +731,7 @@ def test_segmented_cascade_stage3_reads_in_place_on_the_card():
 def test_segmented_flat_and_hamming_sweeps_match_the_cpu():
     """The segmented sweeps (capacity-8 segment with one ragged block,
     tombstones) on the card against the CPU's plain path: one ADC launch
-    per segment, ceil(cap / block) Hamming launches per segment."""
+    and one Hamming launch per segment."""
     from repro_torch.core import index as index_mod
     dev = _card()
     g = torch.Generator().manual_seed(5)
@@ -685,7 +787,7 @@ def test_segmented_flat_and_hamming_sweeps_match_the_cpu():
     got = index_mod.search_hamming_segmented(
         seg_state(ham_segs, dev), q_codes.to(dev), q_mask.to(dev), bits=6,
         k=20, scan=cfg)
-    assert hm.launches == before + 2 + 1 + 1
+    assert hm.launches == before + 3
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
     dead = {1, 301, 306}
@@ -1647,8 +1749,17 @@ def test_sharded_cascade_rungs_on_the_card(segmented):
 # --- launch geometry and the dry run on the card ------------------------------
 
 _GEOMETRY_EDGES = {
-    "hpc_hamming_geometry": [(1, 1, 1), (3, 5, 8), (8, 257, 16),
-                             (65535, 3, 8), (65536, 3, 8), (0, 5, 8)],
+    "hpc_hamming_geometry": [(1, 1, 1, 1, 1, 0, 2, 0),
+                             (3, 5, 5, 17, 8, 0, 8, 4),
+                             (8, 32, 257, 615, 16, 0, 32, 32),
+                             (8, 32, 16384, 615, 8, 0, 32, 32),
+                             (8, 40, 1024, 1024, 9, 1, 16, 16),
+                             (65535, 4, 3, 8, 8, 0, 2, 1),
+                             (65536, 4, 3, 8, 8, 0, 2, 0),
+                             (0, 4, 5, 8, 8, 0, 2, 0),
+                             (8, 32, 100, 615, 17, 0, 32, 0),
+                             (8, 32, 100, 615, 8, 0, 512, 0),
+                             (1, 40000, 5, 8, 8, 1, 8, 0)],
     "hpc_kmeans_assign_geometry": [(1, 128, 256, 132), (31, 18, 33, 132),
                                    (8447, 100, 4096, 132),
                                    (16_777_216, 128, 256, 132),

@@ -141,14 +141,18 @@ def test_check_divisible_raises_value_error():
 @pytest.mark.parametrize("b,n", [(1, 1), (3, 5), (8, 256), (8, 257),
                                  (64, 4_194_304)])
 def test_hamming_geometry_covers_every_doc_once(b, n):
-    g = vmem.hamming_geometry(b, n, 8)
-    assert g.grid == (-(-n // 4), b) and g.threads == 128 and g.smem == 0
+    from repro_torch.kernels import hamming
+    r = hamming.launch_range_len(b, 32, n, 8, "cpu")
+    g = vmem.hamming_geometry(b, 32, n, 615, 8, 0, r, 0)
+    qpb = min(b, 32)
+    assert g.grid == (-(-n // r), -(-b // qpb)) and g.threads == 256
+    assert g.smem == vmem.hamming_smem_bytes(32, 8, r, qpb, False)
     if b * n <= 1 << 16:
         c = pc.coverage_counts(g)
         assert c.min() == 1 and c.max() == 1
-    assert vmem.hamming_geometry(0, n, 8) is None
+    assert vmem.hamming_geometry(0, 32, n, 615, 8, 0, r, 0) is None
     with pytest.raises(ValueError):
-        vmem.hamming_geometry(b, n, 17)
+        vmem.hamming_geometry(b, 32, n, 615, 17, 0, r, 0)
 
 
 @pytest.mark.parametrize("n,d,k,sms,want", [
