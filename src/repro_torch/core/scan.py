@@ -51,6 +51,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import late_interaction as li
 from repro_torch.kernels import hamming as hamming_k
 from repro_torch.kernels import maxsim as maxsim_k
@@ -173,12 +174,14 @@ def _streaming_topk(score_block: Callable[..., Tensor], payload: tuple,
         blk = tuple(a.narrow(axis, start, t) for a in payload)
         ids = doc_ids.narrow(doc_ids.dim() - 1, start, t)
         v = valid.narrow(valid.dim() - 1, start, t)
-        s = score_block(*blk)                                 # (B, T)
-        v = v.expand(s.shape)
-        ids = ids.expand(s.shape)
-        s = torch.where(v, s, invalid_score)
-        ids = torch.where(v, ids, -1)
-        top_s, top_i = _merge(top_s, top_i, s, ids, k)
+        with tracing.span("scan.block"):
+            s = score_block(*blk)                             # (B, T)
+            v = v.expand(s.shape)
+            ids = ids.expand(s.shape)
+            s = torch.where(v, s, invalid_score)
+            ids = torch.where(v, ids, -1)
+        with tracing.span("scan.merge"):
+            top_s, top_i = _merge(top_s, top_i, s, ids, k)
     return top_s, top_i
 
 
@@ -212,22 +215,24 @@ def _sweep_lists(range_lists: Callable[..., Tuple[Tensor, Tensor]],
     doc_ids = doc_ids.to(torch.int32)
     for start in vmem.sweep(range(0, n, chunk), n):
         t = min(chunk, n - start)
-        s, pos = range_lists(codes.narrow(axis, start, t),
-                             d_mask.narrow(axis, start, t),
-                             valid.narrow(valid.dim() - 1, start, t))
-        # positions -> ids, each list-sized temporary dropped once used
-        pos = pos.reshape(b, -1)
-        ok = pos >= 0
-        safe = torch.clamp(pos, min=0).to(torch.int64)
-        del pos
-        ids = doc_ids.narrow(doc_ids.dim() - 1, start, t)
-        ids = ids[safe] if ids.dim() == 1 else torch.gather(ids, 1, safe)
-        del safe
-        ids = torch.where(ok, ids, -1)
-        del ok
-        top_s, top_i = _merge(top_s, top_i, *_head(s.reshape(b, -1), ids, k),
-                              k)
-        del s, ids          # not alive while the next chunk is scored
+        with tracing.span("scan.lists"):
+            s, pos = range_lists(codes.narrow(axis, start, t),
+                                 d_mask.narrow(axis, start, t),
+                                 valid.narrow(valid.dim() - 1, start, t))
+        with tracing.span("scan.merge"):
+            # positions -> ids, each list-sized temporary dropped once used
+            pos = pos.reshape(b, -1)
+            ok = pos >= 0
+            safe = torch.clamp(pos, min=0).to(torch.int64)
+            del pos
+            ids = doc_ids.narrow(doc_ids.dim() - 1, start, t)
+            ids = ids[safe] if ids.dim() == 1 else torch.gather(ids, 1, safe)
+            del safe
+            ids = torch.where(ok, ids, -1)
+            del ok
+            top_s, top_i = _merge(top_s, top_i,
+                                  *_head(s.reshape(b, -1), ids, k), k)
+            del s, ids      # not alive while the next chunk is scored
     return top_s, top_i
 
 

@@ -33,6 +33,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import binary as binary_mod
 from repro_torch.core import index as index_mod
 from repro_torch.retrieval.base import (Corpus, IndexBackend, Query,
@@ -99,10 +100,13 @@ class CascadeBackend(IndexBackend):
         on a segmented one they resolve through ``pos_of_id``."""
         s = state.backend_state
         (ham_b, ham_v), (flat_b, flat_v), (ff_b, ff_v) = self._views(state)
-        _, ids1 = ham_b.search(ham_v, query, k=s.p1, scan=scan)
-        _, ids2 = flat_b.search_candidates(flat_v, query, ids1, k=s.p2,
-                                           scan=scan)
-        return ff_b.search_candidates(ff_v, query, ids2, k=k, scan=scan)
+        with tracing.span("cascade.stage1"):
+            _, ids1 = ham_b.search(ham_v, query, k=s.p1, scan=scan)
+        with tracing.span("cascade.stage2"):
+            _, ids2 = flat_b.search_candidates(flat_v, query, ids1, k=s.p2,
+                                               scan=scan)
+        with tracing.span("cascade.stage3"):
+            return ff_b.search_candidates(ff_v, query, ids2, k=k, scan=scan)
 
     # -- graceful degradation (serving overload ladder) ---------------------
 

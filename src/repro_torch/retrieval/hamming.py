@@ -12,6 +12,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import binary as binary_mod
 from repro_torch.core import distributed as dist_core
 from repro_torch.core import index as index_mod
@@ -51,9 +52,10 @@ class HammingBackend(IndexBackend):
             rerank_mask=corpus.mask.to(torch.bool))
 
     def _q_codes(self, state: RetrieverState, query: Query) -> Tensor:
-        return quant.quantize(query.embeddings, local(state.codebook),
-                              code_dtype=code_dtype(
-                                  1 << state.backend_state.bits))
+        with tracing.span("hamming.query_codes"):
+            return quant.quantize(query.embeddings, local(state.codebook),
+                                  code_dtype=code_dtype(
+                                      1 << state.backend_state.bits))
 
     def search(self, state: RetrieverState, query: Query, *, k: int,
                scan=None) -> Tuple[Tensor, Tensor]:

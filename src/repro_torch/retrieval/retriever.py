@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import distributed as dist_core
 from repro_torch.core import index as index_mod
 from repro_torch.core import pruning
@@ -68,12 +69,17 @@ class Retriever:
         of its mesh, each over its own rows: the unsharded answer on every
         rank."""
         cfg, backend = self.cfg, self.backend
-        pruned = self._prune_query(query)
-        n_cand = k if cfg.rerank == 0 else max(k, cfg.rerank)
-        scores, ids = backend.search(state, pruned, k=n_cand, scan=cfg.scan)
-        if cfg.rerank and not backend.exact_scores:
-            return self._rerank(state, pruned, ids, k=k)
-        return scores[:, :k], ids[:, :k]
+        with tracing.span("retrieval.search"):
+            with tracing.span("retrieval.prune_query"):
+                pruned = self._prune_query(query)
+            n_cand = k if cfg.rerank == 0 else max(k, cfg.rerank)
+            with tracing.span("retrieval.backend"):
+                scores, ids = backend.search(state, pruned, k=n_cand,
+                                             scan=cfg.scan)
+            if cfg.rerank and not backend.exact_scores:
+                with tracing.span("retrieval.rerank"):
+                    return self._rerank(state, pruned, ids, k=k)
+            return scores[:, :k], ids[:, :k]
 
     def degrade_rungs(self, state: RetrieverState, *, k: int) -> Tuple:
         """Overload degradation rungs for serving: empty for backends

@@ -35,7 +35,10 @@ a terminal `ServerClosed` error. A facade ``query`` that times out cancels
 its queued item and counts in ``stats()["timeouts"]``.
 
 Latency percentiles (p50/p99) are per request; ``stats()`` also reports
-per-rung batch occupancy.
+per-rung batch occupancy. With ``repro_torch.tracing`` on, each batch's
+coalescing, in-flight wait, staging (its host-to-device copy a child),
+search call, device-to-host copy and fan-out are spans tagged with its
+sequence number, and each request's wait in the queue is one more.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.serving.resilience import (AdmissionController,
                                             DeadlineExceeded,
@@ -187,6 +191,9 @@ class AsyncRetrievalServer:
         self._closed = False
         # (B, Mq) shapes that have run at least once
         self._warmed: set = set()
+        # batches staged so far: each batch's sequence number, which tags
+        # its spans (repro_torch.tracing)
+        self._n_staged = 0
         # -- resilience (None / no-op when cfg.resilience is None) --
         res = cfg.resilience
         self.fault_injector = FaultInjector()
@@ -416,7 +423,7 @@ class AsyncRetrievalServer:
             self._beat = loop.time()
             if item is _STOP:
                 return
-            self._claimed[item] = time.perf_counter()
+            self._claimed[item] = t_first = time.perf_counter()
             self.fault_injector.fire("dispatch")
             if self._closing:
                 self._resolve_exc(item, ServerClosed(
@@ -448,9 +455,12 @@ class AsyncRetrievalServer:
                     return
                 continue
             level = self._observe_level()
+            traced = tracing.enabled()
+            t_closed = time.perf_counter() if traced else 0.0
             # bound in-flight batches (double buffer), then re-check for
             # cancellations and deadlines that landed during the wait
             await self._inflight.acquire()
+            t_acquired = time.perf_counter() if traced else 0.0
             batch = [r for r in batch if not self._drop_stale(r)]
             if not batch:
                 self._inflight.release()
@@ -471,6 +481,11 @@ class AsyncRetrievalServer:
                 # fan-out owns resolution from here; the watchdog covers
                 # only the dequeue -> stage window
                 self._claimed.pop(r, None)
+            if traced:
+                # both intervals span an await, so they are kept as records
+                tracing.record("serve.coalesce", t_first, t_closed, staged[0])
+                tracing.record("serve.inflight_wait", t_closed, t_acquired,
+                               staged[0])
             task = loop.create_task(self._fanout(batch, level, *staged))
             self._fanout_tasks.add(task)
             task.add_done_callback(self._fanout_tasks.discard)
@@ -524,28 +539,40 @@ class AsyncRetrievalServer:
         self._dispatcher = loop.create_task(self._dispatch())
 
     def _stage(self, batch: List[_Item]):
-        """Pad to the ladder rung on the host and copy to the device."""
+        """Pad to the ladder rung on the host and copy to the device ->
+        (batch sequence number, rung, q, qm, qs)."""
         self.fault_injector.fire("stage")
-        rung = self.rung_for(len(batch))
-        first = batch[0]
-        q = np.zeros((rung,) + first.q_emb.shape, first.q_emb.dtype)
-        qm = np.zeros((rung,) + first.q_mask.shape, bool)
-        qs = np.zeros((rung,) + first.q_sal.shape, first.q_sal.dtype)
-        for i, r in enumerate(batch):
-            q[i], qm[i], qs[i] = r.q_emb, r.q_mask, r.q_sal
-        self._warmed.add((rung, first.q_emb.shape[0]))
-        return (rung, *(torch.from_numpy(a).to(self.device)
-                        for a in (q, qm, qs)))
+        self._n_staged += 1
+        seq = self._n_staged
+        if tracing.enabled():
+            t_stage = time.perf_counter()
+            for r in batch:
+                tracing.record("serve.queue", r.t_enqueue, t_stage, seq)
+        with tracing.span("serve.stage", seq):
+            rung = self.rung_for(len(batch))
+            first = batch[0]
+            q = np.zeros((rung,) + first.q_emb.shape, first.q_emb.dtype)
+            qm = np.zeros((rung,) + first.q_mask.shape, bool)
+            qs = np.zeros((rung,) + first.q_sal.shape, first.q_sal.dtype)
+            for i, r in enumerate(batch):
+                q[i], qm[i], qs[i] = r.q_emb, r.q_mask, r.q_sal
+            self._warmed.add((rung, first.q_emb.shape[0]))
+            with tracing.span("serve.h2d"):
+                on_device = tuple(torch.from_numpy(a).to(self.device)
+                                  for a in (q, qm, qs))
+        return (seq, rung, *on_device)
 
-    async def _fanout(self, batch: List[_Item], level: int, rung: int,
-                      q, qm, qs) -> None:
+    async def _fanout(self, batch: List[_Item], level: int, seq: int,
+                      rung: int, q, qm, qs) -> None:
         loop = asyncio.get_running_loop()
 
         def _compute():
             self.fault_injector.fire("compute")
-            scores, ids = self._call_search(level, q, qm, qs)
+            with tracing.span("serve.search", seq):
+                scores, ids = self._call_search(level, q, qm, qs)
             # the device-to-host copy waits for the device, off the loop
-            return scores.cpu().numpy(), ids.cpu().numpy()
+            with tracing.span("serve.d2h", seq):
+                return scores.cpu().numpy(), ids.cpu().numpy()
 
         try:
             scores, ids = await loop.run_in_executor(self._pool, _compute)
@@ -555,33 +582,34 @@ class AsyncRetrievalServer:
                 self._resolve_exc(r, e)
             self._inflight.release()
             return
-        now = time.perf_counter()
-        with self._lock:
-            self._t_last_done = now
-            self.batch_sizes.append(len(batch))
-            self._rung_counts[rung] = self._rung_counts.get(rung, 0) + 1
-            self._rung_occupied[rung] = (self._rung_occupied.get(rung, 0)
-                                         + len(batch))
-            if self._t_first_enqueue is None:
-                # reset_stats() ran while this batch was in flight
-                self._t_first_enqueue = min(r.t_enqueue for r in batch)
-            for r in batch:
-                lat_ms = (now - r.t_enqueue) * 1e3
-                self.latencies_ms.append(lat_ms)
-                self._recent_lat.append(lat_ms)
-        for i, r in enumerate(batch):
-            if r.deadline is not None and now >= r.deadline:
-                # the result came, but nobody waits for it any more
-                with self._lock:
-                    self._n_deadline_expired += 1
-                self._resolve_exc(r, DeadlineExceeded(
-                    "deadline passed during compute"))
-                continue
-            if not r.future.done():
-                r.future.set_result(Served((scores[i], ids[i]), level))
-                with self._lock:
-                    self._level_served[level] = (
-                        self._level_served.get(level, 0) + 1)
+        with tracing.span("serve.fanout", seq):
+            now = time.perf_counter()
+            with self._lock:
+                self._t_last_done = now
+                self.batch_sizes.append(len(batch))
+                self._rung_counts[rung] = self._rung_counts.get(rung, 0) + 1
+                self._rung_occupied[rung] = (self._rung_occupied.get(rung, 0)
+                                             + len(batch))
+                if self._t_first_enqueue is None:
+                    # reset_stats() ran while this batch was in flight
+                    self._t_first_enqueue = min(r.t_enqueue for r in batch)
+                for r in batch:
+                    lat_ms = (now - r.t_enqueue) * 1e3
+                    self.latencies_ms.append(lat_ms)
+                    self._recent_lat.append(lat_ms)
+            for i, r in enumerate(batch):
+                if r.deadline is not None and now >= r.deadline:
+                    # the result came, but nobody waits for it any more
+                    with self._lock:
+                        self._n_deadline_expired += 1
+                    self._resolve_exc(r, DeadlineExceeded(
+                        "deadline passed during compute"))
+                    continue
+                if not r.future.done():
+                    r.future.set_result(Served((scores[i], ids[i]), level))
+                    with self._lock:
+                        self._level_served[level] = (
+                            self._level_served.get(level, 0) + 1)
         self._inflight.release()
 
     # -- stats --------------------------------------------------------------
