@@ -44,7 +44,12 @@ any failure exits non-zero, and no phase's error is swallowed:
      launches, so host overhead is not counted), beside each kernel's
      bound, printed as one ``{"kernels": [...]}`` JSON line
      (quantized_maxsim: the flat sweep, the rerank and stage 2, beside the
-     shared-memory load bound as well; hamming_maxsim: stage 1's one
+     shared-memory load bound as well, and at each main shape on drawn
+     codes (the flat sweep of 16384 pages at about 64 and about 233
+     distinct codes a page, the rerank, stage 2, the ivf and hnsw pools,
+     the serve cell's first 16384 pages) with the body its launch took
+     and its bytes and shared-load bounds, one
+     ``{"qmaxsim_bodies": [...]}`` line); hamming_maxsim: stage 1's one
      launch over 16384 pages and one 256-page block, the same sweep as
      the per-block loop of launches and merges stage 1 ran before, the
      launch at half, once and twice its range length and at bits 9-12
@@ -656,16 +661,124 @@ def _qmaxsim_cost(table, q_mask, codes, mask, io_bytes):
     """(bytes, masked max-lookups) one quantized_maxsim call needs: every
     input read once, the output written once (``io_bytes``: the output and
     any input besides table, q_mask, codes and mask); a lookup per valid
-    query patch and valid doc slot of that query's docs."""
-    b, mq, _ = table.shape
+    query patch and, for K <= 256, distinct valid code of each of that
+    query's docs (the code-set body: a patch's max over a doc's valid
+    slots is the max over its distinct codes), else valid doc slot (the
+    per-slot body)."""
+    b, mq, k = table.shape
     n_bytes = (table.numel() * 4 + b * mq * 4
                + codes.numel() * codes.element_size()
                + mask.numel() * mask.element_size() + io_bytes)
+    per_doc = (_distinct_codes(codes, mask, k) if k <= 256 else
+               (mask != 0).reshape(-1, codes.shape[-1]).sum(dim=1))
     q_valid = (q_mask != 0).reshape(b, mq).sum(dim=1)          # (B,)
     if codes.dim() == 3:                           # per-query pools
-        d_valid = (mask != 0).reshape(b, -1).sum(dim=1)
-        return n_bytes, int((q_valid * d_valid).sum())
-    return n_bytes, int(q_valid.sum()) * int((mask != 0).sum())
+        return n_bytes, int((q_valid * per_doc.reshape(b, -1).sum(dim=1))
+                            .sum())
+    return n_bytes, int(q_valid.sum()) * int(per_doc.sum())
+
+
+def _distinct_codes(codes, mask, k, step=16384):
+    """(docs,) distinct valid codes below K of each doc, ``step`` docs at
+    a time."""
+    md = codes.shape[-1]
+    c, m = codes.reshape(-1, md), mask.reshape(-1, md)
+    counts = c.new_zeros(c.shape[0]).long()
+    for s in range(0, c.shape[0], step):
+        cs = c[s:s + step].long()
+        live = (m[s:s + step] != 0) & (cs < k)
+        flags = live.new_zeros((cs.shape[0], k + 1))
+        flags.scatter_(1, cs.masked_fill(~live, k), True)
+        counts[s:s + step] = flags[:, :k].sum(dim=1)
+    return counts
+
+
+def _qmaxsim_body_times(torch, dev, seed, lds_per_s):
+    """quantized_maxsim's per-range top-k at its main shapes, each with the
+    body its launch took (``config[1]`` of its geometry: 1 the code set, 0
+    per slot), its time (CUDA-graph replays) and two bounds: the bytes and
+    the shared loads of the lookups that body does (``_qmaxsim_cost``).
+    Codes follow ``portbench``'s ``window_codes`` rule (a base uniform over
+    K plus an offset over 64 entries, mod K: about 64 distinct codes a
+    page) unless "uniform" says each is drawn over all K (about 233
+    distinct at Md 615). Prints one
+    ``{"qmaxsim_bodies": [...]}`` line and returns its rows."""
+    from repro_torch.core import late_interaction as li
+    from repro_torch.kernels import quantized_maxsim as qm
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    md = 615                                  # pruning.keep_count(1024, 60)
+
+    def unit(*shape):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+    def draw(lead, width, rule):
+        if rule == "uniform":
+            return torch.randint(0, K, lead + (width,), generator=gen,
+                                 device=dev).to(torch.uint8)
+        base = torch.randint(0, K, lead + (1,), generator=gen, device=dev)
+        off = torch.randint(0, SERVE_WINDOW, lead + (width,), generator=gen,
+                            device=dev)
+        return ((base + off) % K).to(torch.uint8)
+
+    # (name, queries, codes' leading shape, Md, k, rule, graph replays)
+    cases = (
+        ("flat sweep", MAX_BATCH, (N_DOCS,), md, RERANK, "window", 20),
+        ("flat sweep, uniform", MAX_BATCH, (N_DOCS,), md, RERANK, "uniform",
+         20),
+        ("rerank", MAX_BATCH, (MAX_BATCH, RERANK), N_PATCHES, TOP_K,
+         "window", 200),
+        ("stage 2", MAX_BATCH, (MAX_BATCH, P1), md, P2, "window", 100),
+        ("ivf pools", MAX_BATCH, (MAX_BATCH, IVF_N_PROBE * IVF_CAP), md,
+         RERANK, "window", 50),
+        ("hnsw pools", MAX_BATCH, (MAX_BATCH, HNSW_EF), md, RERANK, "window",
+         200),
+        (f"serve cell, first {N_DOCS} pages", SERVE_QUERIES, (N_DOCS,),
+         SERVE_MD, SERVE_TOP_K, "window", 5))
+    codebook = unit(K, DIM)
+    rows = []
+    for name, b, lead, width, k_top, rule, reps in cases:
+        table = li.adc_table(unit(b, N_Q_PATCHES, DIM), codebook).contiguous()
+        qmf = (torch.rand((b, N_Q_PATCHES), generator=gen, device=dev)
+               < 0.95).float()
+        codes = draw(lead, width, rule)
+        mask = torch.ones(codes.shape, dtype=torch.bool, device=dev)
+        if width == SERVE_MD:
+            mask[..., SERVE_MD - 1] = False   # 615 of 616 slots, as served
+        valid = torch.ones(lead, dtype=torch.bool, device=dev)
+        n = lead[-1]
+        r = qm.launch_range_len(b, n, dev)
+        qm.launch_shapes.clear()
+
+        def fn():
+            return qm.quantized_maxsim_topk_cuda(table, qmf, codes, mask,
+                                                 valid, k=k_top, range_len=r)
+
+        fn()
+        (geom,) = qm.launch_shapes.values()
+        ms_ = _time_ms(torch, fn, reps)
+        lists = b * -(-n // r) * min(k_top, r) * 8
+        n_bytes, lookups = _qmaxsim_cost(table, qmf, codes, mask,
+                                         valid.numel() + lists)
+        distinct = _distinct_codes(codes, mask, K)
+        row = {"shape": name, "b": b, "codes": list(codes.shape), "k": k_top,
+               "range": r, "body": int(geom.config[1]),
+               "queries_per_block": int(geom.config[0]), "smem": geom.smem,
+               "ms": ms_, "bytes_bound_ms": n_bytes / PEAK_HBM_BYTES * 1e3,
+               "lds_bound_ms": lookups / lds_per_s * 1e3,
+               "distinct_mean": float(distinct.float().mean())}
+        rows.append(row)
+        print(f"quantized_maxsim_topk {name} {tuple(codes.shape)} k={k_top} "
+              f"R={r}: {ms_ * 1e3:.2f} us, body "
+              f"{'code set' if row['body'] else 'per slot'}, "
+              f"{row['queries_per_block']} queries a block; bounds: bytes "
+              f"{row['bytes_bound_ms'] * 1e3:.2f} us, shared loads "
+              f"{row['lds_bound_ms'] * 1e3:.2f} us "
+              f"({row['distinct_mean']:.1f} distinct codes a page)")
+        del table, qmf, codes, mask, valid, distinct
+        torch.cuda.empty_cache()
+    print(json.dumps({"qmaxsim_bodies": rows}))
+    return rows
 
 
 def _hamming_cost(q_codes, codes, mask):
@@ -5725,7 +5838,7 @@ def main(argv=None) -> int:
         table, codes, mask, all_valid, RERANK,
         qm.quantized_maxsim_topk_plain), 2)
     sweep_by_range = by_range(table, codes, mask, all_valid, RERANK, 10)
-    # the same sweep with one query per block (the design two queries per
+    # the same sweep with one query per block (the design four queries a
     # block replaced): timed beside it, in this run
     sweep_one_q_ms = _time_ms(torch, lambda: qm.quantized_maxsim_topk_cuda(
         table, qmf, codes, mask, all_valid, k=RERANK,
@@ -5753,6 +5866,8 @@ def main(argv=None) -> int:
     rr_bound, _ = _bound(rr_bytes, rr_ops)
     rr_lds_bound = rr_ops / lds_per_s * 1e3
     del codes, mask, rr_codes, rr_mask
+    # the same kernel at each main shape on drawn codes, with its body
+    _qmaxsim_body_times(torch, dev, args.seed, lds_per_s)
 
     # hamming_maxsim on the cascade's stage 1 (the first batch's codes):
     # its one launch over the N_DOCS pages (k = p1, every slot valid, as

@@ -287,7 +287,8 @@ def qmaxsim_site(name: str, *, b: int, mq: int, k: int, n: int, md: int,
     def args(budget):
         r = _range_len(b, n, budget.sm_count)
         kk = min(top_k, r)
-        return (cb, b, mq, k, n, md, int(per_query), r, kk, 2)
+        return (cb, b, mq, k, n, md, int(per_query), r, kk, 4,
+                budget.sm_count)
 
     def geometry(budget):
         a = args(budget)

@@ -54,9 +54,9 @@ _LL = ctypes.c_longlong
 # every exported function: (argtypes, restype)
 _SIGNATURES = {
     "hpc_qmaxsim": ([_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _I,
-                     _P], _I),
+                     _I, _P], _I),
     "hpc_qmaxsim_topk": ([_P, _P, _P, _I, _P, _P, _LL, _P, _P, _I, _I, _I, _I,
-                          _I, _LL, _LL, _I, _I, _I, _P], _I),
+                          _I, _LL, _LL, _I, _I, _I, _I, _P], _I),
     "hpc_qmaxsim_smem_bytes": ([_I, _I, _I, _I, _I], _LL),
     "hpc_kmeans_assign": ([_P, _P, _P, _LL, _I, _I, _I, _P], _I),
     "hpc_kmeans_assign_smem_bytes": ([_I, _I], _LL),
@@ -70,8 +70,8 @@ _SIGNATURES = {
     "hpc_hamming_geometry": ([_I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "hpc_kmeans_assign_geometry": ([_LL, _I, _I, _I, _P], _I),
     "hpc_maxsim_geometry": ([_I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-    "hpc_qmaxsim_geometry": ([_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-                             _I),
+    "hpc_qmaxsim_geometry": ([_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P], _I),
     "hpc_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -201,7 +201,7 @@ def _geometry(codes, b, mq, k, n, md, c_bs, m_bs, r, top_k, max_q):
     """The launch's geometry and its ``hpc_qmaxsim_geometry`` arguments."""
     per_query = c_bs != 0 or m_bs != 0
     key = (_build.CODE_BYTES[codes.dtype], b, mq, k, n, md, int(per_query),
-           r, top_k, max_q)
+           r, top_k, max_q, vmem.sm_count(codes.device))
     return vmem.qmaxsim_geometry(*key[:6], per_query, *key[7:]), key
 
 
@@ -223,7 +223,7 @@ def quantized_maxsim_cuda(table: torch.Tensor, q_mask: torch.Tensor,
     b, mq, k, n, md, c_bs, m_bs = _check_inputs(
         "quantized_maxsim_cuda", table, q_mask, codes, d_mask)
     r = launch_range_len(b, n, table.device) if b and n else MAX_RANGE
-    geom, key = _geometry(codes, b, mq, k, n, md, c_bs, m_bs, r, 0, 2)
+    geom, key = _geometry(codes, b, mq, k, n, md, c_bs, m_bs, r, 0, 4)
     cost = launch_cost(b, mq, k, n, md, key[0], d_mask.element_size(),
                        bool(key[6]), b * n * 4)
     if vmem.is_fake(table):
@@ -237,7 +237,7 @@ def quantized_maxsim_cuda(table: torch.Tensor, q_mask: torch.Tensor,
     err = lib.hpc_qmaxsim(
         table.data_ptr(), q_mask.data_ptr(), codes.data_ptr(),
         _build.CODE_BYTES[codes.dtype], d_mask.data_ptr(), out.data_ptr(),
-        b, mq, k, n, md, c_bs, m_bs, r, stream)
+        b, mq, k, n, md, c_bs, m_bs, r, key[10], stream)
     _build.check(err, "quantized_maxsim kernel launch")
     _count(geom, key, cost)
     return out
@@ -247,15 +247,16 @@ def quantized_maxsim_topk_cuda(table: torch.Tensor, q_mask: torch.Tensor,
                                codes: torch.Tensor, d_mask: torch.Tensor,
                                valid: Optional[torch.Tensor], *, k: int,
                                range_len: Optional[int] = None,
-                               max_queries_per_block: int = 2
+                               max_queries_per_block: int = 4
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the per-range top-k kernel on the current stream, one launch
     for all N positions; same contract as ``quantized_maxsim_topk_plain``
     (inputs as ``quantized_maxsim_cuda``; valid None, or bool/uint8 (N,) or
     (B, N) dense along N). ``range_len`` defaults to
-    ``launch_range_len(B, N)``. On the shared corpus a block scores two
-    queries at once; ``max_queries_per_block=1`` takes one (the design it
-    is timed against). Raises on anything else."""
+    ``launch_range_len(B, N)``. On the shared corpus a block scores up to
+    four queries at once (two for K > 256); ``max_queries_per_block`` (1,
+    2 or 4) caps that, for timing the kernel against fewer. Raises on
+    anything else."""
     b, mq, kc, n, md, c_bs, m_bs = _check_inputs(
         "quantized_maxsim_topk_cuda", table, q_mask, codes, d_mask)
     v_bs = 0
@@ -277,8 +278,8 @@ def quantized_maxsim_topk_cuda(table: torch.Tensor, q_mask: torch.Tensor,
         raise ValueError(f"range_len must be in [1, {MAX_RANGE}], got {r}")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if max_queries_per_block not in (1, 2):
-        raise ValueError(f"max_queries_per_block must be 1 or 2, got "
+    if max_queries_per_block not in (1, 2, 4):
+        raise ValueError(f"max_queries_per_block must be 1, 2 or 4, got "
                          f"{max_queries_per_block}")
     kk = min(k, r)
     n_ranges = -(-n // r)
@@ -305,7 +306,7 @@ def quantized_maxsim_topk_cuda(table: torch.Tensor, q_mask: torch.Tensor,
         _build.CODE_BYTES[codes.dtype], d_mask.data_ptr(),
         None if valid is None else valid.data_ptr(), v_bs,
         out_s.data_ptr(), out_p.data_ptr(), b, mq, kc, n, md, c_bs, m_bs, r,
-        kk, max_queries_per_block, stream)
+        kk, max_queries_per_block, key[10], stream)
     _build.check(err, "quantized_maxsim_topk kernel launch")
     _count(geom, key, cost)
     return out_s, out_p

@@ -55,8 +55,8 @@ __all__ = ["Budget", "LaunchGeometry", "MAX_SMEM", "MiB", "REGS_PER_SM",
            "hamming_smem_bytes", "hamming_table_regs", "is_fake",
            "kmeans_assign_geometry",
            "kmeans_assign_smem_bytes", "maxsim_geometry",
-           "maxsim_smem_bytes", "qmaxsim_geometry", "qmaxsim_smem_bytes",
-           "record_launch", "sm_count", "sweep"]
+           "maxsim_smem_bytes", "qmaxsim_body", "qmaxsim_geometry",
+           "qmaxsim_smem_bytes", "record_launch", "sm_count", "sweep"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -398,8 +398,20 @@ def maxsim_geometry(layout: int, b: int, mq: int, n_out: int, md: int,
 
 
 # csrc/quantized_maxsim.cu
-_QMAXSIM_THREADS = 256
 QMAXSIM_MAX_RANGE = 256
+# the code-set body for K <= 256: 16 warps, up to 4 queries a block on the
+# shared corpus, a half-warp's 256 flags and list of 256 offsets (in ints);
+# the per-slot body: 8 warps, up to 2 queries, a half-warp's code row
+QMAXSIM_SET_MAX_K = 256
+_QMAXSIM_SET_ROW_INTS = QMAXSIM_SET_MAX_K // 4 + QMAXSIM_SET_MAX_K
+_QMAXSIM_WARPS = {1: 16, 0: 8}
+_QMAXSIM_MAX_Q = {1: 4, 0: 2}
+
+
+def qmaxsim_body(k: int) -> int:
+    """The body ``quantized_maxsim`` runs at codebook size K: 1 the code
+    set (K <= 256), 0 per slot."""
+    return int(k <= QMAXSIM_SET_MAX_K)
 
 
 def _qmaxsim_row_ints(code_bytes: int, md: int) -> int:
@@ -415,39 +427,53 @@ def qmaxsim_smem_bytes(code_bytes: int, mq: int, k: int, md: int,
     if code_bytes not in (1, 2):
         return -1
     chunks = _cdiv(mq, 32)
-    rows = max(16 * _qmaxsim_row_ints(code_bytes, md), 32 * 33)
+    body = qmaxsim_body(k)
+    row = _QMAXSIM_SET_ROW_INTS if body else _qmaxsim_row_ints(code_bytes, md)
+    rows = 2 * _QMAXSIM_WARPS[body] * row
     return (q * chunks * (k + 1) * 32 + q * chunks * 32 + rows
-            + q * range_len) * 4
+            + q * ((range_len + 3) & ~3)) * 4
 
 
 def qmaxsim_geometry(code_bytes: int, b: int, mq: int, k: int, n: int,
                      md: int, per_query: bool, range_len: int, top_k: int,
-                     max_q: int, *, smem: int = MAX_SMEM
-                     ) -> Optional[LaunchGeometry]:
-    """``hpc_qmaxsim`` (``top_k`` = 0: scores, max_q 2) and
-    ``hpc_qmaxsim_topk``'s launch (csrc/quantized_maxsim.cu, ``dispatch``):
-    two queries a block on the shared corpus when their tables fit, grid
-    (ceil(N / R), ceil(B / q)), block (x, y) scoring positions [x R,
-    (x + 1) R) masked to N and writing each query's scores, or its one
-    top-k list of range x. None when nothing is launched; ValueError for
-    shapes the launcher refuses."""
+                     max_q: int, sm_count: int = SM_COUNT_DATASHEET, *,
+                     smem: int = MAX_SMEM) -> Optional[LaunchGeometry]:
+    """``hpc_qmaxsim`` (``top_k`` = 0: scores, max_q 4) and
+    ``hpc_qmaxsim_topk``'s launch (csrc/quantized_maxsim.cu, ``dispatch``)
+    on a card of ``sm_count`` SMs: the code-set body for K <= 256 (16 warps,
+    up to 4 queries a block on the shared corpus), else the per-slot body
+    (8 warps, up to 2), ``config`` (queries a block, body 1 or 0, ranges a
+    block walks at most, 0); the most queries a block the body, B, max_q
+    and the shared memory allow, one on per-query pools. Grid (ceil(N / R),
+    ceil(B / q)), block (x, y) scoring positions [x R, (x + 1) R) masked to
+    N and writing each query's scores, or its one top-k list of range x;
+    a code-set launch of more (range, group) pairs than SMs takes
+    max(1, SMs // groups) blocks a group, each walking the ranges x, x +
+    grid.x, ... (``step``). None
+    when nothing is launched; ValueError for shapes the launcher
+    refuses."""
     if b <= 0 or n <= 0:
         return None
-    q = 1
-    if max_q >= 2 and b >= 2 and not per_query and \
-            qmaxsim_smem_bytes(code_bytes, mq, k, md, range_len, 2) <= smem:
-        q = 2
-    s = qmaxsim_smem_bytes(code_bytes, mq, k, md, range_len, q)
     if (b > 65535 or mq <= 0 or k <= 0 or md <= 0 or range_len <= 0
             or range_len > QMAXSIM_MAX_RANGE
             or (top_k and top_k > range_len) or top_k < 0):
         raise ValueError(
             f"quantized_maxsim: B={b}, Mq={mq}, K={k}, Md={md}, "
             f"R={range_len}, k={top_k} outside the launcher's range")
+    body = qmaxsim_body(k)
+    q = 1 if per_query else _QMAXSIM_MAX_Q[body]
+    while q > 1 and (q > max_q or q // 2 >= b or qmaxsim_smem_bytes(
+            code_bytes, mq, k, md, range_len, q) > smem):
+        q //= 2
+    s = qmaxsim_smem_bytes(code_bytes, mq, k, md, range_len, q)
     check_smem(s, kernel="quantized_maxsim",
                detail=f"Mq={mq}, K={k}, Md={md}, R={range_len}, {q} "
                       f"quer{'ies' if q > 1 else 'y'} a block", budget=smem)
     ranges = _cdiv(n, range_len)
+    groups = _cdiv(b, q)
+    gx = ranges
+    if body and 0 < sm_count < ranges * groups:
+        gx = max(1, sm_count // groups)
     if top_k:
         outs = (((b, ranges, top_k), torch.float32),
                 ((b, ranges, top_k), torch.int32))
@@ -457,8 +483,9 @@ def qmaxsim_geometry(code_bytes: int, b: int, mq: int, k: int, n: int,
         unit, extent = range_len, n
     return LaunchGeometry(
         "quantized_maxsim_topk" if top_k else "quantized_maxsim",
-        (ranges, _cdiv(b, q)), _QMAXSIM_THREADS, s, (q, 0, 0, 0), outs, b, q,
-        unit, ranges, extent)
+        (gx, groups), 32 * _QMAXSIM_WARPS[body], s,
+        (q, body, _cdiv(ranges, gx), 0), outs, b, q, unit, ranges, extent,
+        step=gx if gx < ranges else 0)
 
 
 # ---------------------------------------------------------------------------

@@ -13,11 +13,13 @@ import pytest
 import torch
 
 from repro_torch.core import scan
+from repro_torch.kernels import _build
 from repro_torch.kernels import hamming as hm
 from repro_torch.kernels import kmeans_assign as km
 from repro_torch.kernels import maxsim as ms
 from repro_torch.kernels import ops
 from repro_torch.kernels import quantized_maxsim as qm
+from repro_torch.kernels import vmem
 from repro_torch.parity import topk_mismatches
 
 pytestmark = pytest.mark.gpu
@@ -195,9 +197,11 @@ def test_quantized_maxsim_topk_kernel_matches_plain(case):
     torch.cuda.synchronize()
     assert got[0].shape == (b, -(-n // r), min(k, r))
     _assert_lists_match(got, want)
-    if len(lead) == 1:                       # one query per block, as well
-        _assert_lists_match(qm.quantized_maxsim_topk_cuda(
-            *args, valid, k=k, range_len=r, max_queries_per_block=1), want)
+    if len(lead) == 1:              # one and two queries a block, as well
+        for most in (1, 2):
+            _assert_lists_match(qm.quantized_maxsim_topk_cuda(
+                *args, valid, k=k, range_len=r,
+                max_queries_per_block=most), want)
 
 
 def test_quantized_maxsim_topk_kernel_takes_strided_pools_and_no_valid():
@@ -269,6 +273,150 @@ def test_quantized_maxsim_sweep_is_one_launch_and_matches_the_cpu(per_query):
     bad = topk_mismatches(got[1].cpu().numpy(), got[0].cpu().numpy(),
                           want[1].numpy(), want[0].numpy(), TOL)
     assert not bad, f"ids differ outside near-ties at {bad}"
+
+
+# -- quantized_maxsim's code-set body (K <= 256) ------------------------------
+
+def _code_set(seed, b, mq, k, lead, md, distinct, code_dtype=torch.uint8):
+    """ADC inputs whose pages hold ``distinct`` codes: "one" (every slot of
+    a page the same code), "window" (``portbench``'s ``window_codes`` rule:
+    a base uniform over K plus an offset over min(64, K) entries, mod K:
+    about 64 distinct codes a page at Md 615), "every" (``(base + j) mod
+    K``: each page holds every one of its K codes, Md >= K). Every fifth
+    page is all-masked; for K < 256, 5% of the slots hold codes >= K."""
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randn((b, mq, k), generator=g)
+    q_mask = (torch.rand((b, mq), generator=g) < 0.9).float()
+    base = torch.randint(0, k, lead + (1,), generator=g)
+    if distinct == "one":
+        codes = base.expand(lead + (md,))
+    elif distinct == "window":
+        codes = (base + torch.randint(0, min(64, k), lead + (md,),
+                                      generator=g)) % k
+    else:
+        codes = (base + torch.arange(md)) % k
+    codes = codes.clone()
+    if k < 256:
+        over = torch.rand(lead + (md,), generator=g) < 0.05
+        codes[over] = torch.randint(k, 256, (int(over.sum()),), generator=g)
+    d_mask = torch.rand(lead + (md,), generator=g) < 0.9
+    d_mask[..., ::5, :] = False                        # all-masked pages
+    return table, q_mask, codes.to(code_dtype), d_mask
+
+
+def _as_masked(table, q_mask, codes, d_mask):
+    """The plain version's inputs: a code >= K as a masked slot (the kernel
+    scores it so; the plain version would index past the table)."""
+    over = codes.to(torch.int64) >= table.shape[-1]
+    return table, q_mask, codes.masked_fill(over, 0), d_mask & ~over
+
+
+@pytest.mark.parametrize("distinct", ["one", "window", "every"])
+@pytest.mark.parametrize("k", [64, 256])
+@pytest.mark.parametrize("per_query", [False, True])
+def test_quantized_maxsim_code_set_body_matches_plain(distinct, k, per_query):
+    """Both entries against the plain versions at 1, about 64 and every
+    one of K distinct codes a page, with all-masked pages, codes >= K and
+    invalid slots; the launch reports the code-set body."""
+    dev = _card()
+    b, mq, n, md = 8, 32, 300, 615
+    lead = (b, n) if per_query else (n,)
+    args = _code_set(k + n + len(distinct) + per_query, b, mq, k, lead, md,
+                     distinct)
+    plain = _as_masked(*args)
+    on_card = [a.to(dev) for a in args]
+    got = qm.quantized_maxsim_cuda(*on_card)
+    torch.testing.assert_close(got.cpu(), qm.quantized_maxsim_plain(*plain),
+                               atol=TOL, rtol=TOL)
+    g = torch.Generator().manual_seed(k)
+    valid = torch.rand((b, n), generator=g) > 0.1
+    r = qm.launch_range_len(b, n, dev)
+    got = qm.quantized_maxsim_topk_cuda(*on_card, valid.to(dev), k=16,
+                                        range_len=r)
+    want = qm.quantized_maxsim_topk_plain(*plain, valid, k=16, range_len=r)
+    _assert_lists_match(got, want)
+    key = (1, b, mq, k, n, md, int(per_query), r, min(16, r), 4,
+           vmem.sm_count(dev))
+    assert qm.launch_shapes[key].config[1] == 1
+    assert _build.c_geometry("hpc_qmaxsim_geometry", *key)[5] == 1
+
+
+def _duplicated(codes, d_mask):
+    """Each page that has both: its first masked slot made valid, holding
+    the code of its first valid slot (a code the page already holds)."""
+    codes, d_mask = codes.clone(), d_mask.clone()
+    c2, m2 = codes.reshape(-1, codes.shape[-1]), d_mask.reshape(
+        -1, codes.shape[-1])
+    for row in range(c2.shape[0]):
+        on = torch.nonzero(m2[row])[:, 0]
+        off = torch.nonzero(~m2[row])[:, 0]
+        if len(on) and len(off):
+            c2[row, off[0]] = c2[row, on[0]]
+            m2[row, off[0]] = True
+    return codes, d_mask
+
+
+@pytest.mark.parametrize("per_query", [False, True])
+def test_quantized_maxsim_code_set_scores_are_bit_exact(per_query):
+    """A page's scores are those of its set of valid codes: permuting its
+    slots, or making a masked slot valid with a code it already holds,
+    leaves both entries' outputs equal bit for bit; and they equal the
+    per-slot body's (the same table with one column more, K = 257, uint16
+    codes) bit for bit. Mq 40: two chunks of query patches."""
+    dev = _card()
+    b, mq, n, md, k = 8, 40, 200, 615, 256
+    lead = (b, n) if per_query else (n,)
+    table, q_mask, codes, d_mask = _code_set(3 + per_query, b, mq, k, lead,
+                                             md, "window")
+    g = torch.Generator().manual_seed(5)
+    perm = torch.argsort(torch.rand(lead + (md,), generator=g), dim=-1)
+    variants = {
+        "permuted": (torch.gather(codes, -1, perm),
+                     torch.gather(d_mask, -1, perm)),
+        "duplicated": _duplicated(codes, d_mask)}
+    assert not torch.equal(variants["duplicated"][1], d_mask)
+    valid = (torch.rand((b, n), generator=g) > 0.1).to(dev)
+    tab, qmf = table.to(dev), q_mask.to(dev)
+
+    def both(t, c, m):
+        c, m = c.to(dev), m.to(dev)
+        return (qm.quantized_maxsim_cuda(t, qmf, c, m),
+                *qm.quantized_maxsim_topk_cuda(t, qmf, c, m, valid, k=16))
+
+    base = both(tab, codes, d_mask)
+    for name, (c, m) in variants.items():
+        for x, y in zip(both(tab, c, m), base):
+            assert torch.equal(x, y), name
+    wide = torch.cat([table, torch.randn((b, mq, 1), generator=g)], -1)
+    for x, y in zip(both(wide.to(dev), codes.to(torch.uint16), d_mask), base):
+        assert torch.equal(x, y), "per-slot body"
+    shapes = {key[3]: g_.config[1] for key, g_ in qm.launch_shapes.items()
+              if key[1:3] == (b, mq) and key[4:6] == (n, md)}
+    assert shapes == {256: 1, 257: 0}
+
+
+def test_quantized_maxsim_k512_keeps_the_per_slot_body():
+    """K = 512 (uint16 codes) matches the plain versions, with all-masked
+    pages and invalid slots, and its launches report the per-slot body."""
+    dev = _card()
+    b, mq, n, md, k = 4, 32, 130, 615, 512
+    for lead in ((n,), (b, n)):
+        args = _code_set(lead[0], b, mq, k, lead, md, "every", torch.uint16)
+        on_card = [a.to(dev) for a in args]
+        torch.testing.assert_close(
+            qm.quantized_maxsim_cuda(*on_card).cpu(),
+            qm.quantized_maxsim_plain(*args), atol=TOL, rtol=TOL)
+        valid = torch.arange(n) % 9 > 0
+        _assert_lists_match(
+            qm.quantized_maxsim_topk_cuda(*on_card, valid.to(dev), k=10,
+                                          range_len=32),
+            qm.quantized_maxsim_topk_plain(*args, valid, k=10, range_len=32))
+        for top_k in (0, 10):
+            key = (2, b, mq, k, n, md, int(len(lead) == 2),
+                   32 if top_k else qm.launch_range_len(b, n, dev), top_k,
+                   4, vmem.sm_count(dev))
+            assert qm.launch_shapes[key].config[1] == 0
+            assert _build.c_geometry("hpc_qmaxsim_geometry", *key)[5] == 0
 
 
 # -- hamming_maxsim and maxsim ------------------------------------------------
@@ -1769,13 +1917,26 @@ _GEOMETRY_EDGES = {
                             (1, 3, 40, 100, 1, 130, 8, 132),
                             (2, 8, 32, 64, 1024, 128, 8, 132),
                             (0, 5, 5, 1, 615, 512, 1, 132)],
-    "hpc_qmaxsim_geometry": [(1, 8, 32, 256, 16384, 615, 0, 256, 32, 2),
-                             (2, 8, 32, 512, 300, 128, 0, 64, 10, 2),
-                             (1, 8, 40, 256, 1024, 1024, 1, 256, 64, 2),
-                             (1, 1, 5, 16, 1, 1, 0, 2, 1, 2),
-                             (1, 64, 32, 256, 131072, 616, 0, 256, 128, 2),
-                             (2, 8, 32, 4096, 256, 128, 0, 256, 0, 2),
-                             (1, 8, 32, 256, 300, 16, 0, 257, 0, 2)],
+    "hpc_qmaxsim_geometry": [
+        (1, 8, 32, 256, 16384, 615, 0, 256, 32, 2, 132),
+        (2, 8, 32, 512, 300, 128, 0, 64, 10, 2, 132),
+        (1, 8, 40, 256, 1024, 1024, 1, 256, 64, 2, 132),
+        (1, 1, 5, 16, 1, 1, 0, 2, 1, 2, 132),
+        (1, 64, 32, 256, 131072, 616, 0, 256, 128, 2, 132),
+        (2, 8, 32, 4096, 256, 128, 0, 256, 0, 2, 132),
+        (1, 8, 32, 256, 300, 16, 0, 257, 0, 2, 132),
+        (2, 8, 32, 256, 16384, 615, 0, 256, 32, 2, 132),
+        (1, 8, 32, 64, 4096, 615, 1, 64, 32, 2, 132),
+        (2, 8, 32, 257, 200, 615, 1, 16, 16, 2, 132),
+        (1, 8, 32, 256, 4194304, 616, 0, 256, 32, 4, 132),
+        (1, 64, 32, 256, 131072, 616, 0, 256, 128, 4, 132),
+        (1, 8, 32, 256, 16384, 615, 1, 256, 32, 4, 132),
+        (1, 3, 32, 256, 300, 615, 0, 16, 0, 4, 132),
+        # the SM count caps the code-set body's grid, and only that
+        (1, 8, 32, 256, 4194304, 616, 0, 256, 32, 4, 114),
+        (1, 64, 32, 256, 131072, 616, 0, 256, 128, 4, 1),
+        (1, 8, 32, 256, 16384, 615, 0, 256, 32, 4, 0),
+        (2, 8, 32, 512, 16384, 615, 0, 256, 32, 2, 8)],
 }
 
 
@@ -1807,7 +1968,8 @@ def test_python_shared_bytes_equal_the_librarys_smem_exports():
     from repro_torch.kernels import _build, vmem
     lib = _build.library()
     for cb, mq, k, md, r in [(1, 32, 256, 615, 256), (2, 40, 512, 16, 2),
-                             (1, 5, 16, 1, 64), (2, 32, 4096, 128, 256)]:
+                             (1, 5, 16, 1, 64), (2, 32, 4096, 128, 256),
+                             (2, 40, 256, 2460, 16), (2, 32, 257, 615, 8)]:
         assert vmem.qmaxsim_smem_bytes(cb, mq, k, md, r) == \
             lib.hpc_qmaxsim_smem_bytes(cb, mq, k, md, r)
     for layout, b, mq, d in [(0, 8, 32, 128), (1, 8, 32, 128),

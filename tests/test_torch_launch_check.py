@@ -179,11 +179,60 @@ def test_maxsim_and_qmaxsim_refusals():
         vmem.qmaxsim_geometry(1, 8, 32, 256, 1000, 615, False, 128, 129, 2)
     assert vmem.qmaxsim_geometry(1, 8, 32, 256, 0, 615, False, 128, 10, 2) \
         is None
-    # two queries a block on the shared corpus, one on per-query pools
-    g = vmem.qmaxsim_geometry(1, 8, 32, 256, 16384, 615, False, 256, 32, 2)
-    assert g.config[0] == 2 and g.grid == (64, 4)
-    g = vmem.qmaxsim_geometry(1, 8, 32, 256, 16384, 615, True, 256, 32, 2)
-    assert g.config[0] == 1 and g.grid == (64, 8)
+    # four queries a block on the shared corpus, one on per-query pools;
+    # more (range, group) pairs than SMs: SMs // groups blocks a group
+    g = vmem.qmaxsim_geometry(1, 8, 32, 256, 16384, 615, False, 256, 32, 4)
+    assert g.config[0] == 4 and g.grid == (64, 2)
+    g = vmem.qmaxsim_geometry(1, 8, 32, 256, 16384, 615, True, 256, 32, 4)
+    assert g.config[0] == 1 and g.grid == (16, 8) and g.step == 16
+
+
+@pytest.mark.parametrize("case,args,want", [
+    # (grid, threads, shared bytes, (queries a block, body: 1 the code set,
+    #  0 per slot, ranges a block walks, 0), step)
+    ("flat sweep", (1, 8, 32, 256, 16384, 615, False, 256, 32, 4),
+     ((64, 2), 512, 177152, (4, 1, 1, 0), 0)),
+    ("flat cell launch", (1, 8, 32, 256, 4194304, 616, False, 256, 32, 4),
+     ((66, 2), 512, 177152, (4, 1, 249, 0), 66)),
+    ("flat cell launch on 114 SMs",
+     (1, 8, 32, 256, 4194304, 616, False, 256, 32, 4, 114),
+     ((57, 2), 512, 177152, (4, 1, 288, 0), 57)),
+    ("flat sweep, 2 queries a block at most",
+     (1, 8, 32, 256, 16384, 615, False, 256, 32, 2),
+     ((33, 4), 512, 109056, (2, 1, 2, 0), 33)),
+    ("rerank pools", (1, 8, 32, 256, 32, 1024, True, 2, 2, 4),
+     ((16, 8), 512, 74000, (1, 1, 1, 0), 0)),
+    ("serving block", (1, 8, 32, 256, 256, 128, False, 8, 0, 4),
+     ((32, 2), 512, 173184, (4, 1, 1, 0), 0)),
+    ("serve cell launch", (1, 64, 32, 256, 131072, 616, False, 256, 128, 4),
+     ((8, 16), 512, 177152, (4, 1, 64, 0), 8)),
+    ("K 64 pools", (1, 8, 32, 64, 4096, 615, True, 64, 32, 4),
+     ((16, 8), 512, 49664, (1, 1, 4, 0), 16)),
+    ("K 256 uint16 codes", (2, 8, 32, 256, 16384, 615, False, 256, 32, 4),
+     ((64, 2), 512, 177152, (4, 1, 1, 0), 0)),
+    ("K 512 uint16", (2, 8, 32, 512, 256, 128, False, 8, 0, 4),
+     ((32, 4), 256, 140864, (2, 0, 1, 0), 0)),
+    ("K 512 pools", (2, 8, 32, 512, 1024, 615, True, 32, 32, 4),
+     ((32, 8), 256, 105856, (1, 0, 1, 0), 0)),
+])
+def test_qmaxsim_geometry_reports_its_body(case, args, want):
+    """The code-set body for K <= 256, whatever the code width, the
+    per-slot body above (``config[1]``, the export's out[5]): its block
+    (16 warps and up to 4 queries, or 8 and 2), shared bytes (the tables,
+    a half-warp's 256 flags and 256 offsets; the per-slot body's code rows
+    grow with Md), and the ranges a block walks when the pairs outnumber
+    the SMs (the per-slot grid is one range a block)."""
+    g = vmem.qmaxsim_geometry(*args)
+    assert (g.grid, g.threads, g.smem, g.config, g.step) == want
+    assert g.config[1] == vmem.qmaxsim_body(args[3])
+    cb, _, mq, k, _, md, _, r = args[:8]
+    assert g.smem == vmem.qmaxsim_smem_bytes(cb, mq, k, md, r, g.config[0])
+    if g.config[1]:             # the set's shared bytes do not grow with Md
+        longer = (*args[:5], 4 * args[5], *args[6:])
+        assert vmem.qmaxsim_geometry(*longer).smem == g.smem
+    if g.grid[0] * g.grid[1] <= 1 << 16:
+        c = pc.coverage_counts(g)
+        assert c.min() == 1 and c.max() == 1
 
 
 # --- the shape contract under fake tensors -----------------------------------------
