@@ -14,6 +14,32 @@ the window's requests against the plain reference's.
 ``lost`` and ``bad_answers`` are exact (limit 0). The limits of the other
 two are each cell's, set from readings on the card.
 
+A cell whose kind has an encoder stage judges the encoder apart from the
+search, and the search on the embeddings the port served, so
+``score_err`` and ``rank_miss`` read the search alone there:
+
+  enc_err      the median, over the sampled queries, of the relative
+               Frobenius error of the served embeddings against the
+               reference encoder's, on the query's valid tokens (the
+               widest over the query's instances in the window; a query
+               none of whose instances is found reads ``NOT_SERVED``)
+  enc_miss     the share of sampled queries whose error passes the cell's
+               ``enc_tol``: where a routed encoder's near-tie reroutes
+               show, as ``rank_miss`` counts code near-ties
+
+On qwen2-1.5b with bfloat16 activations (the cell qenc-flat4m-backlog,
+68 sound runs of 64 queries) a query's error read 0.0156-0.0268 and the
+medians 0.0196-0.0207; the control (products' inputs in float8 e4m3)
+read 0.151-0.245 a query, medians 0.191-0.196 (5 seeds); a query given
+another's embeddings about 1.5. ``enc_tol`` 0.08 sits 3.0x above the
+widest sound error and 1.9x under the least control error; ``enc_err``'s
+limit 0.08 3.9x above the sound medians and 2.4x under the control's;
+``enc_miss``'s 0.02 lets one query of 64 pass, where the fault that
+gives each batch's first query the batch before's embeddings read 6-11
+of 64 and the control all 64. The search there, judged on the served
+embeddings, read ``score_err`` 1.1e-7-2.3e-7 and ``rank_miss`` 0 (TF32
+control: 1.1e-4-1.9e-4 and 0.33-0.50), under the flat cell's limits.
+
 ``rank_miss`` counts answers, not the widest gap, because a funnel may
 part from its reference without fault: a patch nearly equidistant from
 two centroids gets either code by rounding, and a code that moves a page
@@ -32,6 +58,11 @@ import numpy as np
 
 TINY = 1e-6
 RANK_TOL = 1e-5
+# the numbers a cell with an encoder stage adds, in the order printed
+ENCODER_NUMBERS = ("enc_err", "enc_miss")
+# the encoder error of a query whose served embeddings were not found (a
+# served row's error is at most 2: both sides are unit rows)
+NOT_SERVED = 1e9
 
 
 def well_formed(answer, top_k: int, n_docs: int) -> bool:
@@ -70,6 +101,23 @@ def numbers(answers: List[Optional[Tuple[np.ndarray, np.ndarray]]],
             "score_err": max((x[0] for x in sound), default=0.0),
             "rank_miss": (sum(x[1] > RANK_TOL for x in sound) / len(sound)
                           if sound else 0.0)}, errs
+
+
+def rel_error(served, ref, mask) -> float:
+    """||served - ref|| / ||ref|| (Frobenius) over the rows ``mask``
+    keeps: one query's (Lq, D) embeddings."""
+    keep = mask.bool()
+    s, r = served[keep].double(), ref[keep].double()
+    return float(np.linalg.norm((s - r).cpu().numpy())
+                 / max(float(np.linalg.norm(r.cpu().numpy())), TINY))
+
+
+def encoder_numbers(errors: List[float], enc_tol: float) -> Dict[str, float]:
+    """``enc_err`` and ``enc_miss`` of the sampled queries' errors."""
+    if not errors:
+        return {"enc_err": 0.0, "enc_miss": 0.0}
+    return {"enc_err": float(np.median(errors)),
+            "enc_miss": sum(e > enc_tol for e in errors) / len(errors)}
 
 
 def verdict(values: Dict[str, float], limits: Dict[str, float]) -> bool:

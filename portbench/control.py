@@ -1,6 +1,7 @@
 """The control of ``correct``: one cell run with the plain reference, one
-precision lower (TF32 products), in the port's place, at the cell's own
-size; its check has to come out false. The benchmark's runs never run it.
+precision lower (TF32 products; a query encoder's product inputs one step
+below its activation dtype), in the port's place, at the cell's own size;
+its check has to come out false. The benchmark's runs never run it.
 
     python3 portbench/control.py --workload <cell> --seed <n> --seconds <s>
 

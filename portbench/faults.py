@@ -8,6 +8,9 @@ comes out false when the timed path is broken:
   altered  the kernel that produces the served scores leaves them 1e-4
            high (relative): the flat path's ADC kernel, the cascade's
            float stage (the port's plain versions, which run on the CPU)
+  stale_row  the query encoder gives each batch's first query the
+           embeddings it gave the batch before's first: a token's answer
+           altered where it is produced (kinds with an encoder stage)
 
 ``planted(name, kind)`` plants one for the duration of a ``with`` block.
 The CPU tests plant each at a tiny size; ``control.py --fault`` plants
@@ -19,7 +22,7 @@ import contextlib
 
 import torch
 
-NAMES = ("stale", "half", "altered")
+NAMES = ("stale", "half", "altered", "stale_row")
 
 
 def _stale(search):
@@ -52,6 +55,20 @@ def _altered(fn):
     return wrapped
 
 
+def _stale_row(encode):
+    last = []
+
+    def wrapped(self, tokens, token_mask, *a, **kw):
+        e, sal = encode(self, tokens, token_mask, *a, **kw)
+        prev = last[0] if last else None
+        last[:] = [e[0].clone()]
+        if prev is not None:
+            e = e.clone()
+            e[0] = prev
+        return e, sal
+    return wrapped
+
+
 def _site(name: str, kind: str):
     """The (owner, attribute, wrapper) a fault replaces."""
     if name in ("stale", "half"):
@@ -59,9 +76,12 @@ def _site(name: str, kind: str):
         return Retriever, "search", _stale if name == "stale" else _half
     if name == "altered":
         from repro_torch.kernels import maxsim, quantized_maxsim
-        if kind == "flat":
+        if kind in ("flat", "encoded_flat"):
             return quantized_maxsim, "quantized_maxsim_topk_plain", _altered
         return maxsim, "maxsim_plain", _altered
+    if name == "stale_row":
+        from repro_torch.models.colpali import ColPaliEncoder
+        return ColPaliEncoder, "encode_query", _stale_row
     raise ValueError(f"unknown fault {name!r}; known: {NAMES}")
 
 

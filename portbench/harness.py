@@ -18,10 +18,19 @@ A run:
   3. the check, once the window has closed and the port's state is
      freed: a sample of the window's answers, drawn from the seed, against
      the plain reference run on the same inputs (``check``).
+
+A kind with an encoder stage (``kinds.encoded_flat``) serves token
+queries: the search callable chains the port's encoder and its search,
+``Retriever.search(state, Query(*encoder(tokens, mask)))``, and keeps, by
+reference, the last ``KEEP_CALLS`` batches' device token rows and the
+embeddings they served (``EncodingSearcher``); the sample is drawn from
+the requests those batches served, and the check judges the encoder on
+their embeddings and the search on them, apart (``Encoded``).
 """
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -29,9 +38,10 @@ import importlib
 import importlib.util
 import json
 import sys
+import threading
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Deque, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +60,10 @@ KERNELS = {"quantized_maxsim": ("quantized_maxsim", "qmaxsim_kernel"),
 DRAIN_S = 60.0
 # sampled queries the reference takes at a time
 REF_ROWS = 16
+# search calls whose token rows and served embeddings a kind with an
+# encoder stage keeps for the check: about 17 MB at the cells' batches of
+# 8 x 32 x 128 float32 embeddings, under 0.1% of the qenc cell's peak
+KEEP_CALLS = 128
 
 
 def load_json(path: Path) -> dict:
@@ -122,17 +136,50 @@ class Searcher:
     def __init__(self, impl: Callable, span, sync: bool):
         self.impl, self.span, self.sync = impl, span, sync
         self.calls: List[tuple] = []
+        # requests sent after this have every serving call kept (a kind
+        # with an encoder stage keeps a ring of them; others keep none)
+        self.covered_from = float("-inf")
+
+    def serve(self, q, qm, qs):
+        return self.impl(q, qm, qs)
 
     def __call__(self, q, qm, qs):
         t = time.perf_counter()
         with self.span("pb.search"):
-            out = self.impl(q, qm, qs)
+            out = self.serve(q, qm, qs)
         if self.sync:
             with self.span("pb.sync"):
                 ev = torch.cuda.Event()
                 ev.record()
                 ev.synchronize()
         self.calls.append((t, time.perf_counter(), int(q.shape[0]), qm))
+        return out
+
+
+class EncodingSearcher(Searcher):
+    """The search callable of a kind with an encoder stage: ``encode``
+    (tokens, mask) -> (embeddings, mask, salience), then ``impl`` over
+    them. Each call keeps, by reference (no copy, no wait), its start and
+    end on the host's clock, the device token rows and mask it was given
+    and the embeddings it served, in a ring of the last ``KEEP_CALLS``
+    calls to end (``kept``): a fixed amount of memory, whatever the rate.
+    ``covered_from`` is the latest start of a call the ring dropped: a
+    request sent after it was served by calls that are all kept."""
+
+    def __init__(self, encode: Callable, impl: Callable, span, sync: bool):
+        super().__init__(impl, span, sync)
+        self.encode = encode
+        self.kept: Deque[tuple] = collections.deque(maxlen=KEEP_CALLS)
+        self._lock = threading.Lock()
+
+    def serve(self, q, qm, qs):
+        t = time.perf_counter()
+        e, m, s = self.encode(q, qm)
+        out = self.impl(e, m, s)
+        with self._lock:
+            if len(self.kept) == KEEP_CALLS:
+                self.covered_from = max(self.covered_from, self.kept[0][0])
+            self.kept.append((t, time.perf_counter(), q, qm, e))
         return out
 
 
@@ -270,18 +317,31 @@ def run(cell: str, *, seed: int, seconds: float, traced: bool,
     steps = [("imports", time.perf_counter())]
     inp = kind.inputs(cfg, seed, dev)
     steps.append(("inputs", time.perf_counter()))
+    encoded = hasattr(kind, "encoder")
+    encoder = None
     if control:
         impl_ref = kind.reference(cfg, inp, dev, tf32=True)
         impl = lambda q, qm, qs: impl_ref.search(q, qm)  # noqa: E731
+        if encoded:
+            encoder = lambda t, tm: (impl_ref.encode(t, tm), tm,  # noqa: E731
+                                     None)
     else:
         retriever, state = kind.system(cfg, inp)
         impl = lambda q, qm, qs: retriever.search(  # noqa: E731
             state, Query(q, qm, qs), k=cfg["top_k"])
+        if encoded:
+            encoder = kind.encoder(cfg, inp)
     index_bytes = None if control else state_bytes(state)
+    encoder_bytes = (state_bytes(encoder.weights) if encoded and not control
+                     else None)
     steps.append(("index" if not control else "control", time.perf_counter()))
     span = (trace_mod.HostSpans() if traced
             else lambda name: contextlib.nullcontext())
-    searcher = Searcher(impl, span, sync=traced and cuda)
+    if encoded:
+        searcher = EncodingSearcher(encoder, impl, span,
+                                    sync=traced and cuda)
+    else:
+        searcher = Searcher(impl, span, sync=traced and cuda)
     server = AsyncRetrievalServer(
         searcher, ServeConfig(max_batch=traffic["max_batch"],
                               max_wait_ms=traffic["max_wait_ms"],
@@ -346,7 +406,8 @@ def run(cell: str, *, seed: int, seconds: float, traced: bool,
     runrec = Run(traced=traced, t0=t0, t1=t1, window_s=t1 - t0,
                  setup_s=t0 - t_process, in_window=in_window, stats=stats,
                  searches=searcher.calls, peak_bytes=peak, held_bytes=held,
-                 index_bytes=index_bytes, trace=summary,
+                 index_bytes=index_bytes, encoder_bytes=encoder_bytes,
+                 trace=summary,
                  costs=lambda b, qv: kind.costs(cfg, inp, b, qv))
     metrics = {}
     for entry in metric_entries(spec, traced):
@@ -356,18 +417,26 @@ def run(cell: str, *, seed: int, seconds: float, traced: bool,
                                       "unit": entry["unit"]}
 
     # the check: the port's state freed first, then the reference
-    done = [r for r in in_window if r.error is None]
+    done = [r for r in in_window
+            if r.error is None and r.t_ref > searcher.covered_from]
     rng = np.random.default_rng([int(seed), 3])
     n_sample = min(int(spec.cell["sample"]), len(done))
     sample = [done[j] for j in
               sorted(rng.choice(len(done), size=n_sample, replace=False))]
     searcher.impl = impl = None
     server = retriever = state = impl_ref = None  # noqa: F841
+    if encoded:
+        searcher.encode = encoder = None
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    values = _check(kind, cfg, inp, dev, sample, lost, log)
+    served = None
+    if encoded:
+        served = Encoded(searcher.kept, inp, sample, cfg["top_k"],
+                         float(spec.cell["enc_tol"]), dev)
+        searcher.kept = None
+    values = _check(kind, cfg, inp, dev, sample, lost, log, served)
     log(f"check of {n_sample} answers took "
         f"{time.perf_counter() - t_check:.3f} s")
     limits = {"lost": 0.0, "bad_answers": 0.0, **spec.cell["limits"]}
@@ -393,35 +462,54 @@ def run(cell: str, *, seed: int, seconds: float, traced: bool,
     result["launches"] = launches
     result["checks"] = {name: {"value": values[name], "limit": limits[name]}
                         for name in ("lost", "bad_answers", "score_err",
-                                     "rank_miss")}
+                                     "rank_miss")
+                        + (check.ENCODER_NUMBERS if encoded else ())}
     return result
 
 
-def _check(kind, cfg, inp, dev, sample: List[Request], lost: int, log):
+def _pool_rows(inp, dev):
+    """A chunk's query rows for a kind without an encoder stage: the
+    pool's, as the port was given them."""
+    pq, pm, _ = inp.pool
+
+    def rows(ref, s, part, ids):
+        idx = [r.i for r in part]
+        return (torch.from_numpy(pq[idx]).to(dev),
+                torch.from_numpy(pm[idx]).to(dev))
+    return rows
+
+
+def _check(kind, cfg, inp, dev, sample: List[Request], lost: int, log,
+           served=None):
+    """The sampled answers against the reference's search and exact scores
+    on each chunk's query rows: the pool's, or with ``served`` (an
+    ``Encoded``) the embeddings the port served, the encoder judged on the
+    way."""
     k = cfg["top_k"]
     ref = kind.reference(cfg, inp, dev, tf32=False)
-    pq, pm, _ = inp.pool
+    rows = served.rows if served is not None else _pool_rows(inp, dev)
     ref_scores = np.zeros((len(sample), k))
     ref_ids = np.zeros((len(sample), k), dtype=np.int64)
     exact = np.zeros((len(sample), k))
     answers = [r.result for r in sample]
     for s in range(0, len(sample), REF_ROWS):
         part = sample[s:s + REF_ROWS]
-        idx = [r.i for r in part]
-        q = torch.from_numpy(pq[idx]).to(dev)
-        qm = torch.from_numpy(pm[idx]).to(dev)
-        sc, ids_r = ref.search(q, qm)
         ids = np.zeros((len(part), k), dtype=np.int64)
         for j, r in enumerate(part):
             if check.well_formed(r.result, k, inp.n_docs):
                 ids[j] = np.asarray(r.result[1])
-        ex = ref.exact(q, qm, torch.from_numpy(ids).to(dev))
+        ids = torch.from_numpy(ids).to(dev)
+        q, qm = rows(ref, s, part, ids)
+        sc, ids_r = ref.search(q, qm)
+        ex = ref.exact(q, qm, ids)
         ref_scores[s:s + len(part)] = sc.double().cpu().numpy()
         ref_ids[s:s + len(part)] = ids_r.cpu().numpy()
         exact[s:s + len(part)] = ex.double().cpu().numpy()
     del ref
     values, errs = check.numbers(answers, ref_scores, exact, lost, k,
                                  inp.n_docs)
+    if served is not None:
+        values.update(served.numbers(log))
     scored = [j for j, e in enumerate(errs) if e is not None]
     if scored:
         j = max(scored, key=lambda j: errs[j][1])
@@ -431,6 +519,72 @@ def _check(kind, cfg, inp, dev, sample: List[Request], lost: int, log):
             f"{np.asarray(answers[j][0]).tolist()}, reference "
             f"{ref_ids[j].tolist()} {ref_scores[j].tolist()}")
     return values
+
+
+class Encoded:
+    """The check's query rows for a kind with an encoder stage, with the
+    encoder judged on the way. Every kept instance of each sampled query
+    is found by its token row and mask. The encoder: each query's served
+    embeddings, at every instance, against the reference's encoding of its
+    tokens (``check.encoder_numbers``). The search: each answer on the
+    embeddings served to it, those of an instance whose call ran between
+    the request's send and its answer (of several, the one its answer's
+    scores match best: batches of other sizes round otherwise); a query
+    with no such instance is searched on the reference's encoding."""
+
+    def __init__(self, kept, inp, sample: List[Request], k: int,
+                 enc_tol: float, dev):
+        self.pq, self.pm, _ = inp.pool
+        self.sample, self.k, self.n_docs = sample, k, inp.n_docs
+        self.enc_tol, self.dev = enc_tol, dev
+        self.errs: List[float] = []
+        want: Dict[bytes, List[int]] = {}
+        for s, r in enumerate(sample):
+            want.setdefault(self.pq[r.i].tobytes() + self.pm[r.i].tobytes(),
+                            []).append(s)
+        self.found: List[list] = [[] for _ in sample]
+        for t_a, t_b, q, qm, e in kept:
+            qh, mh = q.cpu().numpy(), qm.cpu().numpy()
+            for row in range(qh.shape[0]):
+                for s in want.get(qh[row].tobytes() + mh[row].tobytes(), ()):
+                    self.found[s].append((t_a, t_b, e[row]))
+
+    def rows(self, ref, s, part, ids):
+        idx = [r.i for r in part]
+        tok = torch.from_numpy(self.pq[idx]).to(self.dev)
+        qm = torch.from_numpy(self.pm[idx]).to(self.dev)
+        ref_e = ref.encode(tok, qm)
+        served = []
+        for j, r in enumerate(part):
+            inst = self.found[s + j]
+            self.errs.append(max((check.rel_error(e, ref_e[j], qm[j])
+                                  for _, _, e in inst),
+                                 default=check.NOT_SERVED))
+            cands = [e for a, b, e in inst
+                     if a >= r.t_ref and b <= r.t_done]
+            if len(cands) > 1 and check.well_formed(r.result, self.k,
+                                                    self.n_docs):
+                got = torch.as_tensor(np.asarray(r.result[0]),
+                                      dtype=torch.float64)
+                gaps = [float((ref.exact(e[None], qm[j:j + 1],
+                                         ids[j:j + 1])[0].double().cpu()
+                               - got).abs().max()) for e in cands]
+                cands = [cands[int(np.argmin(gaps))]]
+            served.append(cands[0] if cands else ref_e[j])
+        return torch.stack(served), qm
+
+    def numbers(self, log) -> Dict[str, float]:
+        errs, n_inst = self.errs, [len(f) for f in self.found]
+        self.found = []
+        if errs:
+            j = int(np.argmax(errs))
+            r = self.sample[j]
+            log(f"encoder errors: widest {errs[j]:.6g} (enc_tol "
+                f"{self.enc_tol:.6g}) on pool query {r.i} "
+                f"({int(self.pm[r.i].sum())} tokens, {n_inst[j]} "
+                f"instances), least {min(errs):.6g}; {sum(n_inst)} "
+                f"instances of {len(self.sample)} queries")
+        return check.encoder_numbers(errs, self.enc_tol)
 
 
 def main(argv_args, t_process: float) -> int:

@@ -12,7 +12,23 @@ A configuration file (``configs/<name>.json``) names its kind under
   reference(cfg, inp, device, tf32)  -> the plain reference, ready to search
 
 ``q_valid`` lists the valid query patches of each row of the batch (0 for
-the rows the server pads). Kernel names are the port's kernel modules.
+the rows the server pads). Kernel names are the port's kernel modules;
+``costs`` may add ``"encoder"``, the encoder stage's work.
+
+A kind may also have an encoder stage:
+
+  encoder(cfg, inp)                  -> the port's query encoder, a callable
+                                        (tokens, mask) -> (embeddings (B, Lq,
+                                        D) f32, mask, salience), whose
+                                        ``weights`` are the tensors it holds
+
+Its pool then holds token ids, and the served callable is
+``retriever.search(state, Query(*encoder(tokens, mask)), k=top_k)``. Its
+reference also has ``encode(tokens, mask)``, a plain encoder, and its
+``search`` and ``exact`` take embeddings. ``tf32`` asks for the control:
+the search in TF32, and the encoder's product inputs one step below the
+configuration's activation dtype (bfloat16 -> float8 e4m3, float32 ->
+TF32).
 """
 from __future__ import annotations
 

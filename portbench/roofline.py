@@ -37,8 +37,14 @@ So a per-slot count is not the least work, and a share of it could pass
 line, never divided into a time. A float MaxSim product has no such
 shortcut: 2 * D FLOPs per valid query patch and valid doc slot.
 
+An encoder's products (``encoder_cost``) run on the tensor cores in its
+activation dtype: their least time is at the dense bf16 peak for a
+bf16-activation encoder, at the f32 peak for a float32 one. Its weights
+are counted once a batch, at the activation dtype's width: every product
+reads its weight in that dtype, whatever dtype the weights are stored in.
+
 Peaks: the H100 SXM data sheet at 700 W (f32 outside the tensor cores,
-dense TF32, HBM3).
+dense TF32, dense bf16, HBM3).
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 # 3xTF32 issues three TF32 products per f32 product
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = PEAK_F32_FLOPS):
@@ -73,17 +80,19 @@ def gemm_bounds(n_bytes: float, flops: float):
 @dataclasses.dataclass(frozen=True)
 class Cost:
     """One kernel call's work: bytes, operations, the rate its
-    operations run at, and the per-slot count (lookup kernels only)."""
+    operations run at (``gemm``: f32 products; ``peak``: a stated rate),
+    and the per-slot count (lookup kernels only)."""
 
     n_bytes: float
     ops: float
     gemm: bool = False
     slot_ops: float = 0.0
+    peak: float = 0.0
 
     def least_ms(self) -> float:
         if self.gemm:
             return gemm_bounds(self.n_bytes, self.ops)[0]
-        return bound(self.n_bytes, self.ops)[0]
+        return bound(self.n_bytes, self.ops, self.peak or PEAK_F32_FLOPS)[0]
 
 
 def qmaxsim_cost(*, b: int, mq: int, k: int, pages: int, md: int,
@@ -127,3 +136,29 @@ def assign_cost(*, rows: int, d: int, k: int) -> Cost:
     the codebook and the codes; 2 * D FLOPs per row and centroid."""
     return Cost(rows * d * 4 + k * d * 4 + rows * 4, 2.0 * d * k * rows,
                 True)
+
+
+def encoder_cost(*, n_layers: int, d_model: int, n_heads: int,
+                 n_kv_heads: int, head_dim: int, d_ff: int, proj_dim: int,
+                 b: int, lq: int, tokens: int, attn_pairs: int,
+                 bf16: bool) -> Cost:
+    """A dense decoder encoding a batch of ``b`` queries of ``lq`` slots,
+    ``tokens`` of them valid: per valid token 2 FLOPs per weight of every
+    product (q, k, v, o, the SwiGLU's three, the output projection), and
+    per valid (query position, key position <= it) pair (``attn_pairs``)
+    2 * 2 * head_dim FLOPs a head (scores and values). Bytes: every
+    product's weights once at the activation dtype's width, the biases
+    and norms, the valid tokens' embedding rows, the token ids and the
+    float32 embeddings written."""
+    width = 2 if bf16 else 4
+    q_out, kv_out = n_heads * head_dim, n_kv_heads * head_dim
+    layer = d_model * (q_out + 2 * kv_out) + q_out * d_model \
+        + 3 * d_model * d_ff
+    weights = n_layers * layer + d_model * proj_dim
+    small = n_layers * (q_out + 2 * kv_out + 2 * d_model) + d_model
+    flops = 2.0 * weights * tokens \
+        + 4.0 * n_layers * n_heads * head_dim * attn_pairs
+    n_bytes = ((weights + small + tokens * d_model) * width + b * lq * 8
+               + b * lq * proj_dim * 4)
+    return Cost(n_bytes, flops,
+                peak=PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)

@@ -55,12 +55,18 @@ def test_traced_cell_on_card(pb, cell):
             "quantized_maxsim_roofline", "index_gib", "search_scratch_gib"}
     if cell == "tiny-cascade-cell":
         want.add("hamming_maxsim_roofline")
+    if cell == "tiny-qenc-cell":
+        want.add("encoder_gib")
     assert set(m) == want
     for name in want:
         if name in ("idle_pct", "search_mfu_pct") or name.endswith(
                 "_roofline"):
             assert 0 < m[name] <= 100, (name, m[name])
     assert 0 < m["search_scratch_gib"] < m["index_gib"]
+    if cell == "tiny-qenc-cell":
+        # qwen2-1.5b's float32 weights: 1.546e9 parameters
+        assert m["encoder_gib"] * 2 ** 30 == pytest.approx(4 * 1.546e9,
+                                                            rel=1e-3)
     dev = res["device"]
     assert 0 < dev["busy_s"] <= dev["window_s"]
     assert m["index_gib"] * 2 ** 30 < dev["memory_peak_bytes"]
@@ -85,6 +91,16 @@ def test_broken_path_on_card_is_not_correct(pb, cell, fault):
         res = harness.run(cell, seed=SEED + 3, seconds=2.0, traced=False,
                           device="cuda", pb=pb)
     assert not res["correct"]
+
+
+def test_encoder_fault_on_card_is_not_correct(pb):
+    _card()
+    with faults.planted("stale_row", "encoded_flat"):
+        res = harness.run("tiny-qenc-cell", seed=SEED + 4, seconds=2.0,
+                          traced=False, device="cuda", pb=pb)
+    assert not res["correct"]
+    assert res["checks"]["enc_miss"]["value"] > res["checks"]["enc_miss"][
+        "limit"]
 
 
 def test_run_without_the_program_prints_no_result(tmp_path):

@@ -132,11 +132,17 @@ def test_run_seconds_fits_the_full_check():
     assert (2 + 14 * 24) * (rs + 60) + 24 * 2 * 90 + 1200 <= 43200
 
 
-@pytest.mark.parametrize("cell", ["flat4m-backlog", "cascade131k-backlog"])
+@pytest.mark.parametrize("cell", ["flat4m-backlog", "cascade131k-backlog",
+                                  "qenc-flat4m-backlog"])
 def test_cells_name_their_files(cell):
     spec = harness.load_spec(cell)
-    assert spec.cfg["kind"] in ("flat", "cascade")
+    assert spec.cfg["kind"] in ("flat", "cascade", "encoded_flat")
     assert spec.traffic["generator"] in ("closed_loop", "poisson")
-    assert set(spec.cell["limits"]) == {"score_err", "rank_miss"}
+    want = {"score_err", "rank_miss"}
+    if spec.cfg["kind"] == "encoded_flat":
+        # the encoder judged apart, with the per-query tolerance beside
+        want |= {"enc_err", "enc_miss"}
+        assert math.isfinite(spec.cell["enc_tol"]) and spec.cell["enc_tol"] > 0
+    assert set(spec.cell["limits"]) == want
     assert all(math.isfinite(v) and v > 0
                for v in spec.cell["limits"].values())

@@ -2,6 +2,7 @@
 against hand-worked tiny cases."""
 from __future__ import annotations
 
+import json
 import types
 from concurrent.futures import ThreadPoolExecutor
 
@@ -13,6 +14,7 @@ from portbench import check, corpus, trace
 from portbench.reference import BINARY_MASKED, lower, presence
 from portbench.reference.cascade import (CascadeReference, nearest,
                                          popcount_table)
+from portbench.reference.encoded_flat import EncoderReference, fp8
 from portbench.reference.flat import FlatReference
 
 
@@ -80,6 +82,73 @@ def test_tf32_rounding():
     x = torch.tensor([1.0 + 2.0 ** -12, 1.0 + 2.0 ** -10, 3.0 + 2.0 ** -11])
     assert lower(x, False).tolist() == x.tolist()
     assert lower(x, True).tolist() == [1.0, 1.0 + 2.0 ** -10, 3.0]
+
+
+def test_fp8_rounding():
+    # scale 1 (the largest magnitude is e4m3's 448): 3 mantissa bits, so
+    # steps of 1/8 in [1, 2), ties to even; 2**-9 is the least subnormal
+    x = torch.tensor([448.0, 1.06, 1.07, 1.1875, 2.0 ** -9, 2.0 ** -11])
+    assert fp8(x, (0,)).tolist() == [448.0, 1.0, 1.125, 1.25, 2.0 ** -9,
+                                     0.0]
+    # a slice's scale is its own: the same values at 1/64 of the size
+    rows = torch.stack([x, x / 64])
+    assert torch.equal(fp8(rows, (1,))[1], fp8(x, (0,)) / 64)
+
+
+def test_encoder_numbers_by_hand():
+    """k of S queries' embeddings pushed past ``enc_tol``: ``enc_miss`` is
+    k / S, ``enc_err`` the median, and the verdict follows the limit."""
+    gen = torch.Generator().manual_seed(5)
+    ref = torch.randn((8, 6, 4), generator=gen)
+    mask = torch.arange(6)[None] < torch.tensor([[6], [5], [4], [3], [6],
+                                                 [2], [6], [4]])
+    served = ref.clone()
+    served[:, :, 0] += 1e-4
+    for j in (1, 6):                     # k = 2 of S = 8
+        served[j, 0] += 0.5
+    served[~mask] = 7.0                  # padded rows are not compared
+    errs = [check.rel_error(served[j], ref[j], mask[j]) for j in range(8)]
+    assert all(e < 1e-3 for j, e in enumerate(errs) if j not in (1, 6))
+    assert errs[1] > 0.05 and errs[6] > 0.05
+    v = check.encoder_numbers(errs, enc_tol=0.01)
+    assert v["enc_miss"] == 2 / 8
+    assert v["enc_err"] == pytest.approx(float(np.median(errs)))
+    assert not check.verdict(v, {"enc_err": 0.01, "enc_miss": 0.2})
+    assert check.verdict(v, {"enc_err": 0.01, "enc_miss": 0.25})
+    # a query none of whose instances was found counts as a miss
+    assert check.encoder_numbers([0.0, check.NOT_SERVED], 0.01)[
+        "enc_miss"] == 0.5
+
+
+@pytest.mark.parametrize("adtype", ["float32", "bfloat16"])
+def test_encoder_reference_against_the_port_on_the_cpu(adtype):
+    """The port's ColPali query encoder and the reference on the same
+    drawn weights: float32 agrees to rounding; bfloat16 activations stay
+    several times under the control, whose products' inputs are rounded
+    one step lower (TF32 for float32, float8 e4m3 for bfloat16)."""
+    from portbench.kinds import encoded_flat
+    from portbench.tests import _tiny
+    cfg = json.loads(json.dumps(_tiny.TINY_CONFIGS["tiny-qenc"]))
+    cfg["encoder"]["backbone"]["activation_dtype"] = adtype
+    inp = types.SimpleNamespace(seed=11, device=torch.device("cpu"),
+                                pool=None)
+    encode = encoded_flat.encoder(cfg, inp)
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, 128, (4, 8), generator=gen)
+    mask = torch.arange(8)[None] < torch.tensor([[8], [5], [3], [8]])
+    served, m, sal = encode(tokens, mask)
+    assert m is mask and sal.shape == (4, 8)
+    w = encoded_flat.draw_weights(cfg, 11, "cpu")
+    ref = EncoderReference(cfg["encoder"], w).encode(tokens, mask)
+    low = EncoderReference(cfg["encoder"], w, lower=True).encode(tokens,
+                                                                 mask)
+    err = max(check.rel_error(served[j], ref[j], mask[j]) for j in range(4))
+    ctl = min(check.rel_error(low[j], ref[j], mask[j]) for j in range(4))
+    assert (served[~mask] == 0).all()
+    if adtype == "float32":
+        assert err < 1e-5 and ctl > 1e-4
+    else:
+        assert 1e-4 < err < 0.05 and ctl > 3 * err
 
 
 def _tiny_pages():

@@ -8,9 +8,9 @@ import pytest
 
 from portbench import kinds, roofline
 from portbench.harness import load_spec
-from portbench.kinds import cascade, flat
+from portbench.kinds import cascade, encoded_flat, flat
 
-HBM, F32, TF32 = 3.35e12, 67e12, 495e12
+HBM, F32, TF32, BF16 = 3.35e12, 67e12, 495e12, 989e12
 SMS = 132
 
 
@@ -69,6 +69,30 @@ def test_cascade_cell_batch_of_64():
     assert 0.15 < total < 0.3
 
 
+def test_encoder_cell_batch_of_8():
+    """qwen2-1.5b's products over 8 queries of 20 valid tokens: 2 FLOPs
+    per block and projection weight a token, bytes of the bf16 weights."""
+    cfg = load_spec("qenc-flat4m-backlog").cfg
+    inp = types.SimpleNamespace(n_docs=4_194_304)
+    c = encoded_flat.costs(cfg, inp, 8, [20] * 8)
+    assert c["quantized_maxsim"] == flat.costs(cfg, inp, 8, [20] * 8)[
+        "quantized_maxsim"]
+    (enc,) = c["encoder"]
+    layer = 1536 * (1536 + 2 * 256) + 1536 * 1536 + 3 * 1536 * 8960
+    weights = 28 * layer + 1536 * 128
+    assert weights == 1_310_392_320
+    attn = 4 * 28 * 12 * 128 * 8 * (20 * 21 // 2)
+    assert enc.ops == 2 * weights * 160 + attn
+    small = 28 * (1536 + 512 + 2 * 1536) + 1536
+    assert enc.n_bytes == ((weights + small + 160 * 1536) * 2 + 8 * 32 * 8
+                           + 8 * 32 * 128 * 4)
+    # bound by the weights' bytes: 2.62 GB at 3.35 TB/s, 0.42 TFLOP at bf16
+    assert enc.peak == BF16
+    assert enc.least_ms() == pytest.approx(enc.n_bytes / HBM * 1e3)
+    assert enc.least_ms() == pytest.approx(0.783, abs=1e-3)
+    assert enc.ops / BF16 * 1e3 == pytest.approx(0.424, abs=1e-3)
+
+
 def test_expected_launches():
     fcfg = load_spec("flat4m-backlog").cfg
     ccfg = load_spec("cascade131k-backlog").cfg
@@ -81,6 +105,10 @@ def test_expected_launches():
     assert cascade.launches(ccfg, 64, SMS) == {
         "kmeans_assign": 1, "hamming_maxsim": 2, "quantized_maxsim": 1,
         "maxsim": 1}
+    # the encoder launches none of the port's kernels
+    qcfg = load_spec("qenc-flat4m-backlog").cfg
+    assert all(encoded_flat.launches(qcfg, b, SMS) == flat.launches(
+        fcfg, b, SMS) for b in (1, 2, 4, 8))
     # ranges shorten when a launch would leave SMs idle
     assert kinds.range_len(8, 32, SMS) == 2
     assert kinds.range_len(1, 4_194_304, SMS) == 256
